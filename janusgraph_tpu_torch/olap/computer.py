@@ -1,0 +1,24 @@
+"""``run_on`` — the port of ``janusgraph_tpu/olap/computer.py::run_on`` for
+the single-device executor (the ``GraphComputer`` front end over storage is
+not ported yet)."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from janusgraph_tpu_torch.olap.csr import CSRGraph
+from janusgraph_tpu_torch.olap.gpu_executor import GPUExecutor
+from janusgraph_tpu_torch.olap.vertex_program import VertexProgram
+
+
+def run_on(
+    csr: CSRGraph,
+    program: VertexProgram,
+    strategy: str = "segsum",
+    device=None,
+) -> Dict[str, np.ndarray]:
+    """Run ``program`` over ``csr`` on ``device`` (the card by default) and
+    return its final state as numpy arrays."""
+    return GPUExecutor(csr, strategy=strategy, device=device).run(program)

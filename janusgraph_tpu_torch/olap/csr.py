@@ -1,0 +1,106 @@
+"""CSR snapshot for OLAP — the port of ``CSRGraph`` and ``csr_from_edges``
+from ``janusgraph_tpu/olap/csr.py``.
+
+Only the synthetic-graph path is ported: the storage scan (``load_csr``)
+stays with the reference for now. ``csr_from_arrays`` carries a reference
+snapshot across, so both packages compute on the same graph state.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+from janusgraph_tpu_torch import native
+
+
+@dataclass
+class CSRGraph:
+    """Columnar snapshot of the graph for OLAP (host numpy arrays).
+
+    Vertices are densely indexed [0, n); ``vertex_ids[i]`` maps back to the
+    64-bit graph id. Both edge orientations are kept:
+      out CSR: out_indptr/out_dst  — messages pushed along out-edges
+      in  CSR: in_indptr/in_src    — pull-based aggregation (the hot one)
+    """
+
+    vertex_ids: np.ndarray          # (n,) int64, sorted ascending
+    out_indptr: np.ndarray          # (n+1,) int64
+    out_dst: np.ndarray             # (m,) int32 vertex indices
+    in_indptr: np.ndarray           # (n+1,) int64
+    in_src: np.ndarray              # (m,) int32 vertex indices
+    out_degree: np.ndarray          # (n,) int32
+    in_edge_weight: Optional[np.ndarray] = None   # (m,) float32, aligned to in_src
+    out_edge_weight: Optional[np.ndarray] = None  # (m,) float32, aligned to out_dst
+
+    @property
+    def num_vertices(self) -> int:
+        return len(self.vertex_ids)
+
+    @property
+    def num_edges(self) -> int:
+        return len(self.out_dst)
+
+    @property
+    def in_degree(self) -> np.ndarray:
+        """(n,) int32 in-degrees, derived from in_indptr."""
+        return np.diff(self.in_indptr).astype(np.int32)
+
+
+def csr_from_edges(
+    n: int,
+    src: np.ndarray,
+    dst: np.ndarray,
+    weights: Optional[np.ndarray] = None,
+) -> CSRGraph:
+    """Build a CSRGraph from an edge list with dense [0, n) ids — the
+    synthetic-graph path (graph500 R-MAT etc.)."""
+    src = np.asarray(src, dtype=np.int32)
+    dst = np.asarray(dst, dtype=np.int32)
+    out_indptr, out_dst, out_order, in_indptr, in_src, in_order = (
+        native.build_csr(n, src, dst)
+    )
+    if weights is not None:
+        weights = np.asarray(weights)
+    return CSRGraph(
+        vertex_ids=np.arange(n, dtype=np.int64),
+        out_indptr=out_indptr,
+        out_dst=out_dst,
+        in_indptr=in_indptr,
+        in_src=in_src,
+        out_degree=np.diff(out_indptr).astype(np.int32),
+        in_edge_weight=weights[in_order].astype(np.float32) if weights is not None else None,
+        out_edge_weight=weights[out_order].astype(np.float32) if weights is not None else None,
+    )
+
+
+def csr_from_arrays(
+    vertex_ids,
+    out_indptr,
+    out_dst,
+    in_indptr,
+    in_src,
+    out_degree,
+    in_edge_weight=None,
+    out_edge_weight=None,
+) -> CSRGraph:
+    """The port's CSRGraph from a reference snapshot's fields (numpy
+    arrays, e.g. ``dataclasses.asdict``-style from
+    ``janusgraph_tpu.olap.csr.CSRGraph``). Dtypes are normalized to the
+    layout above; values are copied as they are."""
+
+    def opt_f32(a):
+        return None if a is None else np.asarray(a, dtype=np.float32)
+
+    return CSRGraph(
+        vertex_ids=np.asarray(vertex_ids, dtype=np.int64),
+        out_indptr=np.asarray(out_indptr, dtype=np.int64),
+        out_dst=np.asarray(out_dst, dtype=np.int32),
+        in_indptr=np.asarray(in_indptr, dtype=np.int64),
+        in_src=np.asarray(in_src, dtype=np.int32),
+        out_degree=np.asarray(out_degree, dtype=np.int32),
+        in_edge_weight=opt_f32(in_edge_weight),
+        out_edge_weight=opt_f32(out_edge_weight),
+    )

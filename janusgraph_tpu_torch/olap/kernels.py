@@ -1,0 +1,423 @@
+"""Aggregation kernels for the BSP superstep — the port of
+``janusgraph_tpu/olap/kernels.py`` (ELL and sorted-segment-sum parts).
+
+The superstep's hot op is ``combine({msg(src) for (src,dst) edges}) by
+dst``. Two strategies here:
+
+1. **Degree-bucketed ELL** (``ELLPack`` / ``ell_aggregate``), plain torch:
+   in-edges are packed per destination into power-of-two-capacity row
+   buckets; aggregation is gather + the fixed adjacent-pair ``tree_reduce``.
+   Every monoid. Bitwise equal to the reference's numpy replay: torch eager
+   rounds every mul and add on its own, and the tree order is the same.
+
+2. **Sorted segment sum** (``make_segsum_plan`` / ``sorted_segment_sum``):
+   the SUM monoid over destination-sorted edges, through the hand-written
+   CUDA kernel ``janusgraph_tpu_torch/csrc/segsum.cu`` on a CUDA tensor and
+   through ``sorted_segment_sum_plain`` on a CPU tensor. The kernel reads
+   the reference's tile-aligned plan as built.
+
+Both host structures are built once per (graph, orientation) and reused
+across supersteps.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from janusgraph_tpu_torch.olap.vertex_program import Combiner, EdgeTransform
+
+
+# --------------------------------------------------------------------------
+# Degree-bucketed ELL packing (host, numpy)
+# --------------------------------------------------------------------------
+
+def fill_ell_rows(starts_r, degs_r, src32, w32, idx, wmat, valid):
+    """Fill one ELL bucket's (rows, cap) matrices in place. Callers
+    pre-fill idx with the sentinel and wmat/valid with zeros; wmat/valid are
+    None for unweighted packs (the sentinel slot alone provides the monoid
+    identity)."""
+    total = int(np.asarray(degs_r).sum())
+    if not total:
+        return
+    degs_r = np.asarray(degs_r, dtype=np.int64)
+    starts_r = np.asarray(starts_r, dtype=np.int64)
+    rows = len(starts_r)
+    row_ids = np.repeat(np.arange(rows), degs_r)
+    col_ids = np.arange(total) - np.repeat(np.cumsum(degs_r) - degs_r, degs_r)
+    edge_pos = np.repeat(starts_r, degs_r) + col_ids
+    idx[row_ids, col_ids] = src32[edge_pos]
+    if valid is not None:
+        valid[row_ids, col_ids] = 1.0
+    if wmat is not None:
+        wmat[row_ids, col_ids] = w32[edge_pos] if w32 is not None else 1.0
+
+
+def split_rows(members: np.ndarray, deg_m: np.ndarray, starts_m: np.ndarray, cap: int):
+    """Row-split supernode edge ranges into chunks of at most ``cap`` edges.
+
+    Returns (starts, degs, rowseg): one entry per row; rowseg maps each row
+    to its owner's slot index (position within ``members``)."""
+    n_rows = np.maximum(1, -(-deg_m // cap)).astype(np.int64)
+    total = int(n_rows.sum())
+    rowseg = np.repeat(np.arange(len(members), dtype=np.int64), n_rows)
+    chunk = np.arange(total, dtype=np.int64) - np.repeat(
+        np.cumsum(n_rows) - n_rows, n_rows
+    )
+    starts = np.repeat(starts_m, n_rows) + chunk * cap
+    degs = np.minimum(cap, np.repeat(deg_m, n_rows) - chunk * cap)
+    degs = np.maximum(degs, 0)
+    return starts, degs, rowseg
+
+
+class ELLPack:
+    """ELLPACK layout of an edge list grouped by destination.
+
+    For each power-of-two capacity bucket c: the destinations whose
+    in-degree d satisfies prev_c < d <= c, with a (rows, c) matrix of source
+    indices (padded with the sentinel ``n``) and, for weighted packs, a
+    (rows, c) weight and validity matrix. Destinations with degree above
+    ``max_capacity`` are row-split; ``rowseg`` folds the row partials.
+
+    Bucket tuple: (idx, wmat, valid, rowseg, num_slots). Built as numpy;
+    ``to(device)`` moves the arrays to torch tensors once.
+    """
+
+    def __init__(
+        self,
+        src: np.ndarray,
+        dst: np.ndarray,
+        weight: Optional[np.ndarray],
+        num_vertices: int,
+        max_capacity: int = 1 << 14,
+    ):
+        n = num_vertices
+        self.num_vertices = n
+        self.sentinel = n
+        self.has_weight = weight is not None
+        order = np.argsort(dst, kind="stable")
+        src = np.asarray(src, dtype=np.int64)[order]
+        dst = np.asarray(dst, dtype=np.int64)[order]
+        w = np.asarray(weight, dtype=np.float32)[order] if weight is not None else None
+        deg = np.bincount(dst, minlength=n).astype(np.int64)
+        indptr = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(deg, out=indptr[1:])
+
+        caps = np.maximum(1, 1 << np.ceil(np.log2(np.maximum(deg, 1))).astype(np.int64))
+        caps = np.minimum(caps, max_capacity)
+
+        self.buckets: List[Tuple] = []
+        parts: List[np.ndarray] = []
+        src32 = np.ascontiguousarray(src, dtype=np.int32)
+        w32 = np.ascontiguousarray(w, dtype=np.float32) if w is not None else None
+        for c in sorted(set(int(c) for c in np.unique(caps))):
+            members = np.nonzero(caps == c)[0]
+            deg_m = deg[members]
+            starts_m = indptr[members]
+            if c == max_capacity and int(deg_m.max()) > c:
+                starts_r, degs_r, rowseg = split_rows(members, deg_m, starts_m, c)
+            else:
+                starts_r, degs_r, rowseg = starts_m, deg_m, None
+            rows = len(starts_r)
+            idx = np.full((rows, c), self.sentinel, dtype=np.int32)
+            if self.has_weight:
+                wmat = np.zeros((rows, c), dtype=np.float32)
+                valid = np.zeros((rows, c), dtype=np.float32)
+            else:
+                wmat = valid = None
+            fill_ell_rows(starts_r, degs_r, src32, w32, idx, wmat, valid)
+            self.buckets.append((
+                idx, wmat, valid,
+                rowseg.astype(np.int32) if rowseg is not None else None,
+                len(members),
+            ))
+            parts.append(members)
+
+        vertex_order = np.concatenate(parts) if parts else np.zeros(0, dtype=np.int64)
+        pos = np.zeros(n, dtype=np.int64)
+        pos[vertex_order] = np.arange(len(vertex_order), dtype=np.int64)
+        self.unpermute = pos.astype(np.int32)
+
+    def to(self, device) -> "ELLPack":
+        """Move the index/weight matrices to ``device`` once (in place)."""
+
+        def put(a):
+            return None if a is None else torch.as_tensor(a, device=device)
+
+        self.buckets = [
+            (put(i), put(w), put(v), put(rs), ns)
+            for (i, w, v, rs, ns) in self.buckets
+        ]
+        self.unpermute = put(self.unpermute)
+        return self
+
+
+def flat_take(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``tab[idx]`` for a 2-D index matrix, as a flat 1-D gather + reshape."""
+    flat = idx.reshape(-1)
+    return torch.index_select(tab, 0, flat).reshape(tuple(idx.shape) + tuple(tab.shape[1:]))
+
+
+def fp_fence(a: torch.Tensor) -> torch.Tensor:
+    """Add a zero to ``a``. Eager torch never contracts a multiply into a
+    following add, so this is no fence here; it is kept because the zero
+    turns -0.0 into +0.0 exactly as the reference's fence does."""
+    return a + 0.0
+
+
+def tree_reduce(m: torch.Tensor, op: str) -> torch.Tensor:
+    """Reduce axis 1 of ``m`` (width a power of two) through the fixed
+    adjacent-pair halving tree [a,b,c,d] -> [a+b, c+d] -> [(a+b)+(c+d)] —
+    the reference's bitwise contract."""
+    width = m.shape[1]
+    if width & (width - 1):
+        raise ValueError(f"tree_reduce width {width} is not a power of two")
+    while m.shape[1] > 1:
+        a = m[:, 0::2]
+        b = m[:, 1::2]
+        if op == Combiner.SUM:
+            m = a + b
+        elif op == Combiner.MIN:
+            m = torch.minimum(a, b)
+        else:
+            m = torch.maximum(a, b)
+    return m[:, 0]
+
+
+def segment_combine(op: str, values: torch.Tensor, seg: torch.Tensor, num_segments: int):
+    """Monoid fold of ``values`` rows by segment into an identity-filled
+    output. SUM adds in index order on the CPU, like the reference's
+    ``np.add.at``; MIN/MAX do not depend on the order."""
+    out = torch.full(
+        (num_segments,) + tuple(values.shape[1:]), Combiner.IDENTITY[op],
+        dtype=values.dtype, device=values.device,
+    )
+    seg = seg.long()
+    if op == Combiner.SUM:
+        return out.index_add_(0, seg, values)
+    index = seg.view((-1,) + (1,) * (values.ndim - 1)).expand_as(values)
+    reduce = "amin" if op == Combiner.MIN else "amax"
+    return out.scatter_reduce_(0, index, values, reduce, include_self=True)
+
+
+def ell_aggregate(
+    pack: ELLPack,
+    msgs: torch.Tensor,
+    op: str,
+    edge_transform: str = EdgeTransform.NONE,
+) -> torch.Tensor:
+    """Aggregate per-vertex messages over an ELLPack (tensors on the
+    messages' device). msgs: (n,) or (n, k). Returns the per-destination
+    fold, the monoid identity where a vertex has no in-edges."""
+    identity = Combiner.IDENTITY[op]
+    if not pack.has_weight:
+        edge_transform = EdgeTransform.NONE
+    pad = torch.full(
+        (1,) + tuple(msgs.shape[1:]), identity, dtype=msgs.dtype, device=msgs.device
+    )
+    msgs_ext = torch.cat([msgs, pad], dim=0)
+    parts = []
+    for idx, w, valid, rowseg, num_slots in pack.buckets:
+        m = flat_take(msgs_ext, idx)
+        if w is not None:
+            # transform, then force padded slots back to the identity (a
+            # transform can disturb it, e.g. inf * 0 = nan for MIN)
+            valid_ = valid[:, :, None] if m.ndim == 3 else valid
+            w_ = w[:, :, None] if m.ndim == 3 else w
+            if edge_transform == EdgeTransform.MUL_WEIGHT:
+                m = m * w_
+            elif edge_transform == EdgeTransform.ADD_WEIGHT:
+                m = m + w_
+            m = torch.where(valid_ > 0, m, identity)
+            m = fp_fence(m)
+        r = tree_reduce(m, op)
+        if rowseg is not None:
+            r = segment_combine(op, r, rowseg, num_slots)
+        parts.append(r)
+    if not parts:
+        return torch.full(msgs.shape, identity, dtype=msgs.dtype, device=msgs.device)
+    stacked = torch.cat(parts, dim=0)
+    return torch.index_select(stacked, 0, pack.unpermute)
+
+
+# --------------------------------------------------------------------------
+# Sorted segment sum
+# --------------------------------------------------------------------------
+
+class _SegSumPlan:
+    """Static host-side plan: tile-aligned edge blocks.
+
+    Edges (sorted by destination segment) are re-laid-out so each output
+    tile's edge range occupies whole blocks; a block therefore belongs to
+    exactly one output tile. Arrays equal the reference plan's
+    (``janusgraph_tpu/olap/kernels.py::_SegSumPlan``).
+    """
+
+    def __init__(self, seg: np.ndarray, num_segments: int, block: int = 1024, tile: int = 1024):
+        self.block = block
+        self.tile = tile
+        self.num_segments = num_segments
+        self.padded_segments = -(-max(num_segments, 1) // tile) * tile
+        num_tiles = self.padded_segments // tile
+        self.num_tiles = num_tiles
+
+        seg = np.asarray(seg, dtype=np.int64)
+        m = len(seg)
+        if m and (np.any(np.diff(seg) < 0) or seg[0] < 0 or seg[-1] >= num_segments):
+            raise ValueError("segment ids must be sorted and within [0, num_segments)")
+        self.num_edges = m
+        tile_of = seg // tile
+        counts = np.bincount(tile_of, minlength=num_tiles)
+        blocks_per_tile = np.maximum(1, -(-counts // block))
+        total_blocks = int(blocks_per_tile.sum())
+        padded_m = total_blocks * block
+
+        gather_idx = np.zeros(padded_m, dtype=np.int32)
+        pad_mask = np.zeros(padded_m, dtype=np.float32)
+        seg_local = np.zeros(padded_m, dtype=np.int32)
+        out_tile = np.zeros(total_blocks, dtype=np.int32)
+        is_first = np.zeros(total_blocks, dtype=np.int32)
+
+        edge_starts = np.zeros(num_tiles + 1, dtype=np.int64)
+        np.cumsum(counts, out=edge_starts[1:])
+        b = 0
+        w = 0
+        for t in range(num_tiles):
+            lo, hi = edge_starts[t], edge_starts[t + 1]
+            k = hi - lo
+            gather_idx[w : w + k] = np.arange(lo, hi, dtype=np.int32)
+            pad_mask[w : w + k] = 1.0
+            seg_local[w : w + k] = (seg[lo:hi] - t * tile).astype(np.int32)
+            nb = int(blocks_per_tile[t])
+            out_tile[b : b + nb] = t
+            is_first[b] = 1
+            b += nb
+            w += nb * block
+        self.gather_idx = gather_idx
+        self.pad_mask = pad_mask
+        self.seg_local = seg_local
+        self.out_tile = out_tile
+        self.is_first = is_first
+        self.num_blocks = total_blocks
+        #: first block of each tile (num_tiles + 1,), from out_tile: the
+        #: kernel's per-tile loop bounds
+        tile_block_ptr = np.zeros(num_tiles + 1, dtype=np.int32)
+        np.cumsum(np.bincount(out_tile, minlength=num_tiles), out=tile_block_ptr[1:])
+        self.tile_block_ptr = tile_block_ptr
+        self._device: Dict[Tuple[str, bool], Dict[str, torch.Tensor]] = {}
+
+    def device_arrays(self, device, plain: bool = False) -> Dict[str, torch.Tensor]:
+        """The arrays the kernel reads, or with ``plain`` the plain
+        version's view of the same plan (each valid slot's edge and global
+        segment), as tensors on ``device``; moved once."""
+        key = (str(device), plain)
+        arrs = self._device.get(key)
+        if arrs is None:
+            if plain:
+                valid = np.nonzero(self.pad_mask)[0]
+                tile_of_slot = np.repeat(self.out_tile.astype(np.int64), self.block)[valid]
+                host = {
+                    "edge": self.gather_idx[valid].astype(np.int64),
+                    "seg": tile_of_slot * self.tile + self.seg_local[valid],
+                }
+            else:
+                host = {
+                    "gather_idx": self.gather_idx,
+                    "pad_mask": self.pad_mask,
+                    "seg_local": self.seg_local,
+                    "tile_block_ptr": self.tile_block_ptr,
+                }
+            arrs = {k: torch.as_tensor(v, device=device) for k, v in host.items()}
+            self._device[key] = arrs
+        return arrs
+
+    def function_bytes(self) -> int:
+        """Bytes the sum itself must move, whatever the layout: each edge's
+        value and segment id read once, each segment's sum written once."""
+        return 4 * (2 * self.num_edges + self.num_segments)
+
+    def kernel_read_bytes(self) -> int:
+        """Bytes the CUDA kernel moves over this plan: pad_mask for every
+        slot; gather_idx, seg_local and data for each valid slot only;
+        tile_block_ptr; the padded output."""
+        padded_m = self.num_blocks * self.block
+        return 4 * (padded_m + 3 * self.num_edges + self.num_tiles + 1 + self.padded_segments)
+
+
+def make_segsum_plan(seg: np.ndarray, num_segments: int, block: int = 1024, tile: int = 1024) -> _SegSumPlan:
+    return _SegSumPlan(seg, num_segments, block=block, tile=tile)
+
+
+def _check_segsum_input(data: torch.Tensor, plan: _SegSumPlan) -> None:
+    if data.dtype != torch.float32 or data.ndim != 1 or data.shape[0] != plan.num_edges:
+        raise ValueError(
+            f"sorted_segment_sum takes ({plan.num_edges},) float32 data, got "
+            f"{tuple(data.shape)} {data.dtype}"
+        )
+
+
+def sorted_segment_sum_plain(data: torch.Tensor, plan: _SegSumPlan) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: ``index_add_`` of the plan's
+    valid slots into a zeroed output. Returns (num_segments,) float32."""
+    _check_segsum_input(data, plan)
+    arrs = plan.device_arrays(data.device, plain=True)
+    out = torch.zeros(plan.padded_segments, dtype=torch.float32, device=data.device)
+    out.index_add_(0, arrs["seg"], torch.index_select(data, 0, arrs["edge"]))
+    return out[: plan.num_segments]
+
+
+def sorted_segment_sum(data: torch.Tensor, plan: _SegSumPlan) -> torch.Tensor:
+    """Per-segment fp32 sum of per-edge ``data`` (original edge order) over
+    the tile-aligned plan. Returns (num_segments,) float32.
+
+    Replaces ``janusgraph_tpu/olap/kernels.py::pallas_sorted_segment_sum``.
+    On a CUDA tensor this launches the CUDA kernel (``csrc/segsum.cu``) or
+    raises; on a CPU tensor it runs ``sorted_segment_sum_plain``.
+    """
+    if data.device.type == "cpu":
+        return sorted_segment_sum_plain(data, plan)
+    if data.device.type != "cuda":
+        raise ValueError(f"sorted_segment_sum: unsupported device {data.device}")
+    _check_segsum_input(data, plan)
+    if not data.is_contiguous():
+        raise ValueError("sorted_segment_sum: data must be contiguous")
+    if plan.tile * 4 > 48 * 1024:
+        raise ValueError(f"sorted_segment_sum: tile {plan.tile} exceeds 48 KiB of shared memory")
+    from janusgraph_tpu_torch import _build
+
+    lib = _build.load_library()
+    arrs = plan.device_arrays(data.device)
+    out = torch.empty(plan.padded_segments, dtype=torch.float32, device=data.device)
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        rc = lib.jg_sorted_segment_sum(
+            data.data_ptr(),
+            arrs["gather_idx"].data_ptr(),
+            arrs["pad_mask"].data_ptr(),
+            arrs["seg_local"].data_ptr(),
+            arrs["tile_block_ptr"].data_ptr(),
+            plan.num_tiles,
+            plan.block,
+            plan.tile,
+            out.data_ptr(),
+            stream,
+        )
+    if rc != 0:
+        msg = lib.jg_error_string(rc).decode()
+        raise RuntimeError(f"sorted_segment_sum kernel launch failed: {msg} ({rc})")
+    sorted_segment_sum.launches += 1
+    return out[: plan.num_segments]
+
+
+#: launches of the CUDA kernel since the last reset (the CPU path adds none)
+sorted_segment_sum.launches = 0
+
+
+def reset_launch_counts() -> None:
+    sorted_segment_sum.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {"sorted_segment_sum": sorted_segment_sum.launches}

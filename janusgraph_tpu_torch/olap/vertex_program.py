@@ -1,0 +1,126 @@
+"""VertexProgram SPI on PyTorch — the port of
+``janusgraph_tpu/olap/vertex_program.py``.
+
+A superstep is
+
+    aggregated[i] = combine({ transform(message(src), w_e) for e=(src, i) })
+    state', metrics = apply(state, aggregated, superstep, memory)
+
+with ``combine`` a segment-reduction monoid and per-vertex state a dict of
+tensors. Programs are written against torch directly (the reference passes
+an ``xp`` array module; here every hook takes tensors on the executor's
+device). Global aggregators flow as ``metrics`` return values
+``{name: (op, scalar tensor)}``; the executor fetches them at the barrier
+and hands the previous superstep's values back in as ``memory_in``.
+
+Per-column transforms (``EdgeChannel``, ``edge_transform_cols``) belong to
+later programs and are not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, Tuple
+
+import torch
+
+
+class Combiner:
+    """Message combination monoids (reference: MessageCombiner)."""
+
+    SUM = "sum"
+    MIN = "min"
+    MAX = "max"
+
+    IDENTITY = {"sum": 0.0, "min": float("inf"), "max": float("-inf")}
+
+
+class EdgeTransform:
+    """How an edge modifies the message it carries."""
+
+    NONE = "none"
+    MUL_WEIGHT = "mul"   # msg * w  (e.g. weighted pagerank)
+    ADD_WEIGHT = "add"   # msg + w  (e.g. shortest path)
+
+
+def check_weighted_transforms(program, csr) -> None:
+    """Executors call this at run() entry: a program declaring a weight
+    transform over a weightless CSR would otherwise silently compute as if
+    no transform existed (every executor skips transforms when weights are
+    absent)."""
+    if getattr(program, "edge_transform", EdgeTransform.NONE) != EdgeTransform.NONE:
+        if csr.in_edge_weight is None and csr.out_edge_weight is None:
+            raise ValueError(
+                f"{type(program).__name__} declares weight-dependent edge "
+                "transforms but the CSR snapshot carries no edge weights"
+            )
+
+
+def apply_edge_transform(msgs: torch.Tensor, w, transform: str) -> torch.Tensor:
+    """Apply a program's in-flight edge transform. ``msgs``: (..., k) or
+    (...) per-edge messages; ``w``: per-edge weights broadcastable to
+    ``msgs`` minus its column axis (None = pass through)."""
+    if w is None:
+        return msgs
+    if transform == EdgeTransform.MUL_WEIGHT:
+        return msgs * (w[..., None] if msgs.ndim > w.ndim else w)
+    if transform == EdgeTransform.ADD_WEIGHT:
+        return msgs + (w[..., None] if msgs.ndim > w.ndim else w)
+    return msgs
+
+
+@dataclass
+class Memory:
+    """Host-side view of the global aggregators, updated at each superstep
+    barrier from the reduced metrics (reference: FulgoraMemory.java:45)."""
+
+    values: Dict[str, float] = field(default_factory=dict)
+    superstep: int = 0
+
+    def get(self, key: str, default: float = 0.0) -> float:
+        return self.values.get(key, default)
+
+
+class VertexProgram:
+    """Array-BSP vertex program on torch tensors.
+
+    Class attributes:
+      compute_keys    — state entries the run returns
+      combiner        — Combiner monoid
+      edge_transform  — EdgeTransform applied to messages in flight
+      undirected      — aggregate over both edge orientations
+      max_iterations  — hard superstep cap
+    """
+
+    compute_keys: Tuple[str, ...] = ()
+    combiner: str = Combiner.SUM
+    edge_transform: str = EdgeTransform.NONE
+    undirected: bool = False
+    max_iterations: int = 100
+
+    def setup(self, graph) -> Tuple[Dict[str, torch.Tensor], Dict[str, Tuple[str, object]]]:
+        """Return (initial state, initial metrics)."""
+        raise NotImplementedError
+
+    def message(self, state: Dict[str, torch.Tensor], superstep: int, graph) -> torch.Tensor:
+        """Per-vertex outgoing message tensor (n,) or (n, k)."""
+        raise NotImplementedError
+
+    def apply(
+        self,
+        state: Dict[str, torch.Tensor],
+        aggregated: torch.Tensor,
+        superstep: int,
+        memory_in: Dict[str, torch.Tensor],
+        graph,
+    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Tuple[str, torch.Tensor]]]:
+        """Fold aggregated messages into new state; emit metrics."""
+        raise NotImplementedError
+
+    def terminate(self, memory: Memory) -> bool:
+        raise NotImplementedError
+
+    def terminate_device(self, values: Dict[str, torch.Tensor], steps_done) -> torch.Tensor:
+        """Termination predicate on device scalars (the counterpart of the
+        reference's traced predicate). Default: never stop early."""
+        return torch.tensor(False)

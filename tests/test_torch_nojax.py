@@ -1,0 +1,95 @@
+"""The port stands alone: it imports neither jax nor the JAX package.
+
+One check runs the port with both blocked in a fresh interpreter; the other
+scans every port module and chip_smoke.py for such imports. The module name
+``janusgraph_tpu_torch`` starts with ``janusgraph_tpu``, so the scan matches
+the exact module name or its dotted prefix, never the bare prefix."""
+
+import ast
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "janusgraph_tpu")
+
+BLOCKED_RUN = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["janusgraph_tpu"] = None
+import numpy as np
+import janusgraph_tpu_torch
+from janusgraph_tpu_torch.olap import csr_from_edges, run_on
+from janusgraph_tpu_torch.olap.programs import PageRankProgram
+rng = np.random.default_rng(0)
+src = rng.integers(0, 50, 300).astype(np.int32)
+dst = rng.integers(0, 50, 300).astype(np.int32)
+out = run_on(csr_from_edges(50, src, dst), PageRankProgram(max_iterations=10), device="cpu")
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+    m == "jax" or m.startswith("jax.")
+    or m == "janusgraph_tpu" or m.startswith("janusgraph_tpu.")))
+print("OK", round(float(out["rank"].sum()), 4), loaded)
+"""
+
+
+def _forbidden(name):
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_forbidden_matches_exact_names_only():
+    assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert _forbidden("janusgraph_tpu") and _forbidden("janusgraph_tpu.olap.csr")
+    assert not _forbidden("janusgraph_tpu_torch") and not _forbidden("janusgraph_tpu_torch.olap")
+    assert not _forbidden("jaxtyping")
+
+
+def test_port_runs_with_jax_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED_RUN], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "OK 1.0 []", proc.stdout
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, dirs, names in os.walk(os.path.join(ROOT, "janusgraph_tpu_torch")):
+        dirs[:] = [d for d in dirs if d != "_build"]  # build output, not source
+        files +=[os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def _imported_names(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module
+        elif (
+            isinstance(node, ast.Call)
+            and getattr(node.func, "id", getattr(node.func, "attr", None))
+            in ("__import__", "import_module")
+            and node.args
+            and isinstance(node.args[0], ast.Constant)
+            and isinstance(node.args[0].value, str)
+        ):
+            yield node.lineno, node.args[0].value
+
+
+def test_no_port_file_imports_jax_or_reference():
+    files = _port_files()
+    assert len(files) > 10 and os.path.exists(files[0])
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        bad += [
+            f"{os.path.relpath(path, ROOT)}:{line} imports {name}"
+            for line, name in _imported_names(tree)
+            if _forbidden(name)
+        ]
+    assert not bad, bad
