@@ -9,7 +9,10 @@ Phases, each printing one JSON line:
   build    nvcc builds the kernels from csrc/ (sm_90a)
   kernel   sorted_segment_sum against sorted_segment_sum_plain on the card,
            at the plan shape of the graph500 R-MAT graph's in-CSR and on
-           edge cases; bitwise repeat; kernel, plain and library times
+           edge cases; bitwise repeat; kernel, plain and library times, each
+           with the L2 flushed before every call (the kernel also back to
+           back, ``kernel_ms_warm``, and after a flush that leaves the L2
+           clean, ``kernel_ms_read_flush``)
   pagerank PageRank, 20 supersteps, tol=0, through run_on(strategy=
            "segsum"): every superstep must launch the kernel once; timed
            beside the plain-torch ELL strategy, which it must agree with
@@ -43,7 +46,8 @@ def emit(phase: str, **fields) -> None:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls: inputs
+    that fit the 50 MB L2 may stay there between calls."""
     import torch
 
     for _ in range(warmup):
@@ -59,11 +63,42 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_kernel_case(name, seg, num_segments, data, kernels):
+_FLUSH = []
+
+
+def flushed_ms(fn, iters: int = 25, warmup: int = 2, by_reading: bool = False) -> float:
+    """Median device time of one call of ``fn``, each call preceded by
+    zeroing a 256 MB buffer, which evicts its inputs from the 50 MB L2 and
+    leaves it full of dirty lines that ``fn`` then writes back; with
+    ``by_reading`` the buffer is summed instead, which leaves clean lines.
+    CUDA events bracket ``fn`` alone."""
+    import torch
+
+    if not _FLUSH:
+        _FLUSH.append(torch.zeros(256 << 20, dtype=torch.uint8, device="cuda"))
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        if by_reading:
+            _FLUSH[0].sum()
+        else:
+            _FLUSH[0].zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def check_kernel_case(name, seg, num_segments, data, kernels, **plan_kw):
     """Kernel vs plain on the card at TOL, plus a bitwise repeat."""
     import torch
 
-    plan = kernels.make_segsum_plan(seg, num_segments)
+    plan = kernels.make_segsum_plan(seg, num_segments, **plan_kw)
     got = kernels.sorted_segment_sum(data, plan)
     again = kernels.sorted_segment_sum(data, plan)
     want = kernels.sorted_segment_sum_plain(data, plan)
@@ -127,7 +162,13 @@ def main() -> int:
 
     from janusgraph_tpu_torch import _build
     from janusgraph_tpu_torch.native import segment_ids
-    from janusgraph_tpu_torch.olap import GPUExecutor, rmat_csr, run_on
+    from janusgraph_tpu_torch.olap import (
+        GPUExecutor,
+        csr_from_edges,
+        rmat_csr,
+        rmat_edges,
+        run_on,
+    )
     from janusgraph_tpu_torch.olap import kernels
     from janusgraph_tpu_torch.olap.programs import (
         ConnectedComponentsProgram,
@@ -166,23 +207,26 @@ def main() -> int:
     plan, got, max_err = check_kernel_case("rmat", seg, n, data, kernels)
     want64 = np.bincount(seg, weights=data.cpu().numpy().astype(np.float64), minlength=n)
     err64 = float(np.abs(got.cpu().numpy() - want64).max())
-    per_tile = np.diff(plan.tile_block_ptr)
     lengths = torch.as_tensor(csr.in_degree.astype(np.int64), device=dev)
-    kernel_ms = cuda_ms(lambda: kernels.sorted_segment_sum(data, plan), 50)
-    plain_ms = cuda_ms(lambda: kernels.sorted_segment_sum_plain(data, plan), 20)
-    library_ms = cuda_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths), 20)
-    # the bound counts what the sum needs (values, segment ids, sums), not
-    # the plan's padding and indirection, which are the kernel's own cost
+    kernel_ms = flushed_ms(lambda: kernels.sorted_segment_sum(data, plan))
+    kernel_ms_warm = cuda_ms(lambda: kernels.sorted_segment_sum(data, plan), 50)
+    kernel_ms_read_flush = flushed_ms(lambda: kernels.sorted_segment_sum(data, plan),
+                                      by_reading=True)
+    plain_ms = flushed_ms(lambda: kernels.sorted_segment_sum_plain(data, plan))
+    library_ms = flushed_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths))
+    # the bound counts what the sum needs (values and sums once, the n + 1
+    # segment offsets once), whatever layout a kernel reads
     nbytes = plan.function_bytes()
     bound_ms = max(nbytes / PEAK_BYTES_PER_S, m / PEAK_FP32_FLOPS) * 1e3
     kernel_bytes = plan.kernel_read_bytes()
-    emit("kernel", case="rmat", edges=m, padded_slots=plan.num_blocks * plan.block,
-         tiles=plan.num_tiles, max_blocks_per_tile=int(per_tile.max()),
-         mean_blocks_per_tile=float(per_tile.mean()), max_abs_err=max_err,
-         max_abs_err_vs_fp64=err64, kernel_ms=kernel_ms, plain_ms=plain_ms,
-         library_ms=library_ms, bytes=nbytes, bound_us=bound_ms * 1e3,
-         bound_by="bytes", share_of_bound=bound_ms / kernel_ms,
-         kernel_bytes=kernel_bytes,
+    emit("kernel", case="rmat", edges=m, segments=n, items_per_cta=plan.items_per_cta,
+         num_ctas=plan.num_ctas, max_segment_cta_span=plan.max_segment_cta_span(),
+         ctas_per_sm=_build.load_library().jg_segsum_ctas_per_sm(plan.items_per_cta),
+         max_abs_err=max_err, max_abs_err_vs_fp64=err64, kernel_ms=kernel_ms,
+         kernel_ms_warm=kernel_ms_warm, kernel_ms_read_flush=kernel_ms_read_flush,
+         plain_ms=plain_ms, library_ms=library_ms,
+         bytes=nbytes, bound_ms=bound_ms, bound_by="bytes",
+         share_of_bound=bound_ms / kernel_ms, kernel_bytes=kernel_bytes,
          kernel_bytes_per_s=kernel_bytes / (kernel_ms * 1e-3))
 
     rng = np.random.default_rng(args.seed)
@@ -190,21 +234,33 @@ def main() -> int:
         np.sort(rng.integers(0, 7, 500)), np.full(200_000, 7),
         np.sort(rng.integers(8, 5000, 20_000)),
     ])
+    n_u, src_u, dst_u = rmat_edges(max(args.scale - 2, 8), 16, seed=args.seed, permute=False)
+    unpermuted = csr_from_edges(n_u, src_u, dst_u)
     cases = {
-        "empty_segments_and_tiles": (np.array([0, 0, 5, 1030, 3100]), 4000),
-        "hub_over_many_blocks": (hub, 5000),
-        "no_edges": (np.zeros(0, dtype=np.int64), 3000),
-        "random_multi_tile": (np.sort(rng.integers(0, 2500, 9000)), 2500),
+        # name: (segment ids, segments, plan arguments, data offset)
+        "empty_segments_and_tiles": (np.array([0, 0, 5, 1030, 3100]), 4000, {}, 0),
+        "hub_over_many_blocks": (hub, 5000, {}, 0),
+        "hub_over_many_ctas_small": (hub, 5000, {"items_per_cta": 256}, 0),
+        "no_edges": (np.zeros(0, dtype=np.int64), 3000, {}, 0),
+        "random_multi_tile": (np.sort(rng.integers(0, 2500, 9000)), 2500, {}, 0),
+        "empty_run_1e5": (np.concatenate([
+            np.sort(rng.integers(0, 5, 4000)), np.sort(rng.integers(100_005, 100_010, 4000)),
+        ]), 100_010, {}, 0),
+        "one_segment_owns_all": (np.full(300_000, 3), 10, {}, 0),
+        "unaligned_edge_count": (np.sort(rng.integers(0, 50_000, 1_000_003)), 50_000, {}, 0),
+        # data starting 4 bytes past a 16-byte boundary: the copies' ends
+        # are plain loads
+        "misaligned_data_view": (np.sort(rng.integers(0, 50_000, 1_000_003)), 50_000, {}, 1),
+        "rmat_unpermuted_in_csr": (segment_ids(unpermuted.in_indptr, unpermuted.num_edges),
+                                   n_u, {}, 0),
     }
-    for name, (cseg, ns) in cases.items():
-        cdata = torch.rand(len(cseg), generator=gen, device=dev)
-        cplan, _g, err = check_kernel_case(name, cseg, ns, cdata, kernels)
-        # one CTA walks each tile alone: the hub case's time is the serial
-        # cost of its tile's chunks
-        case_ms = cuda_ms(lambda: kernels.sorted_segment_sum(cdata, cplan), 20)
+    for name, (cseg, ns, kw, offset) in cases.items():
+        cdata = torch.rand(len(cseg) + offset, generator=gen, device=dev)[offset:]
+        cplan, _g, err = check_kernel_case(name, cseg, ns, cdata, kernels, **kw)
+        case_ms = flushed_ms(lambda: kernels.sorted_segment_sum(cdata, cplan))
         emit("kernel", case=name, edges=len(cseg), segments=ns, max_abs_err=err,
-             max_blocks_per_tile=int(np.diff(cplan.tile_block_ptr).max()),
-             kernel_ms=case_ms)
+             items_per_cta=cplan.items_per_cta, num_ctas=cplan.num_ctas,
+             max_segment_cta_span=cplan.max_segment_cta_span(), kernel_ms=case_ms)
 
     # ------------------------------------------- main path: PageRank, s20
     def pagerank():
@@ -281,6 +337,8 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": library_ms,
+        "kernel_ms_warm": kernel_ms_warm,
+        "share_of_bound": bound_ms / kernel_ms,
         "held_by": "kernel",
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -85,11 +85,13 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
         ptr = ctypes.c_void_p
         lib.jg_sorted_segment_sum.argtypes = [
-            ptr, ptr, ptr, ptr, ptr,
+            ptr, ptr, ptr, ptr,
             ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ptr, ptr,
+            ptr, ptr, ptr,
         ]
         lib.jg_sorted_segment_sum.restype = ctypes.c_int
+        lib.jg_segsum_ctas_per_sm.argtypes = [ctypes.c_int]
+        lib.jg_segsum_ctas_per_sm.restype = ctypes.c_int
         lib.jg_error_string.argtypes = [ctypes.c_int]
         lib.jg_error_string.restype = ctypes.c_char_p
         build_info.update(

@@ -13,8 +13,9 @@ dst``. Two strategies here:
 2. **Sorted segment sum** (``make_segsum_plan`` / ``sorted_segment_sum``):
    the SUM monoid over destination-sorted edges, through the hand-written
    CUDA kernel ``janusgraph_tpu_torch/csrc/segsum.cu`` on a CUDA tensor and
-   through ``sorted_segment_sum_plain`` on a CPU tensor. The kernel reads
-   the reference's tile-aligned plan as built.
+   through ``sorted_segment_sum_plain`` on a CPU tensor. The plan keeps
+   the reference's tile-aligned layout, which the plain version reads; the
+   kernel reads only the segment offsets and a merge-path partition.
 
 Both host structures are built once per (graph, orientation) and reused
 across supersteps.
@@ -246,16 +247,45 @@ def ell_aggregate(
 # Sorted segment sum
 # --------------------------------------------------------------------------
 
-class _SegSumPlan:
-    """Static host-side plan: tile-aligned edge blocks.
+#: threads of one CTA of the merge kernel and the merge items (segment ends
+#: + edges) each walks (``kThreads``, ``kItemsPerThread`` in
+#: csrc/segsum.cu); an odd count, so the threads of a warp, each walking its
+#: own run, spread their shared-memory reads over the banks
+SEGSUM_THREADS = 256
+SEGSUM_ITEMS_PER_THREAD = 15
+#: merge items per CTA: the default split, and the most one CTA holds
+SEGSUM_ITEMS_PER_CTA = SEGSUM_THREADS * SEGSUM_ITEMS_PER_THREAD
 
-    Edges (sorted by destination segment) are re-laid-out so each output
-    tile's edge range occupies whole blocks; a block therefore belongs to
-    exactly one output tile. Arrays equal the reference plan's
-    (``janusgraph_tpu/olap/kernels.py::_SegSumPlan``).
+
+class _SegSumPlan:
+    """Static host-side plan of the sorted segment sum.
+
+    Two layouts of the same destination-sorted edges:
+
+    - the reference's tile-aligned blocks (``gather_idx``, ``pad_mask``,
+      ``seg_local``, ``out_tile``, ``is_first``), equal to
+      ``janusgraph_tpu/olap/kernels.py::_SegSumPlan``'s arrays; the plain
+      version reads them;
+    - what the CUDA kernel reads: the segment offsets ``seg_ptr``
+      ((n + 1,) int32, ``seg_ptr[s]`` = the first edge of segment s) and a
+      merge-path partition of the n segment ends merged with the E edges
+      into ``num_ctas`` runs of at most ``items_per_cta`` items: CTA k
+      starts at segment end ``seg_start[k]`` and edge ``edge_start[k]``
+      ((num_ctas + 1,) int32 each; Merrill and Garland, SC '16).
     """
 
-    def __init__(self, seg: np.ndarray, num_segments: int, block: int = 1024, tile: int = 1024):
+    def __init__(
+        self,
+        seg: np.ndarray,
+        num_segments: int,
+        block: int = 1024,
+        tile: int = 1024,
+        items_per_cta: int = SEGSUM_ITEMS_PER_CTA,
+    ):
+        if len(seg) >= 2**31:
+            raise ValueError(f"sorted_segment_sum takes fewer than 2**31 edges, got {len(seg)}")
+        if items_per_cta < 1:
+            raise ValueError(f"items_per_cta must be positive, got {items_per_cta}")
         self.block = block
         self.tile = tile
         self.num_segments = num_segments
@@ -267,6 +297,7 @@ class _SegSumPlan:
         m = len(seg)
         if m and (np.any(np.diff(seg) < 0) or seg[0] < 0 or seg[-1] >= num_segments):
             raise ValueError("segment ids must be sorted and within [0, num_segments)")
+        self._merge_path(seg, items_per_cta)
         self.num_edges = m
         tile_of = seg // tile
         counts = np.bincount(tile_of, minlength=num_tiles)
@@ -301,17 +332,40 @@ class _SegSumPlan:
         self.out_tile = out_tile
         self.is_first = is_first
         self.num_blocks = total_blocks
-        #: first block of each tile (num_tiles + 1,), from out_tile: the
-        #: kernel's per-tile loop bounds
-        tile_block_ptr = np.zeros(num_tiles + 1, dtype=np.int32)
-        np.cumsum(np.bincount(out_tile, minlength=num_tiles), out=tile_block_ptr[1:])
-        self.tile_block_ptr = tile_block_ptr
         self._device: Dict[Tuple[str, bool], Dict[str, torch.Tensor]] = {}
 
+    def _merge_path(self, seg: np.ndarray, items_per_cta: int) -> None:
+        """``seg_ptr`` and the merge-path partition. Segment end s is merge
+        item s + seg_ptr[s + 1] (its edges and the ends before it come
+        first), an increasing sequence; a diagonal d starts after the ends
+        placed before d, so one searchsorted places every diagonal."""
+        n, m = self.num_segments, len(seg)
+        seg_ptr = np.searchsorted(seg, np.arange(n + 1), side="left")
+        total = n + m
+        num_ctas = -(-total // items_per_cta)
+        diag = np.minimum(np.arange(num_ctas + 1, dtype=np.int64) * items_per_cta, total)
+        seg_start = np.searchsorted(seg_ptr[1:] + np.arange(n), diag, side="left")
+        self.items_per_cta = items_per_cta
+        self.num_ctas = num_ctas
+        self.seg_ptr = seg_ptr.astype(np.int32)
+        self.seg_start = seg_start.astype(np.int32)
+        self.edge_start = (diag - seg_start).astype(np.int32)
+
+    def max_segment_cta_span(self) -> int:
+        """The most CTAs one segment's items (its edges, then its end)
+        reach: 1 unless a segment crosses a CTA boundary."""
+        if not self.num_segments:
+            return 0
+        s = np.arange(self.num_segments, dtype=np.int64)
+        first = (s + self.seg_ptr[:-1]) // self.items_per_cta
+        last = (s + self.seg_ptr[1:]) // self.items_per_cta
+        return int((last - first).max()) + 1
+
     def device_arrays(self, device, plain: bool = False) -> Dict[str, torch.Tensor]:
-        """The arrays the kernel reads, or with ``plain`` the plain
-        version's view of the same plan (each valid slot's edge and global
-        segment), as tensors on ``device``; moved once."""
+        """The arrays the kernel reads (segment offsets and the partition),
+        or with ``plain`` the plain version's view of the reference layout
+        (each valid slot's edge and global segment), as tensors on
+        ``device``; moved once."""
         key = (str(device), plain)
         arrs = self._device.get(key)
         if arrs is None:
@@ -324,30 +378,40 @@ class _SegSumPlan:
                 }
             else:
                 host = {
-                    "gather_idx": self.gather_idx,
-                    "pad_mask": self.pad_mask,
-                    "seg_local": self.seg_local,
-                    "tile_block_ptr": self.tile_block_ptr,
+                    "seg_ptr": self.seg_ptr,
+                    "seg_start": self.seg_start,
+                    "edge_start": self.edge_start,
                 }
             arrs = {k: torch.as_tensor(v, device=device) for k, v in host.items()}
             self._device[key] = arrs
         return arrs
 
     def function_bytes(self) -> int:
-        """Bytes the sum itself must move, whatever the layout: each edge's
-        value and segment id read once, each segment's sum written once."""
-        return 4 * (2 * self.num_edges + self.num_segments)
+        """Bytes the sum itself must move, whatever the layout: each value
+        read once, the n + 1 segment offsets read once (sorted segments need
+        no per-edge id), each segment's sum written once."""
+        return 4 * (self.num_edges + 2 * self.num_segments + 1)
 
     def kernel_read_bytes(self) -> int:
-        """Bytes the CUDA kernel moves over this plan: pad_mask for every
-        slot; gather_idx, seg_local and data for each valid slot only;
-        tile_block_ptr; the padded output."""
-        padded_m = self.num_blocks * self.block
-        return 4 * (padded_m + 3 * self.num_edges + self.num_tiles + 1 + self.padded_segments)
+        """Bytes the CUDA kernels move, each counted once: values, the n
+        segment ends, the sums (each written once); the partition; each
+        CTA's open run and its part of the segment it closes first, written
+        and read back by the fix-up."""
+        heads = int(np.count_nonzero(np.diff(self.seg_start)[1:]))
+        return 4 * (
+            self.num_edges + 2 * self.num_segments
+            + 2 * (self.num_ctas + 1) + 2 * self.num_ctas + 2 * heads
+        )
 
 
-def make_segsum_plan(seg: np.ndarray, num_segments: int, block: int = 1024, tile: int = 1024) -> _SegSumPlan:
-    return _SegSumPlan(seg, num_segments, block=block, tile=tile)
+def make_segsum_plan(
+    seg: np.ndarray,
+    num_segments: int,
+    block: int = 1024,
+    tile: int = 1024,
+    items_per_cta: int = SEGSUM_ITEMS_PER_CTA,
+) -> _SegSumPlan:
+    return _SegSumPlan(seg, num_segments, block=block, tile=tile, items_per_cta=items_per_cta)
 
 
 def _check_segsum_input(data: torch.Tensor, plan: _SegSumPlan) -> None:
@@ -369,12 +433,13 @@ def sorted_segment_sum_plain(data: torch.Tensor, plan: _SegSumPlan) -> torch.Ten
 
 
 def sorted_segment_sum(data: torch.Tensor, plan: _SegSumPlan) -> torch.Tensor:
-    """Per-segment fp32 sum of per-edge ``data`` (original edge order) over
-    the tile-aligned plan. Returns (num_segments,) float32.
+    """Per-segment fp32 sum of per-edge ``data`` (edges sorted by segment).
+    Returns (num_segments,) float32.
 
     Replaces ``janusgraph_tpu/olap/kernels.py::pallas_sorted_segment_sum``.
-    On a CUDA tensor this launches the CUDA kernel (``csrc/segsum.cu``) or
-    raises; on a CPU tensor it runs ``sorted_segment_sum_plain``.
+    On a CUDA tensor this launches the CUDA kernels (``csrc/segsum.cu``: the
+    merge-path pass, then the one-CTA carry fix-up) or raises; on a CPU
+    tensor it runs ``sorted_segment_sum_plain``.
     """
     if data.device.type == "cpu":
         return sorted_segment_sum_plain(data, plan)
@@ -383,24 +448,28 @@ def sorted_segment_sum(data: torch.Tensor, plan: _SegSumPlan) -> torch.Tensor:
     _check_segsum_input(data, plan)
     if not data.is_contiguous():
         raise ValueError("sorted_segment_sum: data must be contiguous")
-    if plan.tile * 4 > 48 * 1024:
-        raise ValueError(f"sorted_segment_sum: tile {plan.tile} exceeds 48 KiB of shared memory")
+    if plan.num_edges >= 2**31:
+        raise ValueError(f"sorted_segment_sum takes fewer than 2**31 edges, got {plan.num_edges}")
+    out = torch.empty(plan.num_segments, dtype=torch.float32, device=data.device)
+    if plan.num_ctas == 0:
+        return out
     from janusgraph_tpu_torch import _build
 
     lib = _build.load_library()
     arrs = plan.device_arrays(data.device)
-    out = torch.empty(plan.padded_segments, dtype=torch.float32, device=data.device)
+    # each CTA's open run, then its part of the first segment it closes
+    carry = torch.empty(2 * plan.num_ctas, dtype=torch.float32, device=data.device)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         rc = lib.jg_sorted_segment_sum(
             data.data_ptr(),
-            arrs["gather_idx"].data_ptr(),
-            arrs["pad_mask"].data_ptr(),
-            arrs["seg_local"].data_ptr(),
-            arrs["tile_block_ptr"].data_ptr(),
-            plan.num_tiles,
-            plan.block,
-            plan.tile,
+            arrs["seg_ptr"].data_ptr(),
+            arrs["seg_start"].data_ptr(),
+            arrs["edge_start"].data_ptr(),
+            plan.num_ctas,
+            plan.items_per_cta,
+            plan.num_segments,
+            carry.data_ptr(),
             out.data_ptr(),
             stream,
         )
@@ -408,10 +477,11 @@ def sorted_segment_sum(data: torch.Tensor, plan: _SegSumPlan) -> torch.Tensor:
         msg = lib.jg_error_string(rc).decode()
         raise RuntimeError(f"sorted_segment_sum kernel launch failed: {msg} ({rc})")
     sorted_segment_sum.launches += 1
-    return out[: plan.num_segments]
+    return out
 
 
-#: launches of the CUDA kernel since the last reset (the CPU path adds none)
+#: calls that launched the CUDA kernels since the last reset, one per call
+#: (the merge-path pass and its fix-up); the CPU path adds none
 sorted_segment_sum.launches = 0
 
 

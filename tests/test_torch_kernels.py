@@ -5,7 +5,8 @@ sorted-segment-sum plan is array-equal to the reference plan, and its plain
 PyTorch path (what a CPU tensor runs) matches the Pallas kernel in
 interpret mode at the reference's own tolerance (rtol=atol=1e-4,
 tests/test_kernels.py). The CUDA kernel itself runs only on the card and is
-held to its plain version by chip_smoke.py."""
+held to its plain version by chip_smoke.py; tests/test_torch_segsum_plan.py
+replays its work split in numpy."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -116,9 +117,9 @@ def test_segsum_plan_arrays_equal_reference(case):
         assert x.dtype == y.dtype, name
         np.testing.assert_array_equal(x, y, err_msg=name)
     assert (a.num_blocks, a.padded_segments) == (b.num_blocks, b.padded_segments)
-    ptr = b.tile_block_ptr
-    assert ptr[0] == 0 and ptr[-1] == b.num_blocks
-    np.testing.assert_array_equal(np.repeat(np.arange(b.num_tiles), np.diff(ptr)), b.out_tile)
+    # what the kernel reads instead: the segment offsets of the same edges
+    assert b.seg_ptr.dtype == np.int32 and b.seg_ptr[0] == 0 and b.seg_ptr[-1] == len(seg)
+    np.testing.assert_array_equal(np.repeat(np.arange(ns), np.diff(b.seg_ptr)), seg)
 
 
 @pytest.mark.parametrize("case", ["multi_tile", "empty_tiles", "small_blocks"])
