@@ -18,8 +18,26 @@ Phases, each printing one JSON line:
            beside the plain-torch ELL strategy, which it must agree with
   profile  torch.profiler over one more PageRank run: device busy time
            against wall, and device time by kernel
-  cc       connected components (MIN falls back to ELL) against scipy
-Then the ``kernels`` line, and last ``{"ok": true, "device": ...}``.
+  cc       connected components against scipy: dense ELL under
+           frontier="off" and "auto", and through the frontier engine
+           ("always")
+  bfs      ShortestPath from the out-degree hub, 4 hops, through the
+           frontier engine: bitwise equal to the dense ELL run, equal to
+           scipy's BFS within 4 hops; bfs_4hop_wall_s and
+           pagerank_plus_bfs4_wall_s; then bfs_profile over one more run
+  frontier_parts  the frontier hop and its parts (plan, compaction,
+           expansion, scatter-min) timed hop by hop against a bytes bound
+  paths    track_paths BFS to convergence: predecessors equal the dense
+           run's, 1,000 reconstructed paths are real edge chains
+  khop     TraversalCount, 3 hops, segsum: one kernel launch per hop,
+           counts against ELL and the total against a float64 product
+  peer_pressure  PeerPressure, 5 rounds, sync_every=5: segsum and segment
+           strategies bitwise equal, wall and peak device memory; 2 rounds
+           bitwise equal to a numpy count-and-resolve; the [E, 64] message
+           gather timed against its bytes bound
+Each phase that drives a path zeroes the kernel launch counts just before
+it and reads them just after. Then the ``kernels`` line, and last
+``{"ok": true, "device": ...}``.
 Exits non-zero, without the last line, if there is no CUDA card or any
 check fails.
 """
@@ -113,13 +131,14 @@ def check_kernel_case(name, seg, num_segments, data, kernels, **plan_kw):
     return plan, got, float(err.max().item()) if err.numel() else 0.0
 
 
-def profile_run(ex, program, emit) -> None:
+def profile_run(ex, program, emit, phase: str = "profile") -> None:
     """One more run under torch.profiler. Every figure comes from this one
     run: device busy time (the sum of kernel and copy time on the card)
     against the run's own wall and against the span from its first device
-    event to its last, and the top entries by device time. The profiler
-    slows the host, so the idle shares are upper bounds; a negative share
-    is measurement error and is printed as it is."""
+    event to its last, the device-to-host copies (each one a host sync),
+    and the top entries by device time. The profiler slows the host, so the
+    idle shares are upper bounds; a negative share is measurement error and
+    is printed as it is."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -139,13 +158,181 @@ def profile_run(ex, program, emit) -> None:
     ]
     span_us = max(r.end for r in ranges) - min(r.start for r in ranges)
     wall_us = ex.last_run_info["wall_s"] * 1e6
-    top = sorted(device_events, key=lambda e: -e.self_device_time_total)[:6]
-    emit("profile", wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+    top = sorted(device_events, key=lambda e: -e.self_device_time_total)[:8]
+    dtoh = sum(e.count for e in device_events if "DtoH" in e.key)
+    emit(phase, wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
          device_span_ms=span_us / 1e3,
          device_idle_share=1.0 - busy_us / wall_us,
          device_idle_share_of_span=1.0 - busy_us / span_us,
+         supersteps=ex.last_run_info["supersteps"], dtoh_copies=dtoh,
          by_device_time=[{"name": e.key[:60], "calls": e.count,
                           "device_ms": e.self_device_time_total / 1e3} for e in top])
+
+
+def frontier_parts(ex, seed: int, emit, hops: int = 4) -> None:
+    """Replay the 4-hop BFS hop by hop through the engine's public parts
+    and time each part on the card (CUDA events, back to back): the
+    compaction of the mask, the capped expansion, the relaxation (expansion
+    + message + scatter-min), and the whole step; the plan, which ends in
+    the hop's one device->host fetch, on the host clock. Each bound counts
+    the bytes the part must move at this hop (inputs read once, outputs
+    written once) at the card's memory rate."""
+    import torch
+    from janusgraph_tpu_torch.olap.frontier import capped_expand, compact
+    from janusgraph_tpu_torch.olap.vertex_program import INF
+
+    eng = ex.frontier_engine()
+    n = eng.n
+    fargs = eng.fargs(False, False)
+    ip, dst = fargs["out_ip"], fargs["out_dst"]
+    is_seed = torch.arange(n, device="cuda") == seed
+    dist = torch.where(is_seed, 0.0, torch.full((n,), INF, device="cuda"))
+    mask = is_seed
+    tmp = torch.full((n + 1,), INF, dtype=torch.float32, device="cuda")
+    rows = []
+    for t in range(hops):
+        count, edges, _ = eng.plan(mask, fargs, False)
+        if count == 0:
+            break
+        f_cap, e_cap = eng.tiers(count, edges)
+        h0 = time.perf_counter()
+        for _ in range(20):
+            eng.plan(mask, fargs, False)
+        plan_ms = (time.perf_counter() - h0) / 20 * 1e3
+        idx = compact(mask, f_cap, n)
+        step = lambda: eng.step(dist, None, mask, t, fargs, f_cap, e_cap, False, False, False)  # noqa: E731
+        ms = {
+            "compact_ms": cuda_ms(lambda: compact(mask, f_cap, n), 20),
+            "expand_ms": cuda_ms(lambda: capped_expand(idx, ip, dst, e_cap, n), 20),
+            "relax_ms": cuda_ms(
+                lambda: eng.relax(tmp, dist, idx, ip, dst, None, e_cap, False, False), 20
+            ),
+            "step_ms": cuda_ms(step, 20),
+        }
+        # int64 offsets and indices (8 B), int32 destinations, a 1-byte mask
+        need = {
+            "plan": n + 8 * n,                          # mask, degrees
+            "compact": n + 8 * f_cap,                   # mask; indices out
+            "expand": 8 * f_cap + 16 * count + 4 * edges + 25 * e_cap,
+            "relax": 8 * f_cap + 16 * count + 4 * edges + 4 * (n + 1),
+            # mask + distances in, the frontier rows' offsets and their
+            # edges' destinations, distances + mask out
+            "step": (n + 4 * n) * 2 + 16 * count + 4 * edges,
+        }
+        rows.append({
+            "hop": t, "frontier": count, "edges": edges, "F_cap": f_cap, "E_cap": e_cap,
+            "plan_host_ms": plan_ms, **ms,
+            **{f"{k}_bound_ms": b / PEAK_BYTES_PER_S * 1e3 for k, b in need.items()},
+        })
+        dist, _, mask = step()
+    torch.cuda.synchronize()
+    emit("frontier_parts", hops=rows)
+
+
+def peer_pressure_numpy(csr, rounds: int, K: int = 64) -> np.ndarray:
+    """PeerPressure labels after ``rounds`` rounds, in numpy: each edge
+    carries a message both ways; a vertex counts its neighbours' label
+    buckets (label mod K), takes the fullest bucket (the lowest on a tie),
+    then adopts the smallest neighbour label in that bucket; a vertex with
+    no neighbours keeps its label."""
+    n = csr.num_vertices
+    src = np.repeat(np.arange(n, dtype=np.int64), np.diff(csr.out_indptr))
+    dst = csr.out_dst.astype(np.int64)
+    send, recv = np.concatenate([src, dst]), np.concatenate([dst, src])
+    labels = np.arange(n, dtype=np.int64)
+    for _ in range(rounds):
+        sent = labels[send]
+        counts = np.bincount(recv * K + sent % K, minlength=n * K).reshape(n, K)
+        chosen = np.argmax(counts, axis=1)
+        hit = sent % K == chosen[recv]
+        # smallest label per receiver: sort (receiver, label) keys, take
+        # each receiver's first
+        keys = np.sort(recv[hit] * n + sent[hit])
+        rows, first = np.unique(keys // n, return_index=True)
+        labels = labels.copy()
+        labels[rows] = keys[first] % n
+    return labels.astype(np.float32)
+
+
+def peer_pressure_phase(csr, seg_ex, args, emit) -> None:
+    """PeerPressure, 5 rounds, sync_every=5, as the reference's bench runs
+    it: the segsum and segment strategies must give the same labels bit for
+    bit (counts are small integers, min has no order); wall and peak device
+    memory of each; one superstep of each phase and the [E, 64] message
+    gather timed alone; and a small graph on the card against the CPU."""
+    import torch
+    from janusgraph_tpu_torch.olap import GPUExecutor, kernels, rmat_csr, run_on
+    from janusgraph_tpu_torch.olap.programs import PeerPressureProgram
+
+    def pp():
+        return PeerPressureProgram(rounds=5)
+
+    n, m = csr.num_vertices, csr.num_edges
+    runs = {}
+    for strategy in ("segsum", "segment"):
+        ex = seg_ex if strategy == "segsum" else GPUExecutor(csr, strategy="segment")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = ex.run(pp(), sync_every=5)
+        wall = time.perf_counter() - t0
+        info = dict(ex.last_run_info)
+        runs[strategy] = (out["cluster"], {
+            "wall_s": wall, "run_wall_s": info["wall_s"], "supersteps": info["supersteps"],
+            "strategy_resolved": info["strategy_resolved"],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "kernel_launches": kernels.launch_counts()["sorted_segment_sum"],
+        })
+    labels = runs["segsum"][0]
+    if not np.array_equal(labels.view(np.int32), runs["segment"][0].view(np.int32)):
+        raise RuntimeError("PeerPressure labels differ between segsum and segment")
+    # the path as a user drives it, counted
+    kernels.reset_launch_counts()
+    via_run_on = run_on(csr, pp(), sync_every=5)["cluster"]
+    run_on_launches = kernels.launch_counts()["sorted_segment_sum"]
+    if not np.array_equal(labels.view(np.int32), via_run_on.view(np.int32)):
+        raise RuntimeError("run_on's PeerPressure differs from the executor's")
+    if labels.shape != (n,) or not np.all((labels >= 0) & (labels < n) & (labels == np.floor(labels))):
+        raise RuntimeError("PeerPressure labels are not vertex indices")
+    clusters = len(np.unique(labels))
+    if not 1 <= clusters < n:
+        raise RuntimeError(f"PeerPressure left {clusters} clusters of {n} vertices")
+    # two rounds held against numpy, bit for bit
+    t0 = time.perf_counter()
+    want2 = peer_pressure_numpy(csr, rounds=2)
+    numpy_s = time.perf_counter() - t0
+    got2 = seg_ex.run(PeerPressureProgram(rounds=2), sync_every=2)["cluster"]
+    if not np.array_equal(got2.view(np.int32), want2.view(np.int32)):
+        bad = int(np.sum(got2 != want2))
+        raise RuntimeError(f"PeerPressure, 2 rounds: {bad} labels differ from numpy's")
+
+    # one superstep of each phase, and the count phase's per-edge gather
+    prog = pp()
+    state, _ = prog.setup(seg_ex.g)
+    count_msg = prog.message(state, 0, seg_ex.g)
+    label_msg = prog.message(state, 1, seg_ex.g)
+    K = count_msg.shape[1]
+    sum_ms = cuda_ms(lambda: seg_ex._aggregate(prog, "sum", count_msg), 3, warmup=1)
+    min_ms = cuda_ms(lambda: seg_ex._aggregate(prog, "min", label_msg), 3, warmup=1)
+    in_src = seg_ex.g.in_src
+    gather_ms = cuda_ms(lambda: torch.index_select(count_msg, 0, in_src), 5, warmup=1)
+    # indices and the [E, K] messages once each, the [n, K] table once
+    gather_bytes = 4 * m + 4 * K * m + 4 * K * n
+    del count_msg, label_msg, state
+
+    small = rmat_csr(10, 16, seed=args.seed)
+    on_card = run_on(small, pp(), sync_every=5)["cluster"]
+    on_cpu = run_on(small, pp(), device="cpu", sync_every=5)["cluster"]
+    if not np.array_equal(on_card.view(np.int32), on_cpu.view(np.int32)):
+        raise RuntimeError("PeerPressure on the card differs from the CPU on a scale-10 graph")
+    emit("peer_pressure", rounds=5, sync_every=5, clusters=clusters, buckets=K,
+         **{s: r[1] for s, r in runs.items()}, run_on_kernel_launches=run_on_launches,
+         sum_superstep_ms=sum_ms, min_superstep_ms=min_ms,
+         gather_ms=gather_ms, gather_bytes=gather_bytes,
+         gather_bound_ms=gather_bytes / PEAK_BYTES_PER_S * 1e3,
+         small_graph_equal_to_cpu=True, two_rounds_equal_to_numpy=True,
+         two_rounds_changed=int(np.sum(want2 != np.arange(n))), numpy_s=numpy_s)
 
 
 def main() -> int:
@@ -173,7 +360,11 @@ def main() -> int:
     from janusgraph_tpu_torch.olap.programs import (
         ConnectedComponentsProgram,
         PageRankProgram,
+        ShortestPathProgram,
+        TraversalCountProgram,
+        reconstruct_path,
     )
+    from janusgraph_tpu_torch.olap.vertex_program import INF
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -279,7 +470,7 @@ def main() -> int:
     if abs(float(rank.astype(np.float64).sum()) - 1.0) > 1e-3:
         raise RuntimeError(f"PageRank mass {rank.sum()} is not 1")
 
-    timed = {}
+    timed, execs = {}, {}
     for strategy in ("segsum", "ell"):
         ex = GPUExecutor(csr, strategy=strategy)
         ex.run(pagerank())  # warm: plan/pack build and transfer
@@ -290,6 +481,7 @@ def main() -> int:
         if strategy == "segsum" and info["kernel_launches"] != info["supersteps"]:
             raise RuntimeError(f"kernel_launches {info['kernel_launches']} != supersteps")
         timed[strategy] = (info, out["rank"])
+        execs[strategy] = ex
         if strategy == "segsum":
             profile_run(ex, pagerank(), emit)
     ell_rank = timed["ell"][1]
@@ -305,32 +497,140 @@ def main() -> int:
          ell_superstep_ms=timed["ell"][0]["wall_s"] / 20 * 1e3,
          max_rel_diff_vs_ell=rel, rank_sum=float(rank.astype(np.float64).sum()))
 
-    # ------------------------------------------- connected components, ELL
     from scipy.sparse import coo_matrix
-    from scipy.sparse.csgraph import connected_components
+    from scipy.sparse.csgraph import connected_components, shortest_path
 
-    t0 = time.perf_counter()
-    ex = GPUExecutor(csr, strategy="segsum")
-    comp = ex.run(ConnectedComponentsProgram())["component"]
-    cc_wall = time.perf_counter() - t0
     src = np.repeat(np.arange(n), np.diff(csr.out_indptr))
-    adj = coo_matrix((np.ones(m, dtype=np.int8), (src, csr.out_dst)), shape=(n, n))
+    adj = coo_matrix((np.ones(m), (src, csr.out_dst)), shape=(n, n)).tocsr()
+    seg_ex = execs["segsum"]
+
+    # ------------------------------------ connected components, both paths
     ncomp, labels = connected_components(adj, directed=True, connection="weak")
     first = np.full(ncomp, n, dtype=np.int64)
     np.minimum.at(first, labels, np.arange(n))
-    if ex.last_run_info["strategy_resolved"] != "ell":
-        raise RuntimeError("CC did not fall back to ELL")
-    if not np.array_equal(comp.astype(np.int64), first[labels]):
-        raise RuntimeError("CC labels differ from scipy's components")
-    emit("cc", components=int(ncomp), supersteps=ex.last_run_info["supersteps"],
-         wall_s=cc_wall, run_wall_s=ex.last_run_info["wall_s"])
+    cc = {}
+    # the first dense run also builds the undirected ELL pack; the second
+    # times the run alone; "auto" keeps CC dense, "always" takes the
+    # frontier engine
+    modes = (("dense_first", "off"), ("dense", "off"), ("auto", "auto"), ("always", "always"))
+    for key, mode in modes:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        comp = seg_ex.run(ConnectedComponentsProgram(), frontier=mode)["component"]
+        wall = time.perf_counter() - t0
+        info = dict(seg_ex.last_run_info)
+        if not np.array_equal(comp.astype(np.int64), first[labels]):
+            raise RuntimeError(f"CC (frontier={mode}) labels differ from scipy's components")
+        cc[key] = {"path": info["path"], "supersteps": info["supersteps"], "wall_s": wall,
+                    "run_wall_s": info["wall_s"],
+                    "strategy_resolved": info.get("strategy_resolved"),
+                    "kernel_launches": kernels.launch_counts()["sorted_segment_sum"]}
+    for key in ("dense_first", "dense", "auto"):
+        if cc[key]["path"] != "host-loop" or cc[key]["strategy_resolved"] != "ell":
+            raise RuntimeError(f"CC ({key}) did not run dense through ELL: {cc}")
+    if cc["always"]["path"] != "frontier":
+        raise RuntimeError(f"CC (frontier='always') did not take the frontier engine: {cc}")
+    emit("cc", components=int(ncomp), **cc, always_tiers=seg_ex.last_run_info["tiers"])
 
+    # ------------------------------------------------ BFS, 4 hops, frontier
+    seed = int(np.argmax(csr.out_degree))
+    want = shortest_path(adj, method="D", directed=True, unweighted=True, indices=seed)
+
+    def bfs4():
+        return ShortestPathProgram(seed_index=seed, max_iterations=4)
+
+    # the path as a user drives it, counted; then one warm and one timed
+    # run on a kept executor
+    kernels.reset_launch_counts()
+    dist_run_on = run_on(csr, bfs4())["distance"]
+    bfs_launches = kernels.launch_counts()["sorted_segment_sum"]
+    seg_ex.run(bfs4())  # warm: the engine's pointer arrays
+    dist = seg_ex.run(bfs4())["distance"]
+    info = dict(seg_ex.last_run_info)
+    if info["path"] != "frontier" or not 1 <= info["supersteps"] <= 4:
+        raise RuntimeError(f"BFS did not take the frontier engine: {info}")
+    if not np.array_equal(dist.view(np.int32), dist_run_on.view(np.int32)):
+        raise RuntimeError("run_on's BFS differs from the executor's")
+    dense = execs["ell"].run(bfs4(), frontier="off")["distance"]
+    if execs["ell"].last_run_info["path"] != "host-loop":
+        raise RuntimeError("frontier='off' did not run dense")
+    if not np.array_equal(dist.view(np.int32), dense.view(np.int32)):
+        raise RuntimeError("frontier BFS differs from the dense ELL run")
+    expect = np.where(want <= 4, want, INF).astype(np.float32)
+    if not np.array_equal(dist, expect):
+        raise RuntimeError("BFS distances differ from scipy's")
+    emit("bfs", seed=seed, seed_out_degree=int(csr.out_degree[seed]),
+         hops=info["supersteps"], reached=int(np.sum(dist < INF)),
+         tiers=info["tiers"], hop_wall_s=info["hop_wall_s"],
+         bfs_4hop_wall_s=info["wall_s"],
+         pagerank_plus_bfs4_wall_s=seg_info["wall_s"] + info["wall_s"],
+         dense_wall_s=execs["ell"].last_run_info["wall_s"], kernel_launches=bfs_launches)
+    profile_run(seg_ex, bfs4(), emit, phase="bfs_profile")
+    frontier_parts(seg_ex, seed, emit)
+
+    # ------------------------------------- BFS with paths, to convergence
+    def tracked():
+        return ShortestPathProgram(seed_index=seed, track_paths=True)
+
+    res = seg_ex.run(tracked())
+    info = dict(seg_ex.last_run_info)
+    dense = execs["ell"].run(tracked(), frontier="off")
+    for key in ("distance", "predecessor"):
+        if not np.array_equal(res[key].view(np.int32), dense[key].view(np.int32)):
+            raise RuntimeError(f"tracked BFS {key} differs from the dense run")
+    if info["path"] != "frontier" or not np.array_equal(
+        res["distance"], np.where(np.isfinite(want), want, INF).astype(np.float32)
+    ):
+        raise RuntimeError("tracked BFS distances differ from scipy's")
+    reached = np.nonzero(res["distance"] < INF)[0]
+    # 1,000 targets (every reached vertex on a graph that reaches fewer)
+    targets = np.random.default_rng(args.seed).choice(reached, min(1000, len(reached)), replace=False)
+    for v in targets:
+        path = reconstruct_path(res, int(v))
+        if path is None or path[0] != seed or path[-1] != v or len(path) != res["distance"][v] + 1:
+            raise RuntimeError(f"path to {v} is not a chain of length dist: {path}")
+        for a, b in zip(path, path[1:]):
+            if not np.any(csr.out_dst[csr.out_indptr[a]:csr.out_indptr[a + 1]] == b):
+                raise RuntimeError(f"path to {v}: {a}->{b} is not an edge")
+    emit("paths", hops=info["supersteps"], reached=len(reached), paths_checked=len(targets),
+         wall_s=info["wall_s"], dense_wall_s=execs["ell"].last_run_info["wall_s"],
+         dense_supersteps=execs["ell"].last_run_info["supersteps"])
+
+    # ------------------------------------------- 3-hop traversal count
+    kernels.reset_launch_counts()
+    counts = run_on(csr, TraversalCountProgram(hops=3), strategy="segsum")["count"]
+    khop_launches = kernels.launch_counts()["sorted_segment_sum"]
+    if khop_launches != 3:
+        raise RuntimeError(f"3-hop count launched the kernel {khop_launches} times, expected 3")
+    seg_ex.run(TraversalCountProgram(hops=3))  # warm
+    timed_counts = seg_ex.run(TraversalCountProgram(hops=3))["count"]
+    khop_info = dict(seg_ex.last_run_info)
+    if khop_info["kernel_launches"] != 3 or not np.array_equal(timed_counts, counts):
+        raise RuntimeError(f"3-hop count on the kept executor: {khop_info}")
+    ell_counts = execs["ell"].run(TraversalCountProgram(hops=3))["count"]
+    if counts.shape != (n,) or not np.isfinite(counts).all():
+        raise RuntimeError("3-hop counts are not finite")
+    if not np.allclose(counts, ell_counts, **TOL):
+        raise RuntimeError("3-hop counts differ from the ELL strategy's")
+    x = np.ones(n)
+    for _ in range(3):
+        x = adj.T @ x
+    total = float(counts.astype(np.float64).sum())
+    if abs(total - float(x.sum())) > 1e-4 * float(x.sum()):
+        raise RuntimeError(f"3-hop total {total} differs from the product's {x.sum()}")
+    emit("khop", hops=3, kernel_launches=khop_launches, wall_s=khop_info["wall_s"],
+         total_paths=total, total_paths_fp64=float(x.sum()),
+         max_rel_diff_vs_ell=float(np.max(np.abs(counts - ell_counts) / np.maximum(ell_counts, 1))),
+         ell_wall_s=execs["ell"].last_run_info["wall_s"])
+
+    peer_pressure_phase(csr, seg_ex, args, emit)
     print(json.dumps({"kernels": [{
         "name": "sorted_segment_sum",
         "route": "cuda",
         "source": "janusgraph_tpu_torch/csrc/segsum.cu",
         "replaces": "janusgraph_tpu/olap/kernels.py:764",
         "launches": launches["sorted_segment_sum"],
+        "launches_khop": khop_launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -18,7 +18,13 @@ def run_on(
     program: VertexProgram,
     strategy: str = "segsum",
     device=None,
+    frontier: str = "auto",
+    sync_every: int = 1,
 ) -> Dict[str, np.ndarray]:
     """Run ``program`` over ``csr`` on ``device`` (the card by default) and
-    return its final state as numpy arrays."""
-    return GPUExecutor(csr, strategy=strategy, device=device).run(program)
+    return its final state as numpy arrays. ``frontier`` ("auto", "off",
+    "always") routes BFS/SSSP/CC through the frontier engine;
+    ``sync_every`` is how many supersteps the host loop runs between
+    fetches of the aggregators."""
+    ex = GPUExecutor(csr, strategy=strategy, device=device, frontier=frontier)
+    return ex.run(program, sync_every=sync_every)

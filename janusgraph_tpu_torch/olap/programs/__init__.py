@@ -2,3 +2,12 @@ from janusgraph_tpu_torch.olap.programs.pagerank import PageRankProgram  # noqa:
 from janusgraph_tpu_torch.olap.programs.connected_components import (  # noqa: F401
     ConnectedComponentsProgram,
 )
+from janusgraph_tpu_torch.olap.programs.peer_pressure import PeerPressureProgram  # noqa: F401
+from janusgraph_tpu_torch.olap.programs.shortest_path import (  # noqa: F401
+    ShortestPathProgram,
+    reconstruct_path,
+    weighted_predecessors,
+)
+from janusgraph_tpu_torch.olap.programs.traversal_count import (  # noqa: F401
+    TraversalCountProgram,
+)

@@ -17,6 +17,7 @@ class ConnectedComponentsProgram(VertexProgram):
     compute_keys = ("component",)
     combiner = Combiner.MIN
     undirected = True
+    frontier_kind = "cc"
 
     def __init__(self, max_iterations: int = 200):
         self.max_iterations = max_iterations

@@ -35,6 +35,12 @@ class Combiner:
     IDENTITY = {"sum": 0.0, "min": float("inf"), "max": float("-inf")}
 
 
+#: "unreached" / "no message" value of the MIN-combined programs; the
+#: frontier engine's reached-ness tests compare against this same constant,
+#: so it must stay identical to the reference's
+INF = 1e18
+
+
 class EdgeTransform:
     """How an edge modifies the message it carries."""
 
@@ -86,10 +92,14 @@ class VertexProgram:
 
     Class attributes:
       compute_keys    — state entries the run returns
-      combiner        — Combiner monoid
+      combiner        — Combiner monoid (or override combiner_for per phase)
       edge_transform  — EdgeTransform applied to messages in flight
       undirected      — aggregate over both edge orientations
       max_iterations  — hard superstep cap
+      frontier_kind   — "sssp" or "cc" where the frontier engine can run
+                        the program; read from the program's own class
+                        only, so a subclass (which may override message or
+                        apply) runs dense unless it declares it again
     """
 
     compute_keys: Tuple[str, ...] = ()
@@ -97,6 +107,12 @@ class VertexProgram:
     edge_transform: str = EdgeTransform.NONE
     undirected: bool = False
     max_iterations: int = 100
+    frontier_kind = None
+
+    def combiner_for(self, superstep: int) -> str:
+        """Monoid for a given superstep — overridable for phase-alternating
+        programs (e.g. peer pressure's count-then-resolve phases)."""
+        return self.combiner
 
     def setup(self, graph) -> Tuple[Dict[str, torch.Tensor], Dict[str, Tuple[str, object]]]:
         """Return (initial state, initial metrics)."""

@@ -19,16 +19,23 @@ sys.modules["jax"] = None
 sys.modules["janusgraph_tpu"] = None
 import numpy as np
 import janusgraph_tpu_torch
-from janusgraph_tpu_torch.olap import csr_from_edges, run_on
-from janusgraph_tpu_torch.olap.programs import PageRankProgram
+from janusgraph_tpu_torch.olap import GPUExecutor, csr_from_edges, run_on
+from janusgraph_tpu_torch.olap.programs import (
+    PageRankProgram, ShortestPathProgram, TraversalCountProgram,
+)
 rng = np.random.default_rng(0)
 src = rng.integers(0, 50, 300).astype(np.int32)
 dst = rng.integers(0, 50, 300).astype(np.int32)
-out = run_on(csr_from_edges(50, src, dst), PageRankProgram(max_iterations=10), device="cpu")
+csr = csr_from_edges(50, src, dst)
+out = run_on(csr, PageRankProgram(max_iterations=10), device="cpu")
+ex = GPUExecutor(csr, device="cpu")
+dist = ex.run(ShortestPathProgram(seed_index=0, max_iterations=4))["distance"]
+assert ex.last_run_info["path"] == "frontier" and dist[0] == 0.0
+paths = run_on(csr, TraversalCountProgram(hops=3), device="cpu")["count"].sum()
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m == "jax" or m.startswith("jax.")
     or m == "janusgraph_tpu" or m.startswith("janusgraph_tpu.")))
-print("OK", round(float(out["rank"].sum()), 4), loaded)
+print("OK", round(float(out["rank"].sum()), 4), paths > 0, loaded)
 """
 
 
@@ -51,7 +58,7 @@ def test_port_runs_with_jax_blocked():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "OK 1.0 []", proc.stdout
+    assert proc.stdout.strip() == "OK 1.0 True []", proc.stdout
 
 
 def _port_files():
