@@ -14,30 +14,53 @@ Phases, each printing one JSON line:
            back, ``kernel_ms_warm``, and after a flush that leaves the L2
            clean, ``kernel_ms_read_flush``)
   pagerank PageRank, 20 supersteps, tol=0, through run_on(strategy=
-           "segsum"): every superstep must launch the kernel once; timed
-           beside the plain-torch ELL strategy, which it must agree with
-  profile  torch.profiler over one more PageRank run: device busy time
-           against wall, and device time by kernel
-  cc       connected components against scipy: dense ELL under
+           "segsum") (the fused path) under torch.profiler: the card must
+           run the kernel once a superstep, counted in the trace; the host
+           loop (fused=False) timed beside the plain-torch ELL strategy,
+           which it must agree with
+  profile  torch.profiler over one more host-loop PageRank run: device
+           busy time against wall, and device time by kernel
+  autotune the tuner's decisions for the directed and undirected views on
+           this card (twice, equal), and the calibration behind its "gpu"
+           constants: ELL, hybrid at two cutoffs and segment aggregates
+  hybrid   hybrid_aggregate bitwise equal to ell_aggregate (SUM, MIN;
+           scalar and [n, 64]), its pad ratio, buckets and time against
+           ELL and the segsum kernel; PageRank under "hybrid" and "auto"
+  fused    the fused loop (CUDA graphs): PageRank under segsum and ELL
+           bitwise equal to the host loop, syncs, chunks, capture time,
+           walls; fused_profile counts its 20 kernel launches in the trace;
+           CC against scipy; dense BFS against the frontier run; the 3-hop
+           count (3 launches in the trace)
+  checkpoint  PageRank with checkpoints every 5 supersteps and one
+           injected preemption at superstep 12, fused (preempted at the
+           next span's start, nothing lost) and on the host loop (steps
+           10 and 11 recomputed from the step-10 checkpoint): each
+           auto-resumed run bitwise equal to the uninterrupted one
+  cc       connected components against scipy: dense ELL (fused) under
            frontier="off" and "auto", and through the frontier engine
            ("always")
   bfs      ShortestPath from the out-degree hub, 4 hops, through the
-           frontier engine: bitwise equal to the dense ELL run, equal to
-           scipy's BFS within 4 hops; bfs_4hop_wall_s and
-           pagerank_plus_bfs4_wall_s; then bfs_profile over one more run
+           frontier engine on the tuned tier ladders: bitwise equal to the
+           dense ELL run and to the static ladder's run, equal to scipy's
+           BFS within 4 hops; bfs_4hop_wall_s (both ladders),
+           pagerank_plus_bfs4_wall_s (host-loop PageRank + static ladder,
+           as before the fused loop) and its fused + tuned counterpart;
+           then bfs_profile over one more run
   frontier_parts  the frontier hop and its parts (plan, compaction,
            expansion, scatter-min) timed hop by hop against a bytes bound
   paths    track_paths BFS to convergence: predecessors equal the dense
            run's, 1,000 reconstructed paths are real edge chains
-  khop     TraversalCount, 3 hops, segsum: one kernel launch per hop,
-           counts against ELL and the total against a float64 product
+  khop     TraversalCount, 3 hops, segsum: one kernel launch per hop in
+           the trace, counts against ELL and the total against a float64 product
   peer_pressure  PeerPressure, 5 rounds, sync_every=5: segsum and segment
            strategies bitwise equal, wall and peak device memory; 2 rounds
            bitwise equal to a numpy count-and-resolve; the [E, 64] message
            gather timed against its bytes bound
 Each phase that drives a path zeroes the kernel launch counts just before
-it and reads them just after. Then the ``kernels`` line, and last
-``{"ok": true, "device": ...}``.
+it and reads them just after. Those count the wrapper's eager launches;
+kernels replayed from a CUDA graph are counted in a torch.profiler trace
+of the run (each replay against the calls its graph captured as a cross-
+check). Then the ``kernels`` line, and last ``{"ok": true, "device": ...}``.
 Exits non-zero, without the last line, if there is no CUDA card or any
 check fails.
 """
@@ -79,6 +102,20 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def replay_ms(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn`` captured once into a CUDA graph and
+    replayed back to back: what a superstep of the fused loop pays for it,
+    without the host's launch overhead."""
+    import torch
+
+    fn()  # everything ``fn`` reads moves to the card before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters)
 
 
 _FLUSH = []
@@ -131,24 +168,58 @@ def check_kernel_case(name, seg, num_segments, data, kernels, **plan_kw):
     return plan, got, float(err.max().item()) if err.numel() else 0.0
 
 
-def profile_run(ex, program, emit, phase: str = "profile") -> None:
-    """One more run under torch.profiler. Every figure comes from this one
-    run: device busy time (the sum of kernel and copy time on the card)
-    against the run's own wall and against the span from its first device
-    event to its last, the device-to-host copies (each one a host sync),
-    and the top entries by device time. The profiler slows the host, so the
-    idle shares are upper bounds; a negative share is measurement error and
-    is printed as it is."""
+#: the device functions one sorted_segment_sum call launches, in order
+SEGSUM_KERNELS = ("segsum_merge_kernel", "segsum_fixup_kernel")
+
+
+def segsum_launches(prof) -> int:
+    """Sorted-segment-sum calls the card ran in a torch.profiler trace:
+    the merge-path passes, each of which must have its fix-up."""
+    import torch
+
+    counts = dict.fromkeys(SEGSUM_KERNELS, 0)
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for name in SEGSUM_KERNELS:
+                if name in e.key:
+                    counts[name] += e.count
+    merge, fixup = counts.values()
+    if merge != fixup:
+        raise RuntimeError(f"segment-sum kernels in the trace: {counts}")
+    return merge
+
+
+def traced(fn):
+    """(fn(), the sorted-segment-sum calls the card ran meanwhile, from a
+    torch.profiler trace): launches replayed from CUDA graphs included."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ex.run(program)
+        out = fn()
+        torch.cuda.synchronize()
+    return out, segsum_launches(prof)
+
+
+def profile_run(ex, program, emit, phase: str = "profile", **run_kw) -> int:
+    """One more run under torch.profiler. Every figure comes from this one
+    run: device busy time (the sum of kernel and copy time on the card)
+    against the run's own wall and against the span from its first device
+    event to its last, the device-to-host copies (each one a host sync),
+    the segment-sum calls the card ran (returned), and the top entries by
+    device time. The profiler slows the host, so the idle shares are upper
+    bounds; a negative share is measurement error and is printed as it is."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ex.run(program, **run_kw)
         torch.cuda.synchronize()
     device_events = [
         e for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA
     ]
+    launches = segsum_launches(prof)
     busy_us = sum(e.self_device_time_total for e in device_events)
     if busy_us <= 0:
         raise RuntimeError("the profiler recorded no device time")
@@ -165,8 +236,10 @@ def profile_run(ex, program, emit, phase: str = "profile") -> None:
          device_idle_share=1.0 - busy_us / wall_us,
          device_idle_share_of_span=1.0 - busy_us / span_us,
          supersteps=ex.last_run_info["supersteps"], dtoh_copies=dtoh,
+         segsum_launches=launches,
          by_device_time=[{"name": e.key[:60], "calls": e.count,
                           "device_ms": e.self_device_time_total / 1e3} for e in top])
+    return launches
 
 
 def frontier_parts(ex, seed: int, emit, hops: int = 4) -> None:
@@ -335,6 +408,331 @@ def peer_pressure_phase(csr, seg_ex, args, emit) -> None:
          two_rounds_changed=int(np.sum(want2 != np.arange(n))), numpy_s=numpy_s)
 
 
+def bits_equal(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(
+        a.view(np.int32), b.view(np.int32)
+    )
+
+
+def gpu_constants(rows, seg_ms, n, edges) -> dict:
+    """The tuner's "gpu" constants from one set of aggregate times: a
+    non-negative least-squares fit of t = slots * gather + buckets * bucket
+    + chunk_rows * chunk over the ELL and hybrid aggregates of ``rows``
+    (each counted as the model counts it), then the segment penalty that
+    makes the model give the measured segment aggregate. ``recipe`` is the
+    plain reading beside it, over the directed rows: ELL's ms over its
+    slots, the segment's ms per edge over that, and the first two hybrid
+    packs solved for the rest (it charges ELL's launches twice, once per
+    slot and once per bucket)."""
+    from scipy.optimize import nnls
+
+    a = np.array([[r["model_slots"], r["buckets"], r["chunk_rows"]] for r in rows], np.float64)
+    t = np.array([r["ms"] for r in rows]) * 1e-3
+    (gather, bucket, chunk), residual = nnls(a, t)
+    seg_bytes = 8.0 * edges + 8.0 * n  # the model's bytes for one slot per edge
+    penalty = (seg_ms * 1e-3 - bucket) / max(seg_bytes / PEAK_BYTES_PER_S, edges * gather)
+    g0 = t[0] / a[0, 0]
+    b0, c0 = np.linalg.solve(a[1:3, 1:], t[1:3] - a[1:3, 0] * g0)
+    return {"gather_cost_s": float(gather), "bucket_overhead_s": float(bucket),
+            "tail_chunk_cost_s": float(chunk), "segment_penalty": float(penalty),
+            "fit_residual_s": float(residual),
+            "model_ms": [float(x) * 1e3 for x in a @ np.array([gather, bucket, chunk])],
+            "recipe": {"gather_cost_s": float(g0), "segment_penalty": seg_ms * 1e-3 / edges / g0,
+                       "bucket_overhead_s": float(b0), "tail_chunk_cost_s": float(c0)}}
+
+
+def autotune_phase(csr, kind, emit) -> dict:
+    """The tuner on this card: decisions for both views (each twice), and
+    the measurements its "gpu" constants come from: PageRank-shaped SUM
+    aggregates of both views (ELL, and hybrid packs at several cutoffs; the
+    segment aggregate, gather + index_add_, of the directed view), each
+    captured into a CUDA graph and replayed, as the fused loop runs them
+    (the constants in use come from these), and the directed ELL, segment
+    and two hybrid packs eagerly, as the host loop runs them (printed
+    beside); CUDA events, back to back."""
+    import torch
+    from janusgraph_tpu_torch.olap import autotune, kernels
+    from janusgraph_tpu_torch.olap.gpu_executor import GPUExecutor
+
+    decisions = {}
+    for undirected in (False, True):
+        stats = autotune.GraphStats.from_csr(csr, undirected=undirected)
+        first, again = autotune.decide(stats, kind), autotune.decide(stats, kind)
+        if first != again:
+            raise RuntimeError("two autotune decisions on the same inputs differ")
+        if autotune.device_class(kind) != "gpu":
+            raise RuntimeError(f"{kind!r} is not priced as a GPU")
+        decisions["undirected" if undirected else "directed"] = first.as_dict()
+    n, m = csr.num_vertices, csr.num_edges
+    ex = GPUExecutor(csr, strategy="ell")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.rand(n, generator=gen, device="cuda")
+    g = ex.g
+
+    def seg_fn():
+        return kernels.segment_combine(
+            "sum", torch.index_select(x, 0, g.in_src), g.in_dst_seg, n)
+
+    rows = {"replayed": [], "eager": []}
+    for undirected, cutoffs in ((False, (16, 64, 1024)), (True, (8, 64))):
+        stats = autotune.GraphStats.from_csr(csr, undirected=undirected)
+        ell = ex._ell_pack(undirected)
+        view = {"view": "undirected" if undirected else "directed"}
+        row = dict(view, layout="ell", model_slots=stats.ell_slots, slots=ell.slots,
+                   buckets=len(stats.degree_hist), chunk_rows=0)
+        rows["replayed"].append(dict(row, ms=replay_ms(lambda: kernels.ell_aggregate(ell, x, "sum"))))
+        if not undirected:
+            rows["eager"].append(dict(row, ms=cuda_ms(lambda: kernels.ell_aggregate(ell, x, "sum"), 10)))
+        by_cutoff = {c: rest for c, *rest in stats.hybrid_by_cutoff}
+        src, dst, w = ex._edge_view(undirected)
+        for cutoff in cutoffs:
+            pack = kernels.HybridPack(src, dst, w, n, hub_cutoff=cutoff, tail_chunk=256).to("cuda")
+            slots, _hubs, buckets, chunk_rows = by_cutoff[cutoff]
+            row = dict(view, layout="hybrid", cutoff=cutoff, slots=pack.slots, model_slots=slots,
+                       buckets=buckets + autotune.tail_buckets(stats.degree_hist, cutoff),
+                       chunk_rows=chunk_rows, torso_buckets=len(pack.torso),
+                       tail_buckets=len(pack.tail), pad_ratio=pack.pad_ratio)
+            rows["replayed"].append(dict(row, ms=replay_ms(
+                lambda: kernels.hybrid_aggregate(pack, x, "sum"), 10)))
+            if not undirected and cutoff <= 64:
+                rows["eager"].append(dict(row, ms=cuda_ms(
+                    lambda: kernels.hybrid_aggregate(pack, x, "sum"), 5)))
+            del pack
+    seg = {"replayed": replay_ms(seg_fn), "eager": cuda_ms(seg_fn, 10)}
+    constants = {mode: gpu_constants(rows[mode], seg[mode], n, m) for mode in rows}
+    emit("autotune", decisions=decisions, gpu_constants=constants["replayed"],
+         gpu_constants_eager=constants["eager"], edges=m, segment_ms=seg, rows=rows,
+         in_use={"gather_cost_s": autotune._GATHER_COST_S["gpu"],
+                 "segment_penalty": autotune._SEGMENT_PENALTY["gpu"],
+                 "bucket_overhead_s": autotune._BUCKET_OVERHEAD_S["gpu"],
+                 "tail_chunk_cost_s": autotune._TAIL_CHUNK_COST_S["gpu"]})
+    return decisions
+
+
+def hybrid_phase(csr, seg_ex, seg_rank, emit) -> None:
+    """hybrid_aggregate against ell_aggregate on the card, bit for bit, for
+    SUM and MIN, scalar and [n, 64] messages, at the tuner's layout; its
+    time against ELL's and against the segsum path (gather + kernel), eager
+    and replayed from a CUDA graph; then PageRank (fused, the second run)
+    under "hybrid" and "auto" against the segsum ranks."""
+    import torch
+    from janusgraph_tpu_torch.olap import GPUExecutor, kernels
+    from janusgraph_tpu_torch.olap.programs import ConnectedComponentsProgram, PageRankProgram
+
+    n = csr.num_vertices
+    ex = GPUExecutor(csr, strategy="hybrid")
+    hyb = ex._hybrid_pack(False)
+    ell = ex._ell_pack(False)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    checks = {}
+    for shape in ((n,), (n, 64)):
+        x = torch.rand(shape, generator=gen, device="cuda")
+        for op in ("sum", "min"):
+            a = kernels.ell_aggregate(ell, x, op)
+            b = kernels.hybrid_aggregate(hyb, x, op)
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                raise RuntimeError(f"hybrid differs from ELL ({op}, {shape})")
+            checks[f"{op}_{'x'.join(map(str, shape))}"] = True
+        del x, a, b
+    x = torch.rand(n, generator=gen, device="cuda")
+    plan = seg_ex._segsum_plan("in")
+    in_src = seg_ex.g.in_src
+    fns = {
+        "hybrid": lambda: kernels.hybrid_aggregate(hyb, x, "sum"),
+        "ell": lambda: kernels.ell_aggregate(ell, x, "sum"),
+        "segsum_path": lambda: kernels.sorted_segment_sum(torch.index_select(x, 0, in_src), plan),
+    }
+    times = {f"{k}_ms": cuda_ms(fn, 10) for k, fn in fns.items()}
+    times.update({f"{k}_replayed_ms": replay_ms(fn) for k, fn in fns.items()})
+    # what the SUM aggregate must move: each edge's source index, each
+    # message and each sum once
+    times["bound_ms"] = 4 * (csr.num_edges + 2 * n) / PEAK_BYTES_PER_S * 1e3
+    runs = {}
+    for strategy in ("hybrid", "auto"):
+        rex = ex if strategy == "hybrid" else GPUExecutor(csr, strategy="auto")
+        rex.run(PageRankProgram(max_iterations=20, tol=0.0))  # warm
+        rank = rex.run(PageRankProgram(max_iterations=20, tol=0.0))["rank"]
+        info = rex.last_run_info
+        rel = float(np.max(np.abs(rank.astype(np.float64) - seg_rank) / np.abs(seg_rank)))
+        if rel > 1e-4:
+            raise RuntimeError(f"PageRank under {strategy!r}: max rel diff {rel} vs segsum")
+        runs[strategy] = {"strategy_resolved": info["strategy_resolved"],
+                          "wall_s": info["wall_s"], "path": info["path"],
+                          "pad_ratio": info["pad_ratio"], "max_rel_diff_vs_segsum": rel}
+    # CC: the undirected view's decision, against ELL (fused, second runs)
+    cc = {}
+    for strategy in ("auto", "ell"):
+        cex = GPUExecutor(csr, strategy=strategy)
+        want = cex.run(ConnectedComponentsProgram())["component"]
+        got = cex.run(ConnectedComponentsProgram())["component"]
+        cc[strategy] = {"wall_s": cex.last_run_info["wall_s"],
+                        "strategy_resolved": cex.last_run_info["strategy_resolved"],
+                        "decision": cex.last_run_info["autotune"]["strategy"]}
+        cc[strategy + "_labels"] = got
+        if not bits_equal(got, want):
+            raise RuntimeError(f"two CC runs under {strategy!r} differ")
+    if not bits_equal(cc.pop("auto_labels"), cc.pop("ell_labels")):
+        raise RuntimeError("CC under 'auto' differs from ELL")
+    runs["cc"] = cc
+    emit("hybrid", bitwise_equal_to_ell=checks, pad_ratio=hyb.pad_ratio,
+         ell_pad_ratio=ell.pad_ratio, hub_cutoff=hyb.hub_cutoff, tail_chunk=hyb.tail_chunk,
+         torso_buckets=len(hyb.torso), tail_buckets=len(hyb.tail), **times,
+         pagerank=runs)
+
+
+def fused_phase(csr, seg_ex, ell_ex, host_ranks, adj, seed, emit) -> dict:
+    """The fused loop on the card: PageRank (20 supersteps, tol 0) fused
+    against the host loop under segsum and ELL, bitwise; CC against scipy;
+    the dense 4-hop BFS against the frontier run; the 3-hop count."""
+    import torch
+    from scipy.sparse.csgraph import connected_components
+    from janusgraph_tpu_torch.olap import kernels
+    from janusgraph_tpu_torch.olap.programs import (
+        ConnectedComponentsProgram,
+        PageRankProgram,
+        ShortestPathProgram,
+        TraversalCountProgram,
+    )
+
+    def pagerank():
+        return PageRankProgram(max_iterations=20, tol=0.0)
+
+    n = csr.num_vertices
+    out = {}
+    for strategy, ex in (("segsum", seg_ex), ("ell", ell_ex)):
+        kernels.reset_launch_counts()
+        first = ex.run(pagerank())
+        first_info = dict(ex.last_run_info)
+        kernels.reset_launch_counts()
+        rank = ex.run(pagerank())["rank"]
+        info = dict(ex.last_run_info)
+        launches = kernels.launch_counts()["sorted_segment_sum"]
+        if info["path"] != "fused" or info["supersteps"] != 20:
+            raise RuntimeError(f"fused PageRank ({strategy}): {info}")
+        for got in (first["rank"], rank):
+            if not bits_equal(got, host_ranks[strategy]):
+                raise RuntimeError(f"fused PageRank differs from the host loop ({strategy})")
+        # eager launches (the first run's eager superstep) plus the calls
+        # its replayed graphs hold: a cross-check of the traced count below
+        expect = 20 if strategy == "segsum" else 0
+        for run_info in (first_info, info):
+            if run_info["kernel_launches"] + run_info["graph_kernel_launches"] != expect:
+                raise RuntimeError(f"fused PageRank ({strategy}) launch counts: {run_info}")
+        if launches != info["kernel_launches"]:
+            raise RuntimeError(f"fused PageRank launched the kernel {launches} times eagerly")
+        if info["predicated_steps"] != 0:
+            raise RuntimeError(f"a bounded run discarded {info['predicated_steps']} supersteps")
+        keep = ("wall_s", "chunks", "host_syncs", "predicated_steps", "capture_s",
+                "kernel_launches", "graph_kernel_launches")
+        out[strategy] = {**{k: info[k] for k in keep},
+                         "superstep_ms": info["wall_s"] / 20 * 1e3,
+                         "first_run": {k: first_info[k] for k in keep}}
+    traced_launches = profile_run(seg_ex, pagerank(), emit, phase="fused_profile")
+    if traced_launches != 20:
+        raise RuntimeError(f"the traced fused PageRank ran the kernel {traced_launches} times")
+    out["segsum"]["traced_launches"] = traced_launches
+    # one captured chunk of 8 PageRank supersteps, replayed with its bound
+    # at 0 so that every superstep is computed and discarded (the buffers
+    # keep the last run's state)
+    loop = next(lp for key, lp in seg_ex._fused_loops.items() if "PageRankProgram" in key[0][1])
+    graph, captured = loop.graphs[8]
+    loop.limit.fill_(0)
+    chunk_ms = cuda_ms(graph.replay, 10)
+    # per superstep: in_src once (4 B an edge); rank, out-degree, active,
+    # the segment offsets and the new rank once (4 B a vertex each)
+    chunk_bytes = 8 * (4 * csr.num_edges + 5 * 4 * n)
+    out["chunk8"] = {"ms": chunk_ms, "kernel_launches_captured": captured,
+                     "bytes": chunk_bytes, "bound_ms": chunk_bytes / PEAK_BYTES_PER_S * 1e3}
+
+    ncomp, labels = connected_components(adj, directed=True, connection="weak")
+    lowest = np.full(ncomp, n, dtype=np.int64)
+    np.minimum.at(lowest, labels, np.arange(n))
+    cc = {}
+    for key, kw in (("fused", {}), ("fused_warm", {}), ("host_loop", {"fused": False})):
+        comp = seg_ex.run(ConnectedComponentsProgram(), **kw)["component"]
+        info = dict(seg_ex.last_run_info)
+        if not np.array_equal(comp.astype(np.int64), lowest[labels]):
+            raise RuntimeError(f"CC ({key}) differs from scipy's components")
+        cc[key] = {k: info.get(k) for k in ("path", "supersteps", "wall_s", "chunks",
+                                              "host_syncs", "predicated_steps")}
+    if cc["fused"]["path"] != "fused" or cc["host_loop"]["path"] != "host-loop":
+        raise RuntimeError(f"CC paths: {cc}")
+
+    def bfs4():
+        return ShortestPathProgram(seed_index=seed, max_iterations=4)
+
+    frontier = seg_ex.run(bfs4())["distance"]
+    dense = seg_ex.run(bfs4(), frontier="off")["distance"]
+    bfs_info = dict(seg_ex.last_run_info)
+    if bfs_info["path"] != "fused" or not bits_equal(dense, frontier):
+        raise RuntimeError(f"dense fused BFS differs from the frontier run: {bfs_info}")
+
+    host = seg_ex.run(TraversalCountProgram(hops=3), fused=False)["count"]
+    counts, khop_traced = traced(lambda: seg_ex.run(TraversalCountProgram(hops=3))["count"])
+    khop = dict(seg_ex.last_run_info, traced_launches=khop_traced)
+    if (khop["path"] != "fused" or khop_traced != 3
+            or khop["kernel_launches"] + khop["graph_kernel_launches"] != 3
+            or not bits_equal(counts, host)):
+        raise RuntimeError(f"fused 3-hop count: {khop}")
+    emit("fused", max_chunk=seg_ex.MAX_CHUNK, pagerank=out, cc=cc,
+         dense_bfs={k: bfs_info[k] for k in ("wall_s", "supersteps", "chunks", "host_syncs",
+                                              "predicated_steps")},
+         khop={k: khop[k] for k in ("wall_s", "kernel_launches", "graph_kernel_launches",
+                                    "traced_launches", "chunks", "host_syncs")})
+    return out
+
+
+def checkpoint_phase(csr, want_rank, emit) -> None:
+    """PageRank with a checkpoint every 5 supersteps and one injected
+    preemption at superstep 12 or later, fused and on the host loop: each
+    run resumes from its last checkpoint and must end bitwise equal to the
+    uninterrupted run. The fused path consults the hook at span starts
+    only, so it is preempted at 15, after that span's checkpoint, and
+    recomputes nothing; the host loop is preempted at 12 and recomputes
+    supersteps 10 and 11 from the step-10 checkpoint."""
+    import os
+    import tempfile
+
+    from janusgraph_tpu_torch.exceptions import SuperstepPreempted
+    from janusgraph_tpu_torch.olap import GPUExecutor
+    from janusgraph_tpu_torch.olap.checkpoint import save_checkpoint
+    from janusgraph_tpu_torch.olap.programs import PageRankProgram
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, fused, expect in (("fused", True, (15, 15)), ("host_loop", False, (12, 10))):
+            fired = []
+
+            def hook(step):
+                if step >= 12 and not fired:
+                    fired.append(step)
+                    raise SuperstepPreempted(f"injected at superstep {step}")
+
+            ex = GPUExecutor(csr, strategy="segsum")
+            path = os.path.join(d, f"{name}.npz")
+            rank = ex.run(PageRankProgram(max_iterations=20, tol=0.0), fused=fused,
+                          checkpoint_path=path, checkpoint_every=5, fault_hook=hook)["rank"]
+            info = dict(ex.last_run_info)
+            steps = info.get("resume_steps") or [{}]
+            got = (steps[0].get("preempted_at"), steps[0].get("from_step"))
+            if not fired or info.get("resumes") != 1 or got != expect:
+                raise RuntimeError(f"{name}: preempted/resumed at {got}, expected {expect}: {info}")
+            if not bits_equal(rank, want_rank):
+                raise RuntimeError(f"the resumed PageRank ({name}) differs from the uninterrupted run")
+            runs[name] = {k: info.get(k) for k in ("path", "resumes", "resume_steps", "wall_s",
+                                                    "run_wall_s", "host_syncs", "chunks")}
+            runs[name]["recomputed_supersteps"] = got[0] - got[1]
+            runs[name]["measured_record_written"] = os.path.exists(path + ".autotune.json")
+        state = {"rank": rank}
+        t0 = time.perf_counter()
+        for _ in range(5):
+            save_checkpoint(os.path.join(d, "save.npz"), state, {"delta": np.float32(0)}, 20)
+        save_ms = (time.perf_counter() - t0) / 5 * 1e3
+    emit("checkpoint", every=5, **runs, save_ms=save_ms, state_bytes=rank.nbytes,
+         save_bound_ms=rank.nbytes / PEAK_BYTES_PER_S * 1e3, bitwise_equal=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20)
@@ -349,6 +747,7 @@ def main() -> int:
 
     from janusgraph_tpu_torch import _build
     from janusgraph_tpu_torch.native import segment_ids
+    from janusgraph_tpu_torch.observability import profiler
     from janusgraph_tpu_torch.olap import (
         GPUExecutor,
         csr_from_edges,
@@ -374,7 +773,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     emit("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
-         torch=torch.__version__, cuda=torch.version.cuda)
+         torch=torch.__version__, cuda=torch.version.cuda, peaks=profiler.device_peaks())
 
     # ---------------------------------------------------------------- build
     _build.load_library()
@@ -459,38 +858,45 @@ def main() -> int:
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    result = run_on(csr, pagerank(), strategy="segsum")
+    result, main_launches = traced(lambda: run_on(csr, pagerank(), strategy="segsum"))
     first_wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
     rank = result["rank"]
-    if launches["sorted_segment_sum"] != 20:
-        raise RuntimeError(f"main path launched the kernel {launches} times, expected 20")
+    # the wrapper counts its one eager launch (superstep 0); the other 19
+    # replay from CUDA graphs, which only the trace sees
+    if launches["sorted_segment_sum"] < 1 or main_launches != 20:
+        raise RuntimeError(f"main path ran the kernel {main_launches} times (trace), "
+                           f"{launches} eagerly, expected 20")
     if rank.shape != (n,) or not np.isfinite(rank).all():
         raise RuntimeError("PageRank ranks are not finite")
     if abs(float(rank.astype(np.float64).sum()) - 1.0) > 1e-3:
         raise RuntimeError(f"PageRank mass {rank.sum()} is not 1")
 
+    # the host loop, timed as in the slices before the fused loop
     timed, execs = {}, {}
     for strategy in ("segsum", "ell"):
         ex = GPUExecutor(csr, strategy=strategy)
-        ex.run(pagerank())  # warm: plan/pack build and transfer
-        out = ex.run(pagerank())
+        ex.run(pagerank(), fused=False)  # warm: plan/pack build and transfer
+        out = ex.run(pagerank(), fused=False)
         info = dict(ex.last_run_info)
-        if info["supersteps"] != 20:
-            raise RuntimeError(f"{strategy}: {info['supersteps']} supersteps")
+        if info["supersteps"] != 20 or info["path"] != "host-loop":
+            raise RuntimeError(f"{strategy}: {info}")
         if strategy == "segsum" and info["kernel_launches"] != info["supersteps"]:
             raise RuntimeError(f"kernel_launches {info['kernel_launches']} != supersteps")
         timed[strategy] = (info, out["rank"])
         execs[strategy] = ex
         if strategy == "segsum":
-            profile_run(ex, pagerank(), emit)
+            profile_run(ex, pagerank(), emit, fused=False)
+    if not bits_equal(rank, timed["segsum"][1]):
+        raise RuntimeError("run_on's fused PageRank differs from the host loop")
     ell_rank = timed["ell"][1]
     rel = float(np.max(np.abs(rank.astype(np.float64) - ell_rank) / np.abs(ell_rank)))
     if rel > 1e-4:
         raise RuntimeError(f"segsum vs ell PageRank max rel diff {rel}")
     seg_info = timed["segsum"][0]
-    emit("pagerank", scale=args.scale, supersteps=20, kernel_launches=launches["sorted_segment_sum"],
-         first_run_wall_s=first_wall, wall_s=seg_info["wall_s"],
+    emit("pagerank", scale=args.scale, supersteps=20, kernel_launches=main_launches,
+         eager_kernel_launches=launches["sorted_segment_sum"],
+         first_run_wall_s_profiled=first_wall, wall_s=seg_info["wall_s"],
          superstep_ms=seg_info["wall_s"] / 20 * 1e3,
          edges_per_s=20 * m / seg_info["wall_s"],
          ell_wall_s=timed["ell"][0]["wall_s"],
@@ -503,6 +909,16 @@ def main() -> int:
     src = np.repeat(np.arange(n), np.diff(csr.out_indptr))
     adj = coo_matrix((np.ones(m), (src, csr.out_dst)), shape=(n, n)).tocsr()
     seg_ex = execs["segsum"]
+    seed = int(np.argmax(csr.out_degree))
+
+    # ------------------------------- autotune, hybrid, fused, checkpoints
+    autotune_phase(csr, kind, emit)
+    hybrid_phase(csr, seg_ex, rank.astype(np.float64), emit)
+    kernels.reset_launch_counts()
+    fused = fused_phase(csr, seg_ex, execs["ell"],
+                        {s: timed[s][1] for s in timed}, adj, seed, emit)
+    fused_launches = fused["segsum"]["traced_launches"]
+    checkpoint_phase(csr, rank, emit)
 
     # ------------------------------------ connected components, both paths
     ncomp, labels = connected_components(adj, directed=True, connection="weak")
@@ -526,14 +942,13 @@ def main() -> int:
                     "strategy_resolved": info.get("strategy_resolved"),
                     "kernel_launches": kernels.launch_counts()["sorted_segment_sum"]}
     for key in ("dense_first", "dense", "auto"):
-        if cc[key]["path"] != "host-loop" or cc[key]["strategy_resolved"] != "ell":
+        if cc[key]["path"] != "fused" or cc[key]["strategy_resolved"] != "ell":
             raise RuntimeError(f"CC ({key}) did not run dense through ELL: {cc}")
     if cc["always"]["path"] != "frontier":
         raise RuntimeError(f"CC (frontier='always') did not take the frontier engine: {cc}")
     emit("cc", components=int(ncomp), **cc, always_tiers=seg_ex.last_run_info["tiers"])
 
     # ------------------------------------------------ BFS, 4 hops, frontier
-    seed = int(np.argmax(csr.out_degree))
     want = shortest_path(adj, method="D", directed=True, unweighted=True, indices=seed)
 
     def bfs4():
@@ -551,19 +966,31 @@ def main() -> int:
         raise RuntimeError(f"BFS did not take the frontier engine: {info}")
     if not np.array_equal(dist.view(np.int32), dist_run_on.view(np.int32)):
         raise RuntimeError("run_on's BFS differs from the executor's")
+    if {t["tier_source"] for t in info["tiers"]} != {"autotune"}:
+        raise RuntimeError(f"BFS did not price on the tuned ladders: {info['tiers']}")
     dense = execs["ell"].run(bfs4(), frontier="off")["distance"]
-    if execs["ell"].last_run_info["path"] != "host-loop":
+    if execs["ell"].last_run_info["path"] != "fused":
         raise RuntimeError("frontier='off' did not run dense")
     if not np.array_equal(dist.view(np.int32), dense.view(np.int32)):
         raise RuntimeError("frontier BFS differs from the dense ELL run")
     expect = np.where(want <= 4, want, INF).astype(np.float32)
     if not np.array_equal(dist, expect):
         raise RuntimeError("BFS distances differ from scipy's")
+    # the static ladder (autotune=False), as before the tuned ladders
+    static_ex = GPUExecutor(csr, strategy="segsum", autotune=False)
+    static_ex.run(bfs4())  # warm
+    static_dist = static_ex.run(bfs4())["distance"]
+    static = dict(static_ex.last_run_info)
+    if not bits_equal(static_dist, dist) or {t["tier_source"] for t in static["tiers"]} != {"static"}:
+        raise RuntimeError("the static-ladder BFS differs from the tuned one")
     emit("bfs", seed=seed, seed_out_degree=int(csr.out_degree[seed]),
          hops=info["supersteps"], reached=int(np.sum(dist < INF)),
          tiers=info["tiers"], hop_wall_s=info["hop_wall_s"],
-         bfs_4hop_wall_s=info["wall_s"],
-         pagerank_plus_bfs4_wall_s=seg_info["wall_s"] + info["wall_s"],
+         bfs_4hop_wall_s=info["wall_s"], static_tiers=static["tiers"],
+         static_hop_wall_s=static["hop_wall_s"], static_bfs_4hop_wall_s=static["wall_s"],
+         # as before the fused loop: host-loop PageRank + static ladder
+         pagerank_plus_bfs4_wall_s=seg_info["wall_s"] + static["wall_s"],
+         fused_pagerank_plus_tuned_bfs4_wall_s=fused["segsum"]["wall_s"] + info["wall_s"],
          dense_wall_s=execs["ell"].last_run_info["wall_s"], kernel_launches=bfs_launches)
     profile_run(seg_ex, bfs4(), emit, phase="bfs_profile")
     frontier_parts(seg_ex, seed, emit)
@@ -598,14 +1025,17 @@ def main() -> int:
 
     # ------------------------------------------- 3-hop traversal count
     kernels.reset_launch_counts()
-    counts = run_on(csr, TraversalCountProgram(hops=3), strategy="segsum")["count"]
-    khop_launches = kernels.launch_counts()["sorted_segment_sum"]
-    if khop_launches != 3:
-        raise RuntimeError(f"3-hop count launched the kernel {khop_launches} times, expected 3")
+    counts, khop_launches = traced(
+        lambda: run_on(csr, TraversalCountProgram(hops=3), strategy="segsum")["count"])
+    khop_eager = kernels.launch_counts()["sorted_segment_sum"]
+    if khop_launches != 3 or khop_eager < 1:
+        raise RuntimeError(f"3-hop count ran the kernel {khop_launches} times (trace), "
+                           f"{khop_eager} eagerly, expected 3")
     seg_ex.run(TraversalCountProgram(hops=3))  # warm
     timed_counts = seg_ex.run(TraversalCountProgram(hops=3))["count"]
     khop_info = dict(seg_ex.last_run_info)
-    if khop_info["kernel_launches"] != 3 or not np.array_equal(timed_counts, counts):
+    if (khop_info["kernel_launches"] + khop_info["graph_kernel_launches"] != 3
+            or not np.array_equal(timed_counts, counts)):
         raise RuntimeError(f"3-hop count on the kept executor: {khop_info}")
     ell_counts = execs["ell"].run(TraversalCountProgram(hops=3))["count"]
     if counts.shape != (n,) or not np.isfinite(counts).all():
@@ -629,7 +1059,11 @@ def main() -> int:
         "route": "cuda",
         "source": "janusgraph_tpu_torch/csrc/segsum.cu",
         "replaces": "janusgraph_tpu/olap/kernels.py:764",
-        "launches": launches["sorted_segment_sum"],
+        # counted in torch.profiler traces of the runs (CUDA-graph replays
+        # included): run_on's PageRank, a fused PageRank on a kept
+        # executor, run_on's 3-hop count
+        "launches": main_launches,
+        "launches_fused": fused_launches,
         "launches_khop": khop_launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,

@@ -20,11 +20,30 @@ def run_on(
     device=None,
     frontier: str = "auto",
     sync_every: int = 1,
+    checkpoint_every: int = 0,
+    checkpoint_path: str = None,
+    fault_hook=None,
+    resume_attempts: int = 3,
+    autotune: bool = None,
+    hub_cutoff: int = None,
+    tail_chunk: int = None,
+    autotune_persist: bool = None,
 ) -> Dict[str, np.ndarray]:
     """Run ``program`` over ``csr`` on ``device`` (the card by default) and
     return its final state as numpy arrays. ``frontier`` ("auto", "off",
     "always") routes BFS/SSSP/CC through the frontier engine;
     ``sync_every`` is how many supersteps the host loop runs between
-    fetches of the aggregators."""
-    ex = GPUExecutor(csr, strategy=strategy, device=device, frontier=frontier)
-    return ex.run(program, sync_every=sync_every)
+    fetches of the aggregators; ``checkpoint_path``/``checkpoint_every``,
+    ``fault_hook`` and ``resume_attempts`` checkpoint the run and resume it
+    after a ``SuperstepPreempted``; the other arguments are the
+    ``GPUExecutor``'s tuner options."""
+    ex = GPUExecutor(
+        csr, strategy=strategy, device=device, frontier=frontier,
+        autotune=autotune, hub_cutoff=hub_cutoff, tail_chunk=tail_chunk,
+        autotune_persist=autotune_persist,
+    )
+    return ex.run(
+        program, sync_every=sync_every, checkpoint_every=checkpoint_every,
+        checkpoint_path=checkpoint_path, fault_hook=fault_hook,
+        resume_attempts=resume_attempts,
+    )

@@ -11,8 +11,10 @@ handful of vertices. Here each hop:
   3. gathers only the frontier's neighbors (E_frontier elements, not E),
   4. scatter-mins the relaxed values into the state.
 
-Tiers: (F_cap, E_cap) grow in powers of ``GROWTH`` from (F_MIN, E_MIN) up
-to (n, m); the top tier is a full-edge pass, so nothing is ever dropped.
+Tiers: (F_cap, E_cap) come from the autotuner's pow2 ladders
+(``olap/autotune.decide_tiers``), or with ``autotune=False`` grow in powers
+of ``GROWTH`` from (F_MIN, E_MIN); either way up to (n, m), and the top
+tier is a full-edge pass, so nothing is ever dropped.
 Per-step results are bit-identical to the dense path: relaxing a
 non-frontier edge is a no-op (its source has not changed since it was last
 relaxed), and min does not depend on order.
@@ -39,6 +41,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from janusgraph_tpu_torch.olap.autotune import pick_tier
 from janusgraph_tpu_torch.olap.vertex_program import INF
 
 
@@ -121,11 +124,14 @@ class FrontierEngine:
     #: so both packages route the same graphs the same way
     MAX_EDGES = 1 << 30
 
-    def __init__(self, executor):
+    def __init__(self, executor, f_schedule=None, e_schedule=None):
         self.ex = executor
         self.device = executor.device
-        # the autotuned tier ladders are not ported yet: every hop prices
-        # on the static ladder above (tier_source "static")
+        # the tier ladders (olap/autotune.decide_tiers; the executor passes
+        # its directed view's, since frontier programs are scalar-message
+        # in-CSR runs); None prices every hop on the static ladder above
+        self.f_schedule = f_schedule
+        self.e_schedule = e_schedule
         csr = executor.csr
         self.n = csr.num_vertices
         self.m = csr.num_edges
@@ -188,9 +194,19 @@ class FrontierEngine:
         )
         return [int(x) for x in torch.stack([count, tot_out, tot_in]).tolist()]
 
+    @property
+    def tier_source(self) -> str:
+        return "autotune" if self.e_schedule else "static"
+
     def tiers(self, count: int, edges: int):
         """(F_cap, E_cap) of a hop with ``count`` frontier rows and at most
-        ``edges`` edges in one orientation, on the static ladder."""
+        ``edges`` edges in one orientation, on the tuned ladders where the
+        engine has them, else on the static ladder."""
+        if self.f_schedule and self.e_schedule:
+            return (
+                pick_tier(count, self.f_schedule, self.n),
+                pick_tier(max(edges, 1), self.e_schedule, self.m),
+            )
         return (
             _tier(count, self.F_MIN, self.n, self.GROWTH),
             _tier(max(edges, 1), self.E_MIN, self.m, self.GROWTH),
@@ -259,7 +275,7 @@ class FrontierEngine:
             f_cap, e_cap = self.tiers(count, max(tot_out, tot_in))
             trace.append({
                 "hop": t, "frontier": count, "edges": max(tot_out, tot_in),
-                "F_cap": f_cap, "E_cap": e_cap, "tier_source": "static",
+                "F_cap": f_cap, "E_cap": e_cap, "tier_source": self.tier_source,
             })
             value, pred, mask = self.step(
                 value, pred, mask, t, fargs, f_cap, e_cap, weighted, track, und

@@ -1,8 +1,9 @@
 """Aggregation kernels for the BSP superstep — the port of
-``janusgraph_tpu/olap/kernels.py`` (ELL and sorted-segment-sum parts).
+``janusgraph_tpu/olap/kernels.py`` (ELL, hybrid and sorted-segment-sum
+parts; ``edge_transform_cols`` is not ported yet).
 
 The superstep's hot op is ``combine({msg(src) for (src,dst) edges}) by
-dst``. Two strategies here:
+dst``. Three strategies here:
 
 1. **Degree-bucketed ELL** (``ELLPack`` / ``ell_aggregate``), plain torch:
    in-edges are packed per destination into power-of-two-capacity row
@@ -10,14 +11,19 @@ dst``. Two strategies here:
    Every monoid. Bitwise equal to the reference's numpy replay: torch eager
    rounds every mul and add on its own, and the tree order is the same.
 
-2. **Sorted segment sum** (``make_segsum_plan`` / ``sorted_segment_sum``):
+2. **Degree-bucketed hybrid** (``HybridPack`` / ``hybrid_aggregate``),
+   plain torch: an exact-width ELL torso for vertices up to a degree
+   cutoff and a chunked CSR tail for hubs; bitwise equal to ELL, since
+   both reduce through the same tree.
+
+3. **Sorted segment sum** (``make_segsum_plan`` / ``sorted_segment_sum``):
    the SUM monoid over destination-sorted edges, through the hand-written
    CUDA kernel ``janusgraph_tpu_torch/csrc/segsum.cu`` on a CUDA tensor and
    through ``sorted_segment_sum_plain`` on a CPU tensor. The plan keeps
    the reference's tile-aligned layout, which the plain version reads; the
    kernel reads only the segment offsets and a merge-path partition.
 
-Both host structures are built once per (graph, orientation) and reused
+Each host structure is built once per (graph, orientation) and reused
 across supersteps.
 """
 
@@ -56,6 +62,42 @@ def fill_ell_rows(starts_r, degs_r, src32, w32, idx, wmat, valid):
         wmat[row_ids, col_ids] = w32[edge_pos] if w32 is not None else 1.0
 
 
+def row_fold_matrix(rowseg: np.ndarray, num_slots: int) -> np.ndarray:
+    """(num_slots, most rows of one slot) matrix of the row indices each
+    slot folds, in row order, padded with ``len(rowseg)`` (an identity row
+    the fold appends). ``rowseg`` is sorted (``split_rows`` gives each owner
+    consecutive rows)."""
+    rows = len(rowseg)
+    counts = np.bincount(rowseg, minlength=num_slots).astype(np.int64)
+    kmax = int(counts.max()) if rows else 0
+    pos = np.arange(rows, dtype=np.int64) - np.repeat(np.cumsum(counts) - counts, counts)
+    fold = np.full((num_slots, kmax), rows, dtype=np.int64)
+    fold[np.asarray(rowseg, dtype=np.int64), pos] = np.arange(rows, dtype=np.int64)
+    return fold
+
+
+def fold_rows(op: str, r: torch.Tensor, fold: torch.Tensor) -> torch.Tensor:
+    """Fold row partials into one value per slot: identity, then each of a
+    slot's rows in row order — the order of the reference's
+    ``np.<ufunc>.at`` over sorted segment ids, with no atomics, so the
+    result has the same bits on every device and every call."""
+    identity = Combiner.IDENTITY[op]
+    pad = torch.full((1,) + tuple(r.shape[1:]), identity, dtype=r.dtype, device=r.device)
+    r_ext = torch.cat([r, pad], dim=0)
+    acc = torch.full(
+        (fold.shape[0],) + tuple(r.shape[1:]), identity, dtype=r.dtype, device=r.device
+    )
+    for j in range(fold.shape[1]):
+        part = torch.index_select(r_ext, 0, fold[:, j])
+        if op == Combiner.SUM:
+            acc = acc + part
+        elif op == Combiner.MIN:
+            acc = torch.minimum(acc, part)
+        else:
+            acc = torch.maximum(acc, part)
+    return acc
+
+
 def split_rows(members: np.ndarray, deg_m: np.ndarray, starts_m: np.ndarray, cap: int):
     """Row-split supernode edge ranges into chunks of at most ``cap`` edges.
 
@@ -82,8 +124,9 @@ class ELLPack:
     (rows, c) weight and validity matrix. Destinations with degree above
     ``max_capacity`` are row-split; ``rowseg`` folds the row partials.
 
-    Bucket tuple: (idx, wmat, valid, rowseg, num_slots). Built as numpy;
-    ``to(device)`` moves the arrays to torch tensors once.
+    Bucket tuple: (idx, wmat, valid, rowseg, num_slots); ``row_folds`` holds
+    each bucket's ``row_fold_matrix`` (None without split rows). Built as
+    numpy; ``to(device)`` moves the arrays to torch tensors once.
     """
 
     def __init__(
@@ -110,6 +153,7 @@ class ELLPack:
         caps = np.minimum(caps, max_capacity)
 
         self.buckets: List[Tuple] = []
+        self.row_folds: List[Optional[np.ndarray]] = []
         parts: List[np.ndarray] = []
         src32 = np.ascontiguousarray(src, dtype=np.int32)
         w32 = np.ascontiguousarray(w, dtype=np.float32) if w is not None else None
@@ -134,12 +178,18 @@ class ELLPack:
                 rowseg.astype(np.int32) if rowseg is not None else None,
                 len(members),
             ))
+            self.row_folds.append(
+                row_fold_matrix(rowseg, len(members)) if rowseg is not None else None
+            )
             parts.append(members)
 
         vertex_order = np.concatenate(parts) if parts else np.zeros(0, dtype=np.int64)
         pos = np.zeros(n, dtype=np.int64)
         pos[vertex_order] = np.arange(len(vertex_order), dtype=np.int64)
         self.unpermute = pos.astype(np.int32)
+        #: gathered slots, padding included, and their ratio to the edges
+        self.slots = sum(int(b[0].size) for b in self.buckets)
+        self.pad_ratio = self.slots / max(1, len(src))
 
     def to(self, device) -> "ELLPack":
         """Move the index/weight matrices to ``device`` once (in place)."""
@@ -151,6 +201,7 @@ class ELLPack:
             (put(i), put(w), put(v), put(rs), ns)
             for (i, w, v, rs, ns) in self.buckets
         ]
+        self.row_folds = [put(f) for f in self.row_folds]
         self.unpermute = put(self.unpermute)
         return self
 
@@ -220,23 +271,242 @@ def ell_aggregate(
     )
     msgs_ext = torch.cat([msgs, pad], dim=0)
     parts = []
-    for idx, w, valid, rowseg, num_slots in pack.buckets:
+    for (idx, w, valid, _rowseg, _num_slots), fold in zip(pack.buckets, pack.row_folds):
         m = flat_take(msgs_ext, idx)
         if w is not None:
             # transform, then force padded slots back to the identity (a
             # transform can disturb it, e.g. inf * 0 = nan for MIN)
-            valid_ = valid[:, :, None] if m.ndim == 3 else valid
-            w_ = w[:, :, None] if m.ndim == 3 else w
-            if edge_transform == EdgeTransform.MUL_WEIGHT:
-                m = m * w_
-            elif edge_transform == EdgeTransform.ADD_WEIGHT:
-                m = m + w_
-            m = torch.where(valid_ > 0, m, identity)
-            m = fp_fence(m)
+            m = _transform(m, w, valid, op, edge_transform)
         r = tree_reduce(m, op)
-        if rowseg is not None:
-            r = segment_combine(op, r, rowseg, num_slots)
+        if fold is not None:
+            r = fold_rows(op, r, fold)
         parts.append(r)
+    if not parts:
+        return torch.full(msgs.shape, identity, dtype=msgs.dtype, device=msgs.device)
+    stacked = torch.cat(parts, dim=0)
+    return torch.index_select(stacked, 0, pack.unpermute)
+
+
+def _transform(m, w, valid, op: str, edge_transform: str) -> torch.Tensor:
+    """A weighted bucket's transform, slot for slot: the weight product or
+    sum, padded slots forced back to the identity (where ``valid`` is
+    given), then the fence."""
+    w_ = w[:, :, None] if m.ndim == 3 else w
+    if edge_transform == EdgeTransform.MUL_WEIGHT:
+        m = m * w_
+    elif edge_transform == EdgeTransform.ADD_WEIGHT:
+        m = m + w_
+    if valid is not None:
+        valid_ = valid[:, :, None] if m.ndim == 3 else valid
+        m = torch.where(valid_ > 0, m, Combiner.IDENTITY[op])
+    return fp_fence(m)
+
+
+# --------------------------------------------------------------------------
+# Degree-bucketed hybrid: exact-width ELL torso + chunked CSR tail
+# --------------------------------------------------------------------------
+
+def _next_pow2(v: int) -> int:
+    return 1 << max(0, int(v) - 1).bit_length() if v > 1 else 1
+
+
+class HybridPack:
+    """Hybrid layout of an edge list grouped by destination degree.
+
+    Torso (in-degree 1..hub_cutoff): one bucket per exact degree d, a
+    (rows, d) source-index matrix with no padded slot; the reduction pads to
+    next-pow2(d) with the identity without gathering it, which reproduces
+    the ELL bucket's leaves. Degree-0 vertices get the identity.
+
+    Tail (hubs, in-degree > hub_cutoff): the hubs' destination-sorted edge
+    ranges cut into ``tail_chunk``-wide chunks (the last chunk of a row
+    sentinel-padded); chunk partials go to an identity-filled per-row table
+    of width cap / tail_chunk, which folds down the remaining tree levels.
+    Degrees above ``max_capacity`` row-split first, as in ``ELLPack``.
+
+    Every width is a power of two, so each vertex reduces through the same
+    ``tree_reduce`` tree as ELL: hybrid and ELL results are bitwise equal.
+    Built as numpy (the arrays equal the reference's); ``to(device)`` moves
+    them once. Each tail entry with split rows also holds its
+    ``row_fold_matrix`` under "fold".
+    """
+
+    def __init__(
+        self,
+        src: np.ndarray,
+        dst: np.ndarray,
+        weight: Optional[np.ndarray],
+        num_vertices: int,
+        hub_cutoff: int = 64,
+        tail_chunk: int = 256,
+        max_capacity: int = 1 << 14,
+    ):
+        n = num_vertices
+        self.num_vertices = n
+        self.sentinel = n
+        self.has_weight = weight is not None
+        self.hub_cutoff = int(hub_cutoff)
+        tail_chunk = int(tail_chunk)
+        if tail_chunk < 1 or tail_chunk & (tail_chunk - 1):
+            raise ValueError(f"tail_chunk must be a power of two (got {tail_chunk})")
+        if self.hub_cutoff < 1:
+            raise ValueError(f"hub_cutoff must be >= 1 (got {hub_cutoff})")
+        # every hub's tree width is >= next_pow2(cutoff + 1); the chunk must
+        # divide it so chunks stay aligned subtrees
+        self.tail_chunk = min(tail_chunk, _next_pow2(self.hub_cutoff + 1), int(max_capacity))
+
+        order = np.argsort(dst, kind="stable")
+        src = np.asarray(src, dtype=np.int64)[order]
+        dst = np.asarray(dst, dtype=np.int64)[order]
+        w = np.asarray(weight, dtype=np.float32)[order] if weight is not None else None
+        deg = np.bincount(dst, minlength=n).astype(np.int64)
+        indptr = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(deg, out=indptr[1:])
+        src32 = np.ascontiguousarray(src, dtype=np.int32)
+        w32 = np.ascontiguousarray(w, dtype=np.float32) if w is not None else None
+
+        parts: List[np.ndarray] = []
+        #: torso buckets ({"idx", "w"?}) and their (width, tree width)
+        self.torso: List[dict] = []
+        self.torso_meta: List[Tuple[int, int]] = []
+        for d in (int(x) for x in np.unique(deg[(deg >= 1) & (deg <= self.hub_cutoff)])):
+            members = np.nonzero(deg == d)[0]
+            pos = indptr[members][:, None] + np.arange(d, dtype=np.int64)
+            entry = {"idx": src32[pos]}
+            if self.has_weight:
+                entry["w"] = w32[pos]
+            self.torso.append(entry)
+            self.torso_meta.append((d, _next_pow2(d)))
+            parts.append(members)
+
+        zero_members = np.nonzero(deg == 0)[0]
+        self.num_zero = len(zero_members)
+        if self.num_zero:
+            parts.append(zero_members)
+
+        #: tail buckets ({"idx", "slot", "w"?, "valid"?, "rowseg"?, "fold"?})
+        #: and their (tree width, partials per row, rows, slots)
+        self.tail: List[dict] = []
+        self.tail_meta: List[Tuple[int, int, int, int]] = []
+        T = self.tail_chunk
+        hub = deg > self.hub_cutoff
+        if hub.any():
+            caps = np.minimum(
+                1 << np.ceil(np.log2(np.maximum(deg, 1))).astype(np.int64),
+                int(max_capacity),
+            )
+            for c in sorted(int(x) for x in np.unique(caps[hub])):
+                members = np.nonzero(hub & (caps == c))[0]
+                deg_m = deg[members]
+                starts_m = indptr[members]
+                if c == int(max_capacity) and int(deg_m.max()) > c:
+                    starts_r, degs_r, rowseg = split_rows(members, deg_m, starts_m, c)
+                else:
+                    starts_r, degs_r, rowseg = starts_m, deg_m, None
+                rows = len(starts_r)
+                ppr = c // T  # partial-table width per row
+                nch = -(-degs_r // T)  # real chunks per row (degs_r >= 1)
+                total = int(nch.sum())
+                row_of = np.repeat(np.arange(rows, dtype=np.int64), nch)
+                posr = np.arange(total, dtype=np.int64) - np.repeat(np.cumsum(nch) - nch, nch)
+                ch_start = starts_r[row_of] + posr * T
+                ch_deg = np.minimum(T, degs_r[row_of] - posr * T)
+                idx = np.full((total, T), self.sentinel, dtype=np.int32)
+                if self.has_weight:
+                    wmat = np.zeros((total, T), dtype=np.float32)
+                    valid = np.zeros((total, T), dtype=np.float32)
+                else:
+                    wmat = valid = None
+                fill_ell_rows(ch_start, ch_deg, src32, w32, idx, wmat, valid)
+                entry = {"idx": idx, "slot": (row_of * ppr + posr).astype(np.int32)}
+                if wmat is not None:
+                    entry["w"] = wmat
+                    entry["valid"] = valid
+                if rowseg is not None:
+                    entry["rowseg"] = rowseg.astype(np.int32)
+                    entry["fold"] = row_fold_matrix(rowseg, len(members))
+                self.tail.append(entry)
+                self.tail_meta.append((c, ppr, rows, len(members)))
+                parts.append(members)
+
+        vertex_order = np.concatenate(parts) if parts else np.zeros(0, dtype=np.int64)
+        pos = np.zeros(n, dtype=np.int64)
+        pos[vertex_order] = np.arange(len(vertex_order), dtype=np.int64)
+        self.unpermute = pos.astype(np.int32)
+        #: gathered slots (what the pad ratio prices); the partial tables
+        #: are rows-sized and left out
+        self.slots = sum(int(b["idx"].size) for b in self.torso) + sum(
+            int(b["idx"].size) for b in self.tail
+        )
+        self.pad_ratio = self.slots / max(1, len(src))
+
+    def to(self, device) -> "HybridPack":
+        """Move the index/weight/slot matrices to ``device`` once (in place);
+        the tail's slots become int64, the index type torch scatters take."""
+
+        def put(k, a):
+            t = torch.as_tensor(a, device=device)
+            return t.long() if k == "slot" else t
+
+        self.torso = [{k: put(k, v) for k, v in b.items()} for b in self.torso]
+        self.tail = [{k: put(k, v) for k, v in b.items()} for b in self.tail]
+        self.unpermute = torch.as_tensor(self.unpermute, device=device)
+        return self
+
+
+def hybrid_aggregate(
+    pack: HybridPack,
+    msgs: torch.Tensor,
+    op: str,
+    edge_transform: str = EdgeTransform.NONE,
+) -> torch.Tensor:
+    """Aggregate per-vertex messages over a HybridPack: the contract of
+    ``ell_aggregate`` (msgs (n,) or (n, k), the per-destination fold, the
+    identity where a vertex has no in-edges), with the same bits."""
+    identity = Combiner.IDENTITY[op]
+    if not pack.has_weight:
+        edge_transform = EdgeTransform.NONE
+    pad = torch.full(
+        (1,) + tuple(msgs.shape[1:]), identity, dtype=msgs.dtype, device=msgs.device
+    )
+    msgs_ext = torch.cat([msgs, pad], dim=0)
+    parts = []
+    for entry, (d, cap) in zip(pack.torso, pack.torso_meta):
+        m = flat_take(msgs_ext, entry["idx"])  # (rows, d[, k])
+        if "w" in entry:
+            m = _transform(m, entry["w"], None, op, edge_transform)
+        if cap > d:
+            # identity pad up to the pow2 tree width: the ELL bucket's
+            # sentinel leaves, never gathered
+            fill = torch.full(
+                (m.shape[0], cap - d) + tuple(m.shape[2:]), identity,
+                dtype=m.dtype, device=m.device,
+            )
+            m = torch.cat([m, fill], dim=1)
+        parts.append(tree_reduce(m, op))
+
+    if pack.num_zero:
+        parts.append(torch.full(
+            (pack.num_zero,) + tuple(msgs.shape[1:]), identity,
+            dtype=msgs.dtype, device=msgs.device,
+        ))
+
+    for entry, (_cap, ppr, rows, _num_slots) in zip(pack.tail, pack.tail_meta):
+        m = flat_take(msgs_ext, entry["idx"])  # (chunks, T[, k])
+        if "w" in entry:
+            m = _transform(m, entry["w"], entry["valid"], op, edge_transform)
+        part = tree_reduce(m, op)  # (chunks[, k]): aligned subtrees
+        table = torch.full(
+            (rows * ppr,) + tuple(part.shape[1:]), identity,
+            dtype=part.dtype, device=part.device,
+        )
+        table = table.index_copy(0, entry["slot"], part)
+        # the remaining upper tree levels: fold each row's partials
+        r = tree_reduce(table.reshape((rows, ppr) + tuple(part.shape[1:])), op)
+        if "fold" in entry:
+            r = fold_rows(op, r, entry["fold"])
+        parts.append(r)
+
     if not parts:
         return torch.full(msgs.shape, identity, dtype=msgs.dtype, device=msgs.device)
     stacked = torch.cat(parts, dim=0)
@@ -476,17 +746,26 @@ def sorted_segment_sum(data: torch.Tensor, plan: _SegSumPlan) -> torch.Tensor:
     if rc != 0:
         msg = lib.jg_error_string(rc).decode()
         raise RuntimeError(f"sorted_segment_sum kernel launch failed: {msg} ({rc})")
-    sorted_segment_sum.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        # recorded into a CUDA graph: the kernels run at each replay, which
+        # the host does not see
+        sorted_segment_sum.captured += 1
+    else:
+        sorted_segment_sum.launches += 1
     return out
 
 
-#: calls that launched the CUDA kernels since the last reset, one per call
-#: (the merge-path pass and its fix-up); the CPU path adds none
+#: calls that launched the CUDA kernels (the merge-path pass and its
+#: fix-up) since the last reset; the CPU path adds none
 sorted_segment_sum.launches = 0
+#: calls recorded into CUDA graphs since the last reset (their kernels
+#: launch only when a graph is replayed)
+sorted_segment_sum.captured = 0
 
 
 def reset_launch_counts() -> None:
     sorted_segment_sum.launches = 0
+    sorted_segment_sum.captured = 0
 
 
 def launch_counts() -> Dict[str, int]:

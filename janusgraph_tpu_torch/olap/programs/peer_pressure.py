@@ -80,7 +80,8 @@ class PeerPressureProgram(VertexProgram):
         )
 
     def terminate_device(self, values, steps_done):
-        return torch.logical_and(
-            torch.as_tensor(steps_done % 2 == 0 and steps_done > 1),
-            values["changed"] == 0.0,
+        # elementwise: on a device step counter `and` would be a host sync
+        after_resolve = torch.logical_and(
+            torch.as_tensor(steps_done % 2 == 0), torch.as_tensor(steps_done > 1)
         )
+        return torch.logical_and(after_resolve, values["changed"] == 0.0)

@@ -41,6 +41,7 @@ class ShortestPathProgram(VertexProgram):
     compute_keys = ("distance",)
     combiner = Combiner.MIN
     frontier_kind = "sssp"
+    setup_only_params = ("seed_index",)
 
     def __init__(
         self,

@@ -137,6 +137,36 @@ class VertexProgram:
         raise NotImplementedError
 
     def terminate_device(self, values: Dict[str, torch.Tensor], steps_done) -> torch.Tensor:
-        """Termination predicate on device scalars (the counterpart of the
-        reference's traced predicate). Default: never stop early."""
+        """Termination predicate on device scalars, read by the fused loop
+        (``steps_done`` is a device step counter there, so the predicate must
+        stay elementwise: no ``bool()``, no ``and``). Default: never stop
+        early."""
         return torch.tensor(False)
+
+    #: parameters consumed only by setup() (the initial state), not by the
+    #: superstep: left out of cache_key, so a new seed reuses the captured
+    #: fused loop
+    setup_only_params: Tuple[str, ...] = ()
+
+    def cache_key(self) -> Tuple:
+        """Identity of the program's superstep: its class and the scalar
+        parameters the superstep reads."""
+        return (
+            type(self).__module__,
+            type(self).__qualname__,
+            tuple(sorted(
+                (k, v) for k, v in self.__dict__.items()
+                if isinstance(v, (int, float, bool, str, tuple))
+                and k not in self.setup_only_params
+            )),
+        )
+
+    def fused_eligible(self) -> bool:
+        """Whether run() may fuse the iteration on the device: a constant
+        combiner monoid and an overridden terminate_device (the default never
+        stops early, which would change the meaning of a program that relies
+        on the host's terminate())."""
+        return (
+            type(self).combiner_for is VertexProgram.combiner_for
+            and type(self).terminate_device is not VertexProgram.terminate_device
+        )

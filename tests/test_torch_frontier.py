@@ -2,11 +2,13 @@
 
 Same edges, made with numpy from a seed, go through
 ``janusgraph_tpu_torch`` on the CPU and through the reference's
-``TPUExecutor(strategy="ell", autotune=False)`` on JAX's CPU backend (static
-frontier tiers, as the port has). BFS/SSSP/CC distances, labels and
-predecessors must be equal bit for bit on the frontier and the dense path
-of both packages, the per-hop tier trace equal hop for hop, and
-``capped_expand`` equal to the reference's in every slot, valid or not."""
+``TPUExecutor`` on JAX's CPU backend: both with ``autotune=False`` (the
+static frontier tiers) in the parity matrix, and both with their defaults
+(the autotuned ladders) in the tuned-ladder tests. BFS/SSSP/CC distances,
+labels and predecessors must be equal bit for bit on the frontier and the
+dense (fused) path of both packages, the per-hop tier trace equal hop for
+hop, and ``capped_expand`` equal to the reference's in every slot, valid or
+not."""
 
 import functools
 
@@ -63,7 +65,7 @@ class Pair:
         self.ref = TPUExecutor(
             self.ref_csr, strategy="ell", autotune=False, frontier=frontier, **ref_kw
         )
-        self.port = GPUExecutor(self.csr, device="cpu", frontier=frontier)
+        self.port = GPUExecutor(self.csr, device="cpu", frontier=frontier, autotune=False)
 
 
 _PAIRS = {}
@@ -90,7 +92,7 @@ def run_all(p, make_port, make_ref, **kw):
     pf = p.port.run(make_port(), **kw)
     pf_info = dict(p.port.last_run_info)
     pd = p.port.run(make_port(), frontier="off", **kw)
-    assert p.port.last_run_info["path"] == "host-loop"
+    assert p.port.last_run_info["path"] == "fused"
     rf = p.ref.run(make_ref(), **kw)
     rf_info = dict(p.ref.last_run_info)
     rd = p.ref.run(make_ref(), frontier="off", **kw)
@@ -284,7 +286,7 @@ def test_cc_auto_heuristic():
     assert ex._frontier_eligible(ConnectedComponentsProgram(), "always")
     assert ex._frontier_eligible(ShortestPathProgram(seed_index=0), "auto")
     want = ex.run(ConnectedComponentsProgram())
-    assert ex.last_run_info["path"] == "host-loop"
+    assert ex.last_run_info["path"] == "fused"
     assert ex.last_run_info["strategy_resolved"] == "ell"
     got = ex.run(ConnectedComponentsProgram(), frontier="always")
     assert ex.last_run_info["path"] == "frontier"
@@ -335,10 +337,10 @@ def test_subclass_and_off_run_dense():
     ex = GPUExecutor(csr, device="cpu")
     assert not ex._frontier_eligible(Custom(seed_index=0), "auto")
     got = ex.run(Custom(seed_index=0))
-    assert ex.last_run_info["path"] == "host-loop"
+    assert ex.last_run_info["path"] == "fused"
     off = GPUExecutor(csr, device="cpu", frontier="off")
     want = off.run(ShortestPathProgram(seed_index=0))
-    assert off.last_run_info["path"] == "host-loop"
+    assert off.last_run_info["path"] == "fused"
     np.testing.assert_array_equal(got["distance"], want["distance"])
     ex.run(ShortestPathProgram(seed_index=0))
     assert ex.last_run_info["path"] == "frontier"
@@ -378,3 +380,50 @@ def test_line_graph_many_hops():
     csr = csr_from_edges(n, np.arange(n - 1, dtype=np.int32), np.arange(1, n, dtype=np.int32))
     res = GPUExecutor(csr, device="cpu").run(ShortestPathProgram(seed_index=0))
     np.testing.assert_array_equal(res["distance"], np.arange(n, dtype=np.float32))
+
+
+# ------------------------------------------------------- tuned tier ladders
+def _hub_graph(seed=5, n=3000, m=30000):
+    """Skewed out-degrees, so a hub BFS climbs the tuned E ladder."""
+    rng = np.random.default_rng(seed)
+    src = (rng.zipf(1.4, m) % n).astype(np.int32)
+    dst = rng.integers(0, n, m).astype(np.int32)
+    return n, src, dst, None
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(undirected=True), dict(track_paths=True)],
+                         ids=["bfs", "undirected", "tracked"])
+def test_tuned_ladder_trace_equals_reference_default(kw):
+    """Both packages with their defaults: every hop prices on the
+    autotuner's ladders (tier_source "autotune"), hop for hop the same."""
+    n, src, dst, w = _hub_graph()
+    rg = ref.csr_from_edges(n, src, dst, w)
+    seed = int(np.argmax(rg.out_degree))
+    rex = TPUExecutor(rg)
+    want = rex.run(RefSP(seed_index=seed, max_iterations=4, **kw))
+    ex = GPUExecutor(csr_from_edges(n, src, dst, w), strategy="auto", device="cpu")
+    got = ex.run(ShortestPathProgram(seed_index=seed, max_iterations=4, **kw))
+    info, rinfo = ex.last_run_info, rex.last_run_info
+    assert info["path"] == "frontier" == rinfo["path"]
+    assert info["tiers"] == rinfo["tiers"] and len(info["tiers"]) >= 3
+    assert all(t["tier_source"] == "autotune" for t in info["tiers"])
+    # the engine prices on the directed view's ladder, whatever the view
+    sched = ex.frontier_engine().e_schedule
+    assert sched == rex._frontier_engine.e_schedule
+    assert all(t["E_cap"] in sched for t in info["tiers"])
+    assert info["autotune"] == rinfo["autotune"]
+    assert_bitwise(got, want)
+
+
+def test_tuned_and_static_ladders_give_the_same_distances():
+    n, src, dst, w = _hub_graph(seed=9)
+    csr = csr_from_edges(n, src, dst, w)
+    seed = int(np.argmax(csr.out_degree))
+    tuned = GPUExecutor(csr, device="cpu")
+    static = GPUExecutor(csr, device="cpu", autotune=False)
+    a = tuned.run(ShortestPathProgram(seed_index=seed, max_iterations=5))
+    b = static.run(ShortestPathProgram(seed_index=seed, max_iterations=5))
+    assert_bitwise(a, b)
+    assert {t["tier_source"] for t in tuned.last_run_info["tiers"]} == {"autotune"}
+    assert {t["tier_source"] for t in static.last_run_info["tiers"]} == {"static"}
+    assert "autotune" not in static.last_run_info

@@ -32,6 +32,14 @@ ex = GPUExecutor(csr, device="cpu")
 dist = ex.run(ShortestPathProgram(seed_index=0, max_iterations=4))["distance"]
 assert ex.last_run_info["path"] == "frontier" and dist[0] == 0.0
 paths = run_on(csr, TraversalCountProgram(hops=3), device="cpu")["count"].sum()
+hyb = GPUExecutor(csr, strategy="hybrid", device="cpu", hub_cutoff=4, tail_chunk=4)
+fused = hyb.run(PageRankProgram(max_iterations=10))["rank"]
+assert hyb.last_run_info["path"] == "fused" and hyb.last_run_info["strategy_resolved"] == "hybrid"
+assert np.array_equal(fused, GPUExecutor(csr, strategy="ell", device="cpu").run(
+    PageRankProgram(max_iterations=10), fused=False)["rank"])
+auto = GPUExecutor(csr, strategy="auto", device="cpu")
+auto.run(PageRankProgram(max_iterations=3))
+assert auto.last_run_info["autotune"]["device_kind"] == "cpu"
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m == "jax" or m.startswith("jax.")
     or m == "janusgraph_tpu" or m.startswith("janusgraph_tpu.")))

@@ -89,7 +89,7 @@ def test_traversal_count_matches_reference(name, hops, strategy):
     ex = GPUExecutor(csr, strategy=strategy, device="cpu")
     got = ex.run(TraversalCountProgram(hops=hops))
     info = ex.last_run_info
-    assert info["path"] == "host-loop" and info["supersteps"] == hops
+    assert info["path"] == "fused" and info["supersteps"] == hops
     assert info["strategy_resolved"] == strategy and info["kernel_launches"] == 0
     for want in (rex.run(RefTC(hops=hops)), ref.run_on(rg, RefTC(hops=hops), "cpu")):
         np.testing.assert_allclose(
