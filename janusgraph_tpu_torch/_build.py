@@ -87,7 +87,7 @@ def load_library() -> ctypes.CDLL:
         lib.jg_sorted_segment_sum.argtypes = [
             ptr, ptr, ptr, ptr,
             ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ptr, ptr, ptr,
+            ptr, ptr, ptr, ptr,
         ]
         lib.jg_sorted_segment_sum.restype = ctypes.c_int
         lib.jg_segsum_ctas_per_sm.argtypes = [ctypes.c_int]

@@ -48,7 +48,10 @@
 // read.
 //
 // Every add happens in an order fixed by the partition and no atomics touch
-// a float, so two launches on the same input give the same bits. No tensor
+// a float, so two launches on the same input give the same bits. The fix-up
+// also adds one to a device-side launch counter when the caller passes one:
+// a call replayed from a CUDA graph runs without the host wrapper, and the
+// counter still sees it. No tensor
 // cores: the function is one add per edge. The TPU kernel did T = 1024
 // multiply-adds per edge as a one-hot (B, T) matmul only because its matrix
 // unit was otherwise idle; here that would be 1024 times the work.
@@ -285,7 +288,11 @@ __global__ void __launch_bounds__(kThreads) segsum_merge_kernel(
 // Every load comes before the stores it feeds, and out is only written.
 __global__ void __launch_bounds__(kFixThreads) segsum_fixup_kernel(
     const int32_t* __restrict__ seg_start, const float* __restrict__ carry,
-    const float* __restrict__ head, int num_ctas, int num_segments, float* __restrict__ out) {
+    const float* __restrict__ head, int num_ctas, int num_segments, float* __restrict__ out,
+    unsigned long long* __restrict__ launches) {
+  // one CTA, and the calls on a stream run one after another: thread 0's
+  // increment needs no atomic
+  if (launches != nullptr && threadIdx.x == 0) *launches += 1ULL;
   const int per_thread = (num_ctas + kFixThreads - 1) / kFixThreads;
   const int lo = min(static_cast<int>(threadIdx.x) * per_thread, num_ctas);
   const int hi = min(lo + per_thread, num_ctas);
@@ -350,7 +357,7 @@ cudaError_t set_carveout() {
 extern "C" int jg_sorted_segment_sum(
     const void* data, const void* seg_ptr, const void* seg_start, const void* edge_start,
     int num_ctas, int items_per_cta, int num_segments, void* carry, void* out,
-    void* stream) {
+    void* launches, void* stream) {
   if (items_per_cta < 1 || items_per_cta > kMaxItemsPerCta) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -368,7 +375,7 @@ extern "C" int jg_sorted_segment_sum(
   if (e != cudaSuccess) return static_cast<int>(e);
   segsum_fixup_kernel<<<1, kFixThreads, 0, s>>>(
       static_cast<const int32_t*>(seg_start), carry_v, head_v, num_ctas, num_segments,
-      static_cast<float*>(out));
+      static_cast<float*>(out), static_cast<unsigned long long*>(launches));
   return static_cast<int>(cudaGetLastError());
 }
 

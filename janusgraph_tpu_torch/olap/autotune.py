@@ -2,7 +2,7 @@
 from a graph's degree statistics and the device's peaks — the port of
 ``janusgraph_tpu/olap/autotune.py`` (``GraphStats``, ``AutotuneDecision``,
 ``decide``, ``decide_tiers``, ``pick_tier``, ``save_measured``,
-``load_measured``).
+``load_measured``, ``DeltaDecision``, ``decide_delta``).
 
 ``decide()`` is a pure function of (GraphStats, device_kind, overrides,
 measured): the same inputs give the same decision. For the CPU and every
@@ -10,8 +10,7 @@ TPU kind it returns the reference's decision field for field. The port adds
 a "gpu" device class (kinds that match a GPU row of the peak table, the
 H100), priced with constants measured on the card by ``chip_smoke.py``.
 
-Not ported yet (ROADMAP.md): ``decide_sharded`` (multi-GPU) and
-``decide_delta`` (the delta overlay).
+Not ported yet (ROADMAP.md): ``decide_sharded`` (multi-GPU).
 """
 
 from __future__ import annotations
@@ -22,6 +21,10 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from janusgraph_tpu_torch.observability import profiler
+from janusgraph_tpu_torch.olap.features.kernels import (  # noqa: F401 (re-exported)
+    FEATURE_TIERS,
+    pick_feature_tier,
+)
 
 
 def _next_pow2(v: int) -> int:
@@ -30,31 +33,6 @@ def _next_pow2(v: int) -> int:
 
 #: pow2 hub-cutoff candidates the model searches
 CUTOFF_CANDIDATES = tuple(1 << k for k in range(3, 11))  # 8 .. 1024
-
-#: the dense-feature tier's padded lane widths (the reference's
-#: ``olap/features/kernels.py`` ladder, which ``decide(feature_dim=)`` reads)
-FEATURE_TIERS = (8, 16, 32, 64, 128, 256, 512)
-
-
-def pick_feature_tier(d: int, forced: int = 0) -> int:
-    """Smallest lane tier >= d (next pow2 above the ladder); ``forced`` pins
-    a power-of-two tier that does not truncate d."""
-    d = int(d)
-    if d < 1:
-        raise ValueError(f"feature_dim must be >= 1 (got {d})")
-    if forced:
-        forced = int(forced)
-        if forced & (forced - 1) or forced < d:
-            raise ValueError(
-                f"features dim tier {forced} must be a power of two >= the "
-                f"logical feature dim {d}"
-            )
-        return forced
-    for t in FEATURE_TIERS:
-        if t >= d:
-            return t
-    return _next_pow2(d)
-
 
 @dataclass(frozen=True)
 class GraphStats:
@@ -269,9 +247,7 @@ def decide(
     feature_tier = None
     cols = 1
     if feature_dim:
-        feature_tier = pick_feature_tier(
-            feature_dim, int(ov.get("feature_dim_tier") or 0)
-        )
+        feature_tier = pick_feature_tier(feature_dim)
         cols = feature_tier
 
     n, m = stats.num_vertices, stats.num_edges
@@ -358,6 +334,88 @@ def decide(
         feature_dim=feature_dim,
         feature_tier=feature_tier,
         modeled_ms={k: v * 1e3 for k, v in modeled.items()},
+    )
+
+
+@dataclass(frozen=True)
+class DeltaDecision:
+    """At what overlay depth folding the overlay back into the base pack
+    (``olap/delta.materialize``) beats carrying the fused lanes through
+    every superstep."""
+
+    compact_threshold: int
+    device_kind: str
+    source: str                      # model | config
+    cells: Dict[str, float] = field(default_factory=dict)
+
+    def as_dict(self) -> dict:
+        return {
+            "compact_threshold": self.compact_threshold,
+            "device_kind": self.device_kind,
+            "source": self.source,
+            "cells": {k: round(v, 9) for k, v in sorted(self.cells.items())},
+        }
+
+
+# The "gpu" delta constants are measured by chip_smoke.py's `delta` phase
+# at graph500 scale 20 with the reference bench's burst (0.5 % of the edges
+# added, 256 tombstones, 84,142 overlay records): the PageRank lane merge
+# replayed from a CUDA graph, 0.04162 ms a superstep, per record; and
+# `materialize`'s 7.058 s of host time on the card's host, per edge (an
+# NVIDIA H100 80GB HBM3 at its 700.00 W limit). cpu/tpu are the reference's.
+# The materialize figure is numpy time on whatever host the card has, not
+# device time. With these two, d_star = 5.3 * E (8 runs of 20 supersteps),
+# so every graph above about 12k edges gets the 65,536 cap: on the gpu
+# class the threshold is the cap until a caller feeds the decision its own
+# run counts.
+
+#: per-record per-superstep cost of the fused delta lanes
+_DELTA_LANE_COST_S = {"cpu": 8e-9, "tpu": 5.5e-8, "gpu": 4.946e-10}
+
+#: per-edge cost of the zero-scan materialize (numpy multiset merge + CSR
+#: rebuild); the reference's one figure for cpu and tpu
+_DELTA_MATERIALIZE_COST_S = {"cpu": 2.5e-8, "tpu": 2.5e-8, "gpu": 4.207e-7}
+_REPACK_SCAN_COST_S = 3.5e-7
+
+
+def decide_delta(
+    num_edges: int,
+    num_vertices: int,
+    device_kind: str = "cpu",
+    overrides: Optional[dict] = None,
+    expected_runs: int = 8,
+) -> DeltaDecision:
+    """The overlay depth at which compaction amortizes, a pure function of
+    (graph size, device kind, overrides): an overlay of depth d costs about
+    d lane cells per superstep per run, folding it one O(E) materialize.
+    The threshold solves ``expected_runs * supersteps * d * lane_cost >=
+    materialize_cost``, clamped to a pow2 in [1024, 65536].
+    ``overrides={"compact_threshold": n}`` wins. For the CPU and TPU kinds
+    the decision is the reference's."""
+    ov = overrides or {}
+    if ov.get("compact_threshold"):
+        return DeltaDecision(
+            compact_threshold=int(ov["compact_threshold"]),
+            device_kind=device_kind, source="config",
+        )
+    kind = device_class(device_kind)
+    supersteps = 20.0  # a PageRank-shaped run's typical iteration count
+    lane = _DELTA_LANE_COST_S[kind]
+    mat_s = num_edges * _DELTA_MATERIALIZE_COST_S[kind]
+    repack_s = num_edges * _REPACK_SCAN_COST_S
+    d_star = mat_s / max(expected_runs * supersteps * lane, 1e-12)
+    threshold = _next_pow2(int(max(1024, min(d_star, 1 << 16))))
+    threshold = min(threshold, 1 << 16)
+    return DeltaDecision(
+        compact_threshold=threshold,
+        device_kind=device_kind,
+        source="model",
+        cells={
+            "materialize_s": mat_s,
+            "repack_s": repack_s,
+            "lane_cost_per_record_per_step_s": lane,
+            "d_star": d_star,
+        },
     )
 
 

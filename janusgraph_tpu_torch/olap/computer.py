@@ -28,6 +28,7 @@ def run_on(
     hub_cutoff: int = None,
     tail_chunk: int = None,
     autotune_persist: bool = None,
+    delta=None,
 ) -> Dict[str, np.ndarray]:
     """Run ``program`` over ``csr`` on ``device`` (the card by default) and
     return its final state as numpy arrays. ``frontier`` ("auto", "off",
@@ -35,12 +36,15 @@ def run_on(
     ``sync_every`` is how many supersteps the host loop runs between
     fetches of the aggregators; ``checkpoint_path``/``checkpoint_every``,
     ``fault_hook`` and ``resume_attempts`` checkpoint the run and resume it
-    after a ``SuperstepPreempted``; the other arguments are the
-    ``GPUExecutor``'s tuner options."""
+    after a ``SuperstepPreempted``; ``delta`` (an ``OverlayView`` of
+    ``csr``) runs over the base plus its pending writes; the other
+    arguments are the ``GPUExecutor``'s tuner options. A dense program
+    takes its lane tier and ``torch.matmul`` switch itself (``dim_tier=``,
+    ``native_matmul=``)."""
     ex = GPUExecutor(
         csr, strategy=strategy, device=device, frontier=frontier,
         autotune=autotune, hub_cutoff=hub_cutoff, tail_chunk=tail_chunk,
-        autotune_persist=autotune_persist,
+        autotune_persist=autotune_persist, delta=delta,
     )
     return ex.run(
         program, sync_every=sync_every, checkpoint_every=checkpoint_every,

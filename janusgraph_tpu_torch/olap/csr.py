@@ -8,8 +8,8 @@ snapshot across, so both packages compute on the same graph state.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -34,6 +34,10 @@ class CSRGraph:
     out_degree: np.ndarray          # (n,) int32
     in_edge_weight: Optional[np.ndarray] = None   # (m,) float32, aligned to in_src
     out_edge_weight: Optional[np.ndarray] = None  # (m,) float32, aligned to out_dst
+    properties: Dict[str, np.ndarray] = field(default_factory=dict)
+    labels: Optional[np.ndarray] = None           # (n,) int64 vertex-label ids
+    in_edge_type: Optional[np.ndarray] = None     # (m,) int32, aligned to in_src
+    out_edge_type: Optional[np.ndarray] = None    # (m,) int32, aligned to out_dst
 
     @property
     def num_vertices(self) -> int:
@@ -48,15 +52,26 @@ class CSRGraph:
         """(n,) int32 in-degrees, derived from in_indptr."""
         return np.diff(self.in_indptr).astype(np.int32)
 
+    def index_of(self, vid: int) -> int:
+        i = int(np.searchsorted(self.vertex_ids, vid))
+        if i >= len(self.vertex_ids) or self.vertex_ids[i] != vid:
+            raise KeyError(f"vertex id {vid} not in snapshot")
+        return i
+
+    def id_of(self, index: int) -> int:
+        return int(self.vertex_ids[index])
+
 
 def csr_from_edges(
     n: int,
     src: np.ndarray,
     dst: np.ndarray,
     weights: Optional[np.ndarray] = None,
+    edge_types: Optional[np.ndarray] = None,
 ) -> CSRGraph:
     """Build a CSRGraph from an edge list with dense [0, n) ids — the
-    synthetic-graph path (graph500 R-MAT etc.)."""
+    synthetic-graph path (graph500 R-MAT etc.). ``edge_types``: optional
+    (m,) per-edge label ids, carried into ``in_edge_type``/``out_edge_type``."""
     src = np.asarray(src, dtype=np.int32)
     dst = np.asarray(dst, dtype=np.int32)
     out_indptr, out_dst, out_order, in_indptr, in_src, in_order = (
@@ -64,6 +79,7 @@ def csr_from_edges(
     )
     if weights is not None:
         weights = np.asarray(weights)
+    et = np.asarray(edge_types, dtype=np.int32) if edge_types is not None else None
     return CSRGraph(
         vertex_ids=np.arange(n, dtype=np.int64),
         out_indptr=out_indptr,
@@ -73,6 +89,8 @@ def csr_from_edges(
         out_degree=np.diff(out_indptr).astype(np.int32),
         in_edge_weight=weights[in_order].astype(np.float32) if weights is not None else None,
         out_edge_weight=weights[out_order].astype(np.float32) if weights is not None else None,
+        in_edge_type=et[in_order] if et is not None else None,
+        out_edge_type=et[out_order] if et is not None else None,
     )
 
 
@@ -85,14 +103,18 @@ def csr_from_arrays(
     out_degree,
     in_edge_weight=None,
     out_edge_weight=None,
+    properties=None,
+    labels=None,
+    in_edge_type=None,
+    out_edge_type=None,
 ) -> CSRGraph:
     """The port's CSRGraph from a reference snapshot's fields (numpy
     arrays, e.g. ``dataclasses.asdict``-style from
     ``janusgraph_tpu.olap.csr.CSRGraph``). Dtypes are normalized to the
     layout above; values are copied as they are."""
 
-    def opt_f32(a):
-        return None if a is None else np.asarray(a, dtype=np.float32)
+    def opt(a, dtype):
+        return None if a is None else np.asarray(a, dtype=dtype)
 
     return CSRGraph(
         vertex_ids=np.asarray(vertex_ids, dtype=np.int64),
@@ -101,6 +123,10 @@ def csr_from_arrays(
         in_indptr=np.asarray(in_indptr, dtype=np.int64),
         in_src=np.asarray(in_src, dtype=np.int32),
         out_degree=np.asarray(out_degree, dtype=np.int32),
-        in_edge_weight=opt_f32(in_edge_weight),
-        out_edge_weight=opt_f32(out_edge_weight),
+        in_edge_weight=opt(in_edge_weight, np.float32),
+        out_edge_weight=opt(out_edge_weight, np.float32),
+        properties={k: np.asarray(v) for k, v in (properties or {}).items()},
+        labels=opt(labels, np.int64),
+        in_edge_type=opt(in_edge_type, np.int32),
+        out_edge_type=opt(out_edge_type, np.int32),
     )

@@ -36,13 +36,25 @@ reference's format (``olap/checkpoint.py``); a ``SuperstepPreempted`` raised
 by ``fault_hook`` resumes from the last one, up to ``resume_attempts``
 times, with the same bits as an uninterrupted run.
 
-Not ported yet (ROADMAP.md): the delta overlay, typed edge channels, the
-sddmm mode and telemetry spans.
+Delta overlay (``delta=`` or ``set_delta``, ``olap/delta.py``): supersteps
+run over the base snapshot plus the writes pending against it. The base
+aggregation runs over the base rows with any strategy, then the overlay's
+lanes merge (``fused_delta_aggregate``); results cover the base vertices
+plus the overlay's new ones.
+
+Dense-feature programs (``olap/features``): ``[n, d]`` state aggregates
+through the same strategies; ``message_mode == "sddmm"`` routes ELL, hybrid
+and segsum/segment to the fused SDDMM aggregates; the program picks its
+padded lane tier (``dim_tier=``).
+
+Not ported yet (ROADMAP.md): typed edge channels and telemetry spans.
 """
 
 from __future__ import annotations
 
+import gc
 import time
+import weakref
 from typing import Dict, Tuple
 
 import numpy as np
@@ -54,6 +66,13 @@ from janusgraph_tpu_torch.native import segment_ids
 from janusgraph_tpu_torch.olap import autotune, kernels
 from janusgraph_tpu_torch.olap.checkpoint import load_checkpoint, save_checkpoint
 from janusgraph_tpu_torch.olap.csr import CSRGraph
+from janusgraph_tpu_torch.olap.delta import (
+    FusedHostView,
+    OverlayView,
+    fused_delta_aggregate,
+    program_delta_compatible,
+)
+from janusgraph_tpu_torch.olap.features import kernels as fkernels
 from janusgraph_tpu_torch.olap.frontier import FrontierEngine
 from janusgraph_tpu_torch.olap.vertex_program import (
     Combiner,
@@ -69,14 +88,20 @@ FRONTIER_MODES = ("auto", "off", "always")
 
 class _DeviceGraph:
     """CSR arrays on the device + static metadata: the graph view programs
-    read (num_vertices / out_degree / active / ...).
+    read (num_vertices / local_num_vertices / out_degree / active / ...).
 
     Array fields are lazy: each moves to the device on first access and is
-    cached, so a strategy that never reads an O(E) array never ships it."""
+    cached, so a strategy that never reads an O(E) array never ships it.
+
+    Over a delta overlay (``host_view``, a ``FusedHostView``) the counts and
+    the ``_FUSED_FIELDS`` come from base + overlay, over the padded domain
+    [0, local_num_vertices); the base index arrays are the ``base`` view's,
+    moved once and shared across overlay swaps."""
 
     _LAZY = {
         "active": lambda csr, dev: torch.ones(csr.num_vertices, dtype=torch.float32, device=dev),
         "out_degree": lambda csr, dev: torch.as_tensor(csr.out_degree, dtype=torch.float32, device=dev),
+        "in_degree": lambda csr, dev: torch.as_tensor(csr.in_degree, dtype=torch.float32, device=dev),
         "in_src": lambda csr, dev: torch.as_tensor(csr.in_src, device=dev),
         "in_dst_seg": lambda csr, dev: torch.as_tensor(
             segment_ids(csr.in_indptr, csr.num_edges).astype(np.int64), device=dev
@@ -95,18 +120,38 @@ class _DeviceGraph:
         ),
     }
 
-    def __init__(self, csr: CSRGraph, device: torch.device):
+    #: fields a delta view takes from the fused host view (degrees and
+    #: activity patched by the overlay)
+    _FUSED_FIELDS = frozenset(("active", "out_degree", "in_degree"))
+
+    def __init__(self, csr: CSRGraph, device: torch.device, host_view: FusedHostView = None,
+                 base: "_DeviceGraph" = None):
         self._csr = csr
         self.device = device
-        self.num_vertices = csr.num_vertices
-        self.num_edges = csr.num_edges
+        self._hv = host_view
+        self._base = base
+        if host_view is not None:
+            self.num_vertices = host_view.num_vertices
+            self.local_num_vertices = host_view.local_num_vertices
+            self.num_edges = host_view.num_edges
+        else:
+            self.num_vertices = self.local_num_vertices = csr.num_vertices
+            self.num_edges = csr.num_edges
+        self.global_offset = 0
 
     def __getattr__(self, name):
         # only reached when `name` is not an instance attribute yet
         fn = _DeviceGraph._LAZY.get(name)
         if fn is None:
             raise AttributeError(name)
-        val = fn(self._csr, self.device)
+        if self._hv is not None and name in _DeviceGraph._FUSED_FIELDS:
+            val = torch.as_tensor(
+                np.asarray(getattr(self._hv, name), dtype=np.float32), device=self.device
+            )
+        elif self._base is not None:
+            val = getattr(self._base, name)
+        else:
+            val = fn(self._csr, self.device)
         setattr(self, name, val)
         return val
 
@@ -135,7 +180,10 @@ class _FusedLoop:
     def __init__(self, executor: "GPUExecutor", program: VertexProgram, op: str,
                  state: Dict[str, torch.Tensor], mem: Dict[str, torch.Tensor]):
         dev = executor.device
-        self.ex = executor
+        # a proxy, not a reference: the executor holds its loops, and a
+        # cycle would leave a dropped executor's CUDA graphs to the cyclic
+        # collector, which may free them while another graph is capturing
+        self.ex = weakref.proxy(executor)
         self.program = program
         self.op = op
         self.state = {k: v.clone() for k, v in state.items()}
@@ -147,6 +195,10 @@ class _FusedLoop:
         self.mem_ops: Dict[str, str] = {}
         #: chunk length -> (CUDA graph, kernel launches captured in it)
         self.graphs: Dict[int, Tuple[torch.cuda.CUDAGraph, int]] = {}
+        #: the program objects the graphs were captured with: their device
+        #: arrays (a GCN's weights) are read by every replay, so they must
+        #: outlive the graphs
+        self.captured_with = []
         self.pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
 
     def load(self, state, mem, steps_done: int, limit: int) -> bool:
@@ -226,18 +278,29 @@ class _FusedLoop:
 
     def _capture(self, length: int) -> Tuple[torch.cuda.CUDAGraph, int]:
         """Capture ``length`` steps and the status into a CUDA graph, with
-        any hidden host sync raising (nothing runs while capturing)."""
+        any hidden host sync raising (nothing runs while capturing). The
+        cyclic collector is off meanwhile: freeing another graph during a
+        capture (one of a dropped object held in a reference cycle)
+        invalidates the capture."""
         graph = torch.cuda.CUDAGraph()
+        if not any(p is self.program for p in self.captured_with):
+            self.captured_with.append(self.program)
         captured0 = kernels.sorted_segment_sum.captured
-        with torch.cuda.graph(graph, pool=self.pool):
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                for _ in range(length):
-                    self.step()
-                self.finish()
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    for _ in range(length):
+                        self.step()
+                    self.finish()
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+        finally:
+            if collecting:
+                gc.enable()
         return graph, kernels.sorted_segment_sum.captured - captured0
 
 
@@ -248,7 +311,9 @@ class GPUExecutor:
     engine its tuned ladders; "auto" needs it. ``hub_cutoff``/``tail_chunk``
     fix the hybrid layout; ``autotune_persist`` (default on) keeps the last
     run's measured record beside the checkpoint file and feeds it to the
-    next executor's decision."""
+    next executor's decision. ``delta`` is an
+    ``OverlayView`` of ``csr`` whose pending writes every run consumes
+    (``set_delta`` swaps it)."""
 
     #: the longest fused chunk (CUDA graph) in supersteps; chunk lengths are
     #: the powers of two up to it, so a run that stops early computes at most
@@ -265,6 +330,7 @@ class GPUExecutor:
         hub_cutoff: int = None,
         tail_chunk: int = None,
         autotune_persist: bool = None,
+        delta: OverlayView = None,
     ):
         if strategy not in STRATEGIES:
             raise ValueError(f"unknown aggregation strategy: {strategy!r}")
@@ -279,17 +345,27 @@ class GPUExecutor:
         self.device = resolve_device(device)
         self.csr = csr
         self._strategy_cfg = strategy
-        self.g = _DeviceGraph(csr, self.device)
+        #: the overlay-free view, kept across overlay swaps so its arrays
+        #: move to the device once
+        self._base_g = _DeviceGraph(csr, self.device)
+        self.g = self._base_g
+        self._delta = None
+        #: the padded feature dim of the current run (0: scalar program)
+        self._feature_dim_run = 0
         self._hub_cutoff_cfg = hub_cutoff or None
         self._tail_chunk_cfg = tail_chunk or None
         self._autotune_persist = True if autotune_persist is None else bool(autotune_persist)
         self._measured_path = None
-        #: decisions keyed (undirected, feature_dim); scalar programs only
-        #: so far, so feature_dim is 0
+        #: decisions keyed (undirected, padded feature dim; 0 for scalar
+        #: programs)
         self._autotune_decisions: Dict[Tuple, autotune.AutotuneDecision] = {}
         self._ell_packs: Dict[bool, kernels.ELLPack] = {}
         self._hybrid_packs: Dict[bool, kernels.HybridPack] = {}
         self._segsum_plans: Dict[str, kernels._SegSumPlan] = {}
+        #: (strategy, undirected) -> the sddmm row destinations on the device
+        self._sddmm_rows_cache: Dict[Tuple, object] = {}
+        #: keyed (program.cache_key(), monoid, strategy, the overlay's lane
+        #: signature or None)
         self._fused_loops: Dict[Tuple, _FusedLoop] = {}
         self._frontier_cfg = frontier
         self._frontier_engine = None
@@ -306,6 +382,49 @@ class GPUExecutor:
         #: resume of the current run
         self._hook_step = None
         self._resume_log = []
+        self.set_delta(delta)
+
+    # ----------------------------------------------------------------- delta
+    def set_delta(self, delta: OverlayView) -> None:
+        """Swap the pending-overlay view without rebuilding the executor:
+        the base arrays, packs, plans, tuner decisions and frontier engine
+        stay. ``None`` (or an empty view) returns to the base snapshot. The
+        fused loops captured over the previous view bake its lane tensors'
+        addresses, so they are dropped; the next run recaptures."""
+        delta = delta if (delta is not None and delta.depth) else None
+        if delta is not None:
+            if self.csr.in_edge_weight is not None:
+                raise ValueError(
+                    "delta-fused runs support unfiltered weightless "
+                    "snapshots only (the change capture carries no weight "
+                    "column)"
+                )
+            if delta.csr is not self.csr:
+                raise ValueError(
+                    "overlay view was built over a different base snapshot "
+                    "— an executor only serves overlays of its own base CSR"
+                )
+        if delta is self._delta:
+            return
+        self._delta = delta
+        self.g = self._base_g if delta is None else _DeviceGraph(
+            self.csr, self.device, host_view=FusedHostView(delta), base=self._base_g,
+        )
+        self._fused_loops = {k: lp for k, lp in self._fused_loops.items() if k[-1] is None}
+
+    def _delta_sig(self, program: VertexProgram):
+        """The overlay's lane signature for the program's edge view (part
+        of the fused loops' keys), or None without an overlay. Raises where
+        the lanes exceed the view's ``max_lane_cells``."""
+        if self._delta is None:
+            return None
+        sig = self._delta.sig(bool(program.undirected))
+        if sig is None:
+            raise ValueError(
+                "delta overlay lanes exceed max_lane_cells — materialize "
+                "the overlay instead of consuming it fused"
+            )
+        return sig
 
     # -------------------------------------------------------------- autotune
     def _device_kind(self) -> str:
@@ -317,7 +436,7 @@ class GPUExecutor:
         """The cached decision for one edge view: ``autotune.decide`` over
         the view's degree statistics, this device's kind, the configured
         hybrid layout and the persisted measured record, if any."""
-        key = (undirected, 0)
+        key = (undirected, self._feature_dim_run)
         decision = self._autotune_decisions.get(key)
         if decision is not None:
             return decision
@@ -330,7 +449,10 @@ class GPUExecutor:
         ov = {"hub_cutoff": self._hub_cutoff_cfg, "tail_chunk": self._tail_chunk_cfg}
         if self._strategy_cfg != "auto":
             ov["strategy"] = self._strategy_cfg
-        decision = autotune.decide(stats, self._device_kind(), overrides=ov, measured=measured)
+        decision = autotune.decide(
+            stats, self._device_kind(), overrides=ov, measured=measured,
+            feature_dim=self._feature_dim_run,
+        )
         self._autotune_decisions[key] = decision
         return decision
 
@@ -349,10 +471,14 @@ class GPUExecutor:
     # ------------------------------------------------------------ structures
     def _resolve_strategy(self, op: str, undirected: bool = False) -> str:
         """The strategy a combiner monoid and edge view take: the segsum
-        kernel is SUM-only, other monoids fall back to ELL."""
+        kernel is SUM-only, other monoids fall back to ELL; it sums
+        scalars only, so a dense program's [n, d] rows take the segment
+        path."""
         base = self._base_strategy(undirected)
         if base == "segsum" and op != Combiner.SUM:
             return "ell"
+        if base == "segsum" and self._feature_dim_run:
+            return "segment"
         return base
 
     def _edge_view(self, undirected: bool):
@@ -395,6 +521,29 @@ class GPUExecutor:
             self._hybrid_packs[undirected] = pack
         return pack
 
+    def _sddmm_rows(self, strategy: str, undirected: bool):
+        """Row-destination vectors of the fused SDDMM pass, aligned with the
+        strategy's pack layout; built and moved once per (strategy, view)."""
+        key = (strategy, undirected)
+        rows = self._sddmm_rows_cache.get(key)
+        if rows is None:
+            src, dst, _w = self._edge_view(undirected)
+            n = self.csr.num_vertices
+
+            def put(arrs):
+                return [torch.as_tensor(a, device=self.device) for a in arrs]
+
+            if strategy == "ell":
+                rows = put(fkernels.ell_row_dsts(src, dst, n))
+            else:
+                pack = self._hybrid_pack(undirected)
+                host = fkernels.hybrid_row_dsts(
+                    src, dst, n, hub_cutoff=pack.hub_cutoff, tail_chunk=pack.tail_chunk,
+                )
+                rows = {k: put(v) for k, v in host.items()}
+            self._sddmm_rows_cache[key] = rows
+        return rows
+
     def _segsum_plan(self, orientation: str) -> kernels._SegSumPlan:
         """One plan per orientation, built once."""
         plan = self._segsum_plans.get(orientation)
@@ -421,10 +570,32 @@ class GPUExecutor:
 
     # ------------------------------------------------------------ superstep
     def _aggregate(self, program: VertexProgram, op: str, outgoing: torch.Tensor):
-        """(aggregated messages, the strategy that computed them)."""
+        """(aggregated messages, the strategy that computed them). Over an
+        overlay, the base aggregation reads the base rows' messages (the
+        packs' sentinel stays the identity), then the lanes merge."""
+        if self._delta is None:
+            return self._base_aggregate(program, op, outgoing)
+        lanes = self._delta.device_args(self.device, bool(program.undirected))
+        agg, strategy = self._base_aggregate(program, op, outgoing[: self.csr.num_vertices])
+        return fused_delta_aggregate(lanes, outgoing, agg, op), strategy
+
+    def _base_aggregate(self, program: VertexProgram, op: str, outgoing: torch.Tensor):
         g = self.g
-        n = g.num_vertices
+        n = self.csr.num_vertices
         strategy = self._resolve_strategy(op, program.undirected)
+        if getattr(program, "message_mode", None) == "sddmm":
+            # dense tier: per-edge dot-attention coefficients in the gather
+            if strategy == "ell":
+                return fkernels.sddmm_ell_aggregate(
+                    self._ell_pack(False), self._sddmm_rows("ell", False), outgoing, op
+                ), strategy
+            if strategy == "hybrid":
+                return fkernels.sddmm_hybrid_aggregate(
+                    self._hybrid_pack(False), self._sddmm_rows("hybrid", False), outgoing, op
+                ), strategy
+            return fkernels.sddmm_segment_aggregate(
+                outgoing, g.in_src, g.in_dst_seg, n
+            ), "segment"
         if strategy == "ell":
             return kernels.ell_aggregate(
                 self._ell_pack(program.undirected), outgoing, op, program.edge_transform
@@ -535,8 +706,21 @@ class GPUExecutor:
         raise ``SuperstepPreempted``: with checkpointing on, the run then
         resumes from the last checkpoint, up to ``resume_attempts`` times."""
         check_weighted_transforms(program, self.csr)
+        self._prepare_dense(program)
         if frontier not in (None,) + FRONTIER_MODES:
             raise ValueError(f"unknown frontier mode: {frontier!r}")
+        if self._delta is not None:
+            if not program_delta_compatible(program):
+                raise ValueError(
+                    "delta-fused runs support default-edge-view programs "
+                    "only (typed edge channels aggregate over their own "
+                    "packs and sddmm row destinations are base-layout) — "
+                    "materialize the overlay for this program"
+                )
+            self._delta_sig(program)
+            # the frontier engine walks the base adjacency; over an overlay
+            # the dense path is the right one
+            frontier = "off"
         if sync_every < 1:
             raise ValueError(f"sync_every must be >= 1, got {sync_every}")
         self._measured_path = (
@@ -603,6 +787,17 @@ class GPUExecutor:
                     "preempted_at": self._hook_step,
                 })
         info = self.last_run_info
+        if self._delta is not None:
+            # trim the vcap padding: the real rows are the base snapshot's
+            # and the overlay's new vertices (removed slots stay, inert;
+            # compact_result drops them)
+            out = {k: v[: self._delta.n_real] for k, v in out.items()}
+            info["delta"] = {
+                "overlay_depth": self._delta.depth,
+                "n_extra": self._delta.n_extra,
+                "removed": int(len(self._delta.removed_idx)),
+                "fused": True,
+            }
         info["run_wall_s"] = time.perf_counter() - t0
         info["kernel_launches"] = kernels.sorted_segment_sum.launches - launches0
         if resumes:
@@ -610,6 +805,19 @@ class GPUExecutor:
             info["resume_steps"] = resume_steps
         self._finish_run(program)
         return out
+
+    def _prepare_dense(self, program: VertexProgram) -> None:
+        """The dense tier's run set-up: the tuner's feature-dim input and
+        the sddmm mode's envelope."""
+        self._feature_dim_run = int(getattr(program, "d_pad", 0) or 0)
+        if getattr(program, "message_mode", None) == "sddmm":
+            if program.undirected:
+                raise ValueError(
+                    "sddmm message mode aggregates over the in-CSR only — "
+                    "undirected dense programs are not supported"
+                )
+            if getattr(type(program), "channel_for", None) is not None:
+                raise ValueError("sddmm message mode cannot ride typed edge channels")
 
     def _call_hook(self, fault_hook, step: int) -> None:
         if fault_hook is not None:
@@ -638,7 +846,7 @@ class GPUExecutor:
         pad_ratio = round(pack.pad_ratio, 4) if pack is not None else None
         info["pad_ratio"] = pad_ratio
         info["ell_pad_ratio"] = pad_ratio  # the reference's older key
-        if self._autotune_enabled or (undirected, 0) in self._autotune_decisions:
+        if self._autotune_enabled or (undirected, self._feature_dim_run) in self._autotune_decisions:
             info["autotune"] = self._autotune(undirected).as_dict()
         if self._measured_path and pad_ratio is not None and info.get("supersteps"):
             autotune.save_measured(self._measured_path, {
@@ -729,7 +937,8 @@ class GPUExecutor:
     def _fused_loop(self, program, op, state, mem, steps_done, limit) -> Tuple[_FusedLoop, bool]:
         """The cached loop of (program, monoid, strategy) loaded with this
         run's starting point, or a new one: (loop, whether it is new)."""
-        key = (program.cache_key(), op, self._resolve_strategy(op, program.undirected))
+        key = (program.cache_key(), op, self._resolve_strategy(op, program.undirected),
+               self._delta_sig(program))
         loop = self._fused_loops.get(key)
         if loop is not None and loop.load(state, mem, steps_done, limit):
             loop.program = program

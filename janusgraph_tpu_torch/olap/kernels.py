@@ -727,6 +727,7 @@ def sorted_segment_sum(data: torch.Tensor, plan: _SegSumPlan) -> torch.Tensor:
 
     lib = _build.load_library()
     arrs = plan.device_arrays(data.device)
+    counter = _device_counter(data.device)
     # each CTA's open run, then its part of the first segment it closes
     carry = torch.empty(2 * plan.num_ctas, dtype=torch.float32, device=data.device)
     with torch.cuda.device(data.device):
@@ -741,6 +742,7 @@ def sorted_segment_sum(data: torch.Tensor, plan: _SegSumPlan) -> torch.Tensor:
             plan.num_segments,
             carry.data_ptr(),
             out.data_ptr(),
+            counter.data_ptr(),
             stream,
         )
     if rc != 0:
@@ -762,10 +764,45 @@ sorted_segment_sum.launches = 0
 #: launch only when a graph is replayed)
 sorted_segment_sum.captured = 0
 
+#: device -> the (1,) int64 counter the fix-up kernel adds one to at every
+#: run, eager or replayed from a CUDA graph
+_DEVICE_COUNTERS: Dict[str, torch.Tensor] = {}
+
+
+def _counter_key(device) -> str:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
+def _device_counter(device) -> torch.Tensor:
+    key = _counter_key(device)
+    counter = _DEVICE_COUNTERS.get(key)
+    if counter is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "sorted_segment_sum: the first call on a device must run eagerly, "
+                "not inside a CUDA graph capture"
+            )
+        counter = torch.zeros(1, dtype=torch.int64, device=device)
+        _DEVICE_COUNTERS[key] = counter
+    return counter
+
+
+def device_launches(device) -> int:
+    """Runs of the kernels on ``device`` since the last reset, as the
+    kernels count them (replays from CUDA graphs included); reads the
+    device, so it waits for the work queued before it."""
+    counter = _DEVICE_COUNTERS.get(_counter_key(device))
+    return int(counter.item()) if counter is not None else 0
+
 
 def reset_launch_counts() -> None:
     sorted_segment_sum.launches = 0
     sorted_segment_sum.captured = 0
+    for counter in _DEVICE_COUNTERS.values():
+        counter.zero_()
 
 
 def launch_counts() -> Dict[str, int]:

@@ -11,3 +11,5 @@ from janusgraph_tpu_torch.olap.programs.shortest_path import (  # noqa: F401
 from janusgraph_tpu_torch.olap.programs.traversal_count import (  # noqa: F401
     TraversalCountProgram,
 )
+from janusgraph_tpu_torch.olap.programs.gcn import GCNForwardProgram  # noqa: F401
+from janusgraph_tpu_torch.olap.programs.embedding import EmbeddingUpdateProgram  # noqa: F401

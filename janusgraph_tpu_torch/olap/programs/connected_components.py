@@ -23,13 +23,15 @@ class ConnectedComponentsProgram(VertexProgram):
         self.max_iterations = max_iterations
 
     def setup(self, graph):
-        if graph.num_vertices >= (1 << 24):
+        # the state spans the view's whole index domain: a delta view pads
+        # it past the real vertices (``local_num_vertices``)
+        if graph.local_num_vertices + graph.global_offset >= (1 << 24):
             raise ValueError(
                 "float32 component labels are exact below 2^24 vertices only"
             )
         labels = torch.arange(
-            graph.num_vertices, dtype=torch.float32, device=graph.device
-        )
+            graph.local_num_vertices, dtype=torch.float32, device=graph.device
+        ) + graph.global_offset
         changed = torch.tensor(1.0, device=graph.device)
         return {"component": labels}, {"changed": (Combiner.SUM, changed)}
 

@@ -39,7 +39,9 @@ class PeerPressureProgram(VertexProgram):
         return torch.remainder(labels.to(torch.int32), self.K)
 
     def setup(self, graph):
-        labels = torch.arange(graph.num_vertices, dtype=torch.float32, device=graph.device)
+        labels = torch.arange(
+            graph.local_num_vertices, dtype=torch.float32, device=graph.device
+        ) + graph.global_offset
         changed = torch.tensor(1.0, device=graph.device)
         return (
             {"cluster": labels, "chosen": self._bucket(labels)},

@@ -69,10 +69,15 @@ class ShortestPathProgram(VertexProgram):
         if track_paths:
             self.compute_keys = ("distance", "predecessor")
 
+    @staticmethod
+    def _index(graph) -> torch.Tensor:
+        """The global index of every row of the view's domain."""
+        return torch.arange(graph.local_num_vertices, device=graph.device) + graph.global_offset
+
     def setup(self, graph):
-        idx = torch.arange(graph.num_vertices, device=graph.device)
+        idx = self._index(graph)
         is_seed = idx == self.seed_index
-        inf = torch.full((graph.num_vertices,), INF, dtype=torch.float32, device=graph.device)
+        inf = torch.full((graph.local_num_vertices,), INF, dtype=torch.float32, device=graph.device)
         state = {"distance": _where(is_seed, 0.0, inf)}
         if self.track_paths:
             if graph.num_vertices >= (1 << 24):
@@ -91,8 +96,7 @@ class ShortestPathProgram(VertexProgram):
     def message(self, state, superstep, graph):
         dist = state["distance"]
         if self.track_paths:
-            idx = torch.arange(graph.num_vertices, device=graph.device)
-            return torch.where(dist == superstep, idx.to(dist.dtype), INF)
+            return torch.where(dist == superstep, self._index(graph).to(dist.dtype), INF)
         if self.weighted:
             return dist
         return dist + 1.0

@@ -40,6 +40,19 @@ assert np.array_equal(fused, GPUExecutor(csr, strategy="ell", device="cpu").run(
 auto = GPUExecutor(csr, strategy="auto", device="cpu")
 auto.run(PageRankProgram(max_iterations=3))
 assert auto.last_run_info["autotune"]["device_kind"] == "cpu"
+from janusgraph_tpu_torch.olap.delta import DeltaOverlay, OverlayView, materialize
+from janusgraph_tpu_torch.olap.programs import ConnectedComponentsProgram, GCNForwardProgram
+z = np.zeros(5, dtype=np.int64)
+ov = DeltaOverlay.from_batches([{"add": (np.arange(5), np.arange(5) + 60, z),
+                                 "del": (src[:3].astype(np.int64), dst[:3].astype(np.int64), z[:3]),
+                                 "v_add": {60 + i: 0 for i in range(5)}, "v_del": []}])
+view = OverlayView(csr, ov)
+cc = GPUExecutor(csr, strategy="ell", device="cpu", delta=view).run(ConnectedComponentsProgram())
+mat = run_on(materialize(csr, ov), ConnectedComponentsProgram(), device="cpu", frontier="off")
+assert np.array_equal(cc["component"], mat["component"]) and len(mat["component"]) == 55
+h = run_on(csr, GCNForwardProgram(feature_dim=8, hidden_dim=8, out_dim=8), strategy="ell",
+           device="cpu")["h"]
+assert h.shape == (50, 8) and np.isfinite(h).all()
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m == "jax" or m.startswith("jax.")
     or m == "janusgraph_tpu" or m.startswith("janusgraph_tpu.")))
