@@ -65,11 +65,28 @@ Phases, each printing one JSON line:
            materialized CSR's (CC also to scipy's); a vertex overlay through
            compact_result; materialize and the trade against it; the
            "gpu" lane and materialize constants; a set_delta swap
+  traversal  the OLAP traversal program at full scale: the bench's
+           filtered 3-hop (score > 5 on step 2) under segsum (3 kernel
+           runs on the channel's plan) against ELL (rtol 1e-4, bitwise
+           below 2^24) and a float64 product; a typed chain over 4 hashed
+           edge types (out [0, 1], in [2], both) and a label set that
+           matches no edge against float64 products built from the hashed
+           types directly (not through channel_edges); sack sum
+           and mult (the [n, k] SUM path) bitwise on repeat and against
+           float64; the kernel on every channel plan against its plain
+           version; the bench's seeded 3-hop paths (real edge chains);
+           DegreeCountProgram (1 kernel run, the CSR's degrees); the
+           MapReduce jobs over CC and PageRank; the Fulgora analogue's
+           edges/s beside the fused PageRank's
   dense    GCN (d = 32, 2 layers) and the attention GCN under ELL and
-           hybrid, bitwise equal; GCN under segsum within 1e-4; the
+           hybrid, bitwise equal; GCN under the default segsum (ELL)
+           bitwise equal to a repeat, its host loop and ELL; the
            embedding update ELL against hybrid; scale 12 on the card
            bitwise equal to the CPU; tree_matmul against torch.matmul,
            tree_dot and the sddmm aggregates against their bounds
+  ldbc     the LDBC SNB SF1-sized proxy (3.2M vertices, 17.3M edges): CC
+           against scipy, the bench's filtered 3-hop (creation_day > 1825)
+           held as at scale 20; the host build time
 Each phase that drives a path zeroes the kernel launch counts just before
 it and reads them just after. The wrapper counts its eager launches; the
 fix-up kernel adds one to a device counter at every run, eager or replayed
@@ -1008,8 +1025,8 @@ def delta_phase(csr, args, emit) -> dict:
 
 def dense_phase(csr, args, emit) -> dict:
     """The dense-feature tier at the bench's width (d = 32, 2 layers): GCN
-    fused under ELL and hybrid, bitwise equal; under segsum (the segment
-    fold) within 1e-4; the attention GCN (sddmm) under ELL and hybrid,
+    fused under ELL and hybrid, bitwise equal; under segsum (ELL) bitwise
+    equal to a repeat, its host loop and the ELL run; the attention GCN (sddmm) under ELL and hybrid,
     bitwise; the embedding update (5 iterations) ELL against hybrid,
     bitwise; at scale 12 each ELL result bitwise equal to the port's CPU
     run. Per-superstep ms and peak memory of each; tree_matmul against
@@ -1067,17 +1084,23 @@ def dense_phase(csr, args, emit) -> dict:
                 "pad_ratio": info["pad_ratio"]}
         if not bits_equal(results[(name, "ell")], results[(name, "hybrid")]):
             raise RuntimeError(f"{name}: hybrid differs from ELL")
+    # the default strategy: [n, d] SUM takes ELL, so the GCN
+    # repeats bit for bit, its fused run equals its host loop and both
+    # equal the ELL run
     seg = GPUExecutor(csr, strategy="segsum")
-    seg.run(gcn())
+    h_first = seg.run(gcn())["h"]
     h_seg = seg.run(gcn())["h"]
-    if seg.last_run_info["strategy_resolved"] != "segment" or not np.allclose(
-            h_seg, results[("gcn", "ell")], **TOL):
-        raise RuntimeError(f"GCN under segsum: {seg.last_run_info['strategy_resolved']}, max abs "
-                           f"{np.abs(h_seg - results[('gcn', 'ell')]).max()}")
+    seg_info = dict(seg.last_run_info)
+    h_host = seg.run(gcn(), fused=False)["h"]
+    if (seg_info["strategy_resolved"] != "ell" or seg_info["path"] != "fused"
+            or not bits_equal(h_first, h_seg) or not bits_equal(h_seg, h_host)
+            or not bits_equal(h_seg, results[("gcn", "ell")])):
+        raise RuntimeError(f"GCN under segsum: {seg_info['strategy_resolved']}, not bitwise "
+                           f"(max abs vs ELL {np.abs(h_seg - results[('gcn', 'ell')]).max()})")
     whole_ms, agg_ms = superstep_ms(seg, gcn())
-    runs["gcn_segsum"] = {"wall_s": seg.last_run_info["wall_s"],
+    runs["gcn_segsum"] = {"wall_s": seg_info["wall_s"], "strategy_resolved": seg_info["strategy_resolved"],
                           "superstep_replayed_ms": whole_ms, "aggregate_replayed_ms": agg_ms,
-                          "max_abs_diff_vs_ell": float(np.abs(h_seg - results[("gcn", "ell")]).max())}
+                          "bitwise_repeat_fused_host_loop_ell": True}
     del seg
 
     small = rmat_csr(12, 16, seed=args.seed)
@@ -1139,6 +1162,403 @@ def dense_phase(csr, args, emit) -> dict:
          gcn_setup_s=setup_s,
          bitwise_ell_hybrid=True, small_scale_equal_to_cpu=True, kernels=kern)
     return kern
+
+
+def edge_hash(a: np.ndarray, b: np.ndarray, salt: int) -> np.ndarray:
+    """A fixed 64-bit hash of each (a[i], b[i]) pair (splitmix64's finish
+    over a + salt and b): the same edge hashes alike in any orientation's
+    arrays, so types and weights need no second graph build."""
+    with np.errstate(over="ignore"):
+        h = a.astype(np.uint64) * np.uint64(0x9E3779B97F4A7C15) + np.uint64(salt)
+        h ^= b.astype(np.uint64) * np.uint64(0xC2B2AE3D27D4EB4F)
+        h ^= h >> np.uint64(30)
+        h *= np.uint64(0xBF58476D1CE4E5B9)
+        h ^= h >> np.uint64(27)
+        h *= np.uint64(0x94D049BB133111EB)
+        h ^= h >> np.uint64(31)
+    return h
+
+
+def both_orientations(csr):
+    """(src, dst) of every edge as the in-CSR and the out-CSR store it."""
+    n = csr.num_vertices
+    rows = np.arange(n, dtype=np.int64)
+    in_pair = (csr.in_src.astype(np.int64), np.repeat(rows, np.diff(csr.in_indptr)))
+    out_pair = (np.repeat(rows, np.diff(csr.out_indptr)), csr.out_dst.astype(np.int64))
+    return in_pair, out_pair
+
+
+def channel_matrix(n, edges, channel, weighted=False):
+    """The float64 (n, n) matrix of one channel's edges, rows the
+    aggregating vertex: x' = M @ x is one traversal step (with
+    ``weighted``, the edge weights instead of ones), and the channel's
+    edge count (parallel edges merge in the matrix). ``edges`` is
+    (src, dst, type, weight) of every edge once; the matrix is built from
+    them directly, not through the port's ``channel_edges``: "out"
+    aggregates at dst, "in" at src, "both" the sum."""
+    from scipy.sparse import coo_matrix
+
+    s, d, types, w = edges
+    keep = slice(None) if channel.labels is None else np.isin(types, channel.labels)
+    s, d = s[keep], d[keep]
+    vals = w[keep].astype(np.float64) if weighted else np.ones(len(s))
+    fwd = coo_matrix((vals, (d, s)), shape=(n, n)).tocsr()
+    mat = {"out": fwd, "in": fwd.T.tocsr(), "both": fwd + fwd.T}[channel.direction]
+    return mat, len(s) * (2 if channel.direction == "both" else 1)
+
+
+def hold_counts(name, counts, want64, ell_counts=None):
+    """Traverser counts against a float64 product (total and per vertex at
+    rtol 1e-4) and, given, against the ELL strategy's: rtol 1e-4 per
+    vertex, and bitwise where both are below 2^24 (every partial sum of a
+    smaller count is an exact integer). Returns the record."""
+    got = np.asarray(counts, dtype=np.float64)
+    if counts.shape != want64.shape or not np.isfinite(got).all():
+        raise RuntimeError(f"{name}: counts of shape {counts.shape} are not finite")
+    total, total64 = float(got.sum()), float(want64.sum())
+    if abs(total - total64) > 1e-4 * max(total64, 1.0):
+        raise RuntimeError(f"{name}: total {total} differs from the float64 product's {total64}")
+    if not np.allclose(got, want64, rtol=1e-4, atol=0.0):
+        raise RuntimeError(f"{name}: max rel diff {max_rel(got[want64 > 0], want64[want64 > 0])} "
+                           "from the float64 product")
+    rec = {"total": total, "total_fp64": total64, "max_count": float(got.max()),
+           "counts_over_2p24": int(np.sum(want64 >= 2.0 ** 24)),
+           "max_rel_diff_vs_fp64": max_rel(got[want64 > 0], want64[want64 > 0])}
+    if ell_counts is not None:
+        if not np.allclose(got, ell_counts, rtol=1e-4, atol=0.0):
+            raise RuntimeError(f"{name}: segsum and ELL counts differ beyond rtol 1e-4")
+        small = (counts < 2.0 ** 24) & (ell_counts < 2.0 ** 24)
+        if not bits_equal(counts[small], ell_counts[small]):
+            raise RuntimeError(f"{name}: counts below 2^24 differ between segsum and ELL")
+        rec["bitwise_vs_ell_below_2p24"] = int(small.sum())
+        rec["max_rel_diff_vs_ell"] = max_rel(got[ell_counts > 0], ell_counts[ell_counts > 0])
+    return rec
+
+
+def channel_plan_checks(ex, prefix, kernels):
+    """The segment-sum kernel against its plain version (and a bitwise
+    repeat) on the plan of every channel ``ex`` holds, fed the gathered
+    values of a seeded random vector, as a count step is."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.rand(ex.csr.num_vertices, generator=gen, device="cuda")
+    out = {}
+    for channel, entry in ex._channel_packs.items():
+        if entry._segsum is None:
+            continue
+        plan, src_idx, _w = entry.segsum()
+        label = f"{channel.direction}{list(channel.labels) if channel.labels else ''}"
+        data = torch.index_select(x, 0, src_idx)
+        _p, _g, err = check_plan(f"{prefix}_{label}", plan, data, kernels)
+        nbytes = plan.function_bytes()
+        out[label] = {"edges": plan.num_edges, "num_ctas": plan.num_ctas, "max_abs_err": err,
+                      "kernel_ms": flushed_ms(lambda: kernels.sorted_segment_sum(data, plan), iters=10),
+                      "plain_ms": flushed_ms(lambda: kernels.sorted_segment_sum_plain(data, plan),
+                                             iters=5),
+                      "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
+    return out
+
+
+def filtered_3hop(csr, key, value):
+    """The bench's filtered 3-hop: out, out with ``key > value``, out."""
+    from janusgraph_tpu_torch.olap.programs import (
+        OLAPTraversalProgram,
+        PropertyFilter,
+        TraversalStep,
+        evaluate_filter_mask,
+    )
+    from janusgraph_tpu_torch.predicates import Cmp
+
+    flt = (PropertyFilter(key, Cmp.GREATER_THAN, value),)
+    fmask = evaluate_filter_mask(csr, flt)
+    ones = np.ones(csr.num_vertices, np.float32)
+    masks = np.stack([ones, fmask, ones], axis=1)
+
+    def make():
+        return OLAPTraversalProgram(
+            (TraversalStep("out"), TraversalStep("out", None, flt), TraversalStep("out")),
+            step_masks=masks)
+
+    return make, fmask
+
+
+def run_filtered_3hop(name, csr, adj_t, make, fmask, seg_ex, ell_ex, emit) -> int:
+    """The filtered 3-hop under segsum (3 kernel runs, counted), warm and
+    timed, against ELL and a float64 product; the kernel on the channel
+    plan against its plain version. Returns the kernel runs."""
+    from janusgraph_tpu_torch.olap import kernels
+
+    kernels.reset_launch_counts()
+    counts, runs = counted(lambda: seg_ex.run(make())["count"], 3)
+    first = dict(seg_ex.last_run_info)
+    again = seg_ex.run(make())["count"]
+    info = dict(seg_ex.last_run_info)
+    if not bits_equal(counts, again):
+        raise RuntimeError(f"{name}: two segsum runs differ")
+    if info["path"] != "host-loop" or info["strategy_resolved"] != "segsum":
+        raise RuntimeError(f"{name}: {info['path']}, {info['strategy_resolved']}")
+    ell = ell_ex.run(make())["count"]
+    ell_info = dict(ell_ex.last_run_info)
+    ell_ex.run(make())
+    x = np.ones(csr.num_vertices)
+    x = adj_t @ x
+    x = (adj_t @ x) * fmask
+    x = adj_t @ x
+    rec = hold_counts(name, counts, x, ell)
+    emit(name, kernel_runs=runs, wall_s=info["wall_s"], first_run_wall_s=first["wall_s"],
+         superstep_ms=[r["wall_ms"] for r in info["superstep_records"]],
+         ell_wall_s=ell_ex.last_run_info["wall_s"], ell_first_run_wall_s=ell_info["wall_s"],
+         filter_selectivity=float(fmask.mean()), **rec,
+         plans=channel_plan_checks(seg_ex, name, kernels))
+    return runs
+
+
+def traversal_phase(csr, args, seg_ex, ell_ex, adj, rank, pagerank_wall_s, emit) -> dict:
+    """The OLAP traversal at full scale: the bench's filtered 3-hop (segsum
+    against ELL and a float64 product), a typed channel chain with a label
+    set that matches nothing, sack sum and mult (the [n, k] SUM path,
+    bitwise on repeat), the bench's seeded 3-hop paths, the degree
+    program, the MapReduce jobs and the Fulgora analogue's edges/s beside
+    the fused PageRank's."""
+    import dataclasses
+
+    import torch
+    from janusgraph_tpu_torch.olap import (
+        ClusterCountMapReduce,
+        EdgeChannel,
+        GPUExecutor,
+        StatsMapReduce,
+        TopKMapReduce,
+        kernels,
+        measure_fulgora_baseline,
+    )
+    from janusgraph_tpu_torch.olap.programs import (
+        ConnectedComponentsProgram,
+        DegreeCountProgram,
+        OLAPTraversalProgram,
+        TraversalStep,
+        build_path_index,
+        enumerate_paths,
+    )
+
+    phase_t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n, m = csr.num_vertices, csr.num_edges
+    adj_t = adj.T.tocsr()
+    out = {}
+
+    # (a) the bench's filtered 3-hop: score > 5 on step 2 (the property
+    # rides a copy: the delta phase materializes the bare snapshot)
+    scored = dataclasses.replace(csr, properties={
+        "score": np.random.default_rng(args.scale).uniform(0, 10, n).astype(np.float32)})
+    make, fmask = filtered_3hop(scored, "score", 5.0)
+    out["filtered"] = run_filtered_3hop("traversal_filtered_3hop", csr, adj_t, make, fmask,
+                                        seg_ex, ell_ex, emit)
+
+    # (b) typed channels: 4 edge types and a weight from a hash of (src, dst)
+    t0 = time.perf_counter()
+    (ins, ind), (outs, outd) = both_orientations(csr)
+    h_in, h_out = edge_hash(ins, ind, 1), edge_hash(outs, outd, 1)
+    tcsr = dataclasses.replace(
+        csr, properties={},
+        in_edge_type=(h_in >> np.uint64(60)).astype(np.int32) & 3,
+        out_edge_type=(h_out >> np.uint64(60)).astype(np.int32) & 3,
+        in_edge_weight=(0.5 + (h_in & np.uint64(1023)).astype(np.float32) * (1.5 / 1024)),
+        out_edge_weight=(0.5 + (h_out & np.uint64(1023)).astype(np.float32) * (1.5 / 1024)),
+    )
+    typed_edges = (ins, ind, tcsr.in_edge_type, tcsr.in_edge_weight)
+    del outs, outd, h_in, h_out
+    hash_s = time.perf_counter() - t0
+    chain = [("out", (0, 1)), ("in", (2,)), ("both", None)]
+    empty = [("out", (0, 1)), ("in", (7,))]
+
+    def prog(spec, **kw):
+        return OLAPTraversalProgram([TraversalStep(d, lab) for d, lab in spec], **kw)
+
+    tex = GPUExecutor(csr=tcsr, strategy="segsum")
+    kernels.reset_launch_counts()
+    typed, typed_runs = counted(lambda: tex.run(prog(chain))["count"], 3)
+    typed_first = tex.last_run_info["wall_s"]
+    typed_again = tex.run(prog(chain))["count"]
+    typed_info = dict(tex.last_run_info)
+    if not bits_equal(typed, typed_again):
+        raise RuntimeError("typed chain: two runs differ")
+    x = np.ones(n)
+    mats, edges = {}, {}
+    for d, lab in chain:
+        mats[(d, lab)], edges[(d, lab)] = channel_matrix(n, typed_edges, EdgeChannel(d, lab))
+        x = mats[(d, lab)] @ x
+    typed_rec = hold_counts("typed chain", typed, x)
+    ell_tex = GPUExecutor(csr=tcsr, strategy="ell")
+    typed_rec["max_rel_diff_vs_ell"] = max_rel(
+        typed[typed > 0], ell_tex.run(prog(chain))["count"][typed > 0])
+    none, empty_runs = counted(lambda: tex.run(prog(empty))["count"], 2)
+    if none.shape != (n,) or none.any():
+        raise RuntimeError("a label set that matches no edge left traversers")
+    kernels.reset_launch_counts()
+    typed_plans = channel_plan_checks(tex, "typed", kernels)
+    emit("traversal_typed", kernel_runs=typed_runs, empty_label_kernel_runs=empty_runs,
+         chain=[[d, list(lab) if lab else None] for d, lab in chain],
+         hash_s=hash_s, first_run_wall_s=typed_first, wall_s=typed_info["wall_s"],
+         superstep_ms=[r["wall_ms"] for r in typed_info["superstep_records"]],
+         channel_edges={f"{d}{list(lab) if lab else ''}": edges[(d, lab)] for d, lab in chain},
+         **typed_rec, plans=typed_plans)
+    out["typed"] = typed_runs
+
+    # (c) sacks: [n, 3] and [n, 2] SUM messages through the channels' ELL
+    # packs, bitwise on repeat, against float64 products
+    sacks = {}
+    for sack in ("sum", "mult"):
+        res = tex.run(prog(chain, sack=sack))
+        info = dict(tex.last_run_info)
+        again = tex.run(prog(chain, sack=sack))
+        if not all(bits_equal(res[k], again[k]) for k in ("count", "sack")):
+            raise RuntimeError(f"sack {sack}: two runs differ")
+        if {r["strategy"] for r in info["superstep_records"]} != {"ell"}:
+            raise RuntimeError(f"sack {sack}: {info['superstep_records']}")
+        c = np.ones(n)
+        sk = np.zeros(n) if sack == "sum" else np.ones(n)
+        for d, lab in chain:
+            a = mats[(d, lab)]
+            wmat, _e = channel_matrix(n, typed_edges, EdgeChannel(d, lab), weighted=True)
+            sk = a @ sk + wmat @ c if sack == "sum" else wmat @ sk
+            c = a @ c
+        got = res["sack"].astype(np.float64)
+        if not np.allclose(got, sk, rtol=1e-4, atol=0.0) or not np.allclose(
+                res["count"], c, rtol=1e-4, atol=0.0):
+            raise RuntimeError(f"sack {sack}: max rel diff {max_rel(got[sk > 0], sk[sk > 0])}")
+        sacks[sack] = {"wall_s": tex.last_run_info["wall_s"], "first_run_wall_s": info["wall_s"],
+                       "total": float(got.sum()), "total_fp64": float(sk.sum()),
+                       "max_rel_diff_vs_fp64": max_rel(got[sk > 0], sk[sk > 0]),
+                       "superstep_ms": [r["wall_ms"] for r in tex.last_run_info["superstep_records"]]}
+    # one sack step's aggregate alone (the "both" channel's ELL pack, [n, 3])
+    pack = tex._channel_pack(prog(chain, sack="sum"), "s2").ell()
+    msgs = torch.rand((n, 3), generator=torch.Generator(device="cuda").manual_seed(2), device="cuda")
+    cols = prog(chain, sack="sum").edge_transform_cols
+    agg_fn = lambda: kernels.ell_aggregate(pack, msgs, "sum", "none", cols)  # noqa: E731
+    e_both = edges[("both", None)]
+    # each edge's source index and weight once, the [n, 3] messages and sums once
+    agg_bytes = 8 * e_both + 2 * 12 * n
+    agg_flops = 4.0 * e_both * 3
+    sacks["ell_aggregate_both_n3"] = {
+        "ms": cuda_ms(agg_fn, 5, warmup=1), "replayed_ms": replay_ms(agg_fn, 5),
+        "slots": pack.slots, "pad_ratio": pack.pad_ratio, "edges": e_both,
+        "bytes": agg_bytes, "flops": agg_flops,
+        "bound_ms": max(agg_bytes / PEAK_BYTES_PER_S, agg_flops / PEAK_FP32_FLOPS) * 1e3}
+    emit("traversal_sack", **sacks)
+    del tex, ell_tex, mats, pack, msgs
+
+    # (d) the bench's seeded 3-hop paths
+    pseeds = tuple(int(v) for v in np.random.default_rng(7).choice(n, 8, replace=False))
+    pprog = OLAPTraversalProgram([TraversalStep("out")] * 3, seed_indices=pseeds, record_reach=True)
+    seg_ex.run(pprog)
+    t0 = time.perf_counter()
+    res = seg_ex.run(pprog)
+    device_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = build_path_index(csr, pprog)
+    index_s = time.perf_counter() - t0
+    sample = list(enumerate_paths(csr, pprog, res, limit=10_000, path_index=index))
+    enum_wall = time.perf_counter() - t0
+    if not sample:
+        raise RuntimeError("seeded 3-hop: no path enumerated")
+    p = np.asarray(sample, dtype=np.int64)
+    src_all = np.repeat(np.arange(n, dtype=np.int64), np.diff(csr.out_indptr))
+    keys = np.sort(src_all * n + csr.out_dst.astype(np.int64))
+    hops = (p[:, :-1] * n + p[:, 1:]).ravel()
+    pos = np.minimum(np.searchsorted(keys, hops), len(keys) - 1)
+    reach = res["reach"] > 0
+    if (not np.all(keys[pos] == hops) or not np.all(np.isin(p[:, 0], pseeds))
+            or not all(reach[p[:, k], k].all() for k in range(4))):
+        raise RuntimeError("seeded 3-hop: a path is no chain of real edges through the reach masks")
+    emit("traversal_paths", seeds=len(pseeds), paths_enumerated=len(sample),
+         paths_total=float(res["count"].astype(np.float64).sum()),
+         device_wall_s=device_wall, enum_wall_s=enum_wall, path_index_s=index_s)
+
+    # (e) the degree program: one superstep, one kernel run
+    kernels.reset_launch_counts()
+    deg, deg_runs = counted(lambda: seg_ex.run(DegreeCountProgram()), 1)
+    if not bits_equal(deg["in_degree"], csr.in_degree.astype(np.float32)) or not bits_equal(
+            deg["out_degree"], csr.out_degree.astype(np.float32)):
+        raise RuntimeError("DegreeCountProgram differs from the CSR's degrees")
+    deg_info = dict(seg_ex.last_run_info)
+
+    # (f) MapReduce over CC's components and the PageRank ranks
+    comp = seg_ex.run(ConnectedComponentsProgram())
+    t0 = time.perf_counter()
+    clusters = ClusterCountMapReduce("component").execute(comp, csr)
+    stats = StatsMapReduce("rank").execute({"rank": rank}, csr)
+    top = TopKMapReduce("rank", 10).execute({"rank": rank}, csr)
+    mr_s = time.perf_counter() - t0
+    labels, sizes = np.unique(comp["component"], return_counts=True)
+    want_top = np.argsort(-rank.astype(np.float64), kind="stable")[:10]
+    if (clusters["count"] != len(labels)
+            or clusters["sizes"] != {float(a): float(b) for a, b in zip(labels, sizes)}
+            or abs(stats["sum"] - float(rank.astype(np.float64).sum())) > 1e-9
+            or stats["count"] != n
+            or sorted(v for _i, v in top) != sorted(float(rank[i]) for i in want_top)):
+        raise RuntimeError("MapReduce results differ from numpy's")
+
+    # (g) the Fulgora analogue, one superstep on the card's host
+    fb = measure_fulgora_baseline(csr, iterations=1)
+    pr_eps = 20 * m / pagerank_wall_s
+    torch.cuda.synchronize()
+    emit("traversal_extras", degree={"kernel_runs": deg_runs, "wall_s": deg_info["wall_s"],
+                                     "path": deg_info["path"]},
+         mapreduce={"components": clusters["count"], "top1": top[0], "stats": stats,
+                    "host_s": mr_s},
+         fulgora={**fb, "fused_pagerank_edges_per_s": pr_eps,
+                  "fused_pagerank_over_fulgora": pr_eps / fb["edges_per_sec"]},
+         phase_seconds=time.perf_counter() - phase_t0,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    out["degree"] = deg_runs
+    out["fulgora_ratio"] = pr_eps / fb["edges_per_sec"]
+    return out
+
+
+def ldbc_phase(emit) -> int:
+    """The LDBC SNB SF1-sized proxy (3.2M vertices, 17.3M edges): CC
+    against scipy's components, and the bench's filtered 3-hop
+    (creation_day > 1825) through the kernel, held as at scale 20."""
+    import torch
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    from janusgraph_tpu_torch.olap import GPUExecutor, ldbc_sf_csr
+    from janusgraph_tpu_torch.olap.programs import ConnectedComponentsProgram
+
+    phase_t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    lcsr = ldbc_sf_csr(sf=1)
+    build_s = time.perf_counter() - t0
+    n, m = lcsr.num_vertices, lcsr.num_edges
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    src = np.repeat(np.arange(n), np.diff(lcsr.out_indptr))
+    adj = coo_matrix((np.ones(m), (src, lcsr.out_dst)), shape=(n, n)).tocsr()
+    del src
+    seg_ex = GPUExecutor(lcsr, strategy="segsum")
+    ell_ex = GPUExecutor(lcsr, strategy="ell")
+    cc_first = seg_ex.run(ConnectedComponentsProgram(max_iterations=64))["component"]
+    comp = seg_ex.run(ConnectedComponentsProgram(max_iterations=64))["component"]
+    cc_info = dict(seg_ex.last_run_info)
+    ncomp, labels = connected_components(adj, directed=True, connection="weak")
+    lowest = np.full(ncomp, n, dtype=np.int64)
+    np.minimum.at(lowest, labels, np.arange(n))
+    if not bits_equal(cc_first, comp) or not np.array_equal(comp.astype(np.int64), lowest[labels]):
+        raise RuntimeError("CC on the SF1 proxy differs from scipy's components")
+    emit("ldbc", vertices=n, edges=m, host_build_s=build_s, components=int(ncomp),
+         cc={"path": cc_info["path"], "supersteps": cc_info["supersteps"],
+             "wall_s": cc_info["wall_s"], "strategy_resolved": cc_info["strategy_resolved"]})
+    make, fmask = filtered_3hop(lcsr, "creation_day", 1825)
+    runs = run_filtered_3hop("ldbc_filtered_3hop", lcsr, adj.T.tocsr(), make, fmask,
+                             seg_ex, ell_ex, emit)
+    torch.cuda.synchronize()
+    emit("ldbc_done", seconds=time.perf_counter() - phase_t0,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    return runs
 
 
 def main() -> int:
@@ -1460,11 +1880,14 @@ def main() -> int:
          max_rel_diff_vs_ell=float(np.max(np.abs(counts - ell_counts) / np.maximum(ell_counts, 1))),
          ell_wall_s=execs["ell"].last_run_info["wall_s"])
 
+    traversal = traversal_phase(csr, args, seg_ex, execs["ell"], adj, rank,
+                                fused["segsum"]["wall_s"], emit)
     peer_pressure_phase(csr, seg_ex, args, emit)
     del seg_ex, execs, fused
     kernels.reset_launch_counts()
     delta = delta_phase(csr, args, emit)
     dense_phase(csr, args, emit)
+    ldbc_launches = ldbc_phase(emit)
     print(json.dumps({"kernels": [{
         "name": "sorted_segment_sum",
         "route": "cuda",
@@ -1478,6 +1901,13 @@ def main() -> int:
         "launches_khop": khop_launches,
         # the delta PageRank: base, adds and tombstones each superstep
         "launches_delta": delta["launches"],
+        # the filtered 3-hop (scale 20), the typed chain, the degree
+        # program and the SF1 proxy's filtered 3-hop, each on its
+        # channel's plan
+        "launches_traversal": traversal["filtered"],
+        "launches_typed": traversal["typed"],
+        "launches_degree": traversal["degree"],
+        "launches_ldbc": ldbc_launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -4,12 +4,14 @@ from ``janusgraph_tpu/olap/csr.py``.
 Only the synthetic-graph path is ported: the storage scan (``load_csr``)
 stays with the reference for now. ``csr_from_arrays`` carries a reference
 snapshot across, so both packages compute on the same graph state.
+``channel_edges`` flattens a typed edge view (``EdgeChannel``) into an edge
+list.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -130,3 +132,49 @@ def csr_from_arrays(
         in_edge_type=opt(in_edge_type, np.int32),
         out_edge_type=opt(out_edge_type, np.int32),
     )
+
+
+def channel_edges(
+    csr: CSRGraph, channel
+) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+    """Flatten an ``EdgeChannel`` view into (src_idx, dst_idx, weight)
+    arrays where messages flow src -> dst (aggregation happens at dst).
+
+    Direction "out": traversers move src->dst, so aggregation reads the
+    in-CSR; "in" reverses the edges (aggregate at the source over its
+    out-edges); "both" is the in-CSR's edges, then the out-CSR's. Label
+    filtering needs the CSR's per-edge type arrays. Weightless edges of a
+    weighted CSR's other orientation get weight 1."""
+    parts_src: List[np.ndarray] = []
+    parts_dst: List[np.ndarray] = []
+    parts_w: List[np.ndarray] = []
+    have_w = csr.in_edge_weight is not None or csr.out_edge_weight is not None
+
+    def select(src, dst, w, types):
+        if channel.labels is not None:
+            if types is None:
+                raise ValueError(
+                    "EdgeChannel with labels requires per-edge type arrays "
+                    "(load the CSR with edge types)"
+                )
+            mask = np.isin(types, np.asarray(channel.labels, dtype=types.dtype))
+            src, dst = src[mask], dst[mask]
+            w = w[mask] if w is not None else None
+        parts_src.append(src)
+        parts_dst.append(dst)
+        if have_w:
+            parts_w.append(w if w is not None else np.ones(len(src), dtype=np.float32))
+
+    if channel.direction not in ("out", "in", "both"):
+        raise ValueError(f"unknown channel direction {channel.direction!r}")
+    rows = np.arange(csr.num_vertices, dtype=np.int64)
+    if channel.direction in ("out", "both"):
+        select(csr.in_src.astype(np.int64), np.repeat(rows, np.diff(csr.in_indptr)),
+               csr.in_edge_weight, csr.in_edge_type)
+    if channel.direction in ("in", "both"):
+        select(csr.out_dst.astype(np.int64), np.repeat(rows, np.diff(csr.out_indptr)),
+               csr.out_edge_weight, csr.out_edge_type)
+    src = np.concatenate(parts_src)
+    dst = np.concatenate(parts_dst)
+    w = np.concatenate(parts_w) if have_w else None
+    return src, dst, w

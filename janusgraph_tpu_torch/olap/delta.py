@@ -53,7 +53,7 @@ import torch
 
 from janusgraph_tpu_torch.olap import kernels
 from janusgraph_tpu_torch.olap.csr import CSRGraph, csr_from_edges
-from janusgraph_tpu_torch.olap.vertex_program import Combiner
+from janusgraph_tpu_torch.olap.vertex_program import Combiner, VertexProgram
 
 #: bits of a graph id (``janusgraph_tpu/core/ids.py``'s ``TOTAL_BITS``)
 TOTAL_BITS = 63
@@ -708,4 +708,4 @@ def program_delta_compatible(program) -> bool:
         return False
     if getattr(program, "edge_channels", None):
         return False
-    return getattr(type(program), "channel_for", None) is None
+    return type(program).channel_for is VertexProgram.channel_for

@@ -105,9 +105,16 @@ MM_BLOCK_BYTES = 1 << 28
 def tree_matmul(h: torch.Tensor, w: torch.Tensor, native: bool = False) -> torch.Tensor:
     """(n, k) @ (k, j) with the contraction folded through the fixed
     adjacent-pair tree over k (a power of two), in row blocks of about
-    ``MM_BLOCK_BYTES`` of products. ``native=True`` is ``torch.matmul``."""
+    ``MM_BLOCK_BYTES`` of products. ``native=True`` is ``torch.matmul`` in
+    fp32: TF32 is off for the call, and the caller's setting is restored
+    after it."""
     if native:
-        return torch.matmul(h, w)
+        allow = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return torch.matmul(h, w)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = allow
     n, k = h.shape
     j = w.shape[1]
     if k & (k - 1):

@@ -5,13 +5,15 @@ Each superstep is message -> aggregate -> apply on the executor's device.
 
 Strategies (``janusgraph_tpu_torch/olap/kernels.py``):
   - "segsum"  (default) the CUDA sorted-segment-sum kernel (the counterpart
-              of the reference's "pallas"); SUM only, other monoids fall
-              back to "ell"
+              of the reference's "pallas") for scalar SUM; other monoids
+              take "ell", as do ``[n, k]`` SUM messages (dense programs,
+              sacks, PeerPressure's counts): the same bits on every call
   - "ell"     degree-bucketed ELLPACK gather + adjacent-pair tree, plain
               torch, every monoid
   - "hybrid"  exact-width ELL torso + chunked CSR tail for hubs, bitwise
               equal to "ell"
-  - "segment" gather + index_add_/scatter_reduce_, plain torch
+  - "segment" gather + index_add_/scatter_reduce_, plain torch (SUM
+              through float atomics on the card: no fixed order)
   - "auto"    the autotuner (``olap/autotune.py``) picks ell, hybrid or
               segment from the degree histogram and the device's peaks; the
               decision is in ``last_run_info["autotune"]``
@@ -28,8 +30,9 @@ Paths of a run (``last_run_info["path"]``):
                 fetches one (steps, stopped) pair per graph; on the CPU the
                 same supersteps run eagerly
   - "host-loop" everything else (or ``fused=False``): reads
-                ``program.combiner_for(step)`` each superstep and fetches
-                the aggregators every ``sync_every`` supersteps
+                ``program.combiner_for(step)`` and ``program.channel_for(step)``
+                each superstep and fetches the aggregators every
+                ``sync_every`` supersteps
 
 Checkpoints (``checkpoint_path`` + ``checkpoint_every``) are written in the
 reference's format (``olap/checkpoint.py``); a ``SuperstepPreempted`` raised
@@ -47,7 +50,16 @@ through the same strategies; ``message_mode == "sddmm"`` routes ELL, hybrid
 and segsum/segment to the fused SDDMM aggregates; the program picks its
 padded lane tier (``dim_tier=``).
 
-Not ported yet (ROADMAP.md): typed edge channels and telemetry spans.
+Typed edge channels (``VertexProgram.edge_channels`` / ``channel_for``):
+a superstep whose channel is named aggregates over that channel's edges
+(``csr.channel_edges``) instead of the default view. Its structures, the
+ELL pack and (for scalar SUM steps under "segsum") a segment-sum plan, are
+cached per channel value in an LRU of ``CHANNEL_CACHE_SIZE`` entries. A
+scalar SUM step under "segsum" launches the kernel on the channel's plan;
+every other step goes through the channel's ELL pack, as the reference's
+channel steps always do. Channel programs run on the host loop.
+
+Not ported yet (ROADMAP.md): telemetry spans.
 """
 
 from __future__ import annotations
@@ -55,6 +67,7 @@ from __future__ import annotations
 import gc
 import time
 import weakref
+from collections import OrderedDict
 from typing import Dict, Tuple
 
 import numpy as np
@@ -65,7 +78,7 @@ from janusgraph_tpu_torch.exceptions import SuperstepPreempted
 from janusgraph_tpu_torch.native import segment_ids
 from janusgraph_tpu_torch.olap import autotune, kernels
 from janusgraph_tpu_torch.olap.checkpoint import load_checkpoint, save_checkpoint
-from janusgraph_tpu_torch.olap.csr import CSRGraph
+from janusgraph_tpu_torch.olap.csr import CSRGraph, channel_edges
 from janusgraph_tpu_torch.olap.delta import (
     FusedHostView,
     OverlayView,
@@ -76,6 +89,7 @@ from janusgraph_tpu_torch.olap.features import kernels as fkernels
 from janusgraph_tpu_torch.olap.frontier import FrontierEngine
 from janusgraph_tpu_torch.olap.vertex_program import (
     Combiner,
+    EdgeChannel,
     Memory,
     VertexProgram,
     apply_edge_transform,
@@ -154,6 +168,39 @@ class _DeviceGraph:
             val = fn(self._csr, self.device)
         setattr(self, name, val)
         return val
+
+
+class _ChannelPack:
+    """One typed channel's aggregation structures on one device, each built
+    from ``channel_edges`` on first use: the ELL pack, and the segment-sum
+    plan with the channel's sources and weights in the plan's edge order.
+    Dropping the object drops every tensor it moved."""
+
+    def __init__(self, csr: CSRGraph, channel: EdgeChannel, device: torch.device):
+        self.csr = csr
+        self.channel = channel
+        self.device = device
+        self._ell = None
+        self._segsum = None
+
+    def ell(self) -> kernels.ELLPack:
+        if self._ell is None:
+            src, dst, w = channel_edges(self.csr, self.channel)
+            self._ell = kernels.ELLPack(src, dst, w, self.csr.num_vertices).to(self.device)
+        return self._ell
+
+    def segsum(self):
+        """(plan, source indices, weights or None), the last two on the
+        device in the plan's edge order."""
+        if self._segsum is None:
+            src, dst, w = channel_edges(self.csr, self.channel)
+            plan, src, w = kernels.edge_list_plan(src, dst, w, self.csr.num_vertices)
+            plan.device_arrays(self.device)
+            self._segsum = (
+                plan, torch.as_tensor(src, device=self.device),
+                torch.as_tensor(w, device=self.device) if w is not None else None,
+            )
+        return self._segsum
 
 
 def _combine(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -319,6 +366,10 @@ class GPUExecutor:
     #: the powers of two up to it, so a run that stops early computes at most
     #: MAX_CHUNK - 1 supersteps it throws away
     MAX_CHUNK = 8
+    #: distinct EdgeChannel views kept on the device at once; a long-lived
+    #: executor answering ad-hoc traversals would otherwise keep one O(E)
+    #: pack per label set forever
+    CHANNEL_CACHE_SIZE = 8
 
     def __init__(
         self,
@@ -362,6 +413,8 @@ class GPUExecutor:
         self._ell_packs: Dict[bool, kernels.ELLPack] = {}
         self._hybrid_packs: Dict[bool, kernels.HybridPack] = {}
         self._segsum_plans: Dict[str, kernels._SegSumPlan] = {}
+        #: EdgeChannel value -> its _ChannelPack, least recently used first
+        self._channel_packs: "OrderedDict[EdgeChannel, _ChannelPack]" = OrderedDict()
         #: (strategy, undirected) -> the sddmm row destinations on the device
         self._sddmm_rows_cache: Dict[Tuple, object] = {}
         #: keyed (program.cache_key(), monoid, strategy, the overlay's lane
@@ -372,7 +425,9 @@ class GPUExecutor:
         #: per-run record: path, supersteps, wall_s (the path's own clock),
         #: run_wall_s (all of run(), routing and resumes included),
         #: kernel_launches (eager segment-sum launches), strategy_resolved,
-        #: pad_ratio/ell_pad_ratio, autotune; the fused path adds chunks,
+        #: pad_ratio/ell_pad_ratio, autotune; the host loop adds
+        #: superstep_records (step, wall_ms, combiner, channel, strategy);
+        #: the fused path adds chunks,
         #: host_syncs, predicated_steps, capture_s and graph_kernel_launches
         #: (segment-sum calls in the replayed graphs); the frontier path its
         #: per-hop ``tiers`` and ``hop_wall_s``; a resumed run resumes and
@@ -471,14 +526,12 @@ class GPUExecutor:
     # ------------------------------------------------------------ structures
     def _resolve_strategy(self, op: str, undirected: bool = False) -> str:
         """The strategy a combiner monoid and edge view take: the segsum
-        kernel is SUM-only, other monoids fall back to ELL; it sums
-        scalars only, so a dense program's [n, d] rows take the segment
-        path."""
+        kernel is SUM-only and sums scalars only, so other monoids and a
+        dense program's [n, d] rows take ELL: the same bits on every call,
+        where "segment" (float atomics on the card) would not give them."""
         base = self._base_strategy(undirected)
-        if base == "segsum" and op != Combiner.SUM:
+        if base == "segsum" and (op != Combiner.SUM or self._feature_dim_run):
             return "ell"
-        if base == "segsum" and self._feature_dim_run:
-            return "segment"
         return base
 
     def _edge_view(self, undirected: bool):
@@ -556,6 +609,23 @@ class GPUExecutor:
             self._segsum_plans[orientation] = plan
         return plan
 
+    def _channel_pack(self, program: VertexProgram, name: str) -> _ChannelPack:
+        """The structures of one named channel, cached per channel VALUE
+        (a frozen dataclass): names like "s0" recur across programs on a
+        reused executor and must not alias each other's packs. LRU-bounded
+        by ``CHANNEL_CACHE_SIZE``; eviction drops the pack and its plan
+        together."""
+        channel = program.edge_channels[name]
+        entry = self._channel_packs.get(channel)
+        if entry is not None:
+            self._channel_packs.move_to_end(channel)
+            return entry
+        entry = _ChannelPack(self.csr, channel, self.device)
+        self._channel_packs[channel] = entry
+        while len(self._channel_packs) > self.CHANNEL_CACHE_SIZE:
+            self._channel_packs.popitem(last=False)
+        return entry
+
     def prewarm(self, program: VertexProgram) -> None:
         """Build and move the aggregation structures a program will use, so
         their cost is paid before the first run."""
@@ -569,20 +639,43 @@ class GPUExecutor:
                 self._segsum_plan(orientation).device_arrays(self.device)
 
     # ------------------------------------------------------------ superstep
-    def _aggregate(self, program: VertexProgram, op: str, outgoing: torch.Tensor):
-        """(aggregated messages, the strategy that computed them). Over an
-        overlay, the base aggregation reads the base rows' messages (the
-        packs' sentinel stays the identity), then the lanes merge."""
+    def _aggregate(self, program: VertexProgram, op: str, outgoing: torch.Tensor,
+                   channel: str = None):
+        """(aggregated messages, the strategy that computed them), over the
+        named edge channel or the program's default view. Over an overlay,
+        the base aggregation reads the base rows' messages (the packs'
+        sentinel stays the identity), then the lanes merge."""
+        if channel is not None:
+            return self._channel_aggregate(program, op, outgoing, channel)
         if self._delta is None:
             return self._base_aggregate(program, op, outgoing)
         lanes = self._delta.device_args(self.device, bool(program.undirected))
         agg, strategy = self._base_aggregate(program, op, outgoing[: self.csr.num_vertices])
         return fused_delta_aggregate(lanes, outgoing, agg, op), strategy
 
+    def _channel_aggregate(self, program: VertexProgram, op: str, outgoing: torch.Tensor,
+                           name: str):
+        """One superstep over a typed channel: a scalar SUM under "segsum"
+        through the kernel on the channel's plan; everything else through
+        the channel's ELL pack."""
+        entry = self._channel_pack(program, name)
+        if self._strategy_cfg == "segsum" and op == Combiner.SUM and outgoing.ndim == 1:
+            plan, src_idx, weight = entry.segsum()
+            msgs = apply_edge_transform(
+                torch.index_select(outgoing, 0, src_idx), weight, program.edge_transform
+            )
+            return kernels.sorted_segment_sum(msgs, plan), "segsum"
+        return kernels.ell_aggregate(
+            entry.ell(), outgoing, op, program.edge_transform, program.edge_transform_cols
+        ), "ell"
+
     def _base_aggregate(self, program: VertexProgram, op: str, outgoing: torch.Tensor):
         g = self.g
         n = self.csr.num_vertices
         strategy = self._resolve_strategy(op, program.undirected)
+        if strategy == "segsum" and outgoing.ndim > 1:
+            strategy = "ell"  # the kernel sums scalars only
+        cols = program.edge_transform_cols
         if getattr(program, "message_mode", None) == "sddmm":
             # dense tier: per-edge dot-attention coefficients in the gather
             if strategy == "ell":
@@ -598,21 +691,19 @@ class GPUExecutor:
             ), "segment"
         if strategy == "ell":
             return kernels.ell_aggregate(
-                self._ell_pack(program.undirected), outgoing, op, program.edge_transform
+                self._ell_pack(program.undirected), outgoing, op, program.edge_transform, cols
             ), strategy
         if strategy == "hybrid":
             return kernels.hybrid_aggregate(
-                self._hybrid_pack(program.undirected), outgoing, op, program.edge_transform
+                self._hybrid_pack(program.undirected), outgoing, op, program.edge_transform, cols
             ), strategy
-        if strategy == "segsum" and outgoing.ndim > 1:
-            strategy = "segment"  # the kernel sums scalars only
         views = [("in", g.in_src, g.in_edge_weight)]
         if program.undirected:
             views.append(("out", g.out_dst, g.out_edge_weight))
         total = None
         for orientation, src_idx, weight in views:
             msgs = apply_edge_transform(
-                torch.index_select(outgoing, 0, src_idx), weight, program.edge_transform
+                torch.index_select(outgoing, 0, src_idx), weight, program.edge_transform, cols
             )
             if strategy == "segsum":
                 part = kernels.sorted_segment_sum(msgs, self._segsum_plan(orientation))
@@ -755,6 +846,7 @@ class GPUExecutor:
         use_fused = (
             not use_frontier and fused
             and type(program).combiner_for is VertexProgram.combiner_for
+            and type(program).channel_for is VertexProgram.channel_for
         )
         launches0 = kernels.sorted_segment_sum.launches
         t0 = time.perf_counter()
@@ -816,7 +908,7 @@ class GPUExecutor:
                     "sddmm message mode aggregates over the in-CSR only — "
                     "undirected dense programs are not supported"
                 )
-            if getattr(type(program), "channel_for", None) is not None:
+            if type(program).channel_for is not VertexProgram.channel_for:
                 raise ValueError("sddmm message mode cannot ride typed edge channels")
 
     def _call_hook(self, fault_hook, step: int) -> None:
@@ -887,13 +979,20 @@ class GPUExecutor:
         self._note_resume(start)
         steps_done = start
         resolved = {}
+        records = []
         last_step = program.max_iterations - 1
         for step in range(start, program.max_iterations):
             self._call_hook(fault_hook, step)
+            s0 = time.perf_counter()
             op = program.combiner_for(step)
+            ch = program.channel_for(step)
             outgoing = program.message(state, step, self.g)
-            agg, resolved[op] = self._aggregate(program, op, outgoing)
+            agg, strategy = self._aggregate(program, op, outgoing, ch)
+            resolved[op if ch is None else f"{op}:{ch}"] = strategy
             state, metrics = program.apply(state, agg, step, device_memory, self.g)
+            # host clock of the enqueue (of the whole step where it syncs)
+            records.append({"step": step, "wall_ms": (time.perf_counter() - s0) * 1e3,
+                            "combiner": op, "channel": ch, "strategy": strategy})
             # an aggregator a superstep does not emit keeps its last value
             device_memory.update({k: v for k, (_op, v) in metrics.items()})
             steps_done += 1
@@ -925,11 +1024,13 @@ class GPUExecutor:
             "supersteps": steps_done,
             "wall_s": time.perf_counter() - t0,
             # the one strategy every superstep took, or, where the phases of
-            # a program took different ones, {combiner: strategy}
+            # a program took different ones, {combiner: strategy}, a channel
+            # step keyed "combiner:channel"
             "strategy_resolved": (
                 next(iter(resolved.values()))
                 if len(set(resolved.values())) == 1 else resolved
             ),
+            "superstep_records": records,
         }
         return out
 

@@ -1,6 +1,6 @@
 """Aggregation kernels for the BSP superstep — the port of
 ``janusgraph_tpu/olap/kernels.py`` (ELL, hybrid and sorted-segment-sum
-parts; ``edge_transform_cols`` is not ported yet).
+parts, with per-column edge transforms for ``[n, k]`` messages).
 
 The superstep's hot op is ``combine({msg(src) for (src,dst) edges}) by
 dst``. Three strategies here:
@@ -23,8 +23,8 @@ dst``. Three strategies here:
    the reference's tile-aligned layout, which the plain version reads; the
    kernel reads only the segment offsets and a merge-path partition.
 
-Each host structure is built once per (graph, orientation) and reused
-across supersteps.
+Each host structure is built once per (graph, orientation), or per typed
+edge channel (``edge_list_plan``), and reused across supersteps.
 """
 
 from __future__ import annotations
@@ -34,7 +34,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from janusgraph_tpu_torch.olap.vertex_program import Combiner, EdgeTransform
+from janusgraph_tpu_torch.olap.vertex_program import (
+    Combiner,
+    EdgeTransform,
+    apply_edge_transform,
+)
 
 
 # --------------------------------------------------------------------------
@@ -241,7 +245,9 @@ def tree_reduce(m: torch.Tensor, op: str) -> torch.Tensor:
 def segment_combine(op: str, values: torch.Tensor, seg: torch.Tensor, num_segments: int):
     """Monoid fold of ``values`` rows by segment into an identity-filled
     output. SUM adds in index order on the CPU, like the reference's
-    ``np.add.at``; MIN/MAX do not depend on the order."""
+    ``np.add.at``, and through float atomics on the card (no fixed order);
+    MIN/MAX do not depend on the order. ``values`` arrive transformed
+    (``apply_edge_transform``, per column where the program says so)."""
     out = torch.full(
         (num_segments,) + tuple(values.shape[1:]), Combiner.IDENTITY[op],
         dtype=values.dtype, device=values.device,
@@ -259,13 +265,17 @@ def ell_aggregate(
     msgs: torch.Tensor,
     op: str,
     edge_transform: str = EdgeTransform.NONE,
+    cols=None,
 ) -> torch.Tensor:
     """Aggregate per-vertex messages over an ELLPack (tensors on the
-    messages' device). msgs: (n,) or (n, k). Returns the per-destination
-    fold, the monoid identity where a vertex has no in-edges."""
+    messages' device). msgs: (n,) or (n, k); ``cols``: per-column
+    transforms of (n, k) messages (``apply_edge_transform``). Returns the
+    per-destination fold, the monoid identity where a vertex has no
+    in-edges."""
     identity = Combiner.IDENTITY[op]
     if not pack.has_weight:
         edge_transform = EdgeTransform.NONE
+        cols = None
     pad = torch.full(
         (1,) + tuple(msgs.shape[1:]), identity, dtype=msgs.dtype, device=msgs.device
     )
@@ -276,7 +286,7 @@ def ell_aggregate(
         if w is not None:
             # transform, then force padded slots back to the identity (a
             # transform can disturb it, e.g. inf * 0 = nan for MIN)
-            m = _transform(m, w, valid, op, edge_transform)
+            m = _transform(m, w, valid, op, edge_transform, cols)
         r = tree_reduce(m, op)
         if fold is not None:
             r = fold_rows(op, r, fold)
@@ -287,15 +297,18 @@ def ell_aggregate(
     return torch.index_select(stacked, 0, pack.unpermute)
 
 
-def _transform(m, w, valid, op: str, edge_transform: str) -> torch.Tensor:
+def _transform(m, w, valid, op: str, edge_transform: str, cols=None) -> torch.Tensor:
     """A weighted bucket's transform, slot for slot: the weight product or
-    sum, padded slots forced back to the identity (where ``valid`` is
-    given), then the fence."""
-    w_ = w[:, :, None] if m.ndim == 3 else w
-    if edge_transform == EdgeTransform.MUL_WEIGHT:
-        m = m * w_
-    elif edge_transform == EdgeTransform.ADD_WEIGHT:
-        m = m + w_
+    sum (per column with ``cols``), padded slots forced back to the
+    identity (where ``valid`` is given), then the fence."""
+    if cols is not None:
+        m = apply_edge_transform(m, w, edge_transform, cols)
+    else:
+        w_ = w[:, :, None] if m.ndim == 3 else w
+        if edge_transform == EdgeTransform.MUL_WEIGHT:
+            m = m * w_
+        elif edge_transform == EdgeTransform.ADD_WEIGHT:
+            m = m + w_
     if valid is not None:
         valid_ = valid[:, :, None] if m.ndim == 3 else valid
         m = torch.where(valid_ > 0, m, Combiner.IDENTITY[op])
@@ -459,13 +472,16 @@ def hybrid_aggregate(
     msgs: torch.Tensor,
     op: str,
     edge_transform: str = EdgeTransform.NONE,
+    cols=None,
 ) -> torch.Tensor:
     """Aggregate per-vertex messages over a HybridPack: the contract of
-    ``ell_aggregate`` (msgs (n,) or (n, k), the per-destination fold, the
-    identity where a vertex has no in-edges), with the same bits."""
+    ``ell_aggregate`` (msgs (n,) or (n, k), ``cols``, the per-destination
+    fold, the identity where a vertex has no in-edges), with the same
+    bits."""
     identity = Combiner.IDENTITY[op]
     if not pack.has_weight:
         edge_transform = EdgeTransform.NONE
+        cols = None
     pad = torch.full(
         (1,) + tuple(msgs.shape[1:]), identity, dtype=msgs.dtype, device=msgs.device
     )
@@ -474,7 +490,7 @@ def hybrid_aggregate(
     for entry, (d, cap) in zip(pack.torso, pack.torso_meta):
         m = flat_take(msgs_ext, entry["idx"])  # (rows, d[, k])
         if "w" in entry:
-            m = _transform(m, entry["w"], None, op, edge_transform)
+            m = _transform(m, entry["w"], None, op, edge_transform, cols)
         if cap > d:
             # identity pad up to the pow2 tree width: the ELL bucket's
             # sentinel leaves, never gathered
@@ -494,7 +510,7 @@ def hybrid_aggregate(
     for entry, (_cap, ppr, rows, _num_slots) in zip(pack.tail, pack.tail_meta):
         m = flat_take(msgs_ext, entry["idx"])  # (chunks, T[, k])
         if "w" in entry:
-            m = _transform(m, entry["w"], entry["valid"], op, edge_transform)
+            m = _transform(m, entry["w"], entry["valid"], op, edge_transform, cols)
         part = tree_reduce(m, op)  # (chunks[, k]): aligned subtrees
         table = torch.full(
             (rows * ppr,) + tuple(part.shape[1:]), identity,
@@ -682,6 +698,23 @@ def make_segsum_plan(
     items_per_cta: int = SEGSUM_ITEMS_PER_CTA,
 ) -> _SegSumPlan:
     return _SegSumPlan(seg, num_segments, block=block, tile=tile, items_per_cta=items_per_cta)
+
+
+def edge_list_plan(
+    src: np.ndarray, dst: np.ndarray, weight: Optional[np.ndarray], num_vertices: int
+) -> Tuple[_SegSumPlan, np.ndarray, Optional[np.ndarray]]:
+    """The segment-sum plan of an edge list that aggregates at ``dst`` (a
+    typed channel's ``channel_edges``), with the sources and weights in the
+    plan's edge order: (plan, src, weight). The edges are sorted stably by
+    destination, so each destination keeps the list's order (a "both"
+    channel: in-edges, then out-edges), the order the ELL pack reads."""
+    dst = np.asarray(dst, dtype=np.int64)
+    src = np.asarray(src, dtype=np.int64)
+    if len(dst) and np.any(dst[1:] < dst[:-1]):
+        order = np.argsort(dst, kind="stable")
+        src, dst = src[order], dst[order]
+        weight = weight[order] if weight is not None else None
+    return make_segsum_plan(dst, num_vertices), src, weight
 
 
 def _check_segsum_input(data: torch.Tensor, plan: _SegSumPlan) -> None:

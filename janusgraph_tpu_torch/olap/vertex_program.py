@@ -13,14 +13,18 @@ device). Global aggregators flow as ``metrics`` return values
 ``{name: (op, scalar tensor)}``; the executor fetches them at the barrier
 and hands the previous superstep's values back in as ``memory_in``.
 
-Per-column transforms (``EdgeChannel``, ``edge_transform_cols``) belong to
-later programs and are not ported yet.
+Typed edge views (``EdgeChannel``) pick the edges a superstep aggregates
+over (``VertexProgram.channel_for``); per-column transforms
+(``edge_transform_cols``) let one message column ride the edge weight while
+another passes untransformed (the OLAP traversal's sack).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Tuple
+from functools import lru_cache
+from types import MappingProxyType
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -50,29 +54,76 @@ class EdgeTransform:
 
 
 def check_weighted_transforms(program, csr) -> None:
-    """Executors call this at run() entry: a program declaring a weight
-    transform over a weightless CSR would otherwise silently compute as if
-    no transform existed (every executor skips transforms when weights are
-    absent)."""
-    if getattr(program, "edge_transform", EdgeTransform.NONE) != EdgeTransform.NONE:
-        if csr.in_edge_weight is None and csr.out_edge_weight is None:
-            raise ValueError(
-                f"{type(program).__name__} declares weight-dependent edge "
-                "transforms but the CSR snapshot carries no edge weights"
-            )
+    """Executors call this at run() entry: a program declaring weight
+    transforms (a scalar ``edge_transform`` or per-column
+    ``edge_transform_cols``) over a weightless CSR would otherwise silently
+    compute as if no transform existed (every executor skips transforms
+    when weights are absent)."""
+    cols = getattr(program, "edge_transform_cols", None)
+    wants_weights = bool(cols and any(t != EdgeTransform.NONE for t in cols)) or getattr(
+        program, "edge_transform", EdgeTransform.NONE
+    ) != EdgeTransform.NONE
+    if wants_weights and csr.in_edge_weight is None and csr.out_edge_weight is None:
+        raise ValueError(
+            f"{type(program).__name__} declares weight-dependent edge "
+            "transforms but the CSR snapshot carries no edge weights"
+        )
 
 
-def apply_edge_transform(msgs: torch.Tensor, w, transform: str) -> torch.Tensor:
+@lru_cache(maxsize=64)
+def _col_masks(cols: Tuple[str, ...], device, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-column {0,1} MUL and ADD masks of ``cols`` on ``device``: moved
+    once, so a superstep's transform copies nothing from the host."""
+    mul = [1.0 if t == EdgeTransform.MUL_WEIGHT else 0.0 for t in cols]
+    add = [1.0 if t == EdgeTransform.ADD_WEIGHT else 0.0 for t in cols]
+    return (
+        torch.tensor(mul, dtype=dtype, device=device),
+        torch.tensor(add, dtype=dtype, device=device),
+    )
+
+
+def apply_edge_transform(msgs: torch.Tensor, w, transform: str, cols=None) -> torch.Tensor:
     """Apply a program's in-flight edge transform. ``msgs``: (..., k) or
     (...) per-edge messages; ``w``: per-edge weights broadcastable to
-    ``msgs`` minus its column axis (None = pass through)."""
+    ``msgs`` minus its column axis (None = pass through).
+
+    With ``cols`` (``program.edge_transform_cols``) the messages are
+    k-column, the last axis the column axis in every layout, and column j
+    rides its own transform: ``where(mul_j, msgs * w, msgs) + w * add_j``.
+    The where-select, not ``msgs * (1 + (w - 1) * mul_j)``: the algebraic
+    form absorbs |w - 1| below float32 eps and mis-scales tiny weights."""
     if w is None:
         return msgs
+    if cols is not None:
+        k = msgs.shape[-1]
+        if len(cols) != k:
+            raise ValueError(f"edge_transform_cols has {len(cols)} entries for {k}-column messages")
+        mul, add = _col_masks(tuple(cols), msgs.device, msgs.dtype)
+        wb = w[..., None]
+        return torch.where(mul > 0, msgs * wb, msgs) + wb * add
     if transform == EdgeTransform.MUL_WEIGHT:
         return msgs * (w[..., None] if msgs.ndim > w.ndim else w)
     if transform == EdgeTransform.ADD_WEIGHT:
         return msgs + (w[..., None] if msgs.ndim > w.ndim else w)
     return msgs
+
+
+@dataclass(frozen=True)
+class EdgeChannel:
+    """A typed edge view for one message round (the reference's TinkerPop
+    MessageScope.Local carrying a per-step traversal like
+    ``__.out('knows')``).
+
+    direction: traverser movement along the edge —
+        "out"  src -> dst  (aggregate at dst over in-edges; the default)
+        "in"   dst -> src  (aggregate at src over out-edges)
+        "both" both orientations
+    labels: edge type ids to include (None = all); needs the CSR's per-edge
+        type arrays (``in_edge_type``/``out_edge_type``).
+    """
+
+    direction: str = "out"
+    labels: Optional[Tuple[int, ...]] = None
 
 
 @dataclass
@@ -94,6 +145,10 @@ class VertexProgram:
       compute_keys    — state entries the run returns
       combiner        — Combiner monoid (or override combiner_for per phase)
       edge_transform  — EdgeTransform applied to messages in flight
+      edge_transform_cols — per-column EdgeTransforms for (n, k) messages
+                        (overrides edge_transform; SUM only)
+      edge_channels   — named EdgeChannels; ``channel_for`` picks one per
+                        superstep
       undirected      — aggregate over both edge orientations
       max_iterations  — hard superstep cap
       frontier_kind   — "sssp" or "cc" where the frontier engine can run
@@ -105,14 +160,24 @@ class VertexProgram:
     compute_keys: Tuple[str, ...] = ()
     combiner: str = Combiner.SUM
     edge_transform: str = EdgeTransform.NONE
+    edge_transform_cols: Optional[Tuple[str, ...]] = None
     undirected: bool = False
     max_iterations: int = 100
     frontier_kind = None
+    #: immutable default: a program with channels shadows it with its own
+    #: dict, so no declaration leaks across classes
+    edge_channels: Mapping[str, EdgeChannel] = MappingProxyType({})
 
     def combiner_for(self, superstep: int) -> str:
         """Monoid for a given superstep — overridable for phase-alternating
         programs (e.g. peer pressure's count-then-resolve phases)."""
         return self.combiner
+
+    def channel_for(self, superstep: int) -> Optional[str]:
+        """The name of the edge channel a superstep aggregates over; None
+        is the program's default view (the in-CSR, or both orientations
+        when ``undirected``)."""
+        return None
 
     def setup(self, graph) -> Tuple[Dict[str, torch.Tensor], Dict[str, Tuple[str, object]]]:
         """Return (initial state, initial metrics)."""
@@ -163,10 +228,11 @@ class VertexProgram:
 
     def fused_eligible(self) -> bool:
         """Whether run() may fuse the iteration on the device: a constant
-        combiner monoid and an overridden terminate_device (the default never
-        stops early, which would change the meaning of a program that relies
-        on the host's terminate())."""
+        combiner monoid, a constant edge channel and an overridden
+        terminate_device (the default never stops early, which would change
+        the meaning of a program that relies on the host's terminate())."""
         return (
             type(self).combiner_for is VertexProgram.combiner_for
+            and type(self).channel_for is VertexProgram.channel_for
             and type(self).terminate_device is not VertexProgram.terminate_device
         )

@@ -53,6 +53,20 @@ assert np.array_equal(cc["component"], mat["component"]) and len(mat["component"
 h = run_on(csr, GCNForwardProgram(feature_dim=8, hidden_dim=8, out_dim=8), strategy="ell",
            device="cpu")["h"]
 assert h.shape == (50, 8) and np.isfinite(h).all()
+from janusgraph_tpu_torch.olap import (
+    ClusterCountMapReduce, FulgoraAnalogueComputer, ldbc_snb_csr, twitter_csr,
+)
+from janusgraph_tpu_torch.olap.programs import (
+    DegreeCountProgram, OLAPTraversalProgram, TraversalStep, enumerate_paths,
+)
+tcsr = csr_from_edges(50, src, dst, edge_types=(src % 3).astype(np.int32))
+tp = OLAPTraversalProgram([TraversalStep("out", (0,)), TraversalStep("both")], record_reach=True)
+st = run_on(tcsr, tp, device="cpu")
+assert int(st["count"].sum()) == len(list(enumerate_paths(tcsr, tp, st))) > 0
+assert np.array_equal(run_on(csr, DegreeCountProgram(), device="cpu")["in_degree"], csr.in_degree)
+assert ClusterCountMapReduce("component").execute(cc, csr)["count"] >= 1
+assert ldbc_snb_csr(6).num_vertices == 64 and twitter_csr(64, 4).num_edges == 256
+assert abs(FulgoraAnalogueComputer(csr, 2).pagerank(2)[0].sum() - 1.0) < 1e-6
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m == "jax" or m.startswith("jax.")
     or m == "janusgraph_tpu" or m.startswith("janusgraph_tpu.")))

@@ -123,10 +123,11 @@ def test_peer_pressure_labels_bitwise(name, strategy):
     assert got["cluster"].dtype == np.float32 and got["chosen"].dtype == np.int32
     info = ex.last_run_info
     assert info["supersteps"] == rex.last_run_info["supersteps"] == 10
-    # the kernel sums scalars only: the [n, K] count phase takes the
-    # segment fold under "segsum", the MIN phase ELL
+    # the kernel sums scalars only: under "segsum" the [n, K] count phase
+    # takes ELL (bitwise, never the segment fold's atomics), as does the
+    # MIN phase
     assert info["strategy_resolved"] == {
-        "segsum": {"sum": "segment", "min": "ell"},
+        "segsum": "ell",
         "ell": "ell",
         "segment": "segment",
     }[strategy]

@@ -47,6 +47,10 @@ def _cases():
             np.sort(rng.integers(8, 500, 2000)),
         ]), 500),
         "graph500_s8_in_csr": _graph500_s8_in_csr(),
+        # a typed channel whose label set matches no edge, over many CTAs
+        "no_edges_many_ctas": (np.zeros(0, dtype=np.int64), 9000),
+        # the sparse survivors of a label filter: most segments empty
+        "label_filter_survivors": (np.sort(rng.choice(9000, 700)), 9000),
     }
 
 
