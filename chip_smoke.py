@@ -7,6 +7,10 @@ plain versions.
 Phases, each printing one JSON line:
   device   the card (and its name and power limit from nvidia-smi)
   build    nvcc builds the kernels from csrc/ (sm_90a)
+  graph    the graph500 R-MAT graph from the native host library
+           (csrc/graphcsr.cpp, built by g++; the run fails without it),
+           the reference bench's draw; the R-MAT draw and build_csr timed
+           native against numpy (build_csr on the same arrays, equal)
   kernel   sorted_segment_sum against sorted_segment_sum_plain on the card,
            at the plan shape of the graph500 R-MAT graph's in-CSR and on
            edge cases; bitwise repeat; kernel, plain and library times, each
@@ -87,6 +91,17 @@ Phases, each printing one JSON line:
   ldbc     the LDBC SNB SF1-sized proxy (3.2M vertices, 17.3M edges): CC
            against scipy, the bench's filtered 3-hop (creation_day > 1825)
            held as at scale 20; the host build time
+  stored   the stored-graph entry point at the reference bench's
+           storage-backed size (bench.py:3704-3723): open_graph, the
+           columnar bulk load of the first 2,000,000 out-edges (label
+           "link"), load_csr_snapshot (the written graph, edge for edge),
+           graph.compute().program(PageRank(20, tol=0)).submit() on the card twice
+           (20 kernel runs each, bitwise equal to each other and to run_on
+           over the loaded CSR, within 1e-4 of float64), CC through
+           submit() against scipy, a 3-hop traverse() (3 kernel runs) equal
+           to float64 at every vertex below 2^24 paths and within 1e-4
+           above, write_back and a reload that returns the ranks bit for
+           bit
 Each phase that drives a path zeroes the kernel launch counts just before
 it and reads them just after. The wrapper counts its eager launches; the
 fix-up kernel adds one to a device counter at every run, eager or replayed
@@ -1561,6 +1576,190 @@ def ldbc_phase(emit) -> int:
     return runs
 
 
+def pagerank_fp64(csr, iters: int, damping: float = 0.85) -> np.ndarray:
+    """PageRank in float64 numpy with the port's program's steps: the
+    dangling mass of the step before, spread evenly."""
+    n = csr.num_vertices
+    outdeg = csr.out_degree.astype(np.float64)
+    dangling_mask = outdeg == 0
+    seg = np.repeat(np.arange(n), np.diff(csr.in_indptr))
+    rank = np.full(n, 1.0 / n)
+    dangling = rank[dangling_mask].sum()
+    for _ in range(iters):
+        msg = rank / np.maximum(outdeg, 1.0)
+        agg = np.bincount(seg, weights=msg[csr.in_src], minlength=n)
+        rank = (1.0 - damping) / n + damping * (agg + dangling / n)
+        dangling = rank[dangling_mask].sum()
+    return rank
+
+
+def stored_phase(csr, args, emit) -> dict:
+    """The stored-graph OLAP path at the reference bench's storage-backed
+    size (bench.py:3704-3723, streaming_freshness): the first 2,000,000
+    out-edges of the graph500 R-MAT graph in source order, label "link",
+    written by the columnar bulk loader into an in-memory store, loaded by
+    the edgestore scan, and run through graph.compute().submit() on the
+    card; the ranks are written back and read again."""
+    import torch
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    from janusgraph_tpu_torch.core.bulk import bulk_add_edges, bulk_add_vertices
+    from janusgraph_tpu_torch.core.graph import open_graph
+    from janusgraph_tpu_torch.olap import GPUExecutor, kernels, run_on
+    from janusgraph_tpu_torch.olap.csr import load_csr, load_csr_snapshot
+    from janusgraph_tpu_torch.olap.programs import (
+        ConnectedComponentsProgram,
+        PageRankProgram,
+    )
+
+    phase_t0 = time.perf_counter()
+    n = csr.num_vertices
+    cap = min(2_000_000, csr.num_edges)
+    src = np.repeat(np.arange(n), np.diff(csr.out_indptr))[:cap]
+    dst = np.asarray(csr.out_dst[:cap], dtype=np.int64)
+    g = open_graph({"storage.backend": "inmemory"})
+    t0 = time.perf_counter()
+    vids = bulk_add_vertices(g, n)
+    bulk_v_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bulk_add_edges(g, "link", vids[src], vids[dst])
+    bulk_e_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded, epoch = load_csr_snapshot(g)
+    load_s = time.perf_counter() - t0
+    if loaded.num_vertices != n or loaded.num_edges != cap:
+        raise RuntimeError(f"load_csr: {loaded.num_vertices} v, {loaded.num_edges} e")
+    # the loaded graph is the written one: vertex i of the loaded CSR is
+    # vids[order[i]]; its out-edges are the written edges, mapped through
+    # the same order (the scan sorts by vertex id)
+    order = np.argsort(vids, kind="stable")
+    if not np.array_equal(loaded.vertex_ids, vids[order]):
+        raise RuntimeError("load_csr: the vertex ids are not the written ones")
+    rank_of = np.empty(n, dtype=np.int64)
+    rank_of[order] = np.arange(n)
+    want_src, want_dst = rank_of[src], rank_of[dst]
+    got_src = np.repeat(np.arange(n), np.diff(loaded.out_indptr))
+    key = lambda a, b: np.sort(a.astype(np.int64) * n + b)  # noqa: E731
+    if not np.array_equal(key(got_src, loaded.out_dst), key(want_src, want_dst)):
+        raise RuntimeError("load_csr: the edges are not the written ones")
+
+    emit("stored_load", vertices=n, edges=cap, bulk_vertices_s=bulk_v_s,
+         bulk_edges_s=bulk_e_s, load_csr_s=load_s, epoch=epoch)
+
+    def pagerank():
+        # tol=0: all 20 supersteps run (this graph converges below the
+        # default tol of 1e-9 in fewer)
+        return PageRankProgram(max_iterations=20, tol=0.0)
+
+    walls, submit_runs, results = [], [], []
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res, runs = counted(lambda: g.compute().program(pagerank()).submit(), 20)
+        walls.append(time.perf_counter() - t0)
+        submit_runs.append(runs)
+        results.append(res)
+        if kernels.launch_counts()["sorted_segment_sum"] < 1:
+            raise RuntimeError("submit(): the segment sum was not launched eagerly")
+    first, warm = results
+    info = dict(warm.run_info)
+    if info["routing"]["device"] != "cuda" or info["supersteps"] != 20:
+        raise RuntimeError(f"submit() did not run 20 supersteps on the card: {info}")
+    rank = warm.states["rank"]
+    if not bits_equal(rank, first.states["rank"]):
+        raise RuntimeError("two submits of PageRank differ")
+    direct = run_on(loaded, pagerank())["rank"]
+    if not bits_equal(rank, direct):
+        raise RuntimeError("submit()'s ranks differ from run_on over the loaded CSR")
+    want = pagerank_fp64(loaded, 20)
+    rel = float(np.max(np.abs(rank.astype(np.float64) - want) / want))
+    if not np.isfinite(rank).all() or rel > RANK_REL:
+        raise RuntimeError(f"submit()'s ranks: max rel diff {rel} from float64")
+
+    # the segment sum against its plain version on the plans submit() ran,
+    # built by the executor's own code from the CSR submit() loaded: the
+    # in-plan fed PageRank's messages (rank / out-degree at each in-edge's
+    # source), and below the "link" channel's plan of the traverse
+    ex = GPUExecutor(warm.csr, strategy="segsum")
+    in_plan = ex._segsum_plan("in")
+    outdeg = torch.as_tensor(warm.csr.out_degree, device="cuda").clamp_min(1).float()
+    msg = torch.as_tensor(rank, device="cuda") / outdeg
+    in_src = torch.as_tensor(warm.csr.in_src.astype(np.int64), device="cuda")
+    data = torch.index_select(msg, 0, in_src)
+    _p, _g, in_err = check_plan("stored_in", in_plan, data, kernels)
+    nbytes = in_plan.function_bytes()
+    plan_checks = {"in": {
+        "edges": in_plan.num_edges, "num_ctas": in_plan.num_ctas, "max_abs_err": in_err,
+        "kernel_ms": flushed_ms(lambda: kernels.sorted_segment_sum(data, in_plan), iters=10),
+        "plain_ms": flushed_ms(lambda: kernels.sorted_segment_sum_plain(data, in_plan), iters=5),
+        "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}}
+    del ex, msg, in_src, data
+
+    lsrc = np.repeat(np.arange(n), np.diff(loaded.out_indptr))
+    adj = coo_matrix((np.ones(cap), (lsrc, loaded.out_dst)), shape=(n, n)).tocsr()
+    del lsrc
+    t0 = time.perf_counter()
+    comp = g.compute().program(ConnectedComponentsProgram()).submit()
+    cc_wall = time.perf_counter() - t0
+    ncomp, labels = connected_components(adj, directed=True, connection="weak")
+    lowest = np.full(ncomp, n, dtype=np.int64)
+    np.minimum.at(lowest, labels, np.arange(n))
+    if not np.array_equal(comp.states["component"].astype(np.int64), lowest[labels]):
+        raise RuntimeError("submit()'s CC differs from scipy's components")
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trav, trav_runs = counted(lambda: g.compute().traverse(
+        ("out", ["link"]), ("out", ["link"]), ("out", ["link"])).submit(), 3)
+    trav_wall = time.perf_counter() - t0
+    tex = GPUExecutor(trav.csr, strategy="segsum")
+    for name in trav.program.edge_channels:
+        tex._channel_pack(trav.program, name).segsum()
+    plan_checks.update(channel_plan_checks(tex, "stored", kernels))
+    del tex
+    x = np.ones(n)
+    for _ in range(3):
+        x = adj.T @ x
+    # float32 counts are exact integers below 2^24: there every vertex's
+    # count equals the float64 product's; above it the float32 sums round,
+    # and the counts and the total are held at the kernel's tolerance
+    counts = trav.states["count"]
+    total = float(counts.astype(np.float64).sum())
+    exact = x < 2.0 ** 24
+    if not np.array_equal(counts[exact].astype(np.float64), x[exact]):
+        raise RuntimeError("traverse(): 3-hop counts below 2^24 differ from float64")
+    if not np.allclose(counts, x, rtol=1e-4, atol=0) or abs(total - x.sum()) > 1e-4 * x.sum():
+        raise RuntimeError(f"traverse(): 3-hop total {total} against {x.sum()}")
+
+    t0 = time.perf_counter()
+    warm.write_back(["rank"])
+    write_back_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_csr(g, property_keys=("rank",))
+    reload_s = time.perf_counter() - t0
+    got = back.properties["rank"]
+    if got.dtype != np.float64 or not np.array_equal(got, rank.astype(np.float64)):
+        raise RuntimeError("the reloaded ranks are not the written ones")
+    torch.cuda.synchronize()
+    emit("stored", vertices=n, edges=cap, source="bench.py:3704-3723",
+         bulk_vertices_s=bulk_v_s, bulk_edges_s=bulk_e_s, load_csr_s=load_s,
+         epoch=epoch, submit_first_wall_s=walls[0], submit_warm_wall_s=walls[1],
+         run_wall_s=info["wall_s"], path=info["path"],
+         strategy_resolved=info["strategy_resolved"],
+         kernel_runs_per_submit=submit_runs, max_rel_diff_vs_fp64=rel,
+         cc_wall_s=cc_wall, cc_supersteps=comp.run_info["supersteps"],
+         components=int(ncomp), traverse_wall_s=trav_wall, traverse_kernel_runs=trav_runs,
+         total_3hop=total, total_3hop_fp64=float(x.sum()),
+         max_vertex_3hop=float(counts.max()), vertices_exact_3hop=int(exact.sum()),
+         write_back_s=write_back_s, reload_s=reload_s, plan_checks=plan_checks,
+         seconds=time.perf_counter() - phase_t0)
+    g.close()
+    return {"launches": submit_runs[0], "launches_warm": submit_runs[1],
+            "launches_traverse": trav_runs,
+            "max_abs_err": max(c["max_abs_err"] for c in plan_checks.values())}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20)
@@ -1573,7 +1772,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
 
-    from janusgraph_tpu_torch import _build
+    from janusgraph_tpu_torch import _build, native
     from janusgraph_tpu_torch.native import segment_ids
     from janusgraph_tpu_torch.observability import profiler
     from janusgraph_tpu_torch.olap import (
@@ -1610,11 +1809,38 @@ def main() -> int:
     emit("build", seconds=round(info["seconds"], 3), cached=info["cached"], ptxas=ptxas)
 
     # ------------------------------------------------------- graph (host)
+    # the native host library draws the reference bench's graph; the numpy
+    # versions are timed beside it (the R-MAT draw is another stream, the
+    # CSR build the same arrays)
+    if not native.available():
+        raise RuntimeError(f"the native host library did not build: {_build.host_build_info}")
     t0 = time.perf_counter()
     csr = rmat_csr(args.scale, 16, seed=args.seed)
+    host_s = time.perf_counter() - t0
     n, m = csr.num_vertices, csr.num_edges
-    emit("graph", scale=args.scale, vertices=n, edges=m,
-         max_in_degree=int(csr.in_degree.max()), host_s=round(time.perf_counter() - t0, 3))
+    t0 = time.perf_counter()
+    _n, gsrc, gdst = rmat_edges(args.scale, 16, seed=args.seed)
+    rmat_native_s = time.perf_counter() - t0
+    with native.numpy_only():
+        t0 = time.perf_counter()
+        rmat_edges(args.scale, 16, seed=args.seed)
+        rmat_numpy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    built = native.build_csr(n, gsrc, gdst)
+    build_native_s = time.perf_counter() - t0
+    with native.numpy_only():
+        t0 = time.perf_counter()
+        built_np = native.build_csr(n, gsrc, gdst)
+        build_numpy_s = time.perf_counter() - t0
+    if not all(np.array_equal(a, b) for a, b in zip(built, built_np)):
+        raise RuntimeError("build_csr: native and numpy arrays differ")
+    del gsrc, gdst, built, built_np
+    emit("graph", scale=args.scale, vertices=n, edges=m, native=native.available(),
+         host_library_build_s=_build.host_build_info["seconds"],
+         host_library_cached=_build.host_build_info["cached"],
+         max_in_degree=int(csr.in_degree.max()), host_s=host_s,
+         rmat_native_s=rmat_native_s, rmat_numpy_s=rmat_numpy_s,
+         build_csr_native_s=build_native_s, build_csr_numpy_s=build_numpy_s)
 
     # ------------------------------------------------ kernel vs plain, card
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -1888,6 +2114,7 @@ def main() -> int:
     delta = delta_phase(csr, args, emit)
     dense_phase(csr, args, emit)
     ldbc_launches = ldbc_phase(emit)
+    stored = stored_phase(csr, args, emit)
     print(json.dumps({"kernels": [{
         "name": "sorted_segment_sum",
         "route": "cuda",
@@ -1908,6 +2135,14 @@ def main() -> int:
         "launches_typed": traversal["typed"],
         "launches_degree": traversal["degree"],
         "launches_ldbc": ldbc_launches,
+        # graph.compute().program(PageRank(20, tol=0)).submit() over the stored
+        # graph, first and warm, and its 3-hop traverse()
+        "launches_stored": stored["launches"],
+        "launches_stored_warm": stored["launches_warm"],
+        "launches_stored_traverse": stored["launches_traverse"],
+        # the kernel against its plain version on the stored path's in-plan
+        # and "link" channel plan
+        "max_abs_err_stored": stored["max_abs_err"],
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -1,10 +1,12 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
 The ``csrc/*.cu`` sources are compiled by one ``nvcc`` call for ``sm_90a``
 into a shared library with a plain C interface and loaded with ``ctypes``; no
-PyTorch headers are involved. Libraries go to ``_build/<source hash>/``
-beside this file (listed in ``.gitignore``) and are built at first use, so
-a fresh checkout builds from its own sources.
+PyTorch headers are involved. The host library ``csrc/graphcsr.cpp`` (CSR
+build, segment ids, ELL fill, R-MAT) is compiled by ``g++`` with the JAX
+package's flags (``load_host_library``). Libraries go to
+``_build/<source hash>/`` beside this file (listed in ``.gitignore``) and are
+built at first use, so a fresh checkout builds from its own sources.
 """
 
 from __future__ import annotations
@@ -28,10 +30,16 @@ COMPILE_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+HOST_SOURCE = "graphcsr.cpp"
+HOST_LIB_NAME = "libjg_graphcsr.so"
+HOST_COMPILE_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+
 _lock = threading.Lock()
 _lib = None
 #: what the last build did: {"seconds", "log", "path", "cached"}
 build_info: dict = {}
+#: the host library's build: the same keys, plus "error" where g++ failed
+host_build_info: dict = {}
 
 
 def _nvcc() -> str:
@@ -43,9 +51,9 @@ def _nvcc() -> str:
     return path
 
 
-def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for name in SOURCES:
+def _source_hash(sources=SOURCES, flags=COMPILE_FLAGS) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for name in sources:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + f.read())
     return h.hexdigest()[:16]
@@ -99,3 +107,37 @@ def load_library() -> ctypes.CDLL:
         )
         _lib = lib
         return _lib
+
+
+def load_host_library() -> ctypes.CDLL:
+    """The host library (``csrc/graphcsr.cpp``), built with ``g++`` on first
+    use. Raises ``RuntimeError`` where it cannot be built or loaded; the
+    caller (``native.py``) then keeps its numpy versions."""
+    work = os.path.join(BUILD_DIR, _source_hash((HOST_SOURCE,), HOST_COMPILE_FLAGS))
+    path = os.path.join(work, HOST_LIB_NAME)
+    t0 = time.perf_counter()
+    cached = os.path.exists(path)
+    log = ""
+    if not cached:
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError("g++ not found: the host library cannot be built")
+        os.makedirs(work, exist_ok=True)
+        # a unique name per process: concurrent processes each replace the
+        # file atomically with the same bytes
+        tmp = f"{path}.{os.getpid()}.tmp"
+        proc = subprocess.run(
+            [gxx, *HOST_COMPILE_FLAGS, "-o", tmp, os.path.join(CSRC, HOST_SOURCE)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=300,
+        )
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise RuntimeError("g++ failed:\n" + proc.stdout)
+        os.replace(tmp, path)
+        log = proc.stdout
+    lib = ctypes.CDLL(path)
+    host_build_info.update(
+        seconds=time.perf_counter() - t0, log=log, path=path, cached=cached
+    )
+    return lib

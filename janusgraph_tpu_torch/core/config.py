@@ -1,0 +1,330 @@
+"""Typed configuration: the options the port honours and the merged view
+of local and cluster-global values — the port's copy of
+``GraphConfiguration`` and ``ConfigOption`` from
+``janusgraph_tpu/core/config.py``.
+
+The registry holds only the options the stored-graph OLAP path reads, with
+the reference's names, defaults, mutability levels and validators. Two
+defaults differ on purpose:
+
+  - ``computer.strategy`` is "segsum", the port's hand-kernel route (the
+    reference defaults to "auto"; ROADMAP "Deliberate differences"). The
+    reference's values all stay valid, and "pallas", the reference's name
+    for its hand kernel, means "segsum".
+  - ``computer.delta`` is False: the delta capture side is not ported, and
+    True raises (the reference defaults to True; its first submit scans
+    the store as the port's every submit does).
+
+``computer.executor`` keeps the reference's values: "tpu" is the one
+accelerator, here the CUDA card; "cpu" is ``GPUExecutor(device="cpu")``,
+the plain PyTorch versions on the CPU (not the reference's numpy
+``CPUExecutor``).
+
+Every other option of the reference raises ``ConfigurationError`` naming
+the ROADMAP item that brings it, as do ``computer.delta`` = True,
+``computer.executor`` = "sharded", ``storage.distributed-load-workers`` > 1
+and a ``storage.backend`` other than "inmemory". Nothing is ignored.
+
+Left out: the management writes (``set_global``) and the instance
+registry.
+"""
+
+from __future__ import annotations
+
+import json
+from enum import Enum
+from typing import Any, Callable, Dict, Optional
+
+from janusgraph_tpu_torch.exceptions import ConfigurationError
+
+
+class Mutability(Enum):
+    """reference: ConfigOption.Type (ConfigOption.java:36)."""
+
+    LOCAL = "local"  # only settable in local config at open
+    MASKABLE = "maskable"  # local config may override the global value
+    GLOBAL = "global"  # cluster-wide, changeable online via management
+    GLOBAL_OFFLINE = "global_offline"  # cluster-wide, all instances closed
+    FIXED = "fixed"  # frozen once the cluster is initialised
+
+
+class ConfigOption:
+    def __init__(
+        self,
+        path: str,
+        datatype: type,
+        description: str,
+        default: Any = None,
+        mutability: Mutability = Mutability.LOCAL,
+        verifier: Optional[Callable[[Any], bool]] = None,
+    ):
+        self.path = path
+        self.datatype = datatype
+        self.description = description
+        self.default = default
+        self.mutability = mutability
+        self.verifier = verifier
+
+    def check(self, value: Any) -> Any:
+        if value is None:
+            raise ConfigurationError(f"{self.path}: value may not be None")
+        if self.datatype is float and isinstance(value, int):
+            value = float(value)
+        if not isinstance(value, self.datatype):
+            raise ConfigurationError(
+                f"{self.path}: expected {self.datatype.__name__}, "
+                f"got {type(value).__name__} ({value!r})"
+            )
+        if self.verifier is not None and not self.verifier(value):
+            raise ConfigurationError(f"{self.path}: invalid value {value!r}")
+        refused = _REFUSED_VALUES.get(self.path)
+        if refused is not None and refused[0](value):
+            raise ConfigurationError(
+                f"{self.path}={value!r} is not ported yet: {refused[1]}"
+            )
+        return value
+
+
+#: flat path -> option registry
+REGISTRY: Dict[str, ConfigOption] = {}
+
+
+def _option(path, datatype, description, default,
+            mutability=Mutability.MASKABLE, verifier=None) -> None:
+    REGISTRY[path] = ConfigOption(path, datatype, description, default, mutability, verifier)
+
+
+_ROADMAP_OPTIONS = "ROADMAP.md Queue A #2 (the ELL, frontier, tuner and feature options)"
+_ROADMAP_DELTA = "ROADMAP.md Queue A #2 (the delta overlay's capture side)"
+_ROADMAP_OBS = "ROADMAP.md Queue A #3 (observability)"
+_ROADMAP_MULTI = "ROADMAP.md Queue A #4 (multi-GPU)"
+_ROADMAP_HOST = "ROADMAP.md Queue A #5 (the host system beyond OLAP)"
+
+#: honoured options whose value the port refuses: path -> (refuses, item)
+_REFUSED_VALUES: Dict[str, tuple] = {
+    "storage.backend": (lambda v: v != "inmemory", _ROADMAP_HOST),
+    "storage.distributed-load-workers": (lambda v: v > 1, _ROADMAP_HOST),
+    "computer.executor": (lambda v: v == "sharded", _ROADMAP_MULTI),
+    "computer.delta": (lambda v: v, _ROADMAP_DELTA),
+}
+
+#: options of the reference the port does not honour yet, by path or by
+#: path prefix (the longest match names the item)
+_NOT_PORTED: Dict[str, str] = {
+    "computer.frontier-": _ROADMAP_OPTIONS,
+    "computer.autotune-min-gain": _ROADMAP_OPTIONS,
+    "computer.autotune-max-tiers": _ROADMAP_OPTIONS,
+    "computer.ell-": _ROADMAP_OPTIONS,
+    "computer.features-": _ROADMAP_OPTIONS,
+    "computer.delta-": _ROADMAP_DELTA,
+    "computer.sharded-auto": _ROADMAP_MULTI,
+    "computer.shard-": _ROADMAP_MULTI,
+    "computer.exchange": _ROADMAP_MULTI,
+    "computer.agg": _ROADMAP_MULTI,
+    "computer.price-book-path": _ROADMAP_OBS,
+    "computer.": _ROADMAP_HOST,
+    "metrics.": _ROADMAP_OBS,
+    "cluster.": _ROADMAP_MULTI,
+    "storage.": _ROADMAP_HOST,
+    "ids.": _ROADMAP_HOST,
+    "cache.": _ROADMAP_HOST,
+    "schema.": _ROADMAP_HOST,
+    "graph.": _ROADMAP_HOST,
+    "log.": _ROADMAP_HOST,
+    "tx.": _ROADMAP_HOST,
+    "index.": _ROADMAP_HOST,
+    "locks.": _ROADMAP_HOST,
+    "server.": _ROADMAP_HOST,
+    "attributes.": _ROADMAP_HOST,
+    "query.": _ROADMAP_HOST,
+}
+
+_option("storage.backend", str, "store manager shorthand", "inmemory", Mutability.LOCAL)
+_option(
+    "storage.scan-retries", int,
+    "per-partition retry budget for temporary failures mid-scan (resume "
+    "from just past the last row)", 3, verifier=lambda v: v >= 0,
+)
+_option(
+    "storage.distributed-load-workers", int,
+    "worker processes for distributed CSR loading (0/1 = in-process)", 0,
+    verifier=lambda v: v >= 0,
+)
+_option(
+    "ids.partition-bits", int, "bits of the vertex id reserved for the partition",
+    5, Mutability.FIXED, lambda v: 0 <= v <= 16,
+)
+_option(
+    "ids.block-size", int, "ids leased per authority block", 10_000,
+    Mutability.GLOBAL_OFFLINE, lambda v: v > 0,
+)
+_option(
+    "ids.authority-wait-ms", float,
+    "claim-verification wait for the consistent-key id authority", 0.5,
+    Mutability.GLOBAL_OFFLINE,
+)
+_option(
+    "ids.renew-percentage", float,
+    "fraction of an id block remaining that triggers background renewal",
+    0.3, verifier=lambda v: 0.0 < v < 1.0,
+)
+_option(
+    "computer.executor", str,
+    "default executor for graph.compute(): 'tpu' (the card), 'cpu' (the "
+    "plain versions on the CPU), 'sharded' (not ported)",
+    "tpu", verifier=lambda v: v in ("tpu", "cpu", "sharded"),
+)
+_option(
+    "computer.strategy", str,
+    "aggregation route ('segsum'|'pallas' the hand kernel, 'auto', 'ell', "
+    "'hybrid', 'segment')", "segsum",
+    verifier=lambda v: v in ("segsum", "auto", "ell", "hybrid", "segment", "pallas"),
+)
+_option(
+    "computer.autotune", bool,
+    "the tuner behind computer.strategy='auto' and the frontier ladders", True,
+)
+_option(
+    "computer.autotune-hub-cutoff", int,
+    "hybrid-format degree cutoff (0 = the tuner searches)", 0,
+    verifier=lambda v: v >= 0,
+)
+_option(
+    "computer.autotune-tail-chunk", int,
+    "hybrid tail chunk width (power of two)", 256,
+    verifier=lambda v: v > 0 and (v & (v - 1)) == 0,
+)
+_option(
+    "computer.autotune-persist", bool,
+    "keep the measured tuner record next to the checkpoint file", True,
+)
+_option(
+    "computer.write-back-batch", int,
+    "vertices per transaction when persisting compute keys", 10_000,
+    verifier=lambda v: v > 0,
+)
+_option(
+    "computer.sync-every", int,
+    "supersteps between host aggregator fetches (host-loop programs)", 1,
+    verifier=lambda v: v > 0,
+)
+_option(
+    "computer.checkpoint-every", int,
+    "supersteps between OLAP state checkpoints (0 = no checkpointing)", 0,
+    verifier=lambda v: v >= 0,
+)
+_option(
+    "computer.checkpoint-path", str,
+    "directory/file for OLAP superstep checkpoints", "", Mutability.LOCAL,
+)
+_option(
+    "computer.resume-attempts", int,
+    "checkpoint auto-resume budget per OLAP run", 3, verifier=lambda v: v >= 0,
+)
+_option(
+    "computer.frontier", str,
+    "frontier compaction for ShortestPath/CC ('auto', 'always', 'off')",
+    "auto", verifier=lambda v: v in ("auto", "off", "always"),
+)
+_option(
+    "computer.channel-cache-size", int,
+    "typed edge-channel views kept device-resident (LRU)", 8,
+    verifier=lambda v: v > 0,
+)
+_option(
+    "computer.delta", bool,
+    "incremental delta-CSR snapshots (not ported: True raises)", False,
+)
+
+
+def _lookup(path: str) -> ConfigOption:
+    opt = REGISTRY.get(path)
+    if opt is not None:
+        return opt
+    match = max((p for p in _NOT_PORTED if path.startswith(p)), key=len, default=None)
+    if match is not None:
+        raise ConfigurationError(
+            f"configuration option {path} is not ported yet: {_NOT_PORTED[match]}"
+        )
+    raise ConfigurationError(f"unknown configuration option: {path}")
+
+
+class GraphConfiguration:
+    """The merged view: local config + KCVS-stored global config.
+
+    Merge semantics at open (reference:
+    GraphDatabaseConfigurationBuilder.java:41):
+      * FIXED options: first opener writes its local value to the global
+        store; afterwards the stored value wins — a conflicting local value
+        is an error.
+      * GLOBAL / GLOBAL_OFFLINE: stored value wins; local value used only to
+        initialise an unset stored value.
+      * MASKABLE: local value if present, else stored value, else default.
+      * LOCAL: local value, else default.
+    """
+
+    def __init__(self, local: Dict[str, Any], backend=None):
+        self.local: Dict[str, Any] = {}
+        for k, v in local.items():
+            self.local[k] = _lookup(k).check(v)
+        self.backend = backend
+
+    # -- global store access ------------------------------------------------
+    @staticmethod
+    def _encode(value: Any) -> bytes:
+        return json.dumps(value).encode()
+
+    @staticmethod
+    def _decode(raw: bytes) -> Any:
+        return json.loads(raw.decode())
+
+    def _stored(self, path: str) -> Any:
+        if self.backend is None:
+            return None
+        raw = self.backend.get_global_config(path)
+        return None if raw is None else self._decode(raw)
+
+    def _store(self, path: str, value: Any) -> None:
+        if self.backend is not None:
+            self.backend.set_global_config(path, self._encode(value))
+
+    def attach_backend(self, backend) -> None:
+        """Bind the opened backend, then reconcile cluster-global options."""
+        self.backend = backend
+        for path, value in list(self.local.items()):
+            opt = REGISTRY[path]
+            if opt.mutability is Mutability.FIXED:
+                stored = self._stored(path)
+                if stored is None:
+                    self._store(path, value)
+                elif stored != value:
+                    raise ConfigurationError(
+                        f"{path} is FIXED: cluster value {stored!r} != "
+                        f"local value {value!r}"
+                    )
+            elif opt.mutability in (Mutability.GLOBAL, Mutability.GLOBAL_OFFLINE):
+                if self._stored(path) is None:
+                    self._store(path, value)
+
+    # -- reads --------------------------------------------------------------
+    def get(self, path: str) -> Any:
+        opt = _lookup(path)
+        if opt.mutability in (
+            Mutability.FIXED,
+            Mutability.GLOBAL,
+            Mutability.GLOBAL_OFFLINE,
+        ):
+            stored = self._stored(path)
+            if stored is not None:
+                # GLOBAL/FIXED: the stored cluster value wins over local
+                return opt.check(stored)
+        if opt.mutability is Mutability.MASKABLE:
+            if path in self.local:
+                return self.local[path]
+            stored = self._stored(path)
+            if stored is not None:
+                return opt.check(stored)
+            return opt.default
+        if path in self.local:
+            return self.local[path]
+        return opt.default

@@ -9,3 +9,33 @@ class JanusGraphTorchError(Exception):
 class SuperstepPreempted(JanusGraphTorchError):
     """An OLAP superstep was preempted (injected or real). An executor with
     checkpointing on resumes from its last checkpoint."""
+
+
+class BackendError(JanusGraphTorchError):
+    """A storage backend failed."""
+
+
+class TemporaryBackendError(BackendError):
+    """A storage failure that a retry may get past (the load_csr scan
+    re-issues the key range from just past its last row)."""
+
+
+class PermanentBackendError(BackendError):
+    """A storage failure no retry gets past."""
+
+
+class IDPoolExhaustedError(JanusGraphTorchError):
+    """An id namespace ran out of ids."""
+
+
+class InvalidIDError(JanusGraphTorchError):
+    """An element id that the id layout cannot hold or decode."""
+
+
+class SchemaViolationError(JanusGraphTorchError):
+    """A schema element is missing, clashes or is not of the expected kind."""
+
+
+class ConfigurationError(JanusGraphTorchError):
+    """An unknown option, a value its validator refuses, or an option the
+    port does not honour yet (the message names the ROADMAP item)."""

@@ -1,9 +1,16 @@
-from janusgraph_tpu_torch.olap.computer import run_on  # noqa: F401
+from janusgraph_tpu_torch.olap.computer import (  # noqa: F401
+    ComputerResult,
+    GraphComputer,
+    run_on,
+    write_back,
+)
 from janusgraph_tpu_torch.olap.csr import (  # noqa: F401
     CSRGraph,
     channel_edges,
     csr_from_arrays,
     csr_from_edges,
+    load_csr,
+    load_csr_snapshot,
 )
 from janusgraph_tpu_torch.olap.frontier import FrontierEngine  # noqa: F401
 from janusgraph_tpu_torch.olap.generators import (  # noqa: F401

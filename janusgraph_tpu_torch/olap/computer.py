@@ -1,16 +1,340 @@
-"""``run_on`` — the port of ``janusgraph_tpu/olap/computer.py::run_on`` for
-the single-device executor (the ``GraphComputer`` front end over storage is
-not ported yet)."""
+"""GraphComputer facade: the user-facing OLAP entry point — the port of
+``janusgraph_tpu/olap/computer.py``.
+
+``graph.compute().program(p).submit()`` loads the CSR snapshot from the
+graph's store (``load_csr``, with the ``edges``/``vertices``/
+``properties``/``weight`` filters), runs ``p`` on a ``GPUExecutor`` built
+from the graph's ``computer.*`` options, and returns a ``ComputerResult``
+(state arrays, ``value``/``by_vertex``, ``paths``/``select`` after
+``traverse(..., paths=True)``, MapReduce ``memory``, ``run_info``) that
+can ``write_back`` compute keys as vertex properties.
+
+Executors: "tpu" (the default; the reference's name for its one
+accelerator) runs on the CUDA card and raises where there is none; "cpu"
+runs the same executor's plain PyTorch versions on the CPU. "sharded"
+raises (ROADMAP Queue A #4).
+
+``write_back`` takes the columnar float path of the reference
+(``tpu_executor.py`` ``_write_back_columnar``): the same cells, batch for
+batch. Its transactional path (non-SINGLE or non-float keys) raises
+``NotImplementedError`` until the OLTP transaction is ported (ROADMAP
+Queue A #5); the port has no indexes, so no key takes it for that reason.
+
+Left out: OLAP admission, tracer spans and the run registry (ROADMAP
+Queue A #3; ``run_info`` is the executor's ``last_run_info``), the delta
+snapshot (``computer.delta``, Queue A #2), distributed loading and
+sharded routing. ``run_on`` is the array-level entry point beside it.
+"""
 
 from __future__ import annotations
 
-from typing import Dict
+import struct
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Sequence
 
 import numpy as np
+import torch
 
-from janusgraph_tpu_torch.olap.csr import CSRGraph
+from janusgraph_tpu_torch.device import resolve_device
+from janusgraph_tpu_torch.exceptions import ConfigurationError
+from janusgraph_tpu_torch.olap.csr import CSRGraph, load_csr
 from janusgraph_tpu_torch.olap.gpu_executor import GPUExecutor
 from janusgraph_tpu_torch.olap.vertex_program import VertexProgram
+
+#: computer.strategy values -> the GPUExecutor strategy ("pallas" is the
+#: reference's name for its hand kernel)
+_STRATEGY = {"pallas": "segsum"}
+
+
+@dataclass
+class ComputerResult:
+    states: Dict[str, np.ndarray]
+    csr: CSRGraph
+    graph: object = None
+    #: map-reduce results keyed by each job's memory_key
+    memory: Dict[str, object] = field(default_factory=dict)
+    #: the executor's last_run_info plus the submit() routing decision
+    #: under "routing"
+    run_info: Dict[str, object] = field(default_factory=dict)
+    #: the program that produced `states` (path()/select() terminals)
+    program: object = None
+    #: name of path position 0 for select() (compute().traverse(source_as=))
+    source_as: object = None
+
+    def _path_index(self):
+        """Memoized reverse-adjacency index shared by paths() and select()."""
+        from janusgraph_tpu_torch.olap.programs.olap_traversal import build_path_index
+
+        idx = getattr(self, "_path_index_cache", None)
+        if idx is None:
+            idx = build_path_index(self.csr, self.program)
+            object.__setattr__(self, "_path_index_cache", idx)
+        return idx
+
+    def paths(self, limit=None):
+        """Enumerate traverser paths (tuples of vertex ids, seed first) —
+        requires compute().traverse(..., paths=True). Lazy generator."""
+        from janusgraph_tpu_torch.olap.programs.olap_traversal import enumerate_paths
+
+        if "reach" not in self.states:
+            raise ValueError(
+                "no reach masks recorded — run "
+                "compute().traverse(..., paths=True)"
+            )
+        return enumerate_paths(
+            self.csr, self.program, self.states, limit,
+            path_index=self._path_index,
+        )
+
+    def select(self, *names, limit=None):
+        """Project as()-labeled path positions: yields {name: vertex_id}."""
+        from janusgraph_tpu_torch.olap.programs.olap_traversal import select_paths
+
+        if "reach" not in self.states:
+            raise ValueError(
+                "no reach masks recorded — run "
+                "compute().traverse(..., paths=True)"
+            )
+        return select_paths(
+            self.csr, self.program, self.states, names,
+            source_as=self.source_as, limit=limit,
+            path_index=self._path_index,
+        )
+
+    def value(self, key: str, vertex_id: int) -> float:
+        return float(self.states[key][self.csr.index_of(vertex_id)])
+
+    def by_vertex(self, key: str) -> Dict[int, float]:
+        arr = self.states[key]
+        return {int(v): float(arr[i]) for i, v in enumerate(self.csr.vertex_ids)}
+
+    def write_back(self, keys: Optional[Sequence[str]] = None) -> None:
+        write_back(self.graph, self.csr, self.states, keys,
+                   batch=self.graph.config.get("computer.write-back-batch"))
+
+
+class GraphComputer:
+    """The graph.compute() front end (reference: JanusGraphComputer). Executor
+    kind, aggregation strategy, sync cadence and checkpointing default to
+    the graph's config (computer.* options)."""
+
+    def __init__(self, graph, executor: str = None):
+        self.graph = graph
+        if executor is None:
+            executor = graph.config.get("computer.executor")
+        if executor == "sharded":
+            raise ConfigurationError(
+                "the sharded executor is not ported yet: ROADMAP.md Queue A #4 "
+                "(multi-GPU)"
+            )
+        if executor not in ("tpu", "cpu"):
+            raise ConfigurationError(f"unknown executor {executor!r}")
+        self.executor_kind = executor
+        # "tpu" is the card: without one this raises before any load
+        if executor == "tpu" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; graph.compute(executor='cpu') "
+                "runs the plain PyTorch path on the CPU"
+            )
+        self.device = resolve_device(None if executor == "tpu" else "cpu")
+        self._edge_labels: Optional[Sequence[str]] = None
+        self._vertex_labels: Optional[Sequence[str]] = None
+        self._property_keys: Sequence[str] = ()
+        self._weight_key: Optional[str] = None
+        self._program: Optional[VertexProgram] = None
+        self._traverse_args = None
+        self._map_reduces: list = []
+
+    def edges(self, *labels: str) -> "GraphComputer":
+        """GraphFilter on edge labels (reference: GraphComputer.edges)."""
+        self._edge_labels = labels
+        return self
+
+    def vertices(self, *labels: str) -> "GraphComputer":
+        """GraphFilter on vertex labels (reference: GraphComputer.vertices)."""
+        self._vertex_labels = labels
+        return self
+
+    def map_reduce(self, mr) -> "GraphComputer":
+        """Add a MapReduce job over the final vertex state."""
+        self._map_reduces.append(mr)
+        return self
+
+    def properties(self, *keys: str) -> "GraphComputer":
+        self._property_keys = keys
+        return self
+
+    def weight(self, key: str) -> "GraphComputer":
+        self._weight_key = key
+        return self
+
+    def program(self, p: VertexProgram) -> "GraphComputer":
+        self._program = p
+        # an explicit program supersedes any earlier traverse() shortcut
+        self._traverse_args = None
+        return self
+
+    def traverse(
+        self, *spec, seed_filters=None, paths=False, source_as=None,
+        sack=None, sack_init=None,
+    ) -> "GraphComputer":
+        """OLAP traversal shortcut: compute().traverse(("out", ["knows"]),
+        ("in", None)).submit() counts traversers per vertex; spec items may
+        carry has()-filters, ``seed_filters`` restricts the start set,
+        ``paths=True`` records reach masks for ``paths()``/``select()``,
+        ``sack="sum"|"mult"`` folds the edge weight each hop (pair with
+        ``.weight(key)``). The program is built at submit() from the loaded
+        snapshot (``build_olap_traversal``)."""
+        self._traverse_args = (
+            spec, seed_filters, paths, source_as, sack, sack_init,
+        )
+        self._program = None
+        return self
+
+    def _executor_kwargs(self):
+        """(GPUExecutor kwargs, run kwargs) from the computer.* options."""
+        cfg = self.graph.config
+        strategy = cfg.get("computer.strategy")
+        ex_kw = {
+            "strategy": _STRATEGY.get(strategy, strategy),
+            "frontier": cfg.get("computer.frontier"),
+            "channel_cache_size": cfg.get("computer.channel-cache-size"),
+            "autotune": cfg.get("computer.autotune"),
+            "hub_cutoff": cfg.get("computer.autotune-hub-cutoff"),
+            "tail_chunk": cfg.get("computer.autotune-tail-chunk"),
+            "autotune_persist": cfg.get("computer.autotune-persist"),
+        }
+        run_kw = {
+            "sync_every": cfg.get("computer.sync-every"),
+            "checkpoint_every": cfg.get("computer.checkpoint-every"),
+            "checkpoint_path": cfg.get("computer.checkpoint-path") or None,
+            "resume_attempts": cfg.get("computer.resume-attempts"),
+        }
+        return ex_kw, run_kw
+
+    def submit(self) -> ComputerResult:
+        """Load the CSR snapshot, run the program, wrap the result."""
+        property_keys = self._property_keys
+        traverse_args = self._traverse_args
+        if traverse_args is not None:
+            # filters reference property names: the snapshot loads them
+            from janusgraph_tpu_torch.olap.programs.olap_traversal import (
+                _parse_filters,
+                steps_from_spec,
+            )
+
+            spec, seed_filters = traverse_args[0], traverse_args[1]
+            fkeys = {f.key for f in _parse_filters(seed_filters)}
+            for st in steps_from_spec(self.graph, spec):
+                fkeys.update(f.key for f in st.filters)
+            property_keys = tuple(set(property_keys or ()) | fkeys)
+        if self._program is None and traverse_args is None:
+            raise ValueError("program() not set")
+        csr = load_csr(
+            self.graph,
+            edge_labels=self._edge_labels,
+            vertex_labels=self._vertex_labels,
+            property_keys=property_keys,
+            weight_key=self._weight_key,
+        )
+        if traverse_args is not None:
+            from janusgraph_tpu_torch.olap.programs.olap_traversal import (
+                build_olap_traversal,
+            )
+
+            spec, seed_filters, want_paths, source_as, sack, sack_init = (
+                traverse_args
+            )
+            self._program = build_olap_traversal(
+                self.graph, csr, spec, seed_filters=seed_filters,
+                record_reach=want_paths, sack=sack, sack_init=sack_init,
+            )
+        ex_kw, run_kw = self._executor_kwargs()
+        ex = GPUExecutor(csr, device=self.device, **ex_kw)
+        states = ex.run(self._program, **run_kw)
+        routing = {
+            "requested": self.executor_kind,
+            "routed": self.executor_kind,
+            "reason": "single device" if self.executor_kind == "tpu" else "explicit",
+            "executor": self.executor_kind,
+            "device": str(self.device),
+        }
+        run_info = dict(ex.last_run_info)
+        run_info["routing"] = routing
+        memory = {}
+        if self._map_reduces:
+            from janusgraph_tpu_torch.olap.mapreduce import run_map_reduce
+
+            for mr in self._map_reduces:
+                memory[mr.memory_key] = run_map_reduce(mr, states, csr)
+        return ComputerResult(
+            states=states, csr=csr, graph=self.graph, memory=memory,
+            run_info=run_info, program=self._program,
+            source_as=traverse_args[3] if traverse_args is not None else None,
+        )
+
+
+def write_back(graph, csr: CSRGraph, result: Dict[str, np.ndarray], keys=None,
+               batch: int = 10_000) -> None:
+    """Persist compute-key arrays as vertex properties: unindexed
+    SINGLE-cardinality float keys as raw property cells (one cell per
+    vertex, batched backend transactions, relation ids drawn in spans);
+    keys that do not exist yet are made as float keys first."""
+    from janusgraph_tpu_torch.core.codecs import Cardinality
+
+    mgmt = graph.management()
+    names = list(result.keys() if keys is None else keys)
+    for name in names:
+        if graph.schema_cache.get_by_name(name) is None:
+            mgmt.make_property_key(name, float)
+    vids = csr.vertex_ids
+    for name in names:
+        pk = graph.schema_cache.get_by_name(name)
+        if pk.cardinality != Cardinality.SINGLE or pk.data_type is not float:
+            raise NotImplementedError(
+                f"write_back of {name!r} ({pk.cardinality.name} "
+                f"{getattr(pk.data_type, '__name__', pk.data_type)}) needs the "
+                "transactional path, which waits for the OLTP transaction "
+                "(ROADMAP.md Queue A #5)"
+            )
+    for name in names:
+        _write_back_columnar(graph, vids, graph.schema_cache.get_by_name(name),
+                             result[name], batch)
+
+
+def _write_back_columnar(graph, vids, pk, values, batch: int) -> None:
+    if len(vids) == 0:
+        return
+    values = np.asarray(values, dtype=np.float64)
+    es = graph.edge_serializer
+    idm = graph.idm
+    n = len(vids)
+    spans = graph.id_assigner.assign_relation_ids(n)
+    rel_ids = np.concatenate(
+        [np.arange(s, s + ln, dtype=np.int64) for s, ln in spans]
+    )
+    # the cell layout comes from the codec: render a probe cell and check
+    # that only the relation id and the float payload vary, then fill those
+    # two fields vectorized
+    probe_rel, probe_val = 1, 0.0
+    col, probe_cell = es.write_property(pk.id, probe_rel, probe_val)
+    mid = struct.pack(">H", graph.serializer.serializer_for(0.0).type_id)
+    if probe_cell != struct.pack(">Q", probe_rel) + mid + struct.pack(">d", probe_val):
+        raise RuntimeError("the property cell layout changed under write_back")
+    keys = idm.get_keys_array(vids)
+    rel_raw = rel_ids.astype(">u8").tobytes()
+    val_raw = values.astype(">f8").tobytes()
+    for lo in range(0, n, batch):
+        hi = min(lo + batch, n)
+        btx = graph.backend.begin_transaction()
+        for i in range(lo, hi):
+            val = (
+                rel_raw[8 * i : 8 * i + 8]
+                + mid
+                + val_raw[8 * i : 8 * i + 8]
+            )
+            btx.mutate_edges(keys[i], [(col, val)], [])
+        btx.commit()
 
 
 def run_on(

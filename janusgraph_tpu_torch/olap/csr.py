@@ -1,21 +1,39 @@
-"""CSR snapshot for OLAP — the port of ``CSRGraph`` and ``csr_from_edges``
-from ``janusgraph_tpu/olap/csr.py``.
+"""CSR snapshot for OLAP — the port of ``janusgraph_tpu/olap/csr.py``.
 
-Only the synthetic-graph path is ported: the storage scan (``load_csr``)
-stays with the reference for now. ``csr_from_arrays`` carries a reference
-snapshot across, so both packages compute on the same graph state.
-``channel_edges`` flattens a typed edge view (``EdgeChannel``) into an edge
-list.
+Bulk load from storage: ``load_csr`` scans the edgestore once, partition by
+partition (a ``TemporaryBackendError`` mid-range re-issues the range from
+just past the last row, up to ``storage.scan-retries`` times), decodes the
+fixed-width edge columns in vectorized chunks (``bulk_decode_edges``) and
+every other cell through ``parse_relation``, skips ghost rows (no
+existence cell), canonicalizes partitioned-vertex ids, reindexes the
+vertex ids densely and builds both orientations with the native host
+library (``build_csr_from_raw``). ``load_csr_snapshot`` adds the backend's
+mutation epoch. The arrays equal the reference's, filter for filter.
+
+The synthetic-graph path is ``csr_from_edges``; ``csr_from_arrays``
+carries a reference snapshot across, so both packages compute on the same
+graph state. ``channel_edges`` flattens a typed edge view
+(``EdgeChannel``) into an edge list.
+
+Left out: ``refresh_csr`` and the snapshot's ``_refreshable`` mark it
+reads (they wait for the delta capture side, ROADMAP Queue A #2), the
+merge of several scans in ``build_csr_from_raw`` (distributed loading,
+Queue A #5) and the unordered-scan branch of ``_scan_raw`` (the in-memory
+store scans in key order).
 """
 
 from __future__ import annotations
 
+import struct
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from janusgraph_tpu_torch import native
+from janusgraph_tpu_torch.core.codecs import EDGE_COL_FIXED, Direction
+from janusgraph_tpu_torch.exceptions import TemporaryBackendError
+from janusgraph_tpu_torch.storage.kcvs import KeyRangeQuery, SliceQuery
 
 
 @dataclass
@@ -64,6 +82,344 @@ class CSRGraph:
         return int(self.vertex_ids[index])
 
 
+def load_csr(
+    graph,
+    edge_labels: Optional[Sequence[str]] = None,
+    property_keys: Sequence[str] = (),
+    weight_key: Optional[str] = None,
+    partitions: Optional[Sequence[int]] = None,
+    vertex_labels: Optional[Sequence[str]] = None,
+) -> CSRGraph:
+    """Scan the edgestore and build a CSRGraph.
+
+    edge_labels: restrict to these labels (None = all user edges) — the
+    reference's GraphFilter.edges equivalent.
+    vertex_labels: restrict to vertices with these labels — the reference's
+    GraphFilter.vertices equivalent (edges incident to excluded vertices are
+    dropped with them).
+    property_keys: vertex property columns to materialize as arrays.
+    weight_key: edge property to materialize as edge weight (float).
+    partitions: restrict the scan to these storage partitions (the unit that
+    maps onto mesh shards).
+    """
+    idm = graph.idm
+
+    label_ids: Optional[set] = None
+    if edge_labels is not None:
+        label_ids = set()
+        for name in edge_labels:
+            el = graph.schema_cache.get_by_name(name)
+            if el is not None:
+                label_ids.add(el.id)
+
+    vlabel_ids: Optional[set] = None
+    if vertex_labels is not None:
+        vlabel_ids = set()
+        for name in vertex_labels:
+            vl = graph.schema_cache.get_by_name(name)
+            if vl is not None:
+                vlabel_ids.add(vl.id)
+
+    prop_key_ids: Dict[int, str] = {}
+    for name in property_keys:
+        pk = graph.schema_cache.get_by_name(name)
+        if pk is not None:
+            prop_key_ids[pk.id] = name
+    weight_key_id = None
+    if weight_key is not None:
+        pk = graph.schema_cache.get_by_name(weight_key)
+        if pk is not None:
+            weight_key_id = pk.id
+
+    raw = _scan_raw(
+        graph, label_ids, vlabel_ids, prop_key_ids, weight_key_id, partitions
+    )
+    return build_csr_from_raw(idm, raw)
+
+
+def _scan_raw(
+    graph, label_ids, vlabel_ids, prop_key_ids, weight_key_id, partitions
+):
+    """Partition scan -> RAW vid-space arrays with NO endpoint validation
+    (build_csr_from_raw validates)."""
+    es = graph.edge_serializer
+    idm = graph.idm
+    st = graph.system_types
+    btx = graph.backend.begin_transaction()
+    store_tx = btx.store_tx
+    store = graph.backend.edgestore
+
+    # ONE wide slice covering every cell category (sys-prop .. user-edge):
+    # the whole row arrives with the scan, so there are no per-row get_slice
+    # round trips at all
+    full_q = SliceQuery(bytes([0]), bytes([4]))
+    exists_tid = st.EXISTS
+    label_tid = st.VERTEX_LABEL_EDGE
+    label_filter = (
+        np.array(sorted(label_ids), dtype=np.int64)
+        if label_ids is not None
+        else None
+    )
+    # RelationTypeIndex cells duplicate edges under the index's type id —
+    # invisible to untyped edge enumeration (they'd double-count otherwise)
+    relidx_ids = getattr(graph, "relation_index_ids", frozenset())
+    relidx_filter = (
+        np.array(sorted(relidx_ids), dtype=np.int64)
+        if (relidx_ids and label_ids is None)
+        else None
+    )
+
+    src_ids: List[np.ndarray] = []
+    dst_ids: List[np.ndarray] = []
+    weights: List[np.ndarray] = []
+    etypes: List[np.ndarray] = []
+    vertex_id_list: List[int] = []
+    vertex_labels: List[int] = []
+    raw_props: Dict[str, Dict[int, object]] = {name: {} for name in prop_key_ids.values()}
+
+    if partitions is None:
+        ranges = [idm.partition_key_range(p) for p in range(idm.num_partitions)]
+    else:
+        ranges = [idm.partition_key_range(p) for p in partitions]
+
+    canonicalize = idm.get_canonical_vertex_id
+
+    def _scan_rows():
+        # per-range retry + resume: a TemporaryBackendError mid-stream
+        # re-issues the range from just past the last yielded key
+        retries = 3
+        cfg = getattr(graph, "config", None)
+        if cfg is not None:
+            retries = cfg.get("storage.scan-retries")
+        for start, end in ranges:
+            cursor = start
+            attempt = 0
+            while True:
+                try:
+                    for key, entries in store.get_keys(
+                        KeyRangeQuery(cursor, end, full_q), store_tx
+                    ):
+                        yield key, entries
+                        cursor = key + b"\x00"
+                    break
+                except TemporaryBackendError:
+                    attempt += 1
+                    if attempt > retries:
+                        raise
+
+    # chunked bulk decode: fixed-width edge columns accumulate across rows
+    # and decode in one numpy pass per chunk
+    CHUNK = 1 << 16
+    pend_cols: List[bytes] = []
+    pend_vids: List[int] = []
+    unpack_tid = struct.Struct(">Q").unpack_from
+
+    def _flush_edges():
+        if not pend_cols:
+            return
+        tids, dirs, others, _rels = es.bulk_decode_edges(pend_cols)
+        owner = np.array(pend_vids, dtype=np.int64)
+        pend_cols.clear()
+        pend_vids.clear()
+        mask = dirs == int(Direction.OUT)
+        if label_filter is not None:
+            mask &= np.isin(tids, label_filter)
+        elif relidx_filter is not None:
+            mask &= ~np.isin(tids, relidx_filter)
+        if not mask.any():
+            return
+        src_ids.append(owner[mask])
+        dst_ids.append(others[mask])
+        etypes.append(tids[mask].astype(np.int32))
+        if weight_key_id is not None:
+            weights.append(np.ones(int(mask.sum()), dtype=np.float32))
+
+    for key, entries in _scan_rows():
+        vid = idm.get_vertex_id(key)
+        if not idm.is_user_vertex_id(vid):
+            continue
+        vid = canonicalize(vid)
+
+        # single pass over the row's cells, classified by category byte
+        exists = False
+        label_id = 0
+        row_edge_cols: List[bytes] = []
+        slow_entries = []
+        prop_entries = []
+        for col, val in entries:
+            cat = col[0]
+            if cat == 3:  # user edge
+                if len(col) == EDGE_COL_FIXED and not val:
+                    row_edge_cols.append(col)
+                else:
+                    slow_entries.append((col, val))
+            elif cat == 0:  # system property
+                if unpack_tid(col, 1)[0] == exists_tid:
+                    exists = True
+            elif cat == 2:  # system edge (vertex label)
+                if unpack_tid(col, 1)[0] == label_tid:
+                    rc = es.parse_relation((col, val), st.type_info)
+                    label_id = rc.other_vertex_id
+            elif cat == 1 and prop_key_ids:  # user property
+                name = prop_key_ids.get(unpack_tid(col, 1)[0])
+                if name is not None:
+                    prop_entries.append((name, col, val))
+
+        # ghost check: only rows with the existence cell are real
+        # vertices (reference: VertexJobConverter.java:126) — filtered
+        # rows must not pay property decode either
+        if not exists:
+            continue
+        if vlabel_ids is not None and label_id not in vlabel_ids:
+            continue
+        vertex_id_list.append(vid)
+        vertex_labels.append(label_id)
+        for name, col, val in prop_entries:
+            rc = es.parse_relation((col, val), graph_codec_schema(graph))
+            raw_props[name][vid] = rc.value
+
+        if row_edge_cols:
+            pend_cols.extend(row_edge_cols)
+            pend_vids.extend([vid] * len(row_edge_cols))
+            if len(pend_cols) >= CHUNK:
+                _flush_edges()
+        for col, val in slow_entries:
+            rc = es.parse_relation((col, val), graph_codec_schema(graph))
+            if rc.direction != Direction.OUT or not rc.is_edge:
+                continue
+            if label_ids is not None and rc.type_id not in label_ids:
+                continue
+            if label_ids is None and rc.type_id in relidx_ids:
+                continue
+            src_ids.append(np.array([vid], dtype=np.int64))
+            dst_ids.append(np.array([rc.other_vertex_id], dtype=np.int64))
+            etypes.append(np.array([rc.type_id], dtype=np.int32))
+            if weight_key_id is not None:
+                w = 1.0
+                if rc.properties and weight_key_id in rc.properties:
+                    w = float(rc.properties[weight_key_id])
+                weights.append(np.array([w], dtype=np.float32))
+
+    _flush_edges()
+
+    return {
+        "vertex_id_list": vertex_id_list,
+        "vertex_labels": vertex_labels,
+        "src": np.concatenate(src_ids) if src_ids else np.empty(0, np.int64),
+        "dst": np.concatenate(dst_ids) if dst_ids else np.empty(0, np.int64),
+        "etype": np.concatenate(etypes) if etypes else None,
+        "weights": np.concatenate(weights) if weights else None,
+        "raw_props": raw_props,
+    }
+
+
+def build_csr_from_raw(idm, raw) -> CSRGraph:
+    """One _scan_raw output -> a validated CSRGraph (the reference also
+    merges several, one per loader process; distributed loading waits for
+    ROADMAP Queue A #5)."""
+    src, dst = raw["src"], raw["dst"]
+    et, w = raw["etype"], raw["weights"]
+    raw_props: Dict[str, Dict[int, object]] = raw["raw_props"]
+
+    # one unique pass; return_index picks each id's label
+    vertex_ids, first_idx = np.unique(
+        np.asarray(raw["vertex_id_list"], dtype=np.int64), return_index=True
+    )
+    vlabels_all = np.asarray(raw["vertex_labels"], dtype=np.int64)
+    label_arr = vlabels_all[first_idx] if len(vlabels_all) else None
+    n = len(vertex_ids)
+    if len(src):
+        # canonicalize partitioned-vertex endpoints on the dst side too
+        if idm.partition_bits > 0 and _any_partitioned(idm, dst):
+            dst = canonicalize_ids(idm, dst)
+        # drop edges to vertices outside the snapshot (ghost endpoints)
+        src_idx = np.searchsorted(vertex_ids, src)
+        dst_idx = np.searchsorted(vertex_ids, dst)
+        valid = (
+            (src_idx < n)
+            & (dst_idx < n)
+            & (vertex_ids[np.minimum(src_idx, n - 1)] == src)
+            & (vertex_ids[np.minimum(dst_idx, n - 1)] == dst)
+        )
+        src_idx = src_idx[valid].astype(np.int32)
+        dst_idx = dst_idx[valid].astype(np.int32)
+        if w is not None:
+            w = w[valid]
+        if et is not None:
+            et = et[valid]
+    else:
+        src_idx = np.empty(0, dtype=np.int32)
+        dst_idx = np.empty(0, dtype=np.int32)
+        w = None
+        et = None
+
+    # build out-CSR (sorted by src) and in-CSR (sorted by dst)
+    out_indptr, out_dst, out_order, in_indptr, in_src, in_order = (
+        native.build_csr(n, src_idx, dst_idx)
+    )
+    out_degree = np.diff(out_indptr).astype(np.int32)
+
+    props: Dict[str, np.ndarray] = {}
+    for name, mapping in raw_props.items():
+        vals = [mapping.get(int(v)) for v in vertex_ids]
+        if all(isinstance(x, (int, float)) or x is None for x in vals):
+            props[name] = np.array(
+                [float(x) if x is not None else np.nan for x in vals],
+                dtype=np.float64,
+            )
+        else:
+            props[name] = np.array(vals, dtype=object)
+
+    return CSRGraph(
+        vertex_ids=vertex_ids,
+        out_indptr=out_indptr,
+        out_dst=out_dst,
+        in_indptr=in_indptr,
+        in_src=in_src,
+        out_degree=out_degree,
+        in_edge_weight=w[in_order] if w is not None else None,
+        out_edge_weight=w[out_order] if w is not None else None,
+        properties=props,
+        labels=label_arr,
+        in_edge_type=et[in_order] if et is not None else None,
+        out_edge_type=et[out_order] if et is not None else None,
+    )
+
+
+def _any_partitioned(idm, ids: np.ndarray) -> bool:
+    # partitioned suffix is 0b010 in the low 3 bits
+    return bool(np.any((ids & 0b111) == 0b010))
+
+
+def canonicalize_ids(idm, ids: np.ndarray) -> np.ndarray:
+    """Vectorized IDManager.get_canonical_vertex_id over an int64 array:
+    partition-copies of vertex-cut vertices map to the canonical
+    representative (partition = count % num_partitions); everything else
+    passes through unchanged."""
+    ids = np.asarray(ids, dtype=np.int64)
+    # 0b010 suffix identifies partitioned user vertices (schema ids end 0b111)
+    part_mask = (ids & 0b111) == 0b010
+    if not np.any(part_mask):
+        return ids
+    pb = idm.partition_bits
+    count = ids >> (3 + pb)
+    canonical = (((count << pb) | (count % (1 << pb))) << 3) | 0b010
+    return np.where(part_mask, canonical, ids)
+
+
+def graph_codec_schema(graph):
+    def lookup(type_id: int):
+        info = graph.system_types.type_info(type_id)
+        if info is not None:
+            return info
+        el = graph.schema_cache.get_by_id(type_id)
+        if el is None:
+            raise KeyError(type_id)
+        return el.type_info()
+
+    return lookup
+
+
 def csr_from_edges(
     n: int,
     src: np.ndarray,
@@ -94,6 +450,14 @@ def csr_from_edges(
         in_edge_type=et[in_order] if et is not None else None,
         out_edge_type=et[out_order] if et is not None else None,
     )
+
+
+def load_csr_snapshot(graph, **kwargs) -> Tuple[CSRGraph, int]:
+    """load_csr plus the backend mutation epoch observed BEFORE the scan —
+    the handle incremental refresh resumes from."""
+    epoch = graph.backend.mutation_epoch()
+    csr = load_csr(graph, **kwargs)
+    return csr, epoch
 
 
 def csr_from_arrays(

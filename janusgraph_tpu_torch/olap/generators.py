@@ -2,10 +2,12 @@
 ``janusgraph_tpu/olap/generators.py``.
 
 R-MAT / Kronecker generator with graph500 reference parameters
-(a,b,c,d = 0.57, 0.19, 0.19, 0.05, edge factor 16), one random draw per
-(edge, level). The reference prefers a native generator that draws other
-edges from the same seed, so tests compare CSRs built from the same R-MAT
-edge lists, never R-MAT generator outputs.
+(a,b,c,d = 0.57, 0.19, 0.19, 0.05, edge factor 16). As in the reference,
+the native host library draws the edges where it is available (SplitMix64
+over a fixed 64-chunk grid, ``csrc/graphcsr.cpp``) and numpy otherwise (one
+random draw per (edge, level)); either way the vertex permutation comes
+from ``np.random.default_rng(seed)``. The same (scale, seed) gives the
+reference's edges on both paths.
 
 The LDBC-SNB-shaped and Twitter-shaped proxies are numpy only: the same
 seed gives the reference's arrays.
@@ -17,6 +19,7 @@ from typing import Tuple
 
 import numpy as np
 
+from janusgraph_tpu_torch import native
 from janusgraph_tpu_torch.olap.csr import CSRGraph, csr_from_edges
 
 
@@ -33,6 +36,14 @@ def rmat_edges(
     n = 1 << scale
     m = n * edge_factor
     rng = np.random.default_rng(seed)
+    nat = native.rmat_edges(scale, m, seed, a, b, c)
+    if nat is not None:
+        src32, dst32 = nat
+        if permute:
+            perm = rng.permutation(n).astype(np.int32)
+            src32 = perm[src32]
+            dst32 = perm[dst32]
+        return n, src32, dst32
     src = np.zeros(m, dtype=np.int64)
     dst = np.zeros(m, dtype=np.int64)
     ab = a + b

@@ -54,7 +54,8 @@ Typed edge channels (``VertexProgram.edge_channels`` / ``channel_for``):
 a superstep whose channel is named aggregates over that channel's edges
 (``csr.channel_edges``) instead of the default view. Its structures, the
 ELL pack and (for scalar SUM steps under "segsum") a segment-sum plan, are
-cached per channel value in an LRU of ``CHANNEL_CACHE_SIZE`` entries. A
+cached per channel value in an LRU of ``CHANNEL_CACHE_SIZE`` entries
+(``channel_cache_size=``, the ``computer.channel-cache-size`` option). A
 scalar SUM step under "segsum" launches the kernel on the channel's plan;
 every other step goes through the channel's ELL pack, as the reference's
 channel steps always do. Channel programs run on the host loop.
@@ -382,6 +383,7 @@ class GPUExecutor:
         tail_chunk: int = None,
         autotune_persist: bool = None,
         delta: OverlayView = None,
+        channel_cache_size: int = None,
     ):
         if strategy not in STRATEGIES:
             raise ValueError(f"unknown aggregation strategy: {strategy!r}")
@@ -415,6 +417,10 @@ class GPUExecutor:
         self._segsum_plans: Dict[str, kernels._SegSumPlan] = {}
         #: EdgeChannel value -> its _ChannelPack, least recently used first
         self._channel_packs: "OrderedDict[EdgeChannel, _ChannelPack]" = OrderedDict()
+        if channel_cache_size is not None:
+            if channel_cache_size < 1:
+                raise ValueError("channel_cache_size must be positive")
+            self.CHANNEL_CACHE_SIZE = int(channel_cache_size)
         #: (strategy, undirected) -> the sddmm row destinations on the device
         self._sddmm_rows_cache: Dict[Tuple, object] = {}
         #: keyed (program.cache_key(), monoid, strategy, the overlay's lane

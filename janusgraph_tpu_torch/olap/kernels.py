@@ -34,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from janusgraph_tpu_torch import native
 from janusgraph_tpu_torch.olap.vertex_program import (
     Combiner,
     EdgeTransform,
@@ -46,10 +47,13 @@ from janusgraph_tpu_torch.olap.vertex_program import (
 # --------------------------------------------------------------------------
 
 def fill_ell_rows(starts_r, degs_r, src32, w32, idx, wmat, valid):
-    """Fill one ELL bucket's (rows, cap) matrices in place. Callers
-    pre-fill idx with the sentinel and wmat/valid with zeros; wmat/valid are
-    None for unweighted packs (the sentinel slot alone provides the monoid
+    """Fill one ELL bucket's (rows, cap) matrices in place: the native host
+    library where it is available, numpy otherwise. Callers pre-fill idx
+    with the sentinel and wmat/valid with zeros; wmat/valid are None for
+    unweighted packs (the sentinel slot alone provides the monoid
     identity)."""
+    if native.ell_fill(idx.shape[1], starts_r, degs_r, src32, w32, idx, wmat, valid):
+        return
     total = int(np.asarray(degs_r).sum())
     if not total:
         return

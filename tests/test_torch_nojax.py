@@ -74,6 +74,39 @@ print("OK", round(float(out["rank"].sum()), 4), paths > 0, loaded)
 """
 
 
+STORED_RUN = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["janusgraph_tpu"] = None
+import numpy as np
+from janusgraph_tpu_torch import _build, native
+from janusgraph_tpu_torch.core.bulk import bulk_add_edges, bulk_add_vertices
+from janusgraph_tpu_torch.core.graph import open_graph
+from janusgraph_tpu_torch.olap.csr import load_csr, load_csr_snapshot
+from janusgraph_tpu_torch.olap.generators import rmat_edges
+from janusgraph_tpu_torch.olap.programs import PageRankProgram
+from janusgraph_tpu_torch.storage.inmemory import InMemoryStoreManager
+n, src, dst = rmat_edges(8, seed=2)
+g = open_graph({"storage.backend": "inmemory"})
+vids = bulk_add_vertices(g, n)
+bulk_add_edges(g, "link", vids[src], vids[dst])
+csr, epoch = load_csr_snapshot(g)
+assert csr.num_vertices == n and csr.num_edges == len(src) and epoch > 0
+res = g.compute(executor="cpu").program(PageRankProgram(max_iterations=10)).submit()
+res.write_back(["rank"])
+back = load_csr(g, property_keys=("rank",))
+assert np.array_equal(back.properties["rank"], res.states["rank"].astype(np.float64))
+again = open_graph(store_manager=InMemoryStoreManager.from_rows(g.backend.manager.dump_rows()))
+assert np.array_equal(load_csr(again, property_keys=("rank",)).properties["rank"],
+                      back.properties["rank"])
+assert native.available() == ("error" not in _build.host_build_info)
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+    m == "jax" or m.startswith("jax.")
+    or m == "janusgraph_tpu" or m.startswith("janusgraph_tpu.")))
+print("OK", round(float(res.states["rank"].sum()), 4), loaded)
+"""
+
+
 def _forbidden(name):
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
@@ -94,6 +127,19 @@ def test_port_runs_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "OK 1.0 True []", proc.stdout
+
+
+def test_stored_path_runs_with_jax_blocked():
+    """open_graph -> bulk load -> submit(executor="cpu") -> write_back ->
+    reload, and a reopen from the store's rows, with both blocked."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", STORED_RUN], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "OK 1.0 []", proc.stdout
 
 
 def _port_files():
@@ -122,9 +168,24 @@ def _imported_names(tree):
             yield node.lineno, node.args[0].value
 
 
+#: modules of the stored-graph path that the scan must cover, and the
+#: loader of the native host library (native.py builds csrc/graphcsr.cpp
+#: through _build.py)
+STORED_PATH_MODULES = (
+    "native.py", "_build.py", "core/ids.py", "core/attributes.py", "core/codecs.py",
+    "core/schema.py", "core/config.py", "core/management.py", "core/graph.py",
+    "core/bulk.py", "storage/kcvs.py", "storage/inmemory.py", "storage/idauthority.py",
+    "storage/backend.py", "olap/csr.py", "olap/computer.py",
+)
+
+
 def test_no_port_file_imports_jax_or_reference():
     files = _port_files()
     assert len(files) > 10 and os.path.exists(files[0])
+    pkg = os.path.join(ROOT, "janusgraph_tpu_torch")
+    for rel in STORED_PATH_MODULES:
+        assert os.path.join(pkg, rel) in files, rel
+    assert os.path.exists(os.path.join(pkg, "csrc", "graphcsr.cpp"))
     bad = []
     for path in files:
         with open(path) as f:
