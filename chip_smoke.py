@@ -92,16 +92,31 @@ Phases, each printing one JSON line:
            against scipy, the bench's filtered 3-hop (creation_day > 1825)
            held as at scale 20; the host build time
   stored   the stored-graph entry point at the reference bench's
-           storage-backed size (bench.py:3704-3723): open_graph, the
-           columnar bulk load of the first 2,000,000 out-edges (label
+           storage-backed size (bench.py:3704-3723): open_graph (the default
+           computer.delta on, so every commit feeds the change capture),
+           the columnar bulk load of the first 2,000,000 out-edges (label
            "link"), load_csr_snapshot (the written graph, edge for edge),
-           graph.compute().program(PageRank(20, tol=0)).submit() on the card twice
-           (20 kernel runs each, bitwise equal to each other and to run_on
-           over the loaded CSR, within 1e-4 of float64), CC through
-           submit() against scipy, a 3-hop traverse() (3 kernel runs) equal
-           to float64 at every vertex below 2^24 paths and within 1e-4
-           above, write_back and a reload that returns the ranks bit for
-           bit
+           graph.compute().program(PageRank(20, tol=0)).submit() on the card
+           twice: cold (the store scan) and warm (no scan, the cached
+           executor); 20 kernel runs each, bitwise equal to each other and
+           to run_on over the loaded CSR, within 1e-4 of float64; CC
+           through submit() against scipy, a 3-hop traverse() (3 kernel
+           runs) equal to float64 at every vertex below 2^24 paths and
+           within 1e-4 above, write_back and a reload that returns the
+           ranks bit for bit
+  stored_delta  the same graph, written on: (a) one OLTP transaction of
+           ~2,000 edge adds, ~500 edge removals, a new vertex with an edge
+           and a removed vertex, then PageRank and CC through submit() on
+           the "fused" path (3 kernel runs a superstep); (b) the ranks
+           within 1e-4 of run_on over a fresh scan and bitwise equal to a
+           fresh executor over the same overlay, CC bitwise equal to the
+           scan's and to scipy's; (c) the kernel against its plain version
+           on the add and tombstone lanes' plans; (d) a bulk burst of 0.5 %
+           of the edges, past computer.delta-max-overlay: the next submit
+           takes the "refresh" path (materialize, zero store reads; 20
+           kernel runs), its base array-equal to a fresh scan and its ranks
+           bitwise equal to run_on over it; (e) refresh_csr against the
+           same scan; the walls of every submit and write
 Each phase that drives a path zeroes the kernel launch counts just before
 it and reads them just after. The wrapper counts its eager launches; the
 fix-up kernel adds one to a device counter at every run, eager or replayed
@@ -1645,24 +1660,33 @@ def stored_phase(csr, args, emit) -> dict:
         raise RuntimeError("load_csr: the edges are not the written ones")
 
     emit("stored_load", vertices=n, edges=cap, bulk_vertices_s=bulk_v_s,
-         bulk_edges_s=bulk_e_s, load_csr_s=load_s, epoch=epoch)
+         bulk_edges_s=bulk_e_s, load_csr_s=load_s, epoch=epoch,
+         capture_decode_s=g.change_capture.decode_s)
 
     def pagerank():
         # tol=0: all 20 supersteps run (this graph converges below the
         # default tol of 1e-9 in fewer)
         return PageRankProgram(max_iterations=20, tol=0.0)
 
-    walls, submit_runs, results = [], [], []
-    for _ in range(2):
+    # cold: the snapshot scans the store and builds the executor (its
+    # first superstep eager); warm: no scan, the cached executor replays
+    # its captured graphs, so the device counter holds the count
+    walls, run_walls, submit_runs, results = [], [], [], []
+    for path in ("cold", "warm"):
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         res, runs = counted(lambda: g.compute().program(pagerank()).submit(), 20)
         walls.append(time.perf_counter() - t0)
+        run_walls.append(res.run_info["run_wall_s"])
         submit_runs.append(runs)
         results.append(res)
-        if kernels.launch_counts()["sorted_segment_sum"] < 1:
+        if res.run_info["snapshot"]["path"] != path:
+            raise RuntimeError(f"submit() took {res.run_info['snapshot']}, expected {path}")
+        if path == "cold" and kernels.launch_counts()["sorted_segment_sum"] < 1:
             raise RuntimeError("submit(): the segment sum was not launched eagerly")
     first, warm = results
+    if warm.csr is not first.csr:
+        raise RuntimeError("the warm submit did not run over the cold submit's snapshot")
     info = dict(warm.run_info)
     if info["routing"]["device"] != "cuda" or info["supersteps"] != 20:
         raise RuntimeError(f"submit() did not run 20 supersteps on the card: {info}")
@@ -1745,6 +1769,7 @@ def stored_phase(csr, args, emit) -> dict:
     emit("stored", vertices=n, edges=cap, source="bench.py:3704-3723",
          bulk_vertices_s=bulk_v_s, bulk_edges_s=bulk_e_s, load_csr_s=load_s,
          epoch=epoch, submit_first_wall_s=walls[0], submit_warm_wall_s=walls[1],
+         submit_cold_run_wall_s=run_walls[0], submit_warm_run_wall_s=run_walls[1],
          run_wall_s=info["wall_s"], path=info["path"],
          strategy_resolved=info["strategy_resolved"],
          kernel_runs_per_submit=submit_runs, max_rel_diff_vs_fp64=rel,
@@ -1754,10 +1779,242 @@ def stored_phase(csr, args, emit) -> dict:
          max_vertex_3hop=float(counts.max()), vertices_exact_3hop=int(exact.sum()),
          write_back_s=write_back_s, reload_s=reload_s, plan_checks=plan_checks,
          seconds=time.perf_counter() - phase_t0)
-    g.close()
-    return {"launches": submit_runs[0], "launches_warm": submit_runs[1],
+    return {"graph": g, "loaded": loaded, "walls": walls, "run_walls": run_walls,
+            "launches": submit_runs[0], "launches_warm": submit_runs[1],
             "launches_traverse": trav_runs,
             "max_abs_err": max(c["max_abs_err"] for c in plan_checks.values())}
+
+
+def stored_delta_phase(stored, args, emit) -> dict:
+    """OLTP writes and a bulk burst on the stored phase's graph, read back by
+    warm submits through the delta snapshot: (a) one transaction, then
+    PageRank and CC on the "fused" path; (b) against a fresh scan and a
+    fresh executor over the same overlay; (c) the kernel on the lanes'
+    plans; (d) a bulk burst past computer.delta-max-overlay and the
+    "refresh" submit; (e) refresh_csr against the same scan."""
+    import torch
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    from janusgraph_tpu_torch.core.bulk import bulk_add_edges
+    from janusgraph_tpu_torch.core.codecs import Direction
+    from janusgraph_tpu_torch.olap import GPUExecutor, kernels, run_on
+    from janusgraph_tpu_torch.olap import delta as D
+    from janusgraph_tpu_torch.olap.csr import load_csr_snapshot, refresh_csr
+    from janusgraph_tpu_torch.olap.programs import (
+        ConnectedComponentsProgram,
+        PageRankProgram,
+    )
+
+    phase_t0 = time.perf_counter()
+    g, base = stored["graph"], stored["loaded"]
+    snap = D.get_snapshot(g)
+    cap = g.change_capture
+    if snap is None or snap.csr is None:
+        raise RuntimeError("the stored phase left no warm snapshot")
+    # the writes since the cold scan were property cells only (write_back),
+    # so ``base`` is still the structure at this epoch
+    cold_epoch, refresh_epoch = snap.epoch, g.backend.mutation_epoch()
+    vids = base.vertex_ids
+    n = base.num_vertices
+    out_deg, in_deg = np.diff(base.out_indptr), np.diff(base.in_indptr)
+    # a removed edge dirties both its ends for an undirected program, and a
+    # dirty row re-aggregates all its surviving edges through the live
+    # lane: removals touch only vertices of degree <= 16 (in + out), so the
+    # lanes stay under computer.delta-max-lane-cells and the overlay rides
+    # fused (a hub's removal would make the submit materialize instead)
+    low = (in_deg + out_deg) <= 16
+    rng = np.random.default_rng(args.seed + 8)
+    in_rows = np.repeat(np.arange(n), in_deg)
+    nbr_low = np.ones(n, dtype=bool)
+    np.logical_and.at(nbr_low, in_rows, low[base.in_src])
+    gone = int(rng.choice(np.flatnonzero((out_deg == 0) & (in_deg >= 1) & low & nbr_low)))
+    hub = int(np.argmax(out_deg))
+    alive = np.setdiff1d(np.arange(n), [gone])
+    a_src, a_dst = rng.choice(alive, 2000), rng.choice(alive, 2000)
+    e_src = np.repeat(np.arange(n), out_deg)
+    cand = rng.permutation(np.flatnonzero(
+        low[e_src] & low[base.out_dst] & (base.out_dst != gone)))
+    _u, first = np.unique(e_src[cand], return_index=True)  # one removal a row
+    dels = cand[np.sort(first)][:500]
+    del in_rows, nbr_low, e_src
+
+    def pagerank():
+        return PageRankProgram(max_iterations=20, tol=0.0)
+
+    # (a) one OLTP transaction: edge adds between existing vertices, edge
+    # removals, a new vertex with an edge to the hub, a removed vertex
+    t0 = time.perf_counter()
+    tx = g.new_transaction()
+    for s_, d_ in zip(a_src, a_dst):
+        tx.add_edge(tx.get_vertex(int(vids[s_])), "link", tx.get_vertex(int(vids[d_])))
+    for e in dels:
+        row = int(np.searchsorted(base.out_indptr, e, side="right")) - 1
+        target = int(vids[base.out_dst[e]])
+        tx.remove_edge(next(x for x in tx.get_edges(tx.get_vertex(int(vids[row])),
+                                                       Direction.OUT, ("link",))
+                            if x.in_vertex.id == target))
+    nv = tx.add_vertex()
+    tx.add_edge(nv, "link", tx.get_vertex(int(vids[hub])))
+    tx.remove_vertex(tx.get_vertex(int(vids[gone])))
+    build_s = time.perf_counter() - t0
+    decode0 = cap.decode_s
+    t0 = time.perf_counter()
+    tx.commit()
+    commit_s = time.perf_counter() - t0
+    oltp_decode_s = cap.decode_s - decode0
+    overlay, upto = D.overlay_since(g, snap.epoch)
+    if overlay.size > snap.max_overlay or len(overlay.new_vertices) != 1 or len(overlay.removed) != 1:
+        raise RuntimeError(f"the OLTP burst's overlay: {overlay.size} records, "
+                           f"{overlay.new_vertices}, {overlay.removed}")
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, fused_runs = counted(lambda: g.compute().program(pagerank()).submit(), 60)
+    fused_wall = time.perf_counter() - t0
+    info = dict(res.run_info)
+    if info["snapshot"] != {"path": "fused", "overlay": overlay.size} or not info["delta"]["fused"]:
+        raise RuntimeError(f"the warm submit after the transaction: {info['snapshot']}, "
+                           f"{info.get('delta')}")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    comp = g.compute().program(ConnectedComponentsProgram()).submit()
+    cc_wall = time.perf_counter() - t0
+    if comp.run_info["snapshot"]["path"] != "fused":
+        raise RuntimeError(f"CC after the transaction: {comp.run_info['snapshot']}")
+
+    # (b) against the repack (a fresh scan) and a fresh executor over the
+    # same overlay
+    t0 = time.perf_counter()
+    fresh, _e = load_csr_snapshot(g)
+    scan_s = time.perf_counter() - t0
+    live = res.csr.vertex_ids
+    pos = np.searchsorted(fresh.vertex_ids, live)
+    if len(live) != fresh.num_vertices or not np.array_equal(fresh.vertex_ids[pos], live):
+        raise RuntimeError("the fused submit's live vertices are not the scan's")
+    want = run_on(fresh, pagerank())["rank"]
+    rel = max_rel(res.states["rank"], want[pos])
+    if not np.isfinite(res.states["rank"]).all() or not rel <= RANK_REL:
+        raise RuntimeError(f"fused submit vs the repack: max rel diff {rel}")
+    view = D.OverlayView(snap.csr, overlay, max_lane_cells=snap.max_lane_cells)
+    fex = GPUExecutor(snap.csr, strategy="segsum", delta=view)
+    own, _rv = D.compact_result(view, fex.run(pagerank()))
+    if not bits_equal(own["rank"], res.states["rank"]):
+        raise RuntimeError("the cached executor's fused ranks differ from a fresh executor's")
+    del fex
+    # component labels are vertex indices, in the view's index space for
+    # the fused run and the scan's for the repack: held as the vertex ids
+    # they name
+    fsrc = np.repeat(np.arange(fresh.num_vertices), np.diff(fresh.out_indptr))
+    adj = coo_matrix((np.ones(fresh.num_edges), (fsrc, fresh.out_dst)),
+                     shape=(fresh.num_vertices,) * 2).tocsr()
+    ncomp, labels = connected_components(adj, directed=True, connection="weak")
+    lowest = np.full(ncomp, fresh.num_vertices, dtype=np.int64)
+    np.minimum.at(lowest, labels, np.arange(fresh.num_vertices))
+    cc_fused = view.vertex_ids[comp.states["component"].astype(np.int64)]
+    cc_scan = fresh.vertex_ids[run_on(fresh, ConnectedComponentsProgram())["component"]
+                               .astype(np.int64)]
+    if not np.array_equal(comp.csr.vertex_ids, live) or not np.array_equal(cc_fused, cc_scan[pos]):
+        raise RuntimeError("fused CC differs from CC over the repack")
+    if not np.array_equal(cc_scan, fresh.vertex_ids[lowest[labels]]):
+        raise RuntimeError("CC over the repack differs from scipy's components")
+    del adj, fsrc
+
+    # (c) the kernel on the add and tombstone lanes' plans, fed the cells
+    # the merge gathers
+    dl = view.device_args("cuda", False)
+    x = torch.rand(view.n_pad, generator=torch.Generator(device="cuda").manual_seed(7),
+                   device="cuda")
+    msgs_ext = torch.cat([x, x.new_zeros(1)])
+    lanes = {}
+    for lane in ("add", "tomb"):
+        plan = dl[f"{lane}_plan"]
+        cells = torch.index_select(msgs_ext, 0, dl[f"{lane}_src"])
+        _p, _g, err = check_plan(f"stored_{lane}_lane", plan, cells, kernels)
+        nbytes = plan.function_bytes()
+        lanes[lane] = {
+            "cells": plan.num_edges, "segments": plan.num_segments, "num_ctas": plan.num_ctas,
+            "max_abs_err": err,
+            "kernel_ms": flushed_ms(lambda: kernels.sorted_segment_sum(cells, plan), iters=10),
+            "plain_ms": flushed_ms(lambda: kernels.sorted_segment_sum_plain(cells, plan), iters=5),
+            "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
+    lane_meta = {k: v for k, v in view.lanes(False)["_meta"].items() if k in ("acap", "tcap", "lcap")}
+    del dl, msgs_ext, x, view
+
+    # (d) a bulk burst of 0.5 % of the edges (the reference bench's
+    # streaming burst), past computer.delta-max-overlay: the next submit
+    # folds the overlay into a new base, zero store reads
+    # (past the overlay cap at any scale: at scale 20 the 0.5 % is 10,000)
+    burst = max(base.num_edges // 200, snap.max_overlay + 1)
+    b_src, b_dst = rng.choice(alive, burst), rng.choice(alive, burst)
+    decode0 = cap.decode_s
+    t0 = time.perf_counter()
+    bulk_add_edges(g, "link", vids[b_src], vids[b_dst])
+    bulk_s = time.perf_counter() - t0
+    bulk_decode_s = cap.decode_s - decode0
+    depth = cap.depth_since(snap.epoch)
+    mem_before = torch.cuda.memory_allocated()
+    gen0 = snap.generation
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res_r, refresh_runs = counted(lambda: g.compute().program(pagerank()).submit(), 20)
+    refresh_wall = time.perf_counter() - t0
+    mem_after = torch.cuda.memory_allocated()
+    if res_r.run_info["snapshot"] != {"path": "refresh", "overlay": depth} or (
+            snap.generation != gen0 + 1 or res_r.csr is not snap.csr):
+        raise RuntimeError(f"the submit after the bulk burst: {res_r.run_info['snapshot']}")
+    compaction = dict(snap.last_compaction)
+    t0 = time.perf_counter()
+    fresh2, _e2 = load_csr_snapshot(g)
+    scan2_s = time.perf_counter() - t0
+    for k in ("vertex_ids", "out_indptr", "out_dst", "in_indptr", "in_src"):
+        if not np.array_equal(getattr(snap.csr, k), getattr(fresh2, k)):
+            raise RuntimeError(f"the compacted base's {k} differs from a fresh scan's")
+    if not bits_equal(res_r.states["rank"], run_on(fresh2, pagerank())["rank"]):
+        raise RuntimeError("the refresh submit's ranks differ from run_on over the scan")
+
+    # (e) refresh_csr: the rows touched since the structure of ``base``
+    # re-read; the scan orders a row's in-edges by the sources' row keys,
+    # refresh_csr by their index, so in_src is held row by row as sets
+    t0 = time.perf_counter()
+    refreshed, _e3 = refresh_csr(g, base, refresh_epoch)
+    refresh_csr_s = time.perf_counter() - t0
+    for k in ("vertex_ids", "out_indptr", "out_dst", "in_indptr", "out_edge_type"):
+        if not np.array_equal(getattr(refreshed, k), getattr(fresh2, k)):
+            raise RuntimeError(f"refresh_csr's {k} differs from a fresh scan's")
+    rows = np.repeat(np.arange(fresh2.num_vertices), np.diff(fresh2.in_indptr))
+    in_rows = [a.in_src[np.lexsort((a.in_src, rows))] for a in (refreshed, fresh2)]
+    if not np.array_equal(*in_rows):
+        raise RuntimeError("refresh_csr's in-rows differ from a fresh scan's")
+    emit("stored_delta", vertices=n, edges=base.num_edges,
+         oltp={"edge_adds": len(a_src), "edge_removals": len(dels), "new_vertices": 1,
+               "removed_vertices": 1, "removed_vertex_in_degree": int(in_deg[gone]),
+               "build_s": build_s, "commit_s": commit_s,
+               "writes_per_s": (len(a_src) + len(dels) + 2) / (build_s + commit_s),
+               "capture_decode_s": oltp_decode_s},
+         overlay_depth=overlay.size, lane_caps=lane_meta,
+         fused_submit={"wall_s": fused_wall, "run_wall_s": info["run_wall_s"],
+                       "kernel_runs": fused_runs, "capture_s": info.get("capture_s"),
+                       "max_rel_diff_vs_repack": rel},
+         cc_submit={"wall_s": cc_wall, "run_wall_s": comp.run_info["run_wall_s"],
+                    "components": int(ncomp)},
+         lanes=lanes, scan_s=scan_s,
+         bulk_burst={"edges": burst, "s": bulk_s, "capture_decode_s": bulk_decode_s,
+                     "overlay_depth": depth},
+         refresh_submit={"wall_s": refresh_wall, "run_wall_s": res_r.run_info["run_wall_s"],
+                         "kernel_runs": refresh_runs, "compaction": compaction,
+                         "device_bytes_before": mem_before, "device_bytes_after": mem_after},
+         scan2_s=scan2_s,
+         refresh_csr={"s": refresh_csr_s, "tracker_served": g.backend.touched_since(
+             refresh_epoch) is not None, "cold_epoch_served": g.backend.touched_count_since(
+             cold_epoch) is not None},
+         capture_decode_s_total=cap.decode_s, capture_poisoned=cap.poisoned,
+         seconds=time.perf_counter() - phase_t0)
+    g.close()
+    if g._delta_snapshot is not None or snap.csr is not None or snap._executors:
+        raise RuntimeError("close() left the delta snapshot behind")
+    return {"launches": fused_runs, "launches_refresh": refresh_runs,
+            "max_abs_err": max(v["max_abs_err"] for v in lanes.values())}
 
 
 def main() -> int:
@@ -2115,6 +2372,8 @@ def main() -> int:
     dense_phase(csr, args, emit)
     ldbc_launches = ldbc_phase(emit)
     stored = stored_phase(csr, args, emit)
+    kernels.reset_launch_counts()
+    stored_delta = stored_delta_phase(stored, args, emit)
     print(json.dumps({"kernels": [{
         "name": "sorted_segment_sum",
         "route": "cuda",
@@ -2140,9 +2399,17 @@ def main() -> int:
         "launches_stored": stored["launches"],
         "launches_stored_warm": stored["launches_warm"],
         "launches_stored_traverse": stored["launches_traverse"],
+        # after an OLTP transaction, PageRank through submit() on the
+        # "fused" path (base, adds and tombstones each superstep), and
+        # after a bulk burst on the "refresh" path (the compacted base)
+        "launches_stored_delta": stored_delta["launches"],
+        "launches_stored_refresh": stored_delta["launches_refresh"],
         # the kernel against its plain version on the stored path's in-plan
         # and "link" channel plan
         "max_abs_err_stored": stored["max_abs_err"],
+        # the kernel against its plain version on the add and tombstone
+        # lanes' plans of the stored graph's overlay
+        "max_abs_err_stored_lanes": stored_delta["max_abs_err"],
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

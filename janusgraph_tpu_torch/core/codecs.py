@@ -30,13 +30,13 @@ With no sort key and no inline properties (the bulk-load common case) an edge
 column is exactly 27 bytes — `bulk decode` = one reshape + three strided views.
 
 The port's copy of ``janusgraph_tpu/core/codecs.py``, with the same bytes.
-Left out: ``RelationIdentifier`` and the OLTP query bounds
-(``get_bounds``, ``user_relations_bounds``, ``get_adjacency_slice``,
-``get_sort_range_slice``), which only the OLTP traversal reads.
+Left out: the OLTP traversal's query bounds (``get_bounds``,
+``get_adjacency_slice``, ``get_sort_range_slice``; ROADMAP Queue A #5).
 """
 
 from __future__ import annotations
 
+import re
 import struct
 from dataclasses import dataclass
 from enum import IntEnum
@@ -141,6 +141,32 @@ class RelationCache:
     @property
     def is_edge(self) -> bool:
         return self.other_vertex_id is not None
+
+
+@dataclass(frozen=True)
+class RelationIdentifier:
+    """Globally unique edge identifier: (relation-id, out-vid, type-id, in-vid)
+    (reference: janusgraph-driver .../RelationIdentifier.java:131)."""
+
+    relation_id: int
+    out_vertex_id: int
+    type_id: int
+    in_vertex_id: int
+
+    def __str__(self):
+        return (
+            f"{self.relation_id}-{self.out_vertex_id}-"
+            f"{self.type_id}-{self.in_vertex_id}"
+        )
+
+    _FORMAT = re.compile(r"^(-?\d+)-(-?\d+)-(-?\d+)-(-?\d+)$")
+
+    @classmethod
+    def parse(cls, s: str) -> "RelationIdentifier":
+        m = cls._FORMAT.match(s)
+        if m is None:
+            raise CodecError(f"malformed relation identifier: {s}")
+        return cls(*(int(p) for p in m.groups()))
 
 
 def _increment(prefix: bytes) -> bytes:
@@ -323,6 +349,13 @@ class EdgeSerializer:
         return None, buf
 
     # ------------------------------------------------------------------ bounds
+    def user_relations_bounds(self) -> Tuple[SliceQuery, SliceQuery]:
+        """User properties + user edges, as two ranges (cat 1 and cat 3)."""
+        return (
+            SliceQuery(bytes([_CAT_USER_PROP]), bytes([_CAT_USER_PROP + 1])),
+            SliceQuery(bytes([_CAT_USER_EDGE]), bytes([_CAT_USER_EDGE + 1])),
+        )
+
     def get_type_slice(
         self,
         type_id: int,

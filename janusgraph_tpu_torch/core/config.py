@@ -3,17 +3,12 @@ of local and cluster-global values — the port's copy of
 ``GraphConfiguration`` and ``ConfigOption`` from
 ``janusgraph_tpu/core/config.py``.
 
-The registry holds only the options the stored-graph OLAP path reads, with
-the reference's names, defaults, mutability levels and validators. Two
-defaults differ on purpose:
-
-  - ``computer.strategy`` is "segsum", the port's hand-kernel route (the
-    reference defaults to "auto"; ROADMAP "Deliberate differences"). The
-    reference's values all stay valid, and "pallas", the reference's name
-    for its hand kernel, means "segsum".
-  - ``computer.delta`` is False: the delta capture side is not ported, and
-    True raises (the reference defaults to True; its first submit scans
-    the store as the port's every submit does).
+The registry holds only the options the stored-graph OLAP path and the
+transaction read, with the reference's names, defaults, mutability levels
+and validators. One default differs on purpose: ``computer.strategy`` is
+"segsum", the port's hand-kernel route (the reference defaults to "auto";
+ROADMAP "Deliberate differences"). The reference's values all stay valid,
+and "pallas", the reference's name for its hand kernel, means "segsum".
 
 ``computer.executor`` keeps the reference's values: "tpu" is the one
 accelerator, here the CUDA card; "cpu" is ``GPUExecutor(device="cpu")``,
@@ -21,8 +16,7 @@ the plain PyTorch versions on the CPU (not the reference's numpy
 ``CPUExecutor``).
 
 Every other option of the reference raises ``ConfigurationError`` naming
-the ROADMAP item that brings it, as do ``computer.delta`` = True,
-``computer.executor`` = "sharded", ``storage.distributed-load-workers`` > 1
+the ROADMAP item that brings it, as do ``computer.executor`` = "sharded", ``storage.distributed-load-workers`` > 1
 and a ``storage.backend`` other than "inmemory". Nothing is ignored.
 
 Left out: the management writes (``set_global``) and the instance
@@ -95,7 +89,6 @@ def _option(path, datatype, description, default,
 
 
 _ROADMAP_OPTIONS = "ROADMAP.md Queue A #2 (the ELL, frontier, tuner and feature options)"
-_ROADMAP_DELTA = "ROADMAP.md Queue A #2 (the delta overlay's capture side)"
 _ROADMAP_OBS = "ROADMAP.md Queue A #3 (observability)"
 _ROADMAP_MULTI = "ROADMAP.md Queue A #4 (multi-GPU)"
 _ROADMAP_HOST = "ROADMAP.md Queue A #5 (the host system beyond OLAP)"
@@ -105,7 +98,6 @@ _REFUSED_VALUES: Dict[str, tuple] = {
     "storage.backend": (lambda v: v != "inmemory", _ROADMAP_HOST),
     "storage.distributed-load-workers": (lambda v: v > 1, _ROADMAP_HOST),
     "computer.executor": (lambda v: v == "sharded", _ROADMAP_MULTI),
-    "computer.delta": (lambda v: v, _ROADMAP_DELTA),
 }
 
 #: options of the reference the port does not honour yet, by path or by
@@ -116,7 +108,6 @@ _NOT_PORTED: Dict[str, str] = {
     "computer.autotune-max-tiers": _ROADMAP_OPTIONS,
     "computer.ell-": _ROADMAP_OPTIONS,
     "computer.features-": _ROADMAP_OPTIONS,
-    "computer.delta-": _ROADMAP_DELTA,
     "computer.sharded-auto": _ROADMAP_MULTI,
     "computer.shard-": _ROADMAP_MULTI,
     "computer.exchange": _ROADMAP_MULTI,
@@ -233,7 +224,45 @@ _option(
 )
 _option(
     "computer.delta", bool,
-    "incremental delta-CSR snapshots (not ported: True raises)", False,
+    "incremental delta-CSR (olap/delta.py): commit-side change capture feeds "
+    "the warm snapshot behind submit(), which then skips the store scan; "
+    "pending writes are consumed fused or folded in with zero store reads",
+    True,
+)
+_option(
+    "computer.delta-capture-limit", int,
+    "change-capture ring size (records); past it the oldest batches drop and "
+    "older snapshots reload in full", 1 << 16, verifier=lambda v: v >= 0,
+)
+_option(
+    "computer.delta-max-overlay", int,
+    "pending records beyond which a warm submit folds the overlay into the "
+    "base arrays instead of consuming it fused", 4096, verifier=lambda v: v >= 0,
+)
+_option(
+    "computer.delta-max-lane-cells", int,
+    "cap on the fused overlay's total lane cells; past it the overlay "
+    "materializes instead", 1 << 16, verifier=lambda v: v >= 0,
+)
+_option(
+    "computer.delta-compact-threshold", int,
+    "overlay depth (records) at which the warm snapshot folds the overlay "
+    "into the base after a run (0 = autotune.decide_delta prices it for the "
+    "device)", 0, verifier=lambda v: v >= 0,
+)
+_option(
+    "computer.delta-snapshot-path", str,
+    "file the compacted base CSR is saved to (tmp+rename npz); empty = in "
+    "memory only", "",
+)
+_option(
+    "tx.read-only-default", bool,
+    "new transactions default to read-only (read in new_transaction)", False,
+)
+_option(
+    "graph.set-vertex-id", bool,
+    "allow callers to supply their own vertex ids (tx.add_vertex(vertex_id="
+    "...)); custom ids bypass the id authority", False, Mutability.FIXED,
 )
 
 

@@ -8,13 +8,20 @@ an in-memory store (or over ``store_manager``, e.g.
 holds ``config``, ``backend``, ``idm``, ``serializer``,
 ``edge_serializer``, ``system_types``, ``schema_cache`` and ``id_assigner``
 (vertex, relation and schema id pools), and offers ``management()``,
-``compute()`` and ``close()``. Data goes in through ``core/bulk.py`` and
-out through ``load_csr`` and ``ComputerResult.write_back``.
+``new_transaction()``, ``compute()`` and ``close()``. Data goes in through
+OLTP transactions (``core/tx.py``, serialized by ``commit_tx`` under the
+graph-wide commit lock into the reference's cells) and the columnar bulk
+loader (``core/bulk.py``), and out through ``load_csr`` and
+``ComputerResult.write_back``. With ``computer.delta`` (the default) every
+committed edgestore batch also streams into the graph's ``ChangeCapture``
+(``olap/delta.py``), which the warm delta snapshot behind ``submit()``
+reads instead of the store.
 
-Left out (ROADMAP Queue A #5): OLTP transactions and the traversal
-(``new_transaction``, ``traversal``), indexes and index providers, the
-WAL, logs and schema broadcast, the instance registry, fault injection,
-metrics reporters and the other store backends.
+Left out (ROADMAP Queue A #5): the OLTP traversal (``traversal``),
+indexes and index providers (the port makes none, so commits maintain
+none), the WAL, logs and schema broadcast, lock-consistency claims, cell
+TTLs, the instance registry, fault injection, metrics reporters and the
+other store backends.
 """
 
 from __future__ import annotations
@@ -24,7 +31,12 @@ import threading
 from typing import Dict, Optional
 
 from janusgraph_tpu_torch.core.attributes import Serializer
-from janusgraph_tpu_torch.core.codecs import EdgeSerializer
+from janusgraph_tpu_torch.core.codecs import (
+    Cardinality,
+    Consistency,
+    Direction,
+    EdgeSerializer,
+)
 from janusgraph_tpu_torch.core.config import GraphConfiguration
 from janusgraph_tpu_torch.core.ids import IDManager, VertexIDType
 from janusgraph_tpu_torch.core.management import (
@@ -32,12 +44,18 @@ from janusgraph_tpu_torch.core.management import (
     ManagementSystem,
 )
 from janusgraph_tpu_torch.core.schema import (
+    EdgeLabel,
+    PropertyKey,
     SchemaCache,
     SystemTypes,
     decode_definition,
     encode_definition,
     schema_element_from_definition,
+    VertexLabel,
 )
+from janusgraph_tpu_torch.core.tx import Transaction
+from janusgraph_tpu_torch.core.elements import Edge
+from janusgraph_tpu_torch.exceptions import SchemaViolationError
 from janusgraph_tpu_torch.storage.backend import Backend, GlobalConfigStore
 from janusgraph_tpu_torch.storage.idauthority import (
     ConsistentKeyIDAuthority,
@@ -137,11 +155,51 @@ class JanusGraphTPU:
         )
         #: relation-type index ids (no relation indexes in the port)
         self.relation_index_ids = frozenset()
+        #: commits are serialized graph-wide (reference: commit_tx)
+        self._commit_lock = threading.Lock()
+        # delta-CSR change capture (computer.delta; olap/delta.py): every
+        # committed edgestore batch streams into a bounded ring, so the
+        # warm snapshot behind submit() refreshes from the records alone
+        self.change_capture = None
+        self._delta_snapshot = None
+        if cfg.get("computer.delta"):
+            from janusgraph_tpu_torch.olap.delta import ChangeCapture
+
+            self.change_capture = ChangeCapture(
+                self, limit=cfg.get("computer.delta-capture-limit")
+            )
+            self.backend.register_change_capture(self.change_capture.on_commit)
         self._open = True
 
     # ------------------------------------------------------------- lifecycle
     def management(self) -> ManagementSystem:
         return ManagementSystem(self)
+
+    def new_transaction(
+        self,
+        read_only: Optional[bool] = None,
+        log_identifier: Optional[str] = None,
+        metrics_group: Optional[str] = None,
+    ) -> Transaction:
+        """An OLTP transaction. ``read_only`` defaults to
+        tx.read-only-default; ``log_identifier`` (the WAL's user log) and
+        ``metrics_group`` raise until those layers are ported."""
+        if read_only is None:
+            read_only = self.config.get("tx.read-only-default")
+        return Transaction(
+            self,
+            read_only=read_only,
+            log_identifier=log_identifier,
+            metrics_group=metrics_group,
+        )
+
+    def get_or_create_vertex_label(self, name: str) -> VertexLabel:
+        el = self.schema_cache.get_by_name(name)
+        if isinstance(el, VertexLabel):
+            return el
+        if el is not None:
+            raise SchemaViolationError(f"{name} exists and is not a vertex label")
+        return self.management().make_vertex_label(name)
 
     def compute(self, executor: str = None):
         """OLAP entry point (reference: JanusGraph.compute()). Defaults the
@@ -152,9 +210,140 @@ class JanusGraphTPU:
         return GraphComputer(self, executor=executor)
 
     def close(self) -> None:
+        """Close the store; the delta snapshot and its cached executors (and
+        with them their device memory) go with it."""
         if self._open:
+            if self._delta_snapshot is not None:
+                self._delta_snapshot.close()
+                self._delta_snapshot = None
+            self.backend.register_change_capture(None)
             self.backend.close()
             self._open = False
+
+    # ----------------------------------------------------------------- commit
+    def commit_tx(self, tx: Transaction) -> None:
+        """Serialize a transaction's mutations and flush them, under the
+        graph-wide commit lock, in the reference's order: existence and
+        label cells of new vertices, deleted relations (so a later
+        addition of the same column wins under the mutation merge), added
+        relations, then the existence and label cells of removed
+        vertices."""
+        es = self.edge_serializer
+        st = self.system_types
+        btx = tx.backend_tx
+        with self._commit_lock:
+            self._refuse_unported(tx)
+            # -- 1. vertex existence + label cells for new vertices
+            for vid, label_id in tx._new_vertex_labels.items():
+                if vid in tx._removed_vertices:
+                    continue
+                adds = [
+                    es.write_property(
+                        st.EXISTS, self.id_assigner.assign_relation_id(), True
+                    ),
+                    es.write_edge(
+                        st.VERTEX_LABEL_EDGE,
+                        Direction.OUT,
+                        label_id,
+                        self.id_assigner.assign_relation_id(),
+                    ),
+                ]
+                btx.mutate_edges(self.idm.get_key(vid), adds, [])
+            # -- 2. deleted relations FIRST
+            for rel in tx._deleted:
+                self._write_relation(tx, rel, delete=True)
+            # -- 3. added relations
+            seen = set()
+            for rels in tx._added.values():
+                for rel in rels:
+                    if rel.is_removed or rel.id in seen:
+                        continue
+                    seen.add(rel.id)
+                    self._write_relation(tx, rel, delete=False)
+            # -- 4. removed vertices: existence + label cells
+            for vid in tx._removed_vertices:
+                if vid in tx._new_vertex_labels:
+                    continue  # never persisted
+                dels = []
+                key = self.idm.get_key(vid)
+                for q in (
+                    es.get_type_slice(st.EXISTS, False),
+                    es.get_type_slice(st.VERTEX_LABEL_EDGE, True, Direction.OUT),
+                ):
+                    for col, _ in btx.edge_store_query(KeySliceQuery(key, q)):
+                        dels.append(col)
+                if dels:
+                    btx.mutate_edges(key, [], dels)
+            # -- 5. index updates: the port makes no indexes
+            # (core/management.py), so there is nothing to maintain
+            assert not self.relation_index_ids
+            # -- 6. flush while still holding the lock
+            btx.commit()
+
+    def _refuse_unported(self, tx: Transaction) -> None:
+        """LOCK consistency needs the consistent-key locker and a TTL a
+        store with cell TTLs; neither is ported, so a commit that reaches
+        one raises before anything is written."""
+        added = {
+            rel.type_id for rels in tx._added.values() for rel in rels
+            if not rel.is_removed
+        }
+        for tid in added | {rel.type_id for rel in tx._deleted}:
+            el = tx.schema_by_id(tid)
+            if getattr(el, "consistency", None) == Consistency.LOCK:
+                raise NotImplementedError(
+                    f"{el.name} has LOCK consistency: the consistent-key "
+                    "locker is not ported yet (ROADMAP.md Queue A #5)"
+                )
+        for sid in added | set(tx._new_vertex_labels.values()):
+            el = tx.schema_by_id(sid)
+            if getattr(el, "ttl_seconds", 0):
+                raise NotImplementedError(
+                    f"{el.name} has a TTL: cell TTLs need a store that keeps "
+                    "them, which is not ported yet (ROADMAP.md Queue A #5)"
+                )
+
+    def _relation_cells(self, tx: Transaction, rel):
+        """[(vertex-key, (column, value))] a relation serializes to: an
+        edge's OUT cell, then its IN cell (none for a unidirected label); a
+        property's one cell."""
+        es = self.edge_serializer
+        if isinstance(rel, Edge):
+            label = tx.schema_by_id(rel.type_id)
+            cells = [(
+                self.idm.get_key(rel.out_vertex.id),
+                es.write_edge(
+                    rel.type_id, Direction.OUT, rel.in_vertex.id,
+                    rel.id, rel._sort_key, rel._props or None,
+                ),
+            )]
+            if not (isinstance(label, EdgeLabel) and label.unidirected):
+                cells.append((
+                    self.idm.get_key(rel.in_vertex.id),
+                    es.write_edge(
+                        rel.type_id, Direction.IN, rel.out_vertex.id,
+                        rel.id, rel._sort_key, rel._props or None,
+                    ),
+                ))
+            return cells
+        pk = tx.schema_by_id(rel.type_id)
+        card = (
+            pk.cardinality if isinstance(pk, PropertyKey) else Cardinality.SINGLE
+        )
+        return [(
+            self.idm.get_key(rel.vertex.id),
+            es.write_property(
+                rel.type_id, rel.id, rel.value, card,
+                meta=getattr(rel, "_meta", None) or None,
+            ),
+        )]
+
+    def _write_relation(self, tx: Transaction, rel, delete: bool) -> None:
+        for key, cell in self._relation_cells(tx, rel):
+            if delete:
+                tx.backend_tx.mutate_edges(key, [], [cell[0]])
+            else:
+                tx.backend_tx.mutate_edges(key, [cell], [])
 
     # ------------------------------------------------------ schema persistence
     def persist_schema_element(self, el) -> None:

@@ -1,5 +1,5 @@
 """Exceptions of the port (the part of ``janusgraph_tpu/exceptions.py`` the
-OLAP path raises)."""
+OLAP path and the transaction raise)."""
 
 
 class JanusGraphTorchError(Exception):
@@ -39,3 +39,15 @@ class SchemaViolationError(JanusGraphTorchError):
 class ConfigurationError(JanusGraphTorchError):
     """An unknown option, a value its validator refuses, or an option the
     port does not honour yet (the message names the ROADMAP item)."""
+
+
+class InvalidElementError(JanusGraphTorchError):
+    """An operation on a removed element or a closed transaction."""
+
+    def __init__(self, msg: str = "", element=None):
+        super().__init__(msg)
+        self.element = element
+
+
+class ReadOnlyTransactionError(JanusGraphTorchError):
+    """A write through a read-only transaction."""

@@ -1,13 +1,24 @@
 """GraphComputer facade: the user-facing OLAP entry point — the port of
 ``janusgraph_tpu/olap/computer.py``.
 
-``graph.compute().program(p).submit()`` loads the CSR snapshot from the
-graph's store (``load_csr``, with the ``edges``/``vertices``/
-``properties``/``weight`` filters), runs ``p`` on a ``GPUExecutor`` built
-from the graph's ``computer.*`` options, and returns a ``ComputerResult``
-(state arrays, ``value``/``by_vertex``, ``paths``/``select`` after
-``traverse(..., paths=True)``, MapReduce ``memory``, ``run_info``) that
-can ``write_back`` compute keys as vertex properties.
+``graph.compute().program(p).submit()`` takes the CSR snapshot, runs ``p``
+on a ``GPUExecutor`` built from the graph's ``computer.*`` options, and
+returns a ``ComputerResult`` (state arrays, ``value``/``by_vertex``,
+``paths``/``select`` after ``traverse(..., paths=True)``, MapReduce
+``memory``, ``run_info``) that can ``write_back`` compute keys as vertex
+properties.
+
+The snapshot: with ``computer.delta`` (the default) an unfiltered submit
+goes through the graph's warm delta snapshot (``olap/delta.py``). The
+first scans the store; later ones read only the writes committed since,
+from the change capture. A small overlay runs fused with the base (the
+executor merges the add and tombstone lanes each superstep); a large one,
+or a program that cannot consume it fused, is folded into a new base by
+``materialize``. Executors over the current base are cached on the
+snapshot, so a warm submit reuses their device packs and captured CUDA
+graphs. ``run_info["snapshot"]`` says which path the submit took. A
+filtered submit (``edges``/``vertices``/``properties``/``weight``) scans
+the store through ``load_csr``.
 
 Executors: "tpu" (the default; the reference's name for its one
 accelerator) runs on the CUDA card and raises where there is none; "cpu"
@@ -15,15 +26,15 @@ runs the same executor's plain PyTorch versions on the CPU. "sharded"
 raises (ROADMAP Queue A #4).
 
 ``write_back`` takes the columnar float path of the reference
-(``tpu_executor.py`` ``_write_back_columnar``): the same cells, batch for
-batch. Its transactional path (non-SINGLE or non-float keys) raises
-``NotImplementedError`` until the OLTP transaction is ported (ROADMAP
-Queue A #5); the port has no indexes, so no key takes it for that reason.
+(``tpu_executor.py`` ``_write_back_columnar``) for SINGLE float keys and
+its transactional path (``_write_back_tx``, batched OLTP transactions) for
+the others: the same cells, batch for batch. The port has no indexes, so
+no key takes the transactional path for that reason.
 
 Left out: OLAP admission, tracer spans and the run registry (ROADMAP
-Queue A #3; ``run_info`` is the executor's ``last_run_info``), the delta
-snapshot (``computer.delta``, Queue A #2), distributed loading and
-sharded routing. ``run_on`` is the array-level entry point beside it.
+Queue A #3; ``run_info`` is the executor's ``last_run_info``), distributed
+loading and sharded routing. ``run_on`` is the array-level entry point
+beside it.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ import torch
 
 from janusgraph_tpu_torch.device import resolve_device
 from janusgraph_tpu_torch.exceptions import ConfigurationError
+from janusgraph_tpu_torch.olap import delta as _delta
 from janusgraph_tpu_torch.olap.csr import CSRGraph, load_csr
 from janusgraph_tpu_torch.olap.gpu_executor import GPUExecutor
 from janusgraph_tpu_torch.olap.vertex_program import VertexProgram
@@ -213,7 +225,7 @@ class GraphComputer:
         return ex_kw, run_kw
 
     def submit(self) -> ComputerResult:
-        """Load the CSR snapshot, run the program, wrap the result."""
+        """Take the CSR snapshot, run the program, wrap the result."""
         property_keys = self._property_keys
         traverse_args = self._traverse_args
         if traverse_args is not None:
@@ -230,13 +242,38 @@ class GraphComputer:
             property_keys = tuple(set(property_keys or ()) | fkeys)
         if self._program is None and traverse_args is None:
             raise ValueError("program() not set")
-        csr = load_csr(
-            self.graph,
-            edge_labels=self._edge_labels,
-            vertex_labels=self._vertex_labels,
-            property_keys=property_keys,
-            weight_key=self._weight_key,
+        plain = not (
+            property_keys or self._weight_key or self._edge_labels or self._vertex_labels
         )
+        delta_snap = _delta.get_snapshot(self.graph) if plain else None
+        delta_view = None
+        if delta_snap is not None:
+            csr, delta_view, snapshot = delta_snap.acquire()
+        else:
+            csr = load_csr(
+                self.graph,
+                edge_labels=self._edge_labels,
+                vertex_labels=self._vertex_labels,
+                property_keys=property_keys,
+                weight_key=self._weight_key,
+            )
+            snapshot = {"path": "scan"}
+        if delta_view is not None:
+            # a small overlay rides into the executor fused (base packs
+            # untouched, lanes merged each superstep); a traversal (typed
+            # channels), another program that cannot consume it, or lanes
+            # over the cap fold it into new arrays first (zero store reads
+            # either way)
+            fuse = (
+                traverse_args is None
+                and _delta.program_delta_compatible(self._program)
+                and delta_view.lanes(bool(self._program.undirected)) is not None
+            )
+            if not fuse:
+                csr = _delta.materialize(csr, delta_view.overlay, idm=self.graph.idm)
+                delta_snap.adopt(csr, delta_view.upto_epoch)
+                snapshot["path"] = "materialized"
+                delta_view = None
         if traverse_args is not None:
             from janusgraph_tpu_torch.olap.programs.olap_traversal import (
                 build_olap_traversal,
@@ -250,17 +287,28 @@ class GraphComputer:
                 record_reach=want_paths, sack=sack, sack_init=sack_init,
             )
         ex_kw, run_kw = self._executor_kwargs()
-        ex = GPUExecutor(csr, device=self.device, **ex_kw)
+        # the executor is cached on the snapshot (over its current base):
+        # the next submit reuses its device packs and captured graphs
+        ex = _executor(csr, self.device, delta_view, delta_snap, ex_kw)
         states = ex.run(self._program, **run_kw)
-        routing = {
+        run_info = dict(ex.last_run_info)
+        if delta_view is not None:
+            # a fused run covers [base ++ new vertices] with removed slots
+            # inert: compact to the live vertex set, so value()/by_vertex()/
+            # write_back see exactly the live graph
+            states, csr = _delta.compact_result(delta_view, states)
+        if delta_snap is not None:
+            # compaction is off the superstep path: after the run
+            if delta_snap.maybe_compact():
+                snapshot["compacted"] = dict(delta_snap.last_compaction)
+        run_info["snapshot"] = snapshot
+        run_info["routing"] = {
             "requested": self.executor_kind,
             "routed": self.executor_kind,
             "reason": "single device" if self.executor_kind == "tpu" else "explicit",
             "executor": self.executor_kind,
             "device": str(self.device),
         }
-        run_info = dict(ex.last_run_info)
-        run_info["routing"] = routing
         memory = {}
         if self._map_reduces:
             from janusgraph_tpu_torch.olap.mapreduce import run_map_reduce
@@ -274,12 +322,31 @@ class GraphComputer:
         )
 
 
+def _executor(csr, device, delta, executor_cache, ctor_kwargs) -> GPUExecutor:
+    """A ``GPUExecutor`` over ``csr`` on ``device`` with ``delta``: the one
+    ``executor_cache`` (a ``DeltaSnapshot``) holds for these constructor
+    arguments, with its overlay swapped by ``set_delta``, or a new one
+    (stored there)."""
+    device = resolve_device(device)
+    key = ("gpu", str(device)) + tuple(sorted(ctor_kwargs.items()))
+    ex = executor_cache.cached_executor(key) if executor_cache is not None else None
+    if ex is None:
+        ex = GPUExecutor(csr, device=device, delta=delta, **ctor_kwargs)
+        if executor_cache is not None:
+            executor_cache.store_executor(key, ex, csr)
+    else:
+        ex.set_delta(delta)
+    return ex
+
+
 def write_back(graph, csr: CSRGraph, result: Dict[str, np.ndarray], keys=None,
                batch: int = 10_000) -> None:
-    """Persist compute-key arrays as vertex properties: unindexed
-    SINGLE-cardinality float keys as raw property cells (one cell per
-    vertex, batched backend transactions, relation ids drawn in spans);
-    keys that do not exist yet are made as float keys first."""
+    """Persist compute-key arrays as vertex properties: SINGLE-cardinality
+    float keys as raw property cells (one cell per vertex, batched backend
+    transactions, relation ids drawn in spans), every other key through
+    batched OLTP transactions (``v.property(name, float(value))``, so the
+    key's cardinality and type checks apply); keys that do not exist yet
+    are made as float keys first. The port has no indexes to maintain."""
     from janusgraph_tpu_torch.core.codecs import Cardinality
 
     mgmt = graph.management()
@@ -291,15 +358,20 @@ def write_back(graph, csr: CSRGraph, result: Dict[str, np.ndarray], keys=None,
     for name in names:
         pk = graph.schema_cache.get_by_name(name)
         if pk.cardinality != Cardinality.SINGLE or pk.data_type is not float:
-            raise NotImplementedError(
-                f"write_back of {name!r} ({pk.cardinality.name} "
-                f"{getattr(pk.data_type, '__name__', pk.data_type)}) needs the "
-                "transactional path, which waits for the OLTP transaction "
-                "(ROADMAP.md Queue A #5)"
-            )
-    for name in names:
-        _write_back_columnar(graph, vids, graph.schema_cache.get_by_name(name),
-                             result[name], batch)
+            _write_back_tx(graph, vids, name, result[name], batch)
+            continue
+        _write_back_columnar(graph, vids, pk, result[name], batch)
+
+
+def _write_back_tx(graph, vids, name, values, batch: int) -> None:
+    values = np.asarray(values, dtype=np.float64)
+    for lo in range(0, len(vids), batch):
+        tx = graph.new_transaction(read_only=False)
+        for i in range(lo, min(lo + batch, len(vids))):
+            v = tx.get_vertex(int(vids[i]))
+            if v is not None:
+                v.property(name, float(values[i]))
+        tx.commit()
 
 
 def _write_back_columnar(graph, vids, pk, values, batch: int) -> None:
@@ -353,6 +425,7 @@ def run_on(
     tail_chunk: int = None,
     autotune_persist: bool = None,
     delta=None,
+    executor_cache=None,
 ) -> Dict[str, np.ndarray]:
     """Run ``program`` over ``csr`` on ``device`` (the card by default) and
     return its final state as numpy arrays. ``frontier`` ("auto", "off",
@@ -362,14 +435,18 @@ def run_on(
     ``fault_hook`` and ``resume_attempts`` checkpoint the run and resume it
     after a ``SuperstepPreempted``; ``delta`` (an ``OverlayView`` of
     ``csr``) runs over the base plus its pending writes; the other
-    arguments are the ``GPUExecutor``'s tuner options. A dense program
-    takes its lane tier and ``torch.matmul`` switch itself (``dim_tier=``,
+    arguments are the ``GPUExecutor``'s. ``executor_cache`` (a
+    ``DeltaSnapshot`` whose base is ``csr``) keeps the executor, keyed by
+    its constructor arguments and device, for the next call, which swaps
+    its overlay instead of building another. A dense program takes its
+    lane tier and ``torch.matmul`` switch itself (``dim_tier=``,
     ``native_matmul=``)."""
-    ex = GPUExecutor(
-        csr, strategy=strategy, device=device, frontier=frontier,
-        autotune=autotune, hub_cutoff=hub_cutoff, tail_chunk=tail_chunk,
-        autotune_persist=autotune_persist, delta=delta,
+    ctor_kwargs = dict(
+        strategy=strategy, frontier=frontier, autotune=autotune,
+        hub_cutoff=hub_cutoff, tail_chunk=tail_chunk,
+        autotune_persist=autotune_persist,
     )
+    ex = _executor(csr, device, delta, executor_cache, ctor_kwargs)
     return ex.run(
         program, sync_every=sync_every, checkpoint_every=checkpoint_every,
         checkpoint_path=checkpoint_path, fault_hook=fault_hook,

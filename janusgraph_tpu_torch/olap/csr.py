@@ -8,17 +8,18 @@ every other cell through ``parse_relation``, skips ghost rows (no
 existence cell), canonicalizes partitioned-vertex ids, reindexes the
 vertex ids densely and builds both orientations with the native host
 library (``build_csr_from_raw``). ``load_csr_snapshot`` adds the backend's
-mutation epoch. The arrays equal the reference's, filter for filter.
+mutation epoch and marks an unfiltered snapshot refreshable;
+``refresh_csr`` folds the writes since that epoch into it by re-reading
+only the rows the backend marked as touched (a full reload when its
+tracker overflowed). The arrays equal the reference's, filter for filter.
 
 The synthetic-graph path is ``csr_from_edges``; ``csr_from_arrays``
 carries a reference snapshot across, so both packages compute on the same
 graph state. ``channel_edges`` flattens a typed edge view
 (``EdgeChannel``) into an edge list.
 
-Left out: ``refresh_csr`` and the snapshot's ``_refreshable`` mark it
-reads (they wait for the delta capture side, ROADMAP Queue A #2), the
-merge of several scans in ``build_csr_from_raw`` (distributed loading,
-Queue A #5) and the unordered-scan branch of ``_scan_raw`` (the in-memory
+Left out: the merge of several scans in ``build_csr_from_raw``
+(distributed loading, ROADMAP Queue A #5) and the unordered-scan branch of ``_scan_raw`` (the in-memory
 store scans in key order).
 """
 
@@ -33,7 +34,7 @@ import numpy as np
 from janusgraph_tpu_torch import native
 from janusgraph_tpu_torch.core.codecs import EDGE_COL_FIXED, Direction
 from janusgraph_tpu_torch.exceptions import TemporaryBackendError
-from janusgraph_tpu_torch.storage.kcvs import KeyRangeQuery, SliceQuery
+from janusgraph_tpu_torch.storage.kcvs import KeyRangeQuery, KeySliceQuery, SliceQuery
 
 
 @dataclass
@@ -457,7 +458,150 @@ def load_csr_snapshot(graph, **kwargs) -> Tuple[CSRGraph, int]:
     the handle incremental refresh resumes from."""
     epoch = graph.backend.mutation_epoch()
     csr = load_csr(graph, **kwargs)
+    # refresh_csr re-derives touched rows without filters or properties:
+    # a filtered snapshot must fail loudly there instead of refreshing
+    # into another graph
+    csr._refreshable = not any(
+        kwargs.get(k)
+        for k in ("edge_labels", "vertex_labels", "property_keys", "weight_key", "partitions")
+    )
     return csr, epoch
+
+
+def refresh_csr(graph, csr: CSRGraph, since_epoch: int) -> Tuple[CSRGraph, int]:
+    """Fold the writes committed since ``since_epoch`` into an unfiltered
+    snapshot without a store scan: only the rows the backend's
+    mutation-epoch tracker marked are re-read, their OUT-edges re-derived
+    and merged with the edges of untouched rows (an edge lives in its
+    source row's OUT cell, and every edge write touches both endpoint
+    rows, so keeping the edges of untouched source rows is exact). The
+    arrays are rebuilt in the canonical (src, type, dst) layout of a fresh
+    load. Returns (csr, the epoch it now covers); ``csr`` itself when no
+    row was touched, a full reload when the tracker overflowed past
+    ``since_epoch``."""
+    if not getattr(csr, "_refreshable", True) or csr.properties or (
+        csr.in_edge_weight is not None
+    ):
+        raise ValueError(
+            "refresh_csr supports unfiltered snapshots without materialized "
+            "properties/weights — reload with load_csr for filtered views"
+        )
+    es = graph.edge_serializer
+    idm = graph.idm
+    st = graph.system_types
+    new_epoch = graph.backend.mutation_epoch()
+    keys = graph.backend.touched_since(since_epoch)
+    if keys is None:
+        return load_csr_snapshot(graph)
+    if not keys:
+        return csr, new_epoch
+
+    store_tx = graph.backend.begin_transaction().store_tx
+    store = graph.backend.edgestore
+    full_q = SliceQuery(bytes([0]), bytes([4]))
+    unpack_tid = struct.Struct(">Q").unpack_from
+    relidx_ids = graph.relation_index_ids
+    schema = graph_codec_schema(graph)
+
+    touched: set = set()
+    alive: Dict[int, int] = {}          # vid -> label id
+    new_src: List[int] = []
+    new_dst: List[int] = []
+    new_et: List[int] = []
+    for key in keys:
+        vid = idm.get_vertex_id(key)
+        if not idm.is_user_vertex_id(vid):
+            continue
+        vid = idm.get_canonical_vertex_id(vid)
+        touched.add(vid)
+        exists = False
+        label_id = 0
+        for col, val in store.get_slice(KeySliceQuery(key, full_q), store_tx):
+            cat = col[0]
+            if cat == 0:
+                if unpack_tid(col, 1)[0] == st.EXISTS:
+                    exists = True
+            elif cat == 2:
+                if unpack_tid(col, 1)[0] == st.VERTEX_LABEL_EDGE:
+                    label_id = es.parse_relation((col, val), st.type_info).other_vertex_id
+            elif cat == 3:
+                if len(col) == EDGE_COL_FIXED and not val:
+                    tid = int.from_bytes(col[1:9], "big")
+                    if col[9] == int(Direction.OUT) and tid not in relidx_ids:
+                        new_src.append(vid)
+                        new_dst.append(int.from_bytes(col[11:19], "big"))
+                        new_et.append(tid)
+                else:
+                    rc = es.parse_relation((col, val), schema)
+                    if (rc.is_edge and rc.direction == Direction.OUT
+                            and rc.type_id not in relidx_ids):
+                        new_src.append(vid)
+                        new_dst.append(int(rc.other_vertex_id))
+                        new_et.append(int(rc.type_id))
+        if exists:
+            alive[vid] = label_id
+
+    # old edges in vid space, minus those whose source row was re-derived
+    old_src_vid = np.repeat(csr.vertex_ids, np.diff(csr.out_indptr))
+    old_dst_vid = csr.vertex_ids[csr.out_dst]
+    keep = ~np.isin(old_src_vid, np.fromiter(touched, dtype=np.int64))
+    old_src_vid = old_src_vid[keep]
+    old_dst_vid = old_dst_vid[keep]
+    old_et = csr.out_edge_type[keep] if csr.out_edge_type is not None else None
+
+    removed = {v for v in touched if v not in alive}
+    vertex_ids = np.unique(np.concatenate([
+        csr.vertex_ids[~np.isin(csr.vertex_ids, np.fromiter(removed, dtype=np.int64))]
+        if removed else csr.vertex_ids,
+        np.fromiter(alive.keys(), dtype=np.int64, count=len(alive)),
+    ]))
+
+    src_vid = np.concatenate([old_src_vid, np.asarray(new_src, dtype=np.int64)])
+    dst_vid = np.concatenate([old_dst_vid, np.asarray(new_dst, dtype=np.int64)])
+    if idm.partition_bits > 0 and _any_partitioned(idm, dst_vid):
+        dst_vid = canonicalize_ids(idm, dst_vid)
+    et = None
+    if old_et is not None or new_et:
+        et = np.concatenate([
+            old_et if old_et is not None else np.zeros(len(old_src_vid), dtype=np.int32),
+            np.asarray(new_et, dtype=np.int32),
+        ])
+
+    n = len(vertex_ids)
+    si = np.searchsorted(vertex_ids, src_vid)
+    di = np.searchsorted(vertex_ids, dst_vid)
+    valid = (
+        (si < n) & (di < n)
+        & (vertex_ids[np.minimum(si, n - 1)] == src_vid)
+        & (vertex_ids[np.minimum(di, n - 1)] == dst_vid)
+    )
+    si = si[valid].astype(np.int32)
+    di = di[valid].astype(np.int32)
+    if et is not None:
+        et = et[valid]
+    # the canonical layout of a fresh load: within each source row the
+    # store orders edge columns by (type, other vid)
+    order = np.lexsort((di, et if et is not None else np.zeros(len(si), dtype=np.int32), si))
+    si, di = si[order], di[order]
+    if et is not None:
+        et = et[order]
+
+    # labels: kept from the old snapshot where known, overridden for
+    # touched rows
+    labels = None
+    if csr.labels is not None or alive:
+        labels = np.zeros(n, dtype=np.int64)
+        if csr.labels is not None:
+            pos = np.searchsorted(vertex_ids, csr.vertex_ids)
+            ok = (pos < n) & (vertex_ids[np.minimum(pos, n - 1)] == csr.vertex_ids)
+            labels[pos[ok]] = csr.labels[ok]
+        for vid, lid in alive.items():
+            labels[int(np.searchsorted(vertex_ids, vid))] = lid
+
+    refreshed = csr_from_edges(n, si, di, edge_types=et)
+    refreshed.vertex_ids = vertex_ids
+    refreshed.labels = labels
+    return refreshed, new_epoch
 
 
 def csr_from_arrays(

@@ -1,8 +1,18 @@
 """Delta overlay: analytics over a base snapshot plus the writes pending
 against it, without the repack — the port of ``janusgraph_tpu/olap/delta.py``
-(``DeltaOverlay``, ``materialize``, ``OverlayView``,
-``fused_delta_aggregate``, ``FusedHostView``, ``compact_result``,
-``program_delta_compatible`` and the snapshot files).
+(``ChangeCapture``, ``overlay_since``, ``DeltaOverlay``, ``materialize``,
+``OverlayView``, ``fused_delta_aggregate``, ``FusedHostView``,
+``DeltaSnapshot``, ``compact_result``, ``program_delta_compatible`` and the
+snapshot files).
+
+- **Change capture** (:class:`ChangeCapture`): ``BackendTransaction.commit``
+  taps every committed edgestore batch into a bounded per-graph ring.
+  Batches decode vectorized through the fixed-width bulk edge decoder the
+  scan uses (cells with a sort key or properties through
+  ``parse_relation``), so a bulk-load commit costs one pass, into records:
+  edge adds, edge deletes (the tombstone lane), vertex add and remove. A
+  cell the decoder cannot classify poisons the ring: epochs before it are
+  served by a full scan, never by stale lanes.
 
 - **Delta overlay** (:class:`DeltaOverlay`): pending records net out
   (multiset counting: a delete cancels a pending add of the same
@@ -36,23 +46,41 @@ against it, without the repack — the port of ``janusgraph_tpu/olap/delta.py``
   CSR arrays with the canonical edge layout of a fresh load, from the
   records alone.
 
-Not ported yet (ROADMAP.md): the commit-side change capture, compaction
-(``DeltaSnapshot``) and the sharded routing.
+- **Warm snapshot** (:class:`DeltaSnapshot`, one per graph through
+  :func:`get_snapshot`): the base CSR, the capture epoch it covers and the
+  executors built over it. ``GraphComputer.submit()`` acquires it: a cold
+  snapshot scans the store once; afterwards a submit reads only the
+  pending overlay ("warm" with none, "fused" below
+  ``computer.delta-max-overlay``, "refresh" above it, which folds the
+  overlay into a new base with ``materialize``, zero store reads). The
+  overlay is compacted into the base after a run once it crosses
+  ``autotune.decide_delta``'s threshold for the card (or
+  ``computer.delta-compact-threshold``), saved with tmp+rename when
+  ``computer.delta-snapshot-path`` is set. A new base drops the cached
+  executors and their device packs.
+
+Not ported yet (ROADMAP.md Queue A #3-#4): the capture's registry
+counters and flight events, and the sharded routing.
 """
 
 from __future__ import annotations
 
 import os
+import struct
 import tempfile
+import threading
+import time
 import zipfile
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from janusgraph_tpu_torch.core.codecs import EDGE_COL_FIXED, Direction
 from janusgraph_tpu_torch.olap import kernels
-from janusgraph_tpu_torch.olap.csr import CSRGraph, csr_from_edges
+from janusgraph_tpu_torch.olap.csr import CSRGraph, csr_from_edges, graph_codec_schema
 from janusgraph_tpu_torch.olap.vertex_program import Combiner, VertexProgram
 
 #: bits of a graph id (``janusgraph_tpu/core/ids.py``'s ``TOTAL_BITS``)
@@ -64,6 +92,201 @@ def overlay_tier(n: int) -> int:
     if n <= 0:
         return 0
     return 1 << max(0, int(n) - 1).bit_length()
+
+
+# ---------------------------------------------------------------------------
+# Change capture
+# ---------------------------------------------------------------------------
+
+class ChangeCapture:
+    """Bounded per-graph ring of committed graph-structure deltas.
+
+    Fed from ``BackendTransaction.commit`` (through ``Backend.
+    register_change_capture``) with each committed edgestore batch, under
+    the backend's epoch lock, so batches append in epoch order. Consumers
+    call :meth:`slice_since`; None means the capture cannot serve that
+    epoch (the ring dropped past it, or a cell resisted decoding) and the
+    caller must reload in full. ``decode_s`` sums the decode time and
+    ``poisoned`` counts the batches that failed to decode."""
+
+    def __init__(self, graph, limit: int = 1 << 16):
+        self.graph = graph
+        self.limit = int(limit)
+        self._lock = threading.Lock()
+        self._batches: deque = deque()
+        self._count = 0
+        #: records with epoch <= floor may have been dropped or undecodable
+        self._floor = 0
+        #: sinks fed every decoded batch as fn(epoch, batch), poison as
+        #: fn(epoch, None)
+        self._sinks: List = []
+        self.decode_s = 0.0
+        self.poisoned = 0
+
+    def add_sink(self, fn) -> None:
+        """Register a ``fn(epoch, batch_or_None)`` sink. Sinks ride the
+        commit path, so their failures are swallowed: neither the capture
+        nor the commit fails because a sink did."""
+        with self._lock:
+            self._sinks.append(fn)
+
+    def _feed_sinks(self, epoch: int, batch: Optional[dict]) -> None:
+        for fn in self._sinks:
+            try:
+                fn(epoch, batch)
+            except Exception:  # noqa: BLE001 - never fail a commit
+                pass
+
+    # -- write side ---------------------------------------------------------
+    def on_commit(self, epoch: int, edge_rows: Dict[bytes, object]) -> None:
+        """Called with the committed edgestore row mutations."""
+        t0 = time.perf_counter()
+        try:
+            batch = self._decode(edge_rows)
+        except Exception:  # noqa: BLE001 - capture must never fail a commit
+            batch = None
+        with self._lock:
+            self.decode_s += time.perf_counter() - t0
+            if batch is None:
+                # poison: snapshots at or before this epoch cannot be
+                # served incrementally any more
+                self._batches.clear()
+                self._count = 0
+                self._floor = epoch
+                self.poisoned += 1
+                self._feed_sinks(epoch, None)
+                return
+            if not batch["n"]:
+                return
+            self._batches.append((epoch, batch))
+            self._count += batch["n"]
+            while self._count > self.limit and self._batches:
+                e0, b0 = self._batches.popleft()
+                self._count -= b0["n"]
+                self._floor = e0
+            self._feed_sinks(epoch, batch)
+
+    def _decode(self, edge_rows) -> dict:
+        """One committed batch -> vid-space record arrays. Raises where a
+        cell resists classification (on_commit then poisons the ring)."""
+        g = self.graph
+        idm = g.idm
+        st = g.system_types
+        es = g.edge_serializer
+        relidx = g.relation_index_ids
+        unpack_tid = struct.Struct(">Q").unpack_from
+
+        add_cols: List[bytes] = []
+        add_vids: List[int] = []
+        del_cols: List[bytes] = []
+        del_vids: List[int] = []
+        slow_add: List[Tuple[int, int, int]] = []
+        slow_del: List[Tuple[int, int, int]] = []
+        v_add: Dict[int, int] = {}
+        v_del: List[int] = []
+
+        def _slow(vid, col, val):
+            rc = es.parse_relation((col, val), graph_codec_schema(g))
+            if not rc.is_edge or rc.direction != Direction.OUT:
+                return None
+            if rc.type_id in relidx:
+                return None
+            return (vid, int(rc.other_vertex_id), int(rc.type_id))
+
+        for key, m in edge_rows.items():
+            vid = idm.get_vertex_id(key)
+            if not idm.is_user_vertex_id(vid):
+                continue
+            vid = idm.get_canonical_vertex_id(vid)
+            for entry in m.additions:
+                col, val = entry[0], entry[1]
+                cat = col[0]
+                if cat == 3:
+                    if len(col) == EDGE_COL_FIXED:
+                        add_cols.append(col)
+                        add_vids.append(vid)
+                    else:
+                        t = _slow(vid, col, val)
+                        if t is not None:
+                            slow_add.append(t)
+                elif cat == 0:
+                    if unpack_tid(col, 1)[0] == st.EXISTS:
+                        v_add.setdefault(vid, 0)
+                elif cat == 2:
+                    if unpack_tid(col, 1)[0] == st.VERTEX_LABEL_EDGE:
+                        rc = es.parse_relation((col, val), st.type_info)
+                        v_add[vid] = int(rc.other_vertex_id)
+            for col in m.deletions:
+                cat = col[0]
+                if cat == 3:
+                    if len(col) == EDGE_COL_FIXED:
+                        del_cols.append(col)
+                        del_vids.append(vid)
+                    else:
+                        # a deletion carries no value; the OUT-edge identity
+                        # fields all live in the column
+                        t = _slow(vid, col, b"")
+                        if t is not None:
+                            slow_del.append(t)
+                elif cat == 0:
+                    if unpack_tid(col, 1)[0] == st.EXISTS:
+                        v_del.append(vid)
+
+        def _bulk(cols, vids, slow):
+            if cols:
+                tids, dirs, others, _rels = es.bulk_decode_edges(cols)
+                owner = np.asarray(vids, dtype=np.int64)
+                mask = dirs == int(Direction.OUT)
+                if relidx:
+                    mask &= ~np.isin(tids, np.fromiter(relidx, dtype=np.int64))
+                src, dst, et = owner[mask], others[mask], tids[mask]
+            else:
+                src = dst = et = np.empty(0, np.int64)
+            if slow:
+                s = np.asarray(slow, dtype=np.int64).reshape(-1, 3)
+                src = np.concatenate([src, s[:, 0]])
+                dst = np.concatenate([dst, s[:, 1]])
+                et = np.concatenate([et, s[:, 2]])
+            return (
+                np.asarray(src, dtype=np.int64),
+                np.asarray(dst, dtype=np.int64),
+                np.asarray(et, dtype=np.int64),
+            )
+
+        a_src, a_dst, a_et = _bulk(add_cols, add_vids, slow_add)
+        d_src, d_dst, d_et = _bulk(del_cols, del_vids, slow_del)
+        return {
+            "n": len(a_src) + len(d_src) + len(v_add) + len(v_del),
+            "add": (a_src, a_dst, a_et),
+            "del": (d_src, d_dst, d_et),
+            "v_add": dict(v_add),
+            "v_del": list(v_del),
+        }
+
+    # -- read side ----------------------------------------------------------
+    def records_since(self, epoch: int) -> Optional[List[dict]]:
+        with self._lock:
+            if epoch < self._floor:
+                return None
+            return [b for e, b in self._batches if e > epoch]
+
+    def slice_since(self, epoch: int) -> Optional[Tuple[List[dict], int]]:
+        """(batches past ``epoch``, anchor epoch): the anchor is the last
+        epoch actually consumed, so a consumer that re-anchors there never
+        applies a record committed during the read twice."""
+        with self._lock:
+            if epoch < self._floor:
+                return None
+            batches = [(e, b) for e, b in self._batches if e > epoch]
+            upto = max((e for e, _ in batches), default=epoch)
+            return [b for _, b in batches], upto
+
+    def depth_since(self, epoch: int) -> Optional[int]:
+        """Pending record count past ``epoch`` (None = cannot serve)."""
+        with self._lock:
+            if epoch < self._floor:
+                return None
+            return sum(b["n"] for e, b in self._batches if e > epoch)
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +345,20 @@ class DeltaOverlay:
             new_vertices={vid: lab for vid, lab in vfinal.items() if lab is not None},
             removed=frozenset(vid for vid, lab in vfinal.items() if lab is None),
         )
+
+
+def overlay_since(graph, epoch: int) -> Optional[Tuple[DeltaOverlay, int]]:
+    """(pending overlay past ``epoch``, anchor epoch) from the graph's
+    change capture, or None when it cannot serve it (disabled, overflow,
+    poisoned decode)."""
+    cap = getattr(graph, "change_capture", None)
+    if cap is None:
+        return None
+    sl = cap.slice_since(epoch)
+    if sl is None:
+        return None
+    batches, upto = sl
+    return DeltaOverlay.from_batches(batches), upto
 
 
 # ---------------------------------------------------------------------------
@@ -315,6 +552,8 @@ class OverlayView:
         )
         self.removed_idx = rm[(rm >= 0) & (rm < nb)]
         self.max_lane_cells = int(max_lane_cells)
+        #: the capture epoch the overlay reaches (set by DeltaSnapshot)
+        self.upto_epoch: Optional[int] = None
         self._lanes: Dict[bool, Optional[dict]] = {}
         self._device: Dict[Tuple, dict] = {}
         self._fused_degrees = None
@@ -657,6 +896,172 @@ def load_snapshot(path: str) -> Optional[Tuple[CSRGraph, int]]:
             return csr, int(z["epoch"])
     except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
         return None
+
+
+# ---------------------------------------------------------------------------
+# Warm snapshot + compaction
+# ---------------------------------------------------------------------------
+
+class DeltaSnapshot:
+    """Per-graph warm snapshot: base CSR + capture epoch + compaction
+    policy + the executors built over the base. ``GraphComputer.submit()``
+    acquires it to skip the store scan."""
+
+    def __init__(self, graph):
+        self.graph = graph
+        cfg = graph.config
+        self.max_overlay = int(cfg.get("computer.delta-max-overlay"))
+        self.max_lane_cells = int(cfg.get("computer.delta-max-lane-cells"))
+        self.compact_threshold = int(cfg.get("computer.delta-compact-threshold"))
+        self.snapshot_path = cfg.get("computer.delta-snapshot-path") or None
+        self._lock = threading.RLock()
+        self.csr = None
+        self.epoch = -1
+        self._decision = None
+        #: base generation: bumped whenever ``csr`` is replaced (cold load,
+        #: compaction, adopt) — the executor cache's invalidation edge
+        self.generation = 0
+        #: executors (device packs, plans, fused loops) over this base,
+        #: keyed by (kind, device, constructor arguments); the overlay is
+        #: not part of the key, a cached executor swaps it with set_delta
+        self._executors: Dict[Tuple, object] = {}
+        #: the last compaction: {"depth", "edges", "vertices", "wall_s",
+        #: "threshold"} (None before the first)
+        self.last_compaction: Optional[dict] = None
+
+    # ------------------------------------------------------------- snapshot
+    def acquire(self):
+        """(csr, overlay view or None, info): the current base plus the
+        pending overlay. A cold cache (or a capture that cannot serve the
+        cached epoch) pays one full scan; afterwards every acquire reads
+        only the capture. ``info["path"]`` is "cold", "warm" (no overlay),
+        "fused" (an overlay to consume) or "refresh" (the overlay was
+        deeper than ``computer.delta-max-overlay`` and folded into a new
+        base), with the overlay's depth under "overlay"."""
+        with self._lock:
+            if self.csr is not None:
+                got = overlay_since(self.graph, self.epoch)
+                if got is None:
+                    self.csr = None  # fall through to the full load
+                else:
+                    overlay, upto = got
+                    if overlay.size == 0:
+                        return self.csr, None, {"path": "warm", "overlay": 0}
+                    view = OverlayView(self.csr, overlay, max_lane_cells=self.max_lane_cells)
+                    view.upto_epoch = upto
+                    if overlay.size > self.max_overlay:
+                        # too deep to consume fused: fold into the base
+                        # (still zero store reads)
+                        self._compact(view)
+                        return self.csr, None, {"path": "refresh", "overlay": overlay.size}
+                    return self.csr, view, {"path": "fused", "overlay": overlay.size}
+            from janusgraph_tpu_torch.olap.csr import load_csr_snapshot
+
+            # the lock is held across the scan so concurrent submitters
+            # share one load
+            csr, epoch = load_csr_snapshot(self.graph)
+            self._install(csr, epoch)
+            return self.csr, None, {"path": "cold", "overlay": 0}
+
+    def adopt(self, csr, epoch: int) -> None:
+        """Install an externally materialized base (submit()'s materialize
+        branch) so the next acquire resumes from it."""
+        with self._lock:
+            self._install(csr, epoch)
+
+    def _install(self, csr, epoch: int) -> None:
+        """Replace the base (lock held): the generation bump drops every
+        cached executor, whose device packs cover the old base."""
+        self.csr = csr
+        self.epoch = epoch
+        self.generation += 1
+        self._executors.clear()
+
+    def close(self) -> None:
+        """Drop the base and the cached executors (graph.close())."""
+        with self._lock:
+            self.csr = None
+            self.epoch = -1
+            self._executors.clear()
+
+    # ------------------------------------------------- warm executor cache
+    def cached_executor(self, key: Tuple):
+        """The executor stored under ``key`` for this base generation, or
+        None."""
+        with self._lock:
+            return self._executors.get(key)
+
+    def store_executor(self, key: Tuple, ex, csr) -> None:
+        """Cache a freshly built executor if it was built over the current
+        base (a compaction between acquire and build leaves its device
+        arrays stale; dropping it is the cheap correct answer)."""
+        with self._lock:
+            if csr is self.csr:
+                self._executors[key] = ex
+
+    # ----------------------------------------------------------- compaction
+    def _threshold(self) -> int:
+        if self.compact_threshold:
+            return self.compact_threshold
+        if self._decision is None:
+            from janusgraph_tpu_torch.olap import autotune
+
+            kind = torch.cuda.get_device_name(0) if torch.cuda.is_available() else "cpu"
+            self._decision = autotune.decide_delta(
+                num_edges=self.csr.num_edges if self.csr is not None else 0,
+                num_vertices=self.csr.num_vertices if self.csr is not None else 0,
+                device_kind=kind,
+            )
+        return self._decision.compact_threshold
+
+    def maybe_compact(self) -> bool:
+        """Fold the pending overlay into the base once it crosses the
+        threshold. Off the superstep path: submit() calls this after the
+        run returns."""
+        with self._lock:
+            if self.csr is None:
+                return False
+            got = overlay_since(self.graph, self.epoch)
+            if got is None or got[0].size == 0:
+                return False
+            overlay, upto = got
+            if overlay.size < self._threshold():
+                return False
+            view = OverlayView(self.csr, overlay, max_lane_cells=self.max_lane_cells)
+            view.upto_epoch = upto
+            self._compact(view)
+            return True
+
+    def _compact(self, view: OverlayView) -> None:
+        """Materialize base + overlay into a new base (zero store reads),
+        anchored at the last epoch folded, so records committed meanwhile
+        stay pending; saved with tmp+rename when a path is configured.
+        Call under the lock."""
+        t0 = time.perf_counter()
+        depth = view.depth
+        self._install(materialize(self.csr, view.overlay, idm=self.graph.idm), view.upto_epoch)
+        self.last_compaction = {
+            "depth": depth, "edges": self.csr.num_edges,
+            "vertices": self.csr.num_vertices,
+            "wall_s": time.perf_counter() - t0, "threshold": self._threshold(),
+        }
+        if self.snapshot_path:
+            try:
+                save_snapshot(self.snapshot_path, self.csr, self.epoch)
+            except OSError:
+                pass  # persistence is best-effort, the base is in memory
+
+
+def get_snapshot(graph) -> Optional[DeltaSnapshot]:
+    """The graph's lazily created DeltaSnapshot (None when the graph has no
+    change capture, i.e. computer.delta is off)."""
+    if getattr(graph, "change_capture", None) is None:
+        return None
+    snap = getattr(graph, "_delta_snapshot", None)
+    if snap is None:
+        snap = DeltaSnapshot(graph)
+        graph._delta_snapshot = snap
+    return snap
 
 
 # ---------------------------------------------------------------------------

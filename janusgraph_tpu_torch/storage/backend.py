@@ -3,22 +3,25 @@ builds buffered backend transactions — the port's copy of
 ``janusgraph_tpu/storage/backend.py``.
 
 ``Backend`` opens ``edgestore``, ``graphindex``, ``system_properties`` (with
-the cluster-global config over it) and ``janusgraph_ids``, and counts the
-committed edgestore batches (``mutation_epoch``/``note_edge_mutations``),
-the epoch ``load_csr_snapshot`` records. ``BackendTransaction`` buffers writes per
-store and row and flushes them as one ``mutate_many`` at commit.
+the cluster-global config over it) and ``janusgraph_ids``, and tracks the
+committed edgestore batches: ``note_edge_mutations`` bumps the mutation
+epoch (the one ``load_csr_snapshot`` records), marks each touched row with
+it (``touched_since``/``touched_count_since``, what ``refresh_csr``
+re-reads; past 1,000,000 rows the tracker resets and records its overflow
+epoch) and streams the batch to the registered change capture
+(``register_change_capture``, the delta snapshot's feed).
+``BackendTransaction`` buffers writes per store and row and flushes them
+as one ``mutate_many`` at commit.
 
 Left out: the slice caches, the consistent-key lockers and lock stores,
-metrics, the read-only mode, the retry guard around each storage call,
-and the per-row epochs, ``touched_since`` and the change-capture sink
-(they come with ``refresh_csr`` and the delta capture side, ROADMAP
-Queue A #2).
+metrics, the read-only mode and the retry guard around each storage call
+(ROADMAP Queue A #5).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 from janusgraph_tpu_torch.storage.idauthority import (
     ConsistentKeyIDAuthority,
@@ -79,23 +82,63 @@ class Backend:
         self.id_authority = ConsistentKeyIDAuthority(
             self.id_store, self._base_tx, block_size=id_block_size,
         )
-        #: committed edgestore batches; load_csr_snapshot records the epoch
-        #: it saw before its scan
+        #: mutation-epoch tracker: edgestore row key -> epoch of its last
+        #: committed mutation (refresh_csr re-reads only these rows)
+        self._mutation_epochs: Dict[bytes, int] = {}
         self._epoch = 0
         self._epoch_lock = threading.Lock()
+        #: past this many rows the tracker resets and records the overflow
+        #: epoch; snapshots older than that must reload in full
+        self._epoch_track_limit = 1_000_000
+        self._overflow_epoch = 0
+        #: the delta snapshot's change-capture sink (register_change_capture)
+        self._change_capture = None
 
     def begin_transaction(self, config: Optional[dict] = None) -> "BackendTransaction":
         return BackendTransaction(self, self.manager.begin_transaction(config))
 
     # -- mutation-epoch tracking --------------------------------------------
-    def note_edge_mutations(self) -> None:
+    def note_edge_mutations(self, keys, mutations=None) -> None:
+        """One committed edgestore batch: bump the epoch, mark its rows and
+        hand the batch to the change capture (under the epoch lock, so
+        batches reach it in epoch order)."""
         with self._epoch_lock:
             self._epoch += 1
+            e = self._epoch
+            for key in keys:
+                self._mutation_epochs[key] = e
+            if len(self._mutation_epochs) > self._epoch_track_limit:
+                self._mutation_epochs.clear()
+                self._overflow_epoch = e
+            if self._change_capture is not None and mutations is not None:
+                self._change_capture(e, mutations)
 
     def mutation_epoch(self) -> int:
         """Monotonic counter bumped per committed edgestore batch."""
         with self._epoch_lock:
             return self._epoch
+
+    def touched_since(self, epoch: int) -> Optional[List[bytes]]:
+        """Edgestore row keys mutated after ``epoch``, or None when the
+        tracker overflowed past it (the caller must reload in full)."""
+        with self._epoch_lock:
+            if epoch < self._overflow_epoch:
+                return None
+            return [k for k, e in self._mutation_epochs.items() if e > epoch]
+
+    def touched_count_since(self, epoch: int) -> Optional[int]:
+        """How many distinct rows were mutated after ``epoch`` (None =
+        overflow)."""
+        with self._epoch_lock:
+            if epoch < self._overflow_epoch:
+                return None
+            return sum(1 for e in self._mutation_epochs.values() if e > epoch)
+
+    def register_change_capture(self, callback) -> None:
+        """Register the change-capture sink: called with (epoch, edgestore
+        row mutations) for every committed batch."""
+        with self._epoch_lock:
+            self._change_capture = callback
 
     # -- global config on system_properties ---------------------------------
     def set_global_config(self, name: str, value: bytes) -> None:
@@ -157,8 +200,9 @@ class BackendTransaction:
         try:
             if self._mutations:
                 self.backend.manager.mutate_many(self._mutations, self.store_tx)
-                if self._mutations.get(EDGESTORE_NAME):
-                    self.backend.note_edge_mutations()
+                edge_rows = self._mutations.get(EDGESTORE_NAME)
+                if edge_rows:
+                    self.backend.note_edge_mutations(edge_rows.keys(), edge_rows)
                 self._mutations = {}
             self.store_tx.commit()
         finally:

@@ -255,13 +255,39 @@ def test_write_back_writes_the_reference_cells_and_reloads(graphs):
                                   np.asarray(want.states["rank"]).astype(np.float64))
 
 
-def test_write_back_of_a_non_float_key_waits_for_the_transaction(graphs):
-    got = graphs[1]
-    got.management().make_property_key("hops", int)
+@pytest.mark.parametrize("kind", ["list_float", "set_float", "single_int"])
+def test_write_back_of_other_keys_goes_through_the_transaction(graphs, kind):
+    """Non-SINGLE or non-float keys take the transactional path in both
+    packages: the same cells (a SINGLE int key refuses the float values
+    in both, leaving the rows as they were)."""
+    from janusgraph_tpu.core.codecs import Cardinality as RefCardinality
+    from janusgraph_tpu.exceptions import SchemaViolationError as RefSchemaError
+    from janusgraph_tpu_torch.core.codecs import Cardinality
+    from janusgraph_tpu_torch.exceptions import SchemaViolationError
+
+    ref, got = graphs[:2]
+    name = f"hops_{kind}"
+    dtype, card = {"list_float": (float, "LIST"), "set_float": (float, "SET"),
+                   "single_int": (int, "SINGLE")}[kind]
+    ref.management().make_property_key(name, dtype, RefCardinality[card])
+    got.management().make_property_key(name, dtype, Cardinality[card])
+    want = ref.compute(executor="tpu").program(
+        ref_programs.PageRankProgram(max_iterations=2)).submit()
     res = got.compute(executor="cpu").program(programs.PageRankProgram(max_iterations=2)).submit()
-    res.states["hops"] = res.states["rank"]
-    with pytest.raises(NotImplementedError, match="Queue A #5"):
-        res.write_back(["hops"])
+    want.states[name] = np.asarray(want.states["rank"])
+    res.states[name] = np.asarray(want.states["rank"])
+    if kind == "single_int":
+        with pytest.raises(RefSchemaError):
+            want.write_back([name])
+        with pytest.raises(SchemaViolationError):
+            res.write_back([name])
+    else:
+        want.write_back([name])
+        res.write_back([name])
+        back = load_csr(got, property_keys=(name,))
+        np.testing.assert_array_equal(back.vertex_ids, res.csr.vertex_ids)
+        assert back.properties[name][3] == float(want.states[name][3])
+    assert _rows(got.backend.manager) == _rows(ref.backend.manager)
 
 
 # ------------------------------------------------------- Graph of the Gods
@@ -342,7 +368,7 @@ def test_compute_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("config", [
     {"computer.executor": "sharded"},
-    {"computer.delta": True},
+    {"storage.cdc.dir": "/tmp/x"},
     {"storage.distributed-load-workers": 2},
     {"computer.ell-max-capacity": 64},
     {"no.such-option": 1},

@@ -93,6 +93,7 @@ bulk_add_edges(g, "link", vids[src], vids[dst])
 csr, epoch = load_csr_snapshot(g)
 assert csr.num_vertices == n and csr.num_edges == len(src) and epoch > 0
 res = g.compute(executor="cpu").program(PageRankProgram(max_iterations=10)).submit()
+assert res.run_info["snapshot"]["path"] == "cold"
 res.write_back(["rank"])
 back = load_csr(g, property_keys=("rank",))
 assert np.array_equal(back.properties["rank"], res.states["rank"].astype(np.float64))
@@ -100,6 +101,16 @@ again = open_graph(store_manager=InMemoryStoreManager.from_rows(g.backend.manage
 assert np.array_equal(load_csr(again, property_keys=("rank",)).properties["rank"],
                       back.properties["rank"])
 assert native.available() == ("error" not in _build.host_build_info)
+from janusgraph_tpu_torch.core.codecs import Direction
+tx = g.new_transaction()
+a, b = tx.get_vertex(int(vids[0])), tx.get_vertex(int(vids[1]))
+tx.add_edge(a, "link", b, since=3)
+tx.add_edge(tx.add_vertex(name="new"), "link", a)
+tx.remove_edge(tx.get_edges(tx.get_vertex(int(vids[src[0]])), Direction.OUT, ("link",))[0])
+tx.commit()
+warm = g.compute(executor="cpu").program(PageRankProgram(max_iterations=10)).submit()
+assert warm.run_info["snapshot"] == {"path": "fused", "overlay": 4}, warm.run_info["snapshot"]
+assert len(warm.states["rank"]) == n + 1 and abs(warm.states["rank"].sum() - 1.0) < 1e-5
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m == "jax" or m.startswith("jax.")
     or m == "janusgraph_tpu" or m.startswith("janusgraph_tpu.")))
@@ -130,8 +141,9 @@ def test_port_runs_with_jax_blocked():
 
 
 def test_stored_path_runs_with_jax_blocked():
-    """open_graph -> bulk load -> submit(executor="cpu") -> write_back ->
-    reload, and a reopen from the store's rows, with both blocked."""
+    """open_graph -> bulk load -> submit(executor="cpu") -> a transaction
+    -> a warm, fused submit -> write_back -> reload, and a reopen from the
+    store's rows, with both blocked."""
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run(
@@ -175,7 +187,8 @@ STORED_PATH_MODULES = (
     "native.py", "_build.py", "core/ids.py", "core/attributes.py", "core/codecs.py",
     "core/schema.py", "core/config.py", "core/management.py", "core/graph.py",
     "core/bulk.py", "storage/kcvs.py", "storage/inmemory.py", "storage/idauthority.py",
-    "storage/backend.py", "olap/csr.py", "olap/computer.py",
+    "storage/backend.py", "olap/csr.py", "olap/computer.py", "core/tx.py",
+    "core/elements.py", "olap/delta.py",
 )
 
 

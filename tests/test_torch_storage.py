@@ -302,7 +302,7 @@ def test_id_authority_refuses_another_block_size():
 # ---------------------------------------------------------------- config
 
 @pytest.mark.parametrize("path,value,item", [
-    ("computer.delta", True, "Queue A #2"),
+    ("tx.log-tx", True, "Queue A #5"),
     ("computer.executor", "sharded", "Queue A #4"),
     ("storage.distributed-load-workers", 4, "Queue A #5"),
     ("storage.backend", "local", "Queue A #5"),
