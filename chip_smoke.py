@@ -117,6 +117,18 @@ Phases, each printing one JSON line:
            kernel runs), its base array-equal to a fresh scan and its ranks
            bitwise equal to run_on over it; (e) refresh_csr against the
            same scan; the walls of every submit and write
+  telemetry  the run records every run above published (the executor's
+           _finish_run wrapped to time its host ms and to read the
+           allocator just after): every record's roofline utilization in
+           [0, 1.05], device_memory within 1 MiB of
+           torch.cuda.memory_allocated(); for the fused PageRank (first
+           and warm), the host-loop PageRank, the tuned BFS, a GCN layer, the delta PageRank and the
+           cold and warm stored submits: supersteps, records (one per
+           superstep on the dense paths), the utilization range,
+           roofline_by_tier, mxu, device_memory, compile_cache and the
+           publication's host ms; each submit's run_info is
+           registry.last_run("olap") plus its routing; the chrome trace of
+           each and the registry's Prometheus text validate
 Each phase that drives a path zeroes the kernel launch counts just before
 it and reads them just after. The wrapper counts its eager launches; the
 fix-up kernel adds one to a device counter at every run, eager or replayed
@@ -130,6 +142,7 @@ check fails.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -145,6 +158,126 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 #: the most relative difference two float32 PageRank runs that sum in other
 #: orders may show (ranks are positive: every vertex keeps its teleport share)
 RANK_REL = 1e-4
+
+
+class Telemetry:
+    """The run records the executor publishes, held as they appear: wraps
+    ``GPUExecutor._finish_run`` to time its host ms and read the allocator
+    just after it. Every record of every run is held to a roofline
+    utilization in [0, 1.05] and its ``device_memory`` (where read from the
+    card) to ``torch.cuda.memory_allocated()`` within 1 MiB; a ``label``
+    set before a run names it for the telemetry phase."""
+
+    def __init__(self):
+        self.label = None
+        self.runs = {}
+        self.failures = []
+        self.checked = 0
+        self.publish_ms = []
+
+    def install(self) -> None:
+        import torch
+
+        from janusgraph_tpu_torch.olap.gpu_executor import GPUExecutor
+
+        publish = GPUExecutor._finish_run
+        tel = self
+
+        def timed(ex, *args, **kw):
+            # no cyclic collection between the record's read of the
+            # allocator and this one: it may free a dropped object's tensors
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                t0 = time.perf_counter()
+                publish(ex, *args, **kw)
+                ms = (time.perf_counter() - t0) * 1e3
+                allocated = torch.cuda.memory_allocated()
+            finally:
+                if collecting:
+                    gc.enable()
+            tel.seen(ex.last_run_info, ms, allocated)
+
+        GPUExecutor._finish_run = timed
+
+    def seen(self, info: dict, ms: float, allocated: int) -> None:
+        self.checked += 1
+        self.publish_ms.append(ms)
+        utils = [r["roofline_utilization"] for r in info["superstep_records"]
+                 if r.get("roofline_utilization") is not None]
+        bad = [u for u in utils if not 0.0 <= u <= 1.05]
+        if bad:
+            self.failures.append(f"{info['path']} run {self.checked}: roofline utilization "
+                                 f"{bad} outside [0, 1.05]")
+        mem = info["device_memory"]
+        if mem["source"] == "device" and abs(mem["bytes_in_use"] - allocated) > 1 << 20:
+            self.failures.append(f"{info['path']} run {self.checked}: device_memory {mem} "
+                                 f"against memory_allocated() {allocated}")
+        if self.label is not None:
+            self.runs[self.label] = {
+                "info": info, "publish_ms": ms, "allocated": allocated,
+                "utilization": [min(utils), max(utils)] if utils else None,
+            }
+            self.label = None
+
+    def hold_submit(self, res) -> None:
+        """A submit's run_info is the registry's record plus its routing
+        (and the port's snapshot path)."""
+        from janusgraph_tpu_torch.observability import registry
+
+        own = {k: v for k, v in res.run_info.items() if k not in ("routing", "snapshot")}
+        if own != registry.last_run("olap"):
+            self.failures.append("a submit's run_info is not registry.last_run('olap')")
+        if registry.last_run("olap.routing") != res.run_info["routing"]:
+            self.failures.append("a submit's routing is not registry.last_run('olap.routing')")
+
+
+TEL = Telemetry()
+
+
+def telemetry_phase(emit) -> None:
+    """Print each labelled run's telemetry and fail on any record that broke
+    the bounds, any dense run whose records do not cover its supersteps, or
+    a rendering that does not validate."""
+    from janusgraph_tpu_torch.observability import prometheus_text, registry
+    from janusgraph_tpu_torch.observability.exposition import validate_prometheus_text
+    from janusgraph_tpu_torch.observability.timeline import chrome_trace, validate_chrome_trace
+
+    want = ("pagerank_fused", "pagerank_fused_warm", "pagerank_host_loop", "bfs_tuned", "gcn_layer",
+            "delta_pagerank", "stored_cold", "stored_warm")
+    failures = list(TEL.failures)
+    paths = {}
+    for label in want:
+        run = TEL.runs.get(label)
+        if run is None:
+            failures.append(f"{label}: no run was published")
+            continue
+        info = run["info"]
+        records = info["superstep_records"]
+        if info["path"] != "frontier" and len(records) != info["supersteps"]:
+            failures.append(f"{label}: {len(records)} records for {info['supersteps']} supersteps")
+        err = validate_chrome_trace(chrome_trace(info))
+        if err is not None:
+            failures.append(f"{label}: chrome trace: {err}")
+        paths[label] = {
+            "path": info["path"], "supersteps": info["supersteps"], "records": len(records),
+            "roofline_utilization_min_max": run["utilization"],
+            "roofline_by_tier": info["roofline_by_tier"], "mxu": info.get("mxu"),
+            "device_memory": info["device_memory"], "memory_allocated": run["allocated"],
+            "compile_cache": info["compile_cache"], "retraces": info["retraces"],
+            "h2d_arg_bytes": info["h2d_arg_bytes"], "wall_s": info["wall_s"],
+            "finish_run_host_ms": run["publish_ms"],
+            "superstep_wall_ms": [r.get("wall_ms") for r in records[:4]],
+        }
+    err = validate_prometheus_text(prometheus_text(registry))
+    if err is not None:
+        failures.append(f"prometheus text: {err}")
+    emit("telemetry", runs_checked=TEL.checked, paths=paths,
+         finish_run_host_ms_max=max(TEL.publish_ms),
+         finish_run_host_ms_median=float(np.median(TEL.publish_ms)),
+         olap_runs=registry.get_count("olap.runs"), failures=failures)
+    if failures:
+        raise RuntimeError(f"telemetry: {failures}")
 
 
 def emit(phase: str, **fields) -> None:
@@ -675,6 +808,7 @@ def fused_phase(csr, seg_ex, ell_ex, host_ranks, adj, seed, emit) -> dict:
         first = ex.run(pagerank())
         first_info = dict(ex.last_run_info)
         kernels.reset_launch_counts()
+        TEL.label = "pagerank_fused_warm" if strategy == "segsum" else None
         rank = ex.run(pagerank())["rank"]
         info = dict(ex.last_run_info)
         launches = kernels.launch_counts()["sorted_segment_sum"]
@@ -900,6 +1034,7 @@ def delta_phase(csr, args, emit) -> dict:
     delta_first_s = time.perf_counter() - t0
     first_capture_s = dex.last_run_info["capture_s"]
     kernels.reset_launch_counts()
+    TEL.label = "delta_pagerank"
     fused, launches = counted(lambda: dex.run(pagerank())["rank"], 60)
     info = dict(dex.last_run_info)
     eager = kernels.launch_counts()["sorted_segment_sum"]
@@ -1100,6 +1235,7 @@ def dense_phase(csr, args, emit) -> dict:
             ex.run(make())  # packs, rows and the capture
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            TEL.label = "gcn_layer" if (name, strategy) == ("gcn", "ell") else None
             out = ex.run(make())[key]
             info = dict(ex.last_run_info)
             if info["path"] != "fused" or out.shape != (n, d) or not np.isfinite(out).all():
@@ -1675,8 +1811,10 @@ def stored_phase(csr, args, emit) -> dict:
     for path in ("cold", "warm"):
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
+        TEL.label = f"stored_{path}"
         res, runs = counted(lambda: g.compute().program(pagerank()).submit(), 20)
         walls.append(time.perf_counter() - t0)
+        TEL.hold_submit(res)
         run_walls.append(res.run_info["run_wall_s"])
         submit_runs.append(runs)
         results.append(res)
@@ -1871,6 +2009,7 @@ def stored_delta_phase(stored, args, emit) -> dict:
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     res, fused_runs = counted(lambda: g.compute().program(pagerank()).submit(), 60)
+    TEL.hold_submit(res)
     fused_wall = time.perf_counter() - t0
     info = dict(res.run_info)
     if info["snapshot"] != {"path": "fused", "overlay": overlay.size} or not info["delta"]["fused"]:
@@ -1958,6 +2097,7 @@ def stored_delta_phase(stored, args, emit) -> dict:
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     res_r, refresh_runs = counted(lambda: g.compute().program(pagerank()).submit(), 20)
+    TEL.hold_submit(res_r)
     refresh_wall = time.perf_counter() - t0
     mem_after = torch.cuda.memory_allocated()
     if res_r.run_info["snapshot"] != {"path": "refresh", "overlay": depth} or (
@@ -2051,6 +2191,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
+    TEL.install()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -2169,6 +2310,7 @@ def main() -> int:
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
+    TEL.label = "pagerank_fused"
     result, main_launches = counted(lambda: run_on(csr, pagerank(), strategy="segsum"), 20)
     first_wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
@@ -2187,6 +2329,7 @@ def main() -> int:
     for strategy in ("segsum", "ell"):
         ex = GPUExecutor(csr, strategy=strategy)
         ex.run(pagerank(), fused=False)  # warm: plan/pack build and transfer
+        TEL.label = "pagerank_host_loop" if strategy == "segsum" else None
         out = ex.run(pagerank(), fused=False)
         info = dict(ex.last_run_info)
         if info["supersteps"] != 20 or info["path"] != "host-loop":
@@ -2270,6 +2413,7 @@ def main() -> int:
     dist_run_on = run_on(csr, bfs4())["distance"]
     bfs_launches = kernels.launch_counts()["sorted_segment_sum"]
     seg_ex.run(bfs4())  # warm: the engine's pointer arrays
+    TEL.label = "bfs_tuned"
     dist = seg_ex.run(bfs4())["distance"]
     info = dict(seg_ex.last_run_info)
     if info["path"] != "frontier" or not 1 <= info["supersteps"] <= 4:
@@ -2374,6 +2518,7 @@ def main() -> int:
     stored = stored_phase(csr, args, emit)
     kernels.reset_launch_counts()
     stored_delta = stored_delta_phase(stored, args, emit)
+    telemetry_phase(emit)
     print(json.dumps({"kernels": [{
         "name": "sorted_segment_sum",
         "route": "cuda",

@@ -88,8 +88,6 @@ def _option(path, datatype, description, default,
     REGISTRY[path] = ConfigOption(path, datatype, description, default, mutability, verifier)
 
 
-_ROADMAP_OPTIONS = "ROADMAP.md Queue A #2 (the ELL, frontier, tuner and feature options)"
-_ROADMAP_OBS = "ROADMAP.md Queue A #3 (observability)"
 _ROADMAP_MULTI = "ROADMAP.md Queue A #4 (multi-GPU)"
 _ROADMAP_HOST = "ROADMAP.md Queue A #5 (the host system beyond OLAP)"
 
@@ -103,18 +101,16 @@ _REFUSED_VALUES: Dict[str, tuple] = {
 #: options of the reference the port does not honour yet, by path or by
 #: path prefix (the longest match names the item)
 _NOT_PORTED: Dict[str, str] = {
-    "computer.frontier-": _ROADMAP_OPTIONS,
-    "computer.autotune-min-gain": _ROADMAP_OPTIONS,
-    "computer.autotune-max-tiers": _ROADMAP_OPTIONS,
-    "computer.ell-": _ROADMAP_OPTIONS,
-    "computer.features-": _ROADMAP_OPTIONS,
     "computer.sharded-auto": _ROADMAP_MULTI,
     "computer.shard-": _ROADMAP_MULTI,
     "computer.exchange": _ROADMAP_MULTI,
     "computer.agg": _ROADMAP_MULTI,
-    "computer.price-book-path": _ROADMAP_OBS,
+    # the rest of computer.* (the price book, spillover, result mode) and
+    # of metrics.* (trace propagation, history, profiling, SLOs, streams,
+    # the digest table, fleet outliers) serve the server and the remote
+    # store
     "computer.": _ROADMAP_HOST,
-    "metrics.": _ROADMAP_OBS,
+    "metrics.": _ROADMAP_HOST,
     "cluster.": _ROADMAP_MULTI,
     "storage.": _ROADMAP_HOST,
     "ids.": _ROADMAP_HOST,
@@ -254,6 +250,126 @@ _option(
     "computer.delta-snapshot-path", str,
     "file the compacted base CSR is saved to (tmp+rename npz); empty = in "
     "memory only", "",
+)
+_option(
+    "computer.ell-max-capacity", int,
+    "ELL bucket capacity cap; larger degrees row-split (supernode bound)",
+    1 << 14, verifier=lambda v: v >= 8,
+)
+_option(
+    "computer.ell-auto-budget-bytes", int,
+    "device budget the auto strategy lets the ELL pack use before falling "
+    "back to segment reduction (with computer.autotune off; the tuner's "
+    "budget otherwise)", 6 << 30, verifier=lambda v: v > 0,
+)
+_option(
+    "computer.ell-auto-pad", float, "padding-ratio ceiling for the auto ELL strategy",
+    3.0, verifier=lambda v: v >= 1.0,
+)
+_option(
+    "computer.frontier-cc-min-edges", int,
+    "edge count from which frontier='auto' runs ConnectedComponents through "
+    "the frontier engine (the default, the engine's 2^30 edge limit, keeps "
+    "CC dense: the faster path on the card; the reference defaults to 2^20)",
+    1 << 30, verifier=lambda v: v >= 0,
+)
+_option(
+    "computer.frontier-f-min", int,
+    "smallest frontier-compaction tier (vertex cap)", 1 << 10, verifier=lambda v: v > 0,
+)
+_option(
+    "computer.frontier-e-min", int,
+    "smallest frontier-expansion tier (edge cap)", 1 << 13, verifier=lambda v: v > 0,
+)
+_option(
+    "computer.frontier-tier-growth", int,
+    "growth factor between frontier tier capacities (the static ladder; the "
+    "tuner's largest growth)", 4, verifier=lambda v: v >= 2,
+)
+_option(
+    "computer.autotune-min-gain", float,
+    "modeled superstep-time gain the hybrid layout must show over ELL before "
+    "the tuner picks it", 0.05, verifier=lambda v: 0.0 <= v < 1.0,
+)
+_option(
+    "computer.autotune-max-tiers", int,
+    "frontier tier-ladder length budget per cap axis", 8, verifier=lambda v: v >= 2,
+)
+_option(
+    "computer.features-dim-tier", int,
+    "forced padded feature-dim lane tier for dense programs (power of two; "
+    "0 = the smallest tier that fits)", 0,
+    verifier=lambda v: v >= 0 and (v & (v - 1)) == 0,
+)
+_option(
+    "computer.features-native-matmul", bool,
+    "dense programs' transforms through torch.matmul (TF32 off) instead of "
+    "the fixed-order tree contraction", False,
+)
+_option("metrics.enabled", bool, "collect per-store operation metrics", False)
+_option(
+    "metrics.merge-stores", bool,
+    "report store metrics under one 'stores' bucket instead of per-store names",
+    False,
+)
+_option("metrics.prefix", str, "prefix prepended to every emitted metric name", "janusgraph")
+_option(
+    "metrics.console-interval-ms", float,
+    "periodic console metrics reporter (0 = off; util/metrics.py)", 0.0,
+    Mutability.LOCAL, lambda v: v >= 0,
+)
+_option(
+    "metrics.csv-interval-ms", float, "periodic CSV metrics reporter (0 = off)", 0.0,
+    Mutability.LOCAL, lambda v: v >= 0,
+)
+_option("metrics.csv-directory", str, "directory the CSV reporter writes into", "")
+_option(
+    "metrics.slow-op-threshold-ms", float,
+    "spans slower than this land in the always-on slow-op ring (0 = off)", 100.0,
+    verifier=lambda v: v >= 0,
+)
+_option(
+    "metrics.span-buffer", int, "completed root-span trees retained", 256,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "metrics.slow-op-buffer", int, "slow-op events retained in the ring", 128,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "metrics.flight-buffer", int, "events retained in the flight recorder ring", 512,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "metrics.flight-dump-dir", str,
+    "directory flight-recorder dumps are written to (empty = the system temp dir)",
+    "", Mutability.LOCAL,
+)
+_option(
+    "metrics.resource-ledger", bool,
+    "propagate the resource-ledger flag over the remote store protocols; the "
+    "in-memory store has no wire, so the ledger scopes (observability/"
+    "profiler.py) work alike either way", True,
+)
+_option(
+    "metrics.structured-logging", bool,
+    "write structured JSON log records to stderr (observability/logging.py)", False,
+    Mutability.LOCAL,
+)
+_option(
+    "metrics.roofline-peak-flops", float,
+    "peak device flops/s for the roofline model (0 = the device table)", 0.0,
+    Mutability.LOCAL, lambda v: v >= 0,
+)
+_option(
+    "metrics.roofline-peak-bytes-per-s", float,
+    "peak device memory bytes/s for the roofline model (0 = the device table)",
+    0.0, Mutability.LOCAL, lambda v: v >= 0,
+)
+_option(
+    "metrics.roofline-peak-mxu-flops", float,
+    "peak matmul flops/s, the denominator of the dense tier's mxu_utilization "
+    "(0 = the unit the matmuls run on)", 0.0, Mutability.LOCAL, lambda v: v >= 0,
 )
 _option(
     "tx.read-only-default", bool,

@@ -17,11 +17,17 @@ committed edgestore batch also streams into the graph's ``ChangeCapture``
 (``olap/delta.py``), which the warm delta snapshot behind ``submit()``
 reads instead of the store.
 
+Telemetry at open, as the reference's: the tracer's slow-op threshold and
+buffers, the flight recorder's ring and dump directory, the roofline peak
+overrides and structured logging (``metrics.*``); with ``metrics.enabled``
+the backend instruments its raw stores and the console and CSV reporters
+start (``util/metrics.py``), stopped again by ``close()``.
+
 Left out (ROADMAP Queue A #5): the OLTP traversal (``traversal``),
 indexes and index providers (the port makes none, so commits maintain
 none), the WAL, logs and schema broadcast, lock-consistency claims, cell
-TTLs, the instance registry, fault injection, metrics reporters and the
-other store backends.
+TTLs, the instance registry, fault injection and the other store
+backends.
 """
 
 from __future__ import annotations
@@ -141,7 +147,11 @@ class JanusGraphTPU:
         # reconcile cluster-global options BEFORE building the backend so
         # stored GLOBAL/FIXED values govern its construction
         cfg.attach_backend(GlobalConfigStore(store_manager))
-        self.backend = Backend(store_manager, id_block_size=cfg.get("ids.block-size"))
+        self.backend = Backend(
+            store_manager, id_block_size=cfg.get("ids.block-size"),
+            metrics_enabled=cfg.get("metrics.enabled"),
+            metrics_merge_stores=cfg.get("metrics.merge-stores"),
+        )
         self.idm = IDManager(partition_bits=cfg.get("ids.partition-bits"))
         self.edge_serializer = EdgeSerializer(self.serializer, self.idm)
         self.system_types = SystemTypes(self.idm)
@@ -169,7 +179,50 @@ class JanusGraphTPU:
                 self, limit=cfg.get("computer.delta-capture-limit")
             )
             self.backend.register_change_capture(self.change_capture.on_commit)
+        self._configure_telemetry()
         self._open = True
+
+    def _configure_telemetry(self) -> None:
+        """Apply the metrics.* options to the process-wide tracer, flight
+        recorder, roofline peaks and logger; with metrics.enabled, start the
+        periodic reporters (last: an open that fails leaks no thread)."""
+        from janusgraph_tpu_torch.observability import flight_recorder, profiler, tracer
+
+        cfg = self.config
+        tracer.configure(
+            slow_threshold_ms=cfg.get("metrics.slow-op-threshold-ms"),
+            max_roots=cfg.get("metrics.span-buffer"),
+            slow_buffer=cfg.get("metrics.slow-op-buffer"),
+        )
+        flight_recorder.configure(
+            capacity=cfg.get("metrics.flight-buffer"),
+            dump_dir=cfg.get("metrics.flight-dump-dir"),
+        )
+        profiler.configure_roofline(
+            peak_flops=cfg.get("metrics.roofline-peak-flops"),
+            peak_bytes_per_s=cfg.get("metrics.roofline-peak-bytes-per-s"),
+            peak_mxu_flops=cfg.get("metrics.roofline-peak-mxu-flops"),
+        )
+        if cfg.get("metrics.structured-logging"):
+            import sys
+
+            from janusgraph_tpu_torch.observability import logging as slog
+
+            slog.configure(stream=sys.stderr)
+        self._metric_reporters = []
+        if cfg.get("metrics.enabled"):
+            from janusgraph_tpu_torch.util.metrics import PeriodicReporter, metrics
+
+            prefix = cfg.get("metrics.prefix")
+            if cfg.get("metrics.console-interval-ms") > 0:
+                self._metric_reporters.append(PeriodicReporter(
+                    metrics, cfg.get("metrics.console-interval-ms"), "console", prefix=prefix,
+                ).start())
+            if cfg.get("metrics.csv-interval-ms") > 0:
+                self._metric_reporters.append(PeriodicReporter(
+                    metrics, cfg.get("metrics.csv-interval-ms"), "csv",
+                    directory=cfg.get("metrics.csv-directory"), prefix=prefix,
+                ).start())
 
     # ------------------------------------------------------------- lifecycle
     def management(self) -> ManagementSystem:
@@ -182,8 +235,9 @@ class JanusGraphTPU:
         metrics_group: Optional[str] = None,
     ) -> Transaction:
         """An OLTP transaction. ``read_only`` defaults to
-        tx.read-only-default; ``log_identifier`` (the WAL's user log) and
-        ``metrics_group`` raise until those layers are ported."""
+        tx.read-only-default; ``metrics_group`` counts its commits as
+        ``<group>.commit``; ``log_identifier`` (the WAL's user log) raises
+        until the WAL is ported."""
         if read_only is None:
             read_only = self.config.get("tx.read-only-default")
         return Transaction(
@@ -213,6 +267,11 @@ class JanusGraphTPU:
         """Close the store; the delta snapshot and its cached executors (and
         with them their device memory) go with it."""
         if self._open:
+            for r in self._metric_reporters:
+                try:
+                    r.stop(final_flush=r.mode == "csv")
+                except OSError:
+                    pass  # reporting must never block close
             if self._delta_snapshot is not None:
                 self._delta_snapshot.close()
                 self._delta_snapshot = None

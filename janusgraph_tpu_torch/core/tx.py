@@ -16,13 +16,18 @@ batch), the sort-range ``get_edges`` and ``adjacency_edges`` (the
 vertex-centric index reads of the OLTP traversal), schema constraints
 (``schema.constraints`` is not honoured, so none apply) and the index
 copies of relation indexes (the port has none). ``log_identifier`` needs
-the WAL (Queue A #5) and ``metrics_group`` the metrics registry (Queue A
-#3): both raise ``NotImplementedError``.
+the WAL (Queue A #5) and raises ``NotImplementedError``.
+
+Telemetry, as the reference's: ``tx.begin`` and ``tx.rollback`` counters,
+a ``tx.commit`` span (added and deleted relations, lifetime) around a
+``tx.commit`` timer, a ``tx.rollback`` span, and per-transaction counters
+``<metrics_group>.commit`` where a group is named.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import defaultdict
 from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
@@ -41,6 +46,7 @@ from janusgraph_tpu_torch.exceptions import (
     ReadOnlyTransactionError,
     SchemaViolationError,
 )
+from janusgraph_tpu_torch.observability import registry, span
 from janusgraph_tpu_torch.storage.kcvs import KeySliceQuery, SliceQuery
 
 
@@ -57,13 +63,13 @@ class Transaction:
                 "a transaction's user log (log_identifier) needs the WAL, "
                 "which is not ported yet: ROADMAP.md Queue A #5"
             )
-        if metrics_group:
-            raise NotImplementedError(
-                "per-transaction metric groups need the metrics registry, "
-                "which is not ported yet: ROADMAP.md Queue A #3"
-            )
         self.graph = graph
         self.read_only = read_only
+        # per-tx metric group (reference: StandardJanusGraphTx.java:258-262):
+        # bare <group>.<op> names; the reporters prepend metrics.prefix
+        self.metrics_group = metrics_group
+        registry.counter("tx.begin").inc()
+        self._t0_ns = time.perf_counter_ns()
         self.backend_tx = graph.backend.begin_transaction()
         self._vertex_cache: Dict[int, Vertex] = {}
         # vid -> list of added relations incident to it (edges appear under
@@ -616,18 +622,34 @@ class Transaction:
     def commit(self) -> None:
         if not self._open:
             return
-        try:
-            if self.has_mutations():
-                self.graph.commit_tx(self)
-            self.backend_tx.commit()
-        except BaseException:
-            self.backend_tx.rollback()
-            raise
-        finally:
-            self._open = False
+        if self.metrics_group:
+            registry.counter(f"{self.metrics_group}.commit").inc()
+        with self._lock:
+            added = sum(len(v) for v in self._added.values())
+            deleted = len(self._deleted)
+        with span(
+            "tx.commit", added=added, deleted=deleted,
+            lifetime_ms=round((time.perf_counter_ns() - self._t0_ns) / 1e6, 3),
+            group=self.metrics_group,
+        ):
+            with registry.time("tx.commit"):
+                try:
+                    if self.has_mutations():
+                        self.graph.commit_tx(self)
+                    self.backend_tx.commit()
+                except BaseException:
+                    self.backend_tx.rollback()
+                    raise
+                finally:
+                    self._open = False
 
     def rollback(self) -> None:
-        self.backend_tx.rollback()
+        registry.counter("tx.rollback").inc()
+        with span(
+            "tx.rollback",
+            lifetime_ms=round((time.perf_counter_ns() - self._t0_ns) / 1e6, 3),
+        ):
+            self.backend_tx.rollback()
         self._open = False
 
     def has_mutations(self) -> bool:

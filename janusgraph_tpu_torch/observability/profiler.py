@@ -1,15 +1,36 @@
-"""Device roofline peaks — the port of the peak table of
-``janusgraph_tpu/observability/profiler.py`` (``_DEVICE_PEAKS``,
-``configure_roofline``, ``device_peaks``).
+"""Roofline cost model, device peaks, resource ledger and flame export —
+the port of the main-path half of ``janusgraph_tpu/observability/profiler.py``.
 
-The autotuner prices its layouts against these peaks. The reference's TPU
-and CPU rows are kept as they are, so decisions for those kinds stay equal
-to the reference's; the port adds a row for the H100.
+- **Device peaks** (``_DEVICE_PEAKS``, ``configure_roofline``,
+  ``device_peaks``): the autotuner prices its layouts against them. The
+  reference's TPU and CPU rows are kept as they are, so decisions for
+  those kinds stay equal to the reference's; the port adds a row for the
+  H100.
+- **Roofline records**: every OLAP superstep record carries flops, bytes
+  accessed, operational intensity and %-of-roofline utilization
+  (``estimate_superstep_cost``, ``roofline_point``, ``attach_roofline``),
+  and a dense program's records its matmul utilization (``attach_mxu``).
+  The cost is always the host estimate (``cost_source: "estimate"``): the
+  reference harvests XLA's ``cost_analysis()`` of the lowered superstep
+  where it can, and the port lowers nothing.
+- :class:`ResourceLedger` — a per-request cost accumulator carried on the
+  ambient context (``ledger_scope``); ``accrue`` adds counters and
+  annotates the current span with ``ledger.<field>``, ``accrue_wall``
+  buckets walls by layer. Outside a scope both are no-ops.
+- **Flame export** (``flame_lines``, ``flame_text``): a trace's span trees
+  as collapsed stacks (``frame;frame;frame weight_us``).
+
+Host-only like the rest of the observability layer: nothing here runs
+while a CUDA graph is being captured.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextvars
+import re
+import threading
+from contextlib import contextmanager
+from typing import Dict, List, Optional, Tuple
 
 #: (device_kind substring, peak flops/s, peak memory bytes/s, peak matrix
 #: flops/s). First match wins, on the lower-cased kind.
@@ -90,3 +111,327 @@ def device_peaks(device_kind: Optional[str] = None) -> dict:
         "device_kind": device_kind,
         "source": source,
     }
+
+
+def matmul_peak(peaks: dict, device_type: str) -> Tuple[float, str]:
+    """(peak flops/s, its name) of the unit the port's dense-tier matmuls
+    run on. They run with TF32 off (ROADMAP contract 4), so on the card
+    that is the fp32 peak, not the table's TF32 tensor-core peak; on the
+    CPU it is the table's matrix peak. A configured
+    ``metrics.roofline-peak-mxu-flops`` wins."""
+    if _ROOFLINE_OVERRIDE["peak_mxu_flops"]:
+        return _ROOFLINE_OVERRIDE["peak_mxu_flops"], "config"
+    if device_type == "cuda":
+        return float(peaks["peak_flops"]), "fp32 (TF32 off)"
+    return float(peaks["peak_mxu_flops"]), peaks["source"]
+
+
+# --------------------------------------------------------------------------
+# Resource ledger
+# --------------------------------------------------------------------------
+
+#: the counter vocabulary: one naming for run records and span annotations
+COUNTER_FIELDS = (
+    "cells_read",
+    "cells_written",
+    "bytes_read",
+    "bytes_written",
+    "index_hits",
+    "retries",
+    "h2d_bytes",
+    "d2h_bytes",
+)
+
+
+class ResourceLedger:
+    """Per-request cost accumulator (cells, bytes, hits, retries, walls)."""
+
+    __slots__ = ("counters", "wall_by_layer", "_lock")
+
+    def __init__(self):
+        self.counters: Dict[str, int] = {}
+        self.wall_by_layer: Dict[str, float] = {}
+        self._lock = threading.Lock()
+
+    def add(self, **fields) -> "ResourceLedger":
+        with self._lock:
+            for k, v in fields.items():
+                if v:
+                    self.counters[k] = self.counters.get(k, 0) + int(v)
+        return self
+
+    def add_wall(self, layer: str, ms: float) -> "ResourceLedger":
+        with self._lock:
+            self.wall_by_layer[layer] = (
+                self.wall_by_layer.get(layer, 0.0) + float(ms)
+            )
+        return self
+
+    def merge(self, other: "ResourceLedger") -> None:
+        with other._lock:
+            counters = dict(other.counters)
+            walls = dict(other.wall_by_layer)
+        self.add(**counters)
+        for layer, ms in walls.items():
+            self.add_wall(layer, ms)
+
+    def get(self, field: str) -> int:
+        with self._lock:
+            return self.counters.get(field, 0)
+
+    def op_cells(self) -> int:
+        with self._lock:
+            return self.counters.get("cells_read", 0) + self.counters.get(
+                "cells_written", 0
+            )
+
+    def to_dict(self) -> dict:
+        with self._lock:
+            out: Dict[str, object] = dict(self.counters)
+            if self.wall_by_layer:
+                out["wall_ms_by_layer"] = {
+                    k: round(v, 3) for k, v in self.wall_by_layer.items()
+                }
+        return out
+
+
+_LEDGER_VAR: "contextvars.ContextVar[Optional[ResourceLedger]]" = (
+    contextvars.ContextVar("janusgraph_tpu_torch_ledger", default=None)
+)
+
+
+def current_ledger() -> Optional[ResourceLedger]:
+    return _LEDGER_VAR.get()
+
+
+@contextmanager
+def ledger_scope():
+    """Run a block under a fresh ledger; on exit the block's accruals
+    merge into the enclosing scope (if any)."""
+    led = ResourceLedger()
+    parent = _LEDGER_VAR.get()
+    token = _LEDGER_VAR.set(led)
+    try:
+        yield led
+    finally:
+        _LEDGER_VAR.reset(token)
+        if parent is not None:
+            parent.merge(led)
+
+
+def accrue(**fields) -> None:
+    """Add to the ambient ledger AND annotate the current span with
+    aggregating ``ledger.<field>`` attributes. No-op outside a ledger
+    scope (zero overhead for unprofiled work)."""
+    led = _LEDGER_VAR.get()
+    if led is None:
+        return
+    led.add(**fields)
+    from janusgraph_tpu_torch.observability import tracer
+
+    sp = tracer.current()
+    if sp is not None:
+        for k, v in fields.items():
+            if v:
+                key = f"ledger.{k}"
+                sp.attrs[key] = int(sp.attrs.get(key, 0)) + int(v)
+
+
+def accrue_wall(layer: str, ms: float) -> None:
+    """Layer-wall accrual (no span annotation: the span's own duration
+    already represents the wall; this just buckets it by layer)."""
+    led = _LEDGER_VAR.get()
+    if led is not None and ms:
+        led.add_wall(layer, ms)
+
+
+# --------------------------------------------------------------------------
+# Roofline records
+# --------------------------------------------------------------------------
+
+def estimate_superstep_cost(
+    num_vertices: int,
+    num_edges: int,
+    msg_cols: int = 1,
+    weighted: bool = False,
+    arg_bytes: int = 0,
+) -> dict:
+    """One BSP superstep's cost from its sizes: a message gathered per
+    edge (one multiply when weighted), combined at the destination (one op
+    per edge) and applied elementwise per vertex. Bytes = the superstep's
+    graph arguments (or an index + message estimate when unknown) plus the
+    state read and written."""
+    cols = max(1, int(msg_cols))
+    flops = float(num_edges) * cols * (2.0 if weighted else 1.0)
+    flops += 5.0 * float(num_vertices) * cols
+    if arg_bytes <= 0:
+        arg_bytes = 8 * num_edges + 4 * num_vertices
+    bytes_accessed = float(arg_bytes) + 8.0 * float(num_vertices) * cols
+    return {
+        "flops": flops,
+        "bytes_accessed": bytes_accessed,
+        "cost_source": "estimate",
+    }
+
+
+def roofline_point(
+    flops: float, bytes_accessed: float, wall_ms: float, peaks: dict
+) -> dict:
+    """Operational intensity + utilization for one measured wall.
+    Utilization = achieved flops/s over the roofline ceiling at this OI
+    (``min(peak_flops, oi * peak_bw)`` — the classic two-segment roof)."""
+    oi = flops / bytes_accessed if bytes_accessed > 0 else 0.0
+    out = {"operational_intensity": round(oi, 5)}
+    if wall_ms and wall_ms > 0 and flops > 0:
+        achieved = flops / (wall_ms / 1e3)
+        roof = min(peaks["peak_flops"], oi * peaks["peak_bytes_per_s"])
+        out["roofline_utilization"] = (
+            round(achieved / roof, 6) if roof > 0 else 0.0
+        )
+    else:
+        out["roofline_utilization"] = None
+    return out
+
+
+def attach_roofline(records: List[dict], cost: dict, peaks: dict) -> dict:
+    """Stamp per-superstep records with flops / bytes / OI / utilization
+    and return the per-E_cap-tier aggregation. ``cost`` is one
+    superstep's {flops, bytes_accessed, cost_source}, the default for a
+    record without its own; walls come from each record."""
+    tiers: Dict[object, dict] = {}
+    for r in records:
+        r.setdefault("flops", cost["flops"])
+        r.setdefault("bytes_accessed", cost["bytes_accessed"])
+        r.setdefault("cost_source", cost["cost_source"])
+        point = roofline_point(
+            r["flops"], r["bytes_accessed"], r.get("wall_ms", 0.0), peaks
+        )
+        r.update(point)
+        tier = r.get("e_cap", "dense")
+        t = tiers.setdefault(
+            tier, {"supersteps": 0, "oi_sum": 0.0, "util_sum": 0.0,
+                   "util_n": 0},
+        )
+        t["supersteps"] += 1
+        t["oi_sum"] += point["operational_intensity"]
+        if point["roofline_utilization"] is not None:
+            t["util_sum"] += point["roofline_utilization"]
+            t["util_n"] += 1
+    out = {}
+    for tier, t in tiers.items():
+        out[str(tier)] = {
+            "supersteps": t["supersteps"],
+            "operational_intensity": round(t["oi_sum"] / t["supersteps"], 5),
+            "roofline_utilization": (
+                round(t["util_sum"] / t["util_n"], 6) if t["util_n"] else None
+            ),
+        }
+    return out
+
+
+def attach_mxu(records: List[dict], mxu_flops: float, peaks: dict) -> dict:
+    """Stamp per-superstep records with the dense tier's matmul
+    accounting: ``mxu_flops`` (matmul-attributable flops per superstep,
+    from the program's ``matmul_flops``) and ``mxu_utilization`` (achieved
+    matmul flops/s over ``peaks["peak_mxu_flops"]``). Returns the
+    run-level summary block (``run_info["mxu"]``)."""
+    peak = float(peaks.get("peak_mxu_flops") or 0.0)
+    utils = []
+    for r in records:
+        r["mxu_flops"] = mxu_flops
+        wall = r.get("wall_ms")
+        if not mxu_flops:
+            r["mxu_utilization"] = 0.0
+        elif wall and wall > 0 and peak > 0:
+            u = round((mxu_flops / (wall / 1e3)) / peak, 6)
+            r["mxu_utilization"] = u
+            utils.append(u)
+        else:
+            r["mxu_utilization"] = None
+    return {
+        "peak_mxu_flops": peak,
+        "per_superstep_flops": mxu_flops,
+        "mean_utilization": (
+            round(sum(utils) / len(utils), 6) if utils else None
+        ),
+    }
+
+
+# --------------------------------------------------------------------------
+# Flamegraph export
+# --------------------------------------------------------------------------
+
+_FRAME_SANITIZE = re.compile(r"[;\s]+")
+
+
+def _frame_name(span) -> str:
+    """One collapsed-stack frame: the span name, with ledger annotations
+    folded in (semicolons and whitespace are the format's separators, so
+    they are squeezed out)."""
+    name = _FRAME_SANITIZE.sub("_", span.name)
+    led = sorted(
+        (k[len("ledger."):], v)
+        for k, v in span.attrs.items()
+        if k.startswith("ledger.")
+    )
+    if led:
+        name += "(" + ",".join(f"{k}:{v}" for k, v in led) + ")"
+    return name
+
+
+def flame_lines(roots) -> List[str]:
+    """Render a trace's span trees to collapsed-stack lines
+    (``frame;frame;frame weight``, weight = self-time in µs). Roots that
+    joined a parent from elsewhere (``parent_span_id``) are grafted under
+    that span when it is retained locally."""
+    by_id: Dict[int, List[str]] = {}
+
+    def index(span, prefix: List[str]):
+        path = prefix + [_frame_name(span)]
+        by_id[span.span_id] = path
+        for c in span.children:
+            index(c, path)
+
+    attached: List[object] = []
+    pending = list(roots)
+    # multi-pass graft: a root with a parent can only be placed once its
+    # parent's tree is indexed, whatever order the ring returned them in
+    while pending:
+        progressed = False
+        rest = []
+        for r in pending:
+            parent_path = by_id.get(r.parent_span_id) if r.parent_span_id else []
+            if parent_path is not None:
+                index(r, parent_path or [])
+                attached.append(r)
+                progressed = True
+            else:
+                rest.append(r)
+        if not progressed:
+            for r in rest:  # orphaned roots: emit as separate stacks
+                index(r, [])
+                attached.append(r)
+            rest = []
+        pending = rest
+
+    lines: List[str] = []
+
+    def emit(span, prefix: List[str]):
+        path = prefix + [_frame_name(span)]
+        child_ms = sum(c.duration_ms for c in span.children)
+        self_us = max(0, int(round((span.duration_ms - child_ms) * 1000)))
+        lines.append(f"{';'.join(path)} {self_us}")
+        for c in span.children:
+            emit(c, path)
+
+    for r in attached:
+        prefix = by_id[r.span_id][:-1]
+        emit(r, prefix)
+    return lines
+
+
+def flame_text(tracer, trace_id) -> str:
+    """Collapsed-stack rendering of one retained trace (newline-joined;
+    empty string when the trace is not retained)."""
+    roots = tracer.find_trace(trace_id)
+    return "\n".join(flame_lines(roots))

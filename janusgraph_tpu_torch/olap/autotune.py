@@ -227,7 +227,8 @@ def decide(
     tail_chunk (default 256), min_gain (hybrid must beat ELL's modeled time
     by this fraction, default 0.05), budget_bytes (packed-layout budget,
     default 6 GiB), max_pad (default 3.0), f_min/e_min, max_tiers,
-    tier_growth (frontier ladders). measured: a prior run's ``pad_ratio`` +
+    tier_growth (frontier ladders), feature_dim_tier (the forced lane
+    tier of a dense program). measured: a prior run's ``pad_ratio`` +
     ``superstep_ms`` calibrate the effective bandwidth (source
     "measured+model"); its ``roofline_by_tier`` prunes dead frontier tiers.
     feature_dim: the padded lane tier scales the modeled message traffic."""
@@ -247,7 +248,7 @@ def decide(
     feature_tier = None
     cols = 1
     if feature_dim:
-        feature_tier = pick_feature_tier(feature_dim)
+        feature_tier = pick_feature_tier(feature_dim, int(ov.get("feature_dim_tier") or 0))
         cols = feature_tier
 
     n, m = stats.num_vertices, stats.num_edges

@@ -8,8 +8,9 @@ written by either package resumes in the other.
 Each checkpoint embeds a sha256 digest of its arrays, and each save demotes
 the previous checkpoint to ``<path>.prev`` before promoting the new one;
 ``load_checkpoint`` falls back to ``.prev`` when the newest file is torn or
-corrupt. The reference also records saves and fallbacks in its flight
-recorder and counters; those wait for the port's observability slice.
+corrupt. A save records a ``checkpoint`` flight event (``action:
+save``), a fallback another (``action: fallback``) and counts
+``olap.checkpoint.fallback``, as the reference does.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import tempfile
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from janusgraph_tpu_torch.observability import flight_recorder, registry
 
 _STATE = "state__"
 _MEM = "mem__"
@@ -69,6 +72,7 @@ def save_checkpoint(
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise
+    flight_recorder.record("checkpoint", action="save", steps=steps_done)
 
 
 def _load_verified(
@@ -101,4 +105,8 @@ def load_checkpoint(
     loaded = _load_verified(path)
     if loaded is not None:
         return loaded
-    return _load_verified(path + ".prev")
+    fallback = _load_verified(path + ".prev")
+    if fallback is not None and os.path.exists(path):
+        registry.counter("olap.checkpoint.fallback").inc()
+        flight_recorder.record("checkpoint", action="fallback", steps=int(fallback[2]))
+    return fallback

@@ -31,8 +31,14 @@ its transactional path (``_write_back_tx``, batched OLTP transactions) for
 the others: the same cells, batch for batch. The port has no indexes, so
 no key takes the transactional path for that reason.
 
-Left out: OLAP admission, tracer spans and the run registry (ROADMAP
-Queue A #3; ``run_info`` is the executor's ``last_run_info``), distributed
+Telemetry, as the reference's: ``submit()`` runs under an ``olap.submit``
+span with the ``olap.load_csr`` snapshot load, the executor's ``olap.run``
+(with its per-superstep children) and one ``olap.map_reduce`` per job as
+children; it records its routing (``registry.record_run("olap.routing",
+...)``) and takes ``run_info`` from ``registry.last_run("olap")`` plus
+``routing`` (and the port's ``snapshot``).
+
+Left out: OLAP admission (the server's, ROADMAP Queue A #5), distributed
 loading and sharded routing. ``run_on`` is the array-level entry point
 beside it.
 """
@@ -48,6 +54,7 @@ import torch
 
 from janusgraph_tpu_torch.device import resolve_device
 from janusgraph_tpu_torch.exceptions import ConfigurationError
+from janusgraph_tpu_torch.observability import registry, tracer
 from janusgraph_tpu_torch.olap import delta as _delta
 from janusgraph_tpu_torch.olap.csr import CSRGraph, load_csr
 from janusgraph_tpu_torch.olap.gpu_executor import GPUExecutor
@@ -65,8 +72,9 @@ class ComputerResult:
     graph: object = None
     #: map-reduce results keyed by each job's memory_key
     memory: Dict[str, object] = field(default_factory=dict)
-    #: the executor's last_run_info plus the submit() routing decision
-    #: under "routing"
+    #: the run's record (registry.last_run("olap")) plus the submit()
+    #: routing decision under "routing" and the snapshot path under
+    #: "snapshot"
     run_info: Dict[str, object] = field(default_factory=dict)
     #: the program that produced `states` (path()/select() terminals)
     program: object = None
@@ -215,6 +223,17 @@ class GraphComputer:
             "hub_cutoff": cfg.get("computer.autotune-hub-cutoff"),
             "tail_chunk": cfg.get("computer.autotune-tail-chunk"),
             "autotune_persist": cfg.get("computer.autotune-persist"),
+            "ell_max_capacity": cfg.get("computer.ell-max-capacity"),
+            "ell_auto_bytes": cfg.get("computer.ell-auto-budget-bytes"),
+            "ell_auto_pad": cfg.get("computer.ell-auto-pad"),
+            "frontier_cc_min_edges": cfg.get("computer.frontier-cc-min-edges"),
+            "frontier_f_min": cfg.get("computer.frontier-f-min"),
+            "frontier_e_min": cfg.get("computer.frontier-e-min"),
+            "frontier_tier_growth": cfg.get("computer.frontier-tier-growth"),
+            "autotune_min_gain": cfg.get("computer.autotune-min-gain"),
+            "autotune_max_tiers": cfg.get("computer.autotune-max-tiers"),
+            "features_dim_tier": cfg.get("computer.features-dim-tier"),
+            "features_native_matmul": cfg.get("computer.features-native-matmul"),
         }
         run_kw = {
             "sync_every": cfg.get("computer.sync-every"),
@@ -225,7 +244,12 @@ class GraphComputer:
         return ex_kw, run_kw
 
     def submit(self) -> ComputerResult:
-        """Take the CSR snapshot, run the program, wrap the result."""
+        """Take the CSR snapshot, run the program, wrap the result — the
+        whole pipeline under an ``olap.submit`` span."""
+        with tracer.span("olap.submit", executor=self.executor_kind) as sp:
+            return self._submit(sp)
+
+    def _submit(self, sp) -> ComputerResult:
         property_keys = self._property_keys
         traverse_args = self._traverse_args
         if traverse_args is not None:
@@ -245,19 +269,22 @@ class GraphComputer:
         plain = not (
             property_keys or self._weight_key or self._edge_labels or self._vertex_labels
         )
-        delta_snap = _delta.get_snapshot(self.graph) if plain else None
-        delta_view = None
-        if delta_snap is not None:
-            csr, delta_view, snapshot = delta_snap.acquire()
-        else:
-            csr = load_csr(
-                self.graph,
-                edge_labels=self._edge_labels,
-                vertex_labels=self._vertex_labels,
-                property_keys=property_keys,
-                weight_key=self._weight_key,
-            )
-            snapshot = {"path": "scan"}
+        with tracer.span("olap.load_csr") as ls:
+            delta_snap = _delta.get_snapshot(self.graph) if plain else None
+            delta_view = None
+            if delta_snap is not None:
+                csr, delta_view, snapshot = delta_snap.acquire()
+                ls.annotate(delta_path=snapshot["path"], overlay=snapshot.get("overlay", 0))
+            else:
+                csr = load_csr(
+                    self.graph,
+                    edge_labels=self._edge_labels,
+                    vertex_labels=self._vertex_labels,
+                    property_keys=property_keys,
+                    weight_key=self._weight_key,
+                )
+                snapshot = {"path": "scan"}
+            ls.annotate(num_vertices=csr.num_vertices, num_edges=csr.num_edges)
         if delta_view is not None:
             # a small overlay rides into the executor fused (base packs
             # untouched, lanes merged each superstep); a traversal (typed
@@ -269,10 +296,13 @@ class GraphComputer:
                 and _delta.program_delta_compatible(self._program)
                 and delta_view.lanes(bool(self._program.undirected)) is not None
             )
-            if not fuse:
+            if fuse:
+                sp.annotate(delta="fused", overlay=delta_view.depth)
+            else:
                 csr = _delta.materialize(csr, delta_view.overlay, idm=self.graph.idm)
                 delta_snap.adopt(csr, delta_view.upto_epoch)
                 snapshot["path"] = "materialized"
+                sp.annotate(delta="materialized", overlay=delta_view.depth)
                 delta_view = None
         if traverse_args is not None:
             from janusgraph_tpu_torch.olap.programs.olap_traversal import (
@@ -286,12 +316,12 @@ class GraphComputer:
                 self.graph, csr, spec, seed_filters=seed_filters,
                 record_reach=want_paths, sack=sack, sack_init=sack_init,
             )
+        sp.annotate(program=type(self._program).__name__)
         ex_kw, run_kw = self._executor_kwargs()
         # the executor is cached on the snapshot (over its current base):
         # the next submit reuses its device packs and captured graphs
         ex = _executor(csr, self.device, delta_view, delta_snap, ex_kw)
         states = ex.run(self._program, **run_kw)
-        run_info = dict(ex.last_run_info)
         if delta_view is not None:
             # a fused run covers [base ++ new vertices] with removed slots
             # inert: compact to the live vertex set, so value()/by_vertex()/
@@ -301,20 +331,24 @@ class GraphComputer:
             # compaction is off the superstep path: after the run
             if delta_snap.maybe_compact():
                 snapshot["compacted"] = dict(delta_snap.last_compaction)
-        run_info["snapshot"] = snapshot
-        run_info["routing"] = {
+        routing = {
             "requested": self.executor_kind,
             "routed": self.executor_kind,
             "reason": "single device" if self.executor_kind == "tpu" else "explicit",
             "executor": self.executor_kind,
             "device": str(self.device),
         }
+        registry.record_run("olap.routing", routing)
+        run_info = dict(registry.last_run("olap") or {})
+        run_info["routing"] = routing
+        run_info["snapshot"] = snapshot
         memory = {}
         if self._map_reduces:
             from janusgraph_tpu_torch.olap.mapreduce import run_map_reduce
 
             for mr in self._map_reduces:
-                memory[mr.memory_key] = run_map_reduce(mr, states, csr)
+                with tracer.span("olap.map_reduce", job=type(mr).__name__, key=mr.memory_key):
+                    memory[mr.memory_key] = run_map_reduce(mr, states, csr)
         return ComputerResult(
             states=states, csr=csr, graph=self.graph, memory=memory,
             run_info=run_info, program=self._program,
@@ -426,6 +460,18 @@ def run_on(
     autotune_persist: bool = None,
     delta=None,
     executor_cache=None,
+    channel_cache_size: int = None,
+    ell_max_capacity: int = None,
+    ell_auto_bytes: int = None,
+    ell_auto_pad: float = None,
+    frontier_cc_min_edges: int = None,
+    frontier_f_min: int = None,
+    frontier_e_min: int = None,
+    frontier_tier_growth: int = None,
+    autotune_min_gain: float = None,
+    autotune_max_tiers: int = None,
+    features_dim_tier: int = None,
+    features_native_matmul: bool = None,
 ) -> Dict[str, np.ndarray]:
     """Run ``program`` over ``csr`` on ``device`` (the card by default) and
     return its final state as numpy arrays. ``frontier`` ("auto", "off",
@@ -438,13 +484,20 @@ def run_on(
     arguments are the ``GPUExecutor``'s. ``executor_cache`` (a
     ``DeltaSnapshot`` whose base is ``csr``) keeps the executor, keyed by
     its constructor arguments and device, for the next call, which swaps
-    its overlay instead of building another. A dense program takes its
-    lane tier and ``torch.matmul`` switch itself (``dim_tier=``,
-    ``native_matmul=``)."""
+    its overlay instead of building another. ``features_dim_tier`` and
+    ``features_native_matmul`` set a dense program's lane tier and
+    ``torch.matmul`` switch (as its own ``dim_tier=``/``native_matmul=``
+    do)."""
     ctor_kwargs = dict(
         strategy=strategy, frontier=frontier, autotune=autotune,
         hub_cutoff=hub_cutoff, tail_chunk=tail_chunk,
-        autotune_persist=autotune_persist,
+        autotune_persist=autotune_persist, channel_cache_size=channel_cache_size,
+        ell_max_capacity=ell_max_capacity, ell_auto_bytes=ell_auto_bytes,
+        ell_auto_pad=ell_auto_pad, frontier_cc_min_edges=frontier_cc_min_edges,
+        frontier_f_min=frontier_f_min, frontier_e_min=frontier_e_min,
+        frontier_tier_growth=frontier_tier_growth, autotune_min_gain=autotune_min_gain,
+        autotune_max_tiers=autotune_max_tiers, features_dim_tier=features_dim_tier,
+        features_native_matmul=features_native_matmul,
     )
     ex = _executor(csr, device, delta, executor_cache, ctor_kwargs)
     return ex.run(

@@ -34,6 +34,7 @@ import numpy as np
 from janusgraph_tpu_torch import native
 from janusgraph_tpu_torch.core.codecs import EDGE_COL_FIXED, Direction
 from janusgraph_tpu_torch.exceptions import TemporaryBackendError
+from janusgraph_tpu_torch.observability import registry
 from janusgraph_tpu_torch.storage.kcvs import KeyRangeQuery, KeySliceQuery, SliceQuery
 
 
@@ -207,6 +208,7 @@ def _scan_raw(
                     attempt += 1
                     if attempt > retries:
                         raise
+                    registry.counter("storage.scan.retries").inc()
 
     # chunked bulk decode: fixed-width edge columns accumulate across rows
     # and decode in one numpy pass per chunk

@@ -59,8 +59,10 @@ snapshot files).
   ``computer.delta-snapshot-path`` is set. A new base drops the cached
   executors and their device packs.
 
-Not ported yet (ROADMAP.md Queue A #3-#4): the capture's registry
-counters and flight events, and the sharded routing.
+The capture, the snapshot and the executor cache count into the
+telemetry registry under the reference's names (``olap.delta.*``,
+``olap.executor.cache_*``) and a compaction records a ``delta_compact``
+flight event. Not ported yet (ROADMAP.md Queue A #4): the sharded routing.
 """
 
 from __future__ import annotations
@@ -79,6 +81,7 @@ import numpy as np
 import torch
 
 from janusgraph_tpu_torch.core.codecs import EDGE_COL_FIXED, Direction
+from janusgraph_tpu_torch.observability import flight_recorder, registry
 from janusgraph_tpu_torch.olap import kernels
 from janusgraph_tpu_torch.olap.csr import CSRGraph, csr_from_edges, graph_codec_schema
 from janusgraph_tpu_torch.olap.vertex_program import Combiner, VertexProgram
@@ -135,7 +138,7 @@ class ChangeCapture:
             try:
                 fn(epoch, batch)
             except Exception:  # noqa: BLE001 - never fail a commit
-                pass
+                registry.counter("olap.delta.sink_errors").inc()
 
     # -- write side ---------------------------------------------------------
     def on_commit(self, epoch: int, edge_rows: Dict[bytes, object]) -> None:
@@ -154,6 +157,7 @@ class ChangeCapture:
                 self._count = 0
                 self._floor = epoch
                 self.poisoned += 1
+                registry.counter("olap.delta.capture_poisoned").inc()
                 self._feed_sinks(epoch, None)
                 return
             if not batch["n"]:
@@ -942,9 +946,11 @@ class DeltaSnapshot:
             if self.csr is not None:
                 got = overlay_since(self.graph, self.epoch)
                 if got is None:
+                    registry.counter("olap.delta.capture_overflow").inc()
                     self.csr = None  # fall through to the full load
                 else:
                     overlay, upto = got
+                    registry.set_gauge("olap.delta.overlay_depth", float(overlay.size))
                     if overlay.size == 0:
                         return self.csr, None, {"path": "warm", "overlay": 0}
                     view = OverlayView(self.csr, overlay, max_lane_cells=self.max_lane_cells)
@@ -961,6 +967,8 @@ class DeltaSnapshot:
             # share one load
             csr, epoch = load_csr_snapshot(self.graph)
             self._install(csr, epoch)
+            registry.counter("olap.delta.packs").inc()
+            registry.set_gauge("olap.delta.overlay_depth", 0.0)
             return self.csr, None, {"path": "cold", "overlay": 0}
 
     def adopt(self, csr, epoch: int) -> None:
@@ -989,12 +997,16 @@ class DeltaSnapshot:
         """The executor stored under ``key`` for this base generation, or
         None."""
         with self._lock:
-            return self._executors.get(key)
+            ex = self._executors.get(key)
+        if ex is not None:
+            registry.counter("olap.executor.cache_hits").inc()
+        return ex
 
     def store_executor(self, key: Tuple, ex, csr) -> None:
         """Cache a freshly built executor if it was built over the current
         base (a compaction between acquire and build leaves its device
         arrays stale; dropping it is the cheap correct answer)."""
+        registry.counter("olap.executor.cache_misses").inc()
         with self._lock:
             if csr is self.csr:
                 self._executors[key] = ex
@@ -1040,11 +1052,19 @@ class DeltaSnapshot:
         t0 = time.perf_counter()
         depth = view.depth
         self._install(materialize(self.csr, view.overlay, idm=self.graph.idm), view.upto_epoch)
+        wall_s = time.perf_counter() - t0
         self.last_compaction = {
             "depth": depth, "edges": self.csr.num_edges,
             "vertices": self.csr.num_vertices,
-            "wall_s": time.perf_counter() - t0, "threshold": self._threshold(),
+            "wall_s": wall_s, "threshold": self._threshold(),
         }
+        registry.counter("olap.delta.compactions").inc()
+        registry.set_gauge("olap.delta.overlay_depth", 0.0)
+        flight_recorder.record(
+            "delta_compact", depth=depth, edges=self.csr.num_edges,
+            vertices=self.csr.num_vertices, wall_ms=round(wall_s * 1000.0, 3),
+            threshold=self._threshold(),
+        )
         if self.snapshot_path:
             try:
                 save_snapshot(self.snapshot_path, self.csr, self.epoch)

@@ -68,6 +68,17 @@ class DenseVertexProgram(VertexProgram):
         #: device -> the array parameters as tensors there
         self._device_arrays = {}
 
+    def set_dim_tier(self, tier: int) -> None:
+        """Apply computer.features-dim-tier: re-pick the padded lane tier
+        (the executor calls this before setup, so state shapes see it)."""
+        self.dim_tier = int(tier or 0)
+        self.d_pad = pick_feature_tier(self.feature_dim, self.dim_tier)
+
+    def set_native_matmul(self, native: bool) -> None:
+        """Apply computer.features-native-matmul: ``torch.matmul`` (TF32
+        off) instead of the fixed-order tree contraction."""
+        self.native_matmul = bool(native)
+
     def cache_key(self) -> Tuple:
         digest = hashlib.sha1()
         for name in self.array_params:

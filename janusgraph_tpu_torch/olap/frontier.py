@@ -127,6 +127,11 @@ class FrontierEngine:
     def __init__(self, executor, f_schedule=None, e_schedule=None):
         self.ex = executor
         self.device = executor.device
+        # the static ladder's floors and growth (computer.frontier-f-min,
+        # -e-min, -tier-growth), where the executor sets them
+        self.F_MIN = getattr(executor, "_frontier_f_min", None) or self.F_MIN
+        self.E_MIN = getattr(executor, "_frontier_e_min", None) or self.E_MIN
+        self.GROWTH = getattr(executor, "_frontier_tier_growth", None) or self.GROWTH
         # the tier ladders (olap/autotune.decide_tiers; the executor passes
         # its directed view's, since frontier programs are scalar-message
         # in-CSR runs); None prices every hop on the static ladder above

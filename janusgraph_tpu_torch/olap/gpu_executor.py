@@ -60,7 +60,19 @@ scalar SUM step under "segsum" launches the kernel on the channel's plan;
 every other step goes through the channel's ELL pack, as the reference's
 channel steps always do. Channel programs run on the host loop.
 
-Not ported yet (ROADMAP.md): telemetry spans.
+Telemetry: every run opens an ``olap.run`` span and publishes its record
+(``last_run_info``) to the process registry (``registry.last_run("olap")``,
+``observability/``), as the reference's ``_finish_run`` does: per-superstep
+records with flops, bytes, operational intensity and roofline utilization,
+``roofline_by_tier``, ``mxu`` for dense programs, ``resources``,
+``compile_cache``, ``device_memory``, ``slowest_superstep``, one
+``superstep`` child span per record (at most 128), and the ``olap.*``
+gauges, counters, timer and histogram. On the card each record's wall is
+taken by CUDA events recorded around the superstep's launches (host loop)
+or around each chunk's replay (fused), read after the run's final fetch;
+nothing is recorded while a CUDA graph is being captured. A record's cost
+is always the host estimate (``profiler.estimate_superstep_cost``) over
+the bytes of the device arrays the superstep reads (``h2d_arg_bytes``).
 """
 
 from __future__ import annotations
@@ -77,6 +89,7 @@ import torch
 from janusgraph_tpu_torch.device import resolve_device
 from janusgraph_tpu_torch.exceptions import SuperstepPreempted
 from janusgraph_tpu_torch.native import segment_ids
+from janusgraph_tpu_torch.observability import flight_recorder, profiler, registry, tracer
 from janusgraph_tpu_torch.olap import autotune, kernels
 from janusgraph_tpu_torch.olap.checkpoint import load_checkpoint, save_checkpoint
 from janusgraph_tpu_torch.olap.csr import CSRGraph, channel_edges
@@ -99,6 +112,67 @@ from janusgraph_tpu_torch.olap.vertex_program import (
 
 STRATEGIES = ("segsum", "ell", "hybrid", "segment", "auto")
 FRONTIER_MODES = ("auto", "off", "always")
+
+#: view fields an aggregation strategy reads itself (the program's own
+#: reads are recorded by ``_RecordingView``): per orientation, the source
+#: index, the destination segment ids and the weights
+_STRATEGY_FIELDS = {
+    "segsum": (("in_src", "in_edge_weight"), ("out_dst", "out_edge_weight")),
+    "segment": (
+        ("in_src", "in_dst_seg", "in_edge_weight"),
+        ("out_dst", "out_src_seg", "out_edge_weight"),
+    ),
+}
+
+#: superstep child spans a run publishes at most
+_MAX_SUPERSTEP_SPANS = 128
+
+
+def _nbytes(tree) -> int:
+    """Bytes of the arrays in a nest of dicts, lists and tuples (tensors,
+    numpy arrays, ELL and hybrid packs, segment-sum plans by the arrays
+    the kernel reads); shape arithmetic only, no device sync."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, np.ndarray):
+        return int(tree.nbytes)
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_nbytes(v) for v in tree)
+    if isinstance(tree, kernels._SegSumPlan):
+        return _nbytes((tree.seg_ptr, tree.seg_start, tree.edge_start))
+    if isinstance(tree, kernels.ELLPack):
+        return _nbytes((tree.buckets, tree.row_folds, tree.unpermute))
+    if isinstance(tree, kernels.HybridPack):
+        return _nbytes((tree.torso, tree.tail, tree.unpermute))
+    return 0
+
+
+def _elapsed_ms(timer) -> float:
+    """Milliseconds between a (start, end) pair of marks: CUDA events
+    (read after the run's final fetch, so both have completed) or host
+    ``perf_counter`` stamps."""
+    start, end = timer
+    if isinstance(start, float):
+        return (end - start) * 1e3
+    return start.elapsed_time(end)
+
+
+class _RecordingView:
+    """The graph view handed to message/apply on a superstep variant's
+    first run: forwards every read to the executor's view and records the
+    array fields the program reads (what the reference learns from its
+    discovery trace), so ``h2d_arg_bytes`` counts only those."""
+
+    def __init__(self, g, record: set):
+        self._g = g
+        self._rec = record
+
+    def __getattr__(self, name):
+        if name in _DeviceGraph._LAZY:
+            self._rec.add(name)
+        return getattr(self._g, name)
 
 
 class _DeviceGraph:
@@ -177,17 +251,21 @@ class _ChannelPack:
     plan with the channel's sources and weights in the plan's edge order.
     Dropping the object drops every tensor it moved."""
 
-    def __init__(self, csr: CSRGraph, channel: EdgeChannel, device: torch.device):
+    def __init__(self, csr: CSRGraph, channel: EdgeChannel, device: torch.device,
+                 max_capacity: int = 1 << 14):
         self.csr = csr
         self.channel = channel
         self.device = device
+        self.max_capacity = max_capacity
         self._ell = None
         self._segsum = None
 
     def ell(self) -> kernels.ELLPack:
         if self._ell is None:
             src, dst, w = channel_edges(self.csr, self.channel)
-            self._ell = kernels.ELLPack(src, dst, w, self.csr.num_vertices).to(self.device)
+            self._ell = kernels.ELLPack(
+                src, dst, w, self.csr.num_vertices, max_capacity=self.max_capacity,
+            ).to(self.device)
         return self._ell
 
     def segsum(self):
@@ -243,6 +321,8 @@ class _FusedLoop:
         self.mem_ops: Dict[str, str] = {}
         #: chunk length -> (CUDA graph, kernel launches captured in it)
         self.graphs: Dict[int, Tuple[torch.cuda.CUDAGraph, int]] = {}
+        #: the strategy the aggregation took (learned by the eager step)
+        self.strategy = None
         #: the program objects the graphs were captured with: their device
         #: arrays (a GCN's weights) are read by every replay, so they must
         #: outlive the graphs
@@ -269,15 +349,19 @@ class _FusedLoop:
         self.limit.fill_(limit)
         return True
 
-    def step(self, discover: bool = False) -> None:
+    def step(self, discover: bool = False, view=None) -> None:
         """One predicated superstep on the buffers. ``discover`` (eager
         only) adds a buffer, seeded with its monoid identity, for each
-        aggregator apply emits that the buffers lack."""
+        aggregator apply emits that the buffers lack, and keeps the
+        strategy the aggregation took; ``view`` replaces the executor's
+        graph view for message/apply (a ``_RecordingView``)."""
         program, s = self.program, self.steps
-        outgoing = program.message(self.state, s, self.ex.g)
-        agg, _ = self.ex._aggregate(program, self.op, outgoing)
-        new_state, metrics = program.apply(self.state, agg, s, self.mem, self.ex.g)
+        g = self.ex.g if view is None else view
+        outgoing = program.message(self.state, s, g)
+        agg, strategy = self.ex._aggregate(program, self.op, outgoing)
+        new_state, metrics = program.apply(self.state, agg, s, self.mem, g)
         if discover:
+            self.strategy = strategy
             for k, (o, v) in metrics.items():
                 self.mem_ops[k] = o
                 if k not in self.mem:
@@ -301,16 +385,19 @@ class _FusedLoop:
         stopped = (s > 0) & self.program.terminate_device(self.mem, s)
         self.status.copy_(torch.stack([s, stopped.to(torch.int64)]))
 
-    def chunk(self, length: int, top: int) -> Tuple[float, int]:
+    def chunk(self, length: int, top: int) -> Tuple[float, int, tuple]:
         """Run one chunk of ``length`` steps; returns the seconds spent
-        capturing and the segment-sum calls the replayed graph holds. The
-        first chunk on the card captures every length of the ladder up to
-        ``top`` at once, so later runs replay only."""
+        capturing, the segment-sum calls the replayed graph holds and the
+        (start, end) marks of the chunk's run: CUDA events recorded around
+        the replay on the card (never inside a capture), host clock stamps
+        on the CPU. The first chunk on the card captures every length of
+        the ladder up to ``top`` at once, so later runs replay only."""
         if self.pool is None:
+            t0 = time.perf_counter()
             for _ in range(length):
                 self.step()
             self.finish()
-            return 0.0, 0
+            return 0.0, 0, (t0, time.perf_counter())
         capture_s = 0.0
         if length not in self.graphs:
             t0 = time.perf_counter()
@@ -321,8 +408,12 @@ class _FusedLoop:
                 size *= 2
             capture_s = time.perf_counter() - t0
         graph, captured = self.graphs[length]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         graph.replay()
-        return capture_s, captured
+        end.record()
+        return capture_s, captured, (start, end)
 
     def _capture(self, length: int) -> Tuple[torch.cuda.CUDAGraph, int]:
         """Capture ``length`` steps and the status into a CUDA graph, with
@@ -349,6 +440,9 @@ class _FusedLoop:
         finally:
             if collecting:
                 gc.enable()
+        # a capture is the port's compile: counted per run as a miss of
+        # the run record's compile_cache
+        self.ex._captures += 1
         return graph, kernels.sorted_segment_sum.captured - captured0
 
 
@@ -356,10 +450,20 @@ class GPUExecutor:
     """Single-device executor on a torch device (the card by default).
 
     ``autotune`` (default on) gives "auto" its decision and the frontier
-    engine its tuned ladders; "auto" needs it. ``hub_cutoff``/``tail_chunk``
-    fix the hybrid layout; ``autotune_persist`` (default on) keeps the last
-    run's measured record beside the checkpoint file and feeds it to the
-    next executor's decision. ``delta`` is an
+    engine its tuned ladders; with it off, "auto" takes ELL where the
+    pack's estimated footprint (``ell_footprint``) fits ``ell_auto_bytes``
+    and ``ell_auto_pad``, and "segment" otherwise. ``hub_cutoff``/
+    ``tail_chunk`` fix the hybrid layout; ``autotune_min_gain`` and
+    ``autotune_max_tiers`` are the tuner's hysteresis and ladder budget;
+    ``autotune_persist`` (default on) keeps the last run's measured record
+    beside the checkpoint file and feeds it to the next executor's
+    decision. ``ell_max_capacity`` caps the ELL bucket width (wider rows
+    split). ``frontier_f_min``/``frontier_e_min``/``frontier_tier_growth``
+    shape the frontier tier ladders; ``frontier_cc_min_edges`` is the edge
+    count from which ``frontier="auto"`` takes ConnectedComponents through
+    the frontier engine (by default never: dense CC is the faster path on
+    the card). ``features_dim_tier`` and ``features_native_matmul`` set a
+    dense program's lane tier and matmul before its run. ``delta`` is an
     ``OverlayView`` of ``csr`` whose pending writes every run consumes
     (``set_delta`` swaps it)."""
 
@@ -371,6 +475,14 @@ class GPUExecutor:
     #: executor answering ad-hoc traversals would otherwise keep one O(E)
     #: pack per label set forever
     CHANNEL_CACHE_SIZE = 8
+    #: the ELL pack budget of "auto" without the tuner: device bytes and
+    #: padded slots per edge
+    ELL_AUTO_BYTES = 6 << 30
+    ELL_AUTO_PAD = 3.0
+    #: edge count from which frontier="auto" runs CC through the frontier
+    #: engine: the engine's own limit, so by default never (the reference
+    #: starts at 2^20; on the card dense CC is the faster path, ROADMAP)
+    FRONTIER_CC_MIN_EDGES = FrontierEngine.MAX_EDGES
 
     def __init__(
         self,
@@ -384,17 +496,40 @@ class GPUExecutor:
         autotune_persist: bool = None,
         delta: OverlayView = None,
         channel_cache_size: int = None,
+        ell_max_capacity: int = None,
+        ell_auto_bytes: int = None,
+        ell_auto_pad: float = None,
+        frontier_cc_min_edges: int = None,
+        frontier_f_min: int = None,
+        frontier_e_min: int = None,
+        frontier_tier_growth: int = None,
+        autotune_min_gain: float = None,
+        autotune_max_tiers: int = None,
+        features_dim_tier: int = None,
+        features_native_matmul: bool = None,
     ):
         if strategy not in STRATEGIES:
             raise ValueError(f"unknown aggregation strategy: {strategy!r}")
         if frontier not in FRONTIER_MODES:
             raise ValueError(f"unknown frontier mode: {frontier!r}")
         self._autotune_enabled = True if autotune is None else bool(autotune)
-        if strategy == "auto" and not self._autotune_enabled:
-            raise ValueError(
-                "strategy='auto' is the tuner's choice; with autotune=False "
-                "name a strategy ('segsum', 'ell', 'hybrid' or 'segment')"
-            )
+        #: the ELL bucket width cap (computer.ell-max-capacity)
+        self._ell_capacity = ell_max_capacity or (1 << 14)
+        if ell_auto_bytes is not None:
+            self.ELL_AUTO_BYTES = ell_auto_bytes
+        if ell_auto_pad is not None:
+            self.ELL_AUTO_PAD = ell_auto_pad
+        if frontier_cc_min_edges is not None:
+            self.FRONTIER_CC_MIN_EDGES = frontier_cc_min_edges
+        self._frontier_f_min = frontier_f_min
+        self._frontier_e_min = frontier_e_min
+        self._frontier_tier_growth = frontier_tier_growth
+        self._autotune_min_gain = autotune_min_gain
+        self._autotune_max_tiers = autotune_max_tiers
+        self._features_dim_tier = features_dim_tier or 0
+        self._features_native_matmul = features_native_matmul
+        #: "auto" without the tuner, per (undirected, feature dim)
+        self._auto_cache: Dict[Tuple, str] = {}
         self.device = resolve_device(device)
         self.csr = csr
         self._strategy_cfg = strategy
@@ -428,17 +563,30 @@ class GPUExecutor:
         self._fused_loops: Dict[Tuple, _FusedLoop] = {}
         self._frontier_cfg = frontier
         self._frontier_engine = None
-        #: per-run record: path, supersteps, wall_s (the path's own clock),
-        #: run_wall_s (all of run(), routing and resumes included),
-        #: kernel_launches (eager segment-sum launches), strategy_resolved,
-        #: pad_ratio/ell_pad_ratio, autotune; the host loop adds
-        #: superstep_records (step, wall_ms, combiner, channel, strategy);
-        #: the fused path adds chunks,
-        #: host_syncs, predicated_steps, capture_s and graph_kernel_launches
-        #: (segment-sum calls in the replayed graphs); the frontier path its
-        #: per-hop ``tiers`` and ``hop_wall_s``; a resumed run resumes and
-        #: resume_steps
+        #: per-run record, also published as registry.last_run("olap"):
+        #: the reference's fields (path, supersteps, superstep_records,
+        #: retraces, h2d_arg_bytes, d2h_bytes, pad_ratio/ell_pad_ratio,
+        #: strategy_resolved, autotune, roofline_by_tier, roofline, mxu,
+        #: resources, compile_cache, device_memory, slowest_superstep,
+        #: delta, resumes, resume_steps; the fused path's first_dispatch_s
+        #: and compile_in_first_dispatch; the frontier path's tiers) with
+        #: wall_s the path's own clock, plus the port's own: run_wall_s (all
+        #: of run(), routing and resumes included, the reference's wall_s),
+        #: kernel_launches (eager segment-sum launches), the fused path's
+        #: chunks, host_syncs, predicated_steps, capture_s and
+        #: graph_kernel_launches (segment-sum calls in the replayed
+        #: graphs), the frontier path's hop_wall_s
         self.last_run_info: Dict[str, object] = {}
+        #: view fields the program reads, per superstep variant
+        self._viewkeys: Dict[Tuple, frozenset] = {}
+        #: per-variant (arg bytes, cost record)
+        self._kernel_costs: Dict[Tuple, Tuple[int, dict]] = {}
+        #: graph arguments of the last superstep variant run (bytes)
+        self._last_arg_bytes = 0
+        #: CUDA graphs captured by this executor's fused loops, ever
+        self._captures = 0
+        #: the card's memory size (torch.cuda.mem_get_info), read once
+        self._bytes_limit = None
         #: the superstep fault_hook was last called at, and one record per
         #: resume of the current run
         self._hook_step = None
@@ -505,11 +653,24 @@ class GPUExecutor:
         if self._measured_path:
             measured = autotune.load_measured(self._measured_path, shard_count=1)
         stats = autotune.GraphStats.from_csr(
-            self.csr, undirected=undirected, tail_chunk=self._tail_chunk_cfg or 256,
+            self.csr, undirected=undirected, max_capacity=self._ell_capacity,
+            tail_chunk=self._tail_chunk_cfg or 256,
         )
-        ov = {"hub_cutoff": self._hub_cutoff_cfg, "tail_chunk": self._tail_chunk_cfg}
+        ov = {
+            "hub_cutoff": self._hub_cutoff_cfg,
+            "tail_chunk": self._tail_chunk_cfg,
+            "min_gain": self._autotune_min_gain,
+            "budget_bytes": self.ELL_AUTO_BYTES,
+            "max_pad": self.ELL_AUTO_PAD,
+            "f_min": self._frontier_f_min,
+            "e_min": self._frontier_e_min,
+            "max_tiers": self._autotune_max_tiers,
+            "tier_growth": self._frontier_tier_growth,
+        }
         if self._strategy_cfg != "auto":
             ov["strategy"] = self._strategy_cfg
+        if self._features_dim_tier:
+            ov["feature_dim_tier"] = self._features_dim_tier
         decision = autotune.decide(
             stats, self._device_kind(), overrides=ov, measured=measured,
             feature_dim=self._feature_dim_run,
@@ -526,8 +687,36 @@ class GPUExecutor:
     def _base_strategy(self, undirected: bool) -> str:
         base = self._strategy_cfg
         if base == "auto":
-            base = self._autotune(undirected).strategy
+            if self._autotune_enabled:
+                return self._autotune(undirected).strategy
+            key = (undirected, self._feature_dim_run)
+            base = self._auto_cache.get(key)
+            if base is None:
+                fp = self.ell_footprint(self.csr, self._ell_capacity, undirected)
+                fits = fp["bytes"] <= self.ELL_AUTO_BYTES and fp["pad_ratio"] <= self.ELL_AUTO_PAD
+                base = self._auto_cache[key] = "ell" if fits else "segment"
         return base
+
+    @staticmethod
+    def ell_footprint(csr: CSRGraph, max_capacity: int = 1 << 14, undirected: bool = False):
+        """The ELL pack's device footprint, estimated from the degree
+        histogram without building it: a vertex takes next-pow2(degree)
+        slots (capped; rows past the cap split at about one slot per
+        edge), 4 bytes a slot unweighted (the index) and 12 weighted
+        (index, weight, validity). Undirected programs pack both
+        orientations. {slots, bytes, pad_ratio}."""
+        deg = np.diff(csr.in_indptr).astype(np.int64)
+        edges = csr.num_edges
+        if undirected:
+            deg = deg + np.diff(csr.out_indptr).astype(np.int64)
+            edges *= 2
+        caps = np.maximum(1, 1 << np.ceil(np.log2(np.maximum(deg, 1))).astype(np.int64))
+        slots = int(np.minimum(caps, max_capacity).sum())
+        over = deg > max_capacity
+        if over.any():
+            slots += int((deg[over] - max_capacity).sum())
+        per_slot = 12 if csr.in_edge_weight is not None else 4
+        return {"slots": slots, "bytes": slots * per_slot, "pad_ratio": slots / max(1, edges)}
 
     # ------------------------------------------------------------ structures
     def _resolve_strategy(self, op: str, undirected: bool = False) -> str:
@@ -559,7 +748,7 @@ class GPUExecutor:
         if pack is None:
             src, dst, w = self._edge_view(undirected)
             pack = kernels.ELLPack(
-                src, dst, w, self.csr.num_vertices
+                src, dst, w, self.csr.num_vertices, max_capacity=self._ell_capacity,
             ).to(self.device)
             self._ell_packs[undirected] = pack
         return pack
@@ -575,7 +764,7 @@ class GPUExecutor:
             src, dst, w = self._edge_view(undirected)
             pack = kernels.HybridPack(
                 src, dst, w, self.csr.num_vertices,
-                hub_cutoff=cutoff, tail_chunk=chunk,
+                hub_cutoff=cutoff, tail_chunk=chunk, max_capacity=self._ell_capacity,
             ).to(self.device)
             self._hybrid_packs[undirected] = pack
         return pack
@@ -593,11 +782,12 @@ class GPUExecutor:
                 return [torch.as_tensor(a, device=self.device) for a in arrs]
 
             if strategy == "ell":
-                rows = put(fkernels.ell_row_dsts(src, dst, n))
+                rows = put(fkernels.ell_row_dsts(src, dst, n, max_capacity=self._ell_capacity))
             else:
                 pack = self._hybrid_pack(undirected)
                 host = fkernels.hybrid_row_dsts(
                     src, dst, n, hub_cutoff=pack.hub_cutoff, tail_chunk=pack.tail_chunk,
+                    max_capacity=self._ell_capacity,
                 )
                 rows = {k: put(v) for k, v in host.items()}
             self._sddmm_rows_cache[key] = rows
@@ -626,7 +816,7 @@ class GPUExecutor:
         if entry is not None:
             self._channel_packs.move_to_end(channel)
             return entry
-        entry = _ChannelPack(self.csr, channel, self.device)
+        entry = _ChannelPack(self.csr, channel, self.device, self._ell_capacity)
         self._channel_packs[channel] = entry
         while len(self._channel_packs) > self.CHANNEL_CACHE_SIZE:
             self._channel_packs.popitem(last=False)
@@ -736,8 +926,11 @@ class GPUExecutor:
             # at 2^24 vertices; mirror that guard instead of rounding
             return not (program.track_paths and self.csr.num_vertices >= (1 << 24))
         # labels are float32 vertex indices: exact below 2^24 only; "auto"
-        # keeps CC dense (the faster path on the card)
-        return mode == "always" and self.csr.num_vertices < (1 << 24)
+        # keeps CC dense below FRONTIER_CC_MIN_EDGES (by default always:
+        # the faster path on the card)
+        return self.csr.num_vertices < (1 << 24) and (
+            mode == "always" or self.csr.num_edges >= self.FRONTIER_CC_MIN_EDGES
+        )
 
     def frontier_engine(self) -> FrontierEngine:
         """The executor's frontier engine, built on first use; with the
@@ -855,58 +1048,82 @@ class GPUExecutor:
             and type(program).channel_for is VertexProgram.channel_for
         )
         launches0 = kernels.sorted_segment_sum.launches
+        captures0 = self._captures
+        # a path that reads no graph arguments (the frontier engine ships
+        # its own tiers) must not report the last run's bytes
+        self._last_arg_bytes = 0
         t0 = time.perf_counter()
-        resumes = 0
-        self._resume_log = resume_steps = []
-        while True:
-            try:
-                if use_frontier:
-                    out = self._run_frontier(program)
-                elif use_fused:
-                    out = self._run_fused(
-                        program, checkpoint_path, checkpoint_every, resume, fault_hook
+        # the computer.executor name of this device: "tpu" is the card
+        kind = "tpu" if self.device.type == "cuda" else "cpu"
+        with tracer.span(
+            "olap.run", program=type(program).__name__, executor=kind,
+            strategy=self._strategy_cfg,
+        ) as sp:
+            resumes = 0
+            self._resume_log = resume_steps = []
+            while True:
+                try:
+                    if use_frontier:
+                        out = self._run_frontier(program)
+                    elif use_fused:
+                        out = self._run_fused(
+                            program, checkpoint_path, checkpoint_every, resume, fault_hook
+                        )
+                    else:
+                        out = self._run_host_loop(
+                            program, sync_every, checkpoint_path, checkpoint_every,
+                            resume, fault_hook,
+                        )
+                    break
+                except SuperstepPreempted:
+                    registry.counter("olap.preemptions").inc()
+                    if not (checkpoint_path and checkpoint_every) or resumes >= resume_attempts:
+                        raise
+                    # replay from the last checkpoint: its arrays are exact,
+                    # so the final state is the uninterrupted run's
+                    resumes += 1
+                    resume = True
+                    # from_step is filled in when the next attempt loads
+                    resume_steps.append({
+                        "attempt": resumes, "at_s": round(time.perf_counter() - t0, 4),
+                        "preempted_at": self._hook_step,
+                    })
+                    registry.counter("olap.resumes").inc()
+                    flight_recorder.record(
+                        "olap_resume", executor=kind, attempt=resumes,
+                        program=type(program).__name__,
                     )
-                else:
-                    out = self._run_host_loop(
-                        program, sync_every, checkpoint_path, checkpoint_every,
-                        resume, fault_hook,
-                    )
-                break
-            except SuperstepPreempted:
-                if not (checkpoint_path and checkpoint_every) or resumes >= resume_attempts:
-                    raise
-                # replay from the last checkpoint: its arrays are exact, so
-                # the final state is the uninterrupted run's
-                resumes += 1
-                resume = True
-                # from_step is filled in when the next attempt loads
-                resume_steps.append({
-                    "attempt": resumes, "at_s": round(time.perf_counter() - t0, 4),
-                    "preempted_at": self._hook_step,
-                })
-        info = self.last_run_info
-        if self._delta is not None:
-            # trim the vcap padding: the real rows are the base snapshot's
-            # and the overlay's new vertices (removed slots stay, inert;
-            # compact_result drops them)
-            out = {k: v[: self._delta.n_real] for k, v in out.items()}
-            info["delta"] = {
-                "overlay_depth": self._delta.depth,
-                "n_extra": self._delta.n_extra,
-                "removed": int(len(self._delta.removed_idx)),
-                "fused": True,
-            }
-        info["run_wall_s"] = time.perf_counter() - t0
-        info["kernel_launches"] = kernels.sorted_segment_sum.launches - launches0
-        if resumes:
-            info["resumes"] = resumes
-            info["resume_steps"] = resume_steps
-        self._finish_run(program)
+            info = self.last_run_info
+            if self._delta is not None:
+                # trim the vcap padding: the real rows are the base snapshot's
+                # and the overlay's new vertices (removed slots stay, inert;
+                # compact_result drops them)
+                out = {k: v[: self._delta.n_real] for k, v in out.items()}
+                info["delta"] = {
+                    "overlay_depth": self._delta.depth,
+                    "n_extra": self._delta.n_extra,
+                    "removed": int(len(self._delta.removed_idx)),
+                    "fused": True,
+                }
+            info["kernel_launches"] = kernels.sorted_segment_sum.launches - launches0
+            if resumes:
+                info["resumes"] = resumes
+                info["resume_steps"] = resume_steps
+                sp.annotate(resumes=resumes)
+            run_wall_s = time.perf_counter() - t0
+            info["run_wall_s"] = run_wall_s
+            self._finish_run(sp, program, out, run_wall_s, self._captures - captures0)
         return out
 
     def _prepare_dense(self, program: VertexProgram) -> None:
-        """The dense tier's run set-up: the tuner's feature-dim input and
-        the sddmm mode's envelope."""
+        """The dense tier's run set-up: the configured lane tier and matmul
+        (``features_dim_tier``/``features_native_matmul``), the tuner's
+        feature-dim input and the sddmm mode's envelope."""
+        if self._features_dim_tier and hasattr(program, "set_dim_tier"):
+            if getattr(program, "dim_tier", 0) != self._features_dim_tier:
+                program.set_dim_tier(self._features_dim_tier)
+        if self._features_native_matmul is not None and hasattr(program, "set_native_matmul"):
+            program.set_native_matmul(self._features_native_matmul)
         self._feature_dim_run = int(getattr(program, "d_pad", 0) or 0)
         if getattr(program, "message_mode", None) == "sddmm":
             if program.undirected:
@@ -928,11 +1145,119 @@ class GPUExecutor:
         if self._resume_log and "from_step" not in self._resume_log[-1]:
             self._resume_log[-1]["from_step"] = step
 
-    def _finish_run(self, program: VertexProgram) -> None:
-        """Add the pad ratio of the pack the run aggregated over and the
-        tuner's decision to ``last_run_info``; persist the measured record
-        beside the checkpoint file."""
+    def _mark(self):
+        """A timing mark on the executor's stream: a recorded CUDA event on
+        the card, the host clock on the CPU (``_elapsed_ms`` reads a pair)."""
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    # ------------------------------------------------------------ telemetry
+    def _variant(self, program: VertexProgram, op: str, channel: str = None) -> Tuple:
+        """A superstep variant: (program, monoid, strategy, channel value,
+        overlay lane signature), the key of its view reads and its cost."""
+        ch_val = program.edge_channels[channel] if channel is not None else None
+        return (program.cache_key(), op, self._resolve_strategy(op, program.undirected),
+                ch_val, self._delta_sig(program))
+
+    def _view_for(self, variant: Tuple):
+        """(the view message/apply get, the set it records into or None):
+        a variant's first superstep records the fields the program reads."""
+        if variant in self._viewkeys:
+            return self.g, None
+        rec = set()
+        return _RecordingView(self.g, rec), rec
+
+    def _superstep_cost(self, program: VertexProgram, variant: Tuple, strategy: str,
+                        channel: str = None, rec: set = None) -> dict:
+        """One variant's cost record {flops, bytes_accessed, cost_source}
+        (the host estimate over its graph-argument bytes), computed once;
+        ``rec`` is the field set its first superstep recorded. Sets
+        ``_last_arg_bytes``."""
+        if rec is not None:
+            self._viewkeys[variant] = frozenset(rec)
+        cached = self._kernel_costs.get(variant)
+        if cached is None:
+            arg_bytes = self._arg_bytes(program, strategy, channel, self._viewkeys[variant])
+            cached = (arg_bytes, profiler.estimate_superstep_cost(
+                self.csr.num_vertices,
+                self.csr.num_edges * (2 if program.undirected else 1),
+                msg_cols=getattr(program, "d_pad", 1) or 1,
+                weighted=self.csr.in_edge_weight is not None,
+                arg_bytes=arg_bytes,
+            ))
+            self._kernel_costs[variant] = cached
+        self._last_arg_bytes = cached[0]
+        return cached[1]
+
+    def _arg_bytes(self, program: VertexProgram, strategy: str, channel: str,
+                   used: frozenset) -> int:
+        """Bytes of the device arrays one superstep reads as its graph
+        arguments (the reference's ``h2d_arg_bytes``): the view fields the
+        program and the strategy read, the pack or plan, the sddmm rows and
+        the overlay's lanes."""
+        und = bool(program.undirected)
+        fields = set(used)
+        structs = []
+        if channel is not None:
+            entry = self._channel_pack(program, channel)
+            structs.append(entry.segsum() if strategy == "segsum" else entry.ell())
+        elif getattr(program, "message_mode", None) == "sddmm":
+            if strategy in ("ell", "hybrid"):
+                structs.append(self._ell_pack(False) if strategy == "ell" else self._hybrid_pack(False))
+                structs.append(self._sddmm_rows(strategy, False))
+            else:
+                fields.update(("in_src", "in_dst_seg"))
+        elif strategy == "ell":
+            structs.append(self._ell_pack(und))
+        elif strategy == "hybrid":
+            structs.append(self._hybrid_pack(und))
+        else:
+            views = _STRATEGY_FIELDS[strategy]
+            fields.update(views[0] + (views[1] if und else ()))
+            if strategy == "segsum":
+                structs += [self._segsum_plan(o) for o in (("in", "out") if und else ("in",))]
+        if self._delta is not None:
+            structs.append(self._delta.device_args(self.device, und))
+        return sum(_nbytes(getattr(self.g, k)) for k in sorted(fields)) + _nbytes(structs)
+
+    def _device_memory(self, info: dict) -> dict:
+        """Device-memory occupancy for the run record: the caching
+        allocator's counters on the card (no sync), else the reference's
+        host estimate (graph arguments + results)."""
+        if self.device.type == "cuda":
+            # the nested form: memory_stats() flattens it into some hundred
+            # dotted keys on every call
+            allocated = torch.cuda.memory_stats_as_nested_dict(self.device)["allocated_bytes"]["all"]
+            if self._bytes_limit is None:
+                self._bytes_limit = int(torch.cuda.mem_get_info(self.device)[1])
+            return {
+                "source": "device",
+                "bytes_in_use": int(allocated["current"]),
+                "peak_bytes_in_use": int(allocated["peak"]),
+                "bytes_limit": self._bytes_limit,
+            }
+        return {
+            "source": "host-estimate",
+            "bytes_in_use": int(info.get("h2d_arg_bytes", 0)) + int(info.get("d2h_bytes", 0)),
+        }
+
+    def _finish_run(self, sp, program: VertexProgram, result: Dict[str, np.ndarray],
+                    wall_s: float, captures: int) -> None:
+        """Publish the finished run, as the reference's ``_finish_run``:
+        enrich ``last_run_info`` (transfer bytes, pad ratio, the tuner's
+        decision, per-superstep roofline records, MXU, resources, compile
+        cache, device memory), attach the per-superstep child spans, set the
+        OLAP gauges, persist the measured record beside the checkpoint file
+        and hand the record to the registry (``registry.last_run("olap")``).
+        Everything read here is on the host already: record walls are read
+        after the run's final fetch."""
         info = self.last_run_info
+        info["retraces"] = captures
+        info["h2d_arg_bytes"] = int(self._last_arg_bytes)
+        info["d2h_bytes"] = int(sum(np.asarray(v).nbytes for v in result.values()))
         undirected = bool(program.undirected)
         resolved = info.get("strategy_resolved")
         used = set(resolved.values()) if isinstance(resolved, dict) else {resolved}
@@ -946,14 +1271,145 @@ class GPUExecutor:
         info["ell_pad_ratio"] = pad_ratio  # the reference's older key
         if self._autotune_enabled or (undirected, self._feature_dim_run) in self._autotune_decisions:
             info["autotune"] = self._autotune(undirected).as_dict()
-        if self._measured_path and pad_ratio is not None and info.get("supersteps"):
+
+        records = info.get("superstep_records")
+        if records is None:
+            # frontier path: the tier trace is the per-superstep record,
+            # each hop's wall the host clock between its fetches
+            walls = info.get("hop_wall_s", [])
+            records = [
+                {
+                    "step": int(t.get("hop", i)),
+                    "frontier": int(t.get("frontier", 0)),
+                    "edges": int(t.get("edges", 0)),
+                    "e_cap": int(t.get("E_cap", 0)),
+                    **({"wall_ms": walls[i] * 1e3} if i < len(walls) else {}),
+                }
+                for i, t in enumerate(info.get("tiers", []))
+            ]
+        n = self.g.num_vertices
+        for i, r in enumerate(records):
+            # a dense superstep touches every vertex; the frontier path
+            # recorded its compacted sizes above
+            r.setdefault("frontier", n)
+            if pad_ratio is not None:
+                r.setdefault("pad_ratio", pad_ratio)
+            r.setdefault("h2d_bytes", info["h2d_arg_bytes"] if i == 0 else 0)
+        info["superstep_records"] = records
+
+        weighted = self.csr.in_edge_weight is not None
+        cols = self._feature_dim_run or 1
+        for r in records:
+            if "flops" not in r:
+                r.update(profiler.estimate_superstep_cost(
+                    int(r.get("frontier", n)), int(r.get("edges", self.csr.num_edges)),
+                    msg_cols=cols, weighted=weighted,
+                ))
+        peaks = profiler.device_peaks(self._device_kind())
+        info["roofline_by_tier"] = profiler.attach_roofline(
+            records, profiler.estimate_superstep_cost(
+                n, self.csr.num_edges, msg_cols=cols, weighted=weighted,
+                arg_bytes=info["h2d_arg_bytes"],
+            ), peaks,
+        )
+        info["roofline"] = {
+            "peak_flops": peaks["peak_flops"],
+            "peak_bytes_per_s": peaks["peak_bytes_per_s"],
+            "device_kind": peaks["device_kind"],
+            "peaks_source": peaks["source"],
+        }
+        if callable(getattr(program, "matmul_flops", None)):
+            edges = self.csr.num_edges * (2 if undirected else 1)
+            peak, peak_source = profiler.matmul_peak(peaks, self.device.type)
+            info["mxu"] = profiler.attach_mxu(
+                records, float(program.matmul_flops(n, edges)), dict(peaks, peak_mxu_flops=peak),
+            )
+            info["mxu"]["peak_source"] = peak_source
+            mean_util = info["mxu"].get("mean_utilization")
+            if mean_util is not None:
+                registry.set_gauge("olap.mxu.utilization", float(mean_util))
+        if records:
+            registry.set_gauge(
+                "olap.roofline.operational_intensity",
+                float(records[-1].get("operational_intensity") or 0.0),
+            )
+            util = records[-1].get("roofline_utilization")
+            if util is not None:
+                registry.set_gauge("olap.roofline.utilization", float(util))
+
+        info["resources"] = {
+            "h2d_bytes": info["h2d_arg_bytes"],
+            "d2h_bytes": info["d2h_bytes"],
+            "flops": sum(r.get("flops", 0.0) for r in records),
+            "bytes_accessed": sum(r.get("bytes_accessed", 0.0) for r in records),
+        }
+        profiler.accrue(h2d_bytes=info["h2d_arg_bytes"], d2h_bytes=info["d2h_bytes"])
+        profiler.accrue_wall("olap", wall_s * 1000.0)
+
+        # a CUDA graph captured in this run is the port's compile (a miss);
+        # every other dispatch replayed or ran eagerly (a hit)
+        dispatches = max(len(records), 1)
+        misses = min(captures, dispatches)
+        info["compile_cache"] = {
+            "hits": dispatches - misses,
+            "misses": misses,
+            "compiled_total": sum(len(lp.graphs) for lp in self._fused_loops.values()),
+        }
+        registry.counter("olap.compile_cache.hits").inc(dispatches - misses)
+        registry.counter("olap.compile_cache.misses").inc(misses)
+
+        info["device_memory"] = self._device_memory(info)
+        registry.set_gauge("olap.device.bytes_in_use", float(info["device_memory"]["bytes_in_use"]))
+        if "peak_bytes_in_use" in info["device_memory"]:
+            registry.set_gauge(
+                "olap.device.peak_bytes_in_use", float(info["device_memory"]["peak_bytes_in_use"])
+            )
+
+        slowest = None
+        for r in records[:_MAX_SUPERSTEP_SPANS]:
+            s = tracer.record_span(
+                "superstep", float(r.get("wall_ms", 0.0)),
+                **{k: v for k, v in r.items() if k != "wall_ms"},
+            )
+            if slowest is None or s.duration_ms > slowest.duration_ms:
+                slowest = s
+        if slowest is not None:
+            info["slowest_superstep"] = {
+                "step": slowest.attrs.get("step"),
+                "wall_ms": round(slowest.duration_ms, 4),
+                "span_id": f"{slowest.span_id:016x}",
+                "trace_id": f"{slowest.trace_id:016x}",
+            }
+        sp.annotate(
+            path=info.get("path"),
+            supersteps=info.get("supersteps"),
+            wall_s=round(wall_s, 4),
+            retraces=captures,
+            ell_pad_ratio=pad_ratio,
+            h2d_arg_bytes=info["h2d_arg_bytes"],
+            d2h_bytes=info["d2h_bytes"],
+        )
+
+        registry.counter("olap.runs").inc()
+        registry.timer("olap.run").update(int(wall_s * 1e9))
+        registry.set_gauge("olap.superstep.count", float(info.get("supersteps", 0) or 0))
+        registry.set_gauge("olap.run.wall_ms", round(wall_s * 1000.0, 3))
+        registry.set_gauge("olap.transfer.h2d_bytes", float(info["h2d_arg_bytes"]))
+        registry.set_gauge("olap.transfer.d2h_bytes", float(info["d2h_bytes"]))
+        if pad_ratio is not None:
+            registry.set_gauge("olap.ell.pad_ratio", pad_ratio)
+        if records:
+            registry.set_gauge("olap.frontier.last", float(records[-1].get("frontier", n)))
+            registry.histogram("olap.frontier.size").observe(float(records[-1].get("frontier", n)))
+        if self._measured_path and records and pad_ratio is not None:
+            walls = sorted(float(r.get("wall_ms", 0.0)) for r in records)
             autotune.save_measured(self._measured_path, {
                 "strategy": resolved if isinstance(resolved, str) else None,
                 "pad_ratio": pad_ratio,
-                "superstep_ms": info["wall_s"] * 1e3 / info["supersteps"],
-                # per-tier roofline utilization comes with the profiler port
-                "roofline_by_tier": None,
+                "superstep_ms": walls[len(walls) // 2],
+                "roofline_by_tier": info["roofline_by_tier"],
             }, shard_count=1)
+        registry.record_run("olap", info)
 
     def _run_host_loop(
         self,
@@ -986,19 +1442,30 @@ class GPUExecutor:
         steps_done = start
         resolved = {}
         records = []
+        #: (record, (start, end) marks) pairs, read after the final fetch
+        timed = []
+        variants = {}
         last_step = program.max_iterations - 1
         for step in range(start, program.max_iterations):
             self._call_hook(fault_hook, step)
-            s0 = time.perf_counter()
             op = program.combiner_for(step)
             ch = program.channel_for(step)
-            outgoing = program.message(state, step, self.g)
+            variant = variants.get((op, ch))
+            if variant is None:
+                variant = variants[(op, ch)] = self._variant(program, op, ch)
+            view, rec = self._view_for(variant)
+            mark0 = self._mark()
+            outgoing = program.message(state, step, view)
             agg, strategy = self._aggregate(program, op, outgoing, ch)
+            state, metrics = program.apply(state, agg, step, device_memory, view)
+            mark1 = self._mark()
             resolved[op if ch is None else f"{op}:{ch}"] = strategy
-            state, metrics = program.apply(state, agg, step, device_memory, self.g)
-            # host clock of the enqueue (of the whole step where it syncs)
-            records.append({"step": step, "wall_ms": (time.perf_counter() - s0) * 1e3,
-                            "combiner": op, "channel": ch, "strategy": strategy})
+            records.append({
+                "step": step, "combiner": op, "channel": ch, "strategy": strategy,
+                "compiled": False,
+                **self._superstep_cost(program, variant, strategy, ch, rec),
+            })
+            timed.append((records[-1], (mark0, mark1)))
             # an aggregator a superstep does not emit keeps its last value
             device_memory.update({k: v for k, (_op, v) in metrics.items()})
             steps_done += 1
@@ -1015,13 +1482,18 @@ class GPUExecutor:
             if checkpoint_path and checkpoint_every and (
                 steps_done % checkpoint_every == 0 or step == last_step
             ):
+                ck0 = time.perf_counter()
                 save_checkpoint(
                     checkpoint_path, {k: v.cpu().numpy() for k, v in state.items()},
                     memory.values, steps_done,
                 )
+                records[-1]["checkpoint_ms"] = round((time.perf_counter() - ck0) * 1e3, 3)
             if program.terminate(memory):
                 break
         out = {k: v.cpu().numpy() for k, v in state.items()}
+        # the result fetch waited for every superstep: the marks are done
+        for r, timer in timed:
+            r["wall_ms"] = round(_elapsed_ms(timer), 4)
         if not resolved:
             op = program.combiner_for(0)
             resolved[op] = self._resolve_strategy(op, program.undirected)
@@ -1071,7 +1543,10 @@ class GPUExecutor:
         (up to MAX_CHUNK) that fits the remaining bound, captured once as a
         CUDA graph on the card and replayed, followed by one fetch of
         (steps, stopped). The bound is max_iterations, or the next
-        checkpoint, where the host saves and consults ``fault_hook``."""
+        checkpoint, where the host saves and consults ``fault_hook``.
+
+        One record per superstep run, as the reference's: the eager step
+        its own wall, a chunk's steps its wall shared out."""
         t0 = time.perf_counter()
         op = program.combiner
         max_iter = program.max_iterations
@@ -1099,30 +1574,52 @@ class GPUExecutor:
         # the longest chunk this program can use
         top = 1 << (min(max(max_iter, 1), self.MAX_CHUNK).bit_length() - 1)
         loop = None
+        cost = None
+        cold = False
+        first_dispatch_s = None
+        records = []
+        #: (records of one timed span, its (start, end) marks)
+        timed = []
         while steps_done < max_iter:
             self._call_hook(fault_hook, steps_done)
             limit = max_iter
             if checkpoint_every:
                 limit = min(steps_done + checkpoint_every, max_iter)
+            d0 = time.perf_counter()
+            spans = []  # (first step, steps, marks) run before the next fetch
             if loop is None:
                 loop, new = self._fused_loop(program, op, state, mem, steps_done, limit)
+                variant = self._variant(program, op)
                 expected = steps_done
                 if new:
-                    loop.step(discover=True)
+                    cold = True
+                    view, rec = self._view_for(variant)
+                    mark0 = self._mark()
+                    loop.step(discover=True, view=view)
+                    spans.append((expected, 1, (mark0, self._mark())))
                     expected += 1
+                    cost = self._superstep_cost(program, variant, loop.strategy, None, rec)
+                else:
+                    cost = self._superstep_cost(program, variant, loop.strategy)
             else:
                 loop.limit.fill_(limit)
                 expected = steps_done
             stopped = False
             while expected < limit:
                 length = 1 << (min(limit - expected, self.MAX_CHUNK).bit_length() - 1)
-                capture_s, captured = loop.chunk(length, top)
+                capture_s, captured, marks = loop.chunk(length, top)
+                cold = cold or (capture_s > 0 and first_dispatch_s is None)
+                spans.append((expected, length, marks))
                 info["capture_s"] += capture_s
                 info["graph_kernel_launches"] += captured
                 info["chunks"] += 1
                 new_steps, stopped = loop.status.tolist()
                 info["host_syncs"] += 1
                 info["predicated_steps"] += expected + length - new_steps
+                self._fused_records(records, timed, spans, new_steps, cold)
+                spans = []
+                if first_dispatch_s is None:
+                    first_dispatch_s = time.perf_counter() - d0
                 steps_done = expected = new_steps
                 if stopped:
                     # terminated; any superstep of the chunk after that
@@ -1134,8 +1631,12 @@ class GPUExecutor:
                 new_steps, stopped = loop.status.tolist()
                 info["host_syncs"] += 1
                 info["predicated_steps"] += expected - new_steps
+                self._fused_records(records, timed, spans, new_steps, cold)
+                if first_dispatch_s is None:
+                    first_dispatch_s = time.perf_counter() - d0
                 steps_done = new_steps
             if checkpoint_path and checkpoint_every:
+                ck0 = time.perf_counter()
                 save_checkpoint(
                     checkpoint_path,
                     {k: v.cpu().numpy() for k, v in loop.state.items()},
@@ -1143,13 +1644,45 @@ class GPUExecutor:
                     steps_done,
                 )
                 info["host_syncs"] += 1
+                if records:
+                    # the save's wall, stamped on the superstep that paid it
+                    records[-1]["checkpoint_ms"] = round((time.perf_counter() - ck0) * 1e3, 3)
             if stopped or steps_done < limit:
                 break
         final = loop.state if loop is not None else state
         # a copy on every device: the loop's buffers serve the next run
         out = {k: v.to("cpu", copy=True).numpy() for k, v in final.items()}
         info["host_syncs"] += 1
+        # the fetches waited for every span: the marks are done
+        for recs, marks in timed:
+            per_ms = round(_elapsed_ms(marks) / len(recs), 4)
+            for r in recs:
+                r["wall_ms"] = per_ms
+        for r in records:
+            r.update(cost)
         info["supersteps"] = steps_done
         info["wall_s"] = time.perf_counter() - t0
+        info["superstep_records"] = records
+        info["first_dispatch_s"] = round(first_dispatch_s or 0.0, 4)
+        info["compile_in_first_dispatch"] = cold
         self.last_run_info = info
         return out
+
+    @staticmethod
+    def _fused_records(records, timed, spans, new_steps: int, cold: bool) -> None:
+        """Records for the supersteps the spans since the last fetch ran:
+        a span of ``count`` steps from ``first`` covers those below
+        ``new_steps`` (the rest were predicated out), each with the span's
+        wall shared out (``approx``, as the reference's fused records). The
+        first record of a run that captured or built its loop is
+        ``compiled``."""
+        for first, count, marks in spans:
+            ran = min(first + count, new_steps) - first
+            if ran <= 0:
+                continue
+            recs = [
+                {"step": s, "approx": True, "compiled": cold and not records and i == 0}
+                for i, s in enumerate(range(first, first + ran))
+            ]
+            records.extend(recs)
+            timed.append((recs, marks))

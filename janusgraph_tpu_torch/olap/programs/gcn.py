@@ -80,10 +80,17 @@ class GCNForwardProgram(DenseVertexProgram):
         self.d_pad = pick_feature_tier(self._max_dim, self.dim_tier)
         self._build_weights(weights)
 
+    def set_dim_tier(self, tier: int) -> None:
+        self.dim_tier = int(tier or 0)
+        self.d_pad = pick_feature_tier(self._max_dim, self.dim_tier)
+        self._build_weights(self._given_weights)
+
     def _build_weights(self, weights) -> None:
         """Stack per-layer (d_pad, d_pad)/(d_pad,) weight/bias blocks: real
         coefficients in the top-left (d_l, d_{l+1}) corner, zeros in the
         padding so padded feature columns stay zero through the layers."""
+        # a list, never a tuple: cache_key keeps tuple attributes
+        self._given_weights = None if weights is None else list(weights)
         dp = self.d_pad
         rng = np.random.default_rng(self.seed)
         w_stack = np.zeros((self.num_layers, dp, dp), dtype=np.float32)

@@ -11,11 +11,15 @@ re-reads; past 1,000,000 rows the tracker resets and records its overflow
 epoch) and streams the batch to the registered change capture
 (``register_change_capture``, the delta snapshot's feed).
 ``BackendTransaction`` buffers writes per store and row and flushes them
-as one ``mutate_many`` at commit.
+as one ``mutate_many`` at commit. With ``metrics.enabled`` the raw
+``edgestore`` and ``graphindex`` are wrapped in ``MetricInstrumentedStore``
+(``util/metrics.py``) and a commit's batched write is timed as
+``storage.mutateMany`` with ``storage.<store>.mutate.rows`` counted, as the
+reference does.
 
-Left out: the slice caches, the consistent-key lockers and lock stores,
-metrics, the read-only mode and the retry guard around each storage call
-(ROADMAP Queue A #5).
+Left out: the slice caches (the reference wraps its stores in them after
+the metrics), the consistent-key lockers and lock stores, the read-only
+mode and the retry guard around each storage call (ROADMAP Queue A #5).
 """
 
 from __future__ import annotations
@@ -71,11 +75,21 @@ class Backend:
         self,
         manager: KeyColumnValueStoreManager,
         id_block_size: int = 10_000,
+        metrics_enabled: bool = False,
+        metrics_merge_stores: bool = False,
     ):
         self.manager = manager
+        self.metrics_enabled = metrics_enabled
         self._base_tx = manager.begin_transaction()
         self.edgestore = manager.open_database(EDGESTORE_NAME)
         self.indexstore = manager.open_database(INDEXSTORE_NAME)
+        if metrics_enabled:
+            # instrument the raw stores (before any cache layer, as the
+            # reference does)
+            from janusgraph_tpu_torch.util.metrics import MetricInstrumentedStore
+
+            self.edgestore = MetricInstrumentedStore(self.edgestore, merge_stores=metrics_merge_stores)
+            self.indexstore = MetricInstrumentedStore(self.indexstore, merge_stores=metrics_merge_stores)
         self.system_properties = manager.open_database(SYSTEM_PROPERTIES_NAME)
         self.global_config = GlobalConfigStore(manager)
         self.id_store = manager.open_database(ID_STORE_NAME)
@@ -199,7 +213,17 @@ class BackendTransaction:
             return
         try:
             if self._mutations:
-                self.backend.manager.mutate_many(self._mutations, self.store_tx)
+                if self.backend.metrics_enabled:
+                    # batched writes bypass the per-store wrapper, so they
+                    # are timed here
+                    from janusgraph_tpu_torch.util.metrics import metrics
+
+                    with metrics.time("storage.mutateMany"):
+                        self.backend.manager.mutate_many(self._mutations, self.store_tx)
+                    for store_name, rows in self._mutations.items():
+                        metrics.counter(f"storage.{store_name}.mutate.rows").inc(len(rows))
+                else:
+                    self.backend.manager.mutate_many(self._mutations, self.store_tx)
                 edge_rows = self._mutations.get(EDGESTORE_NAME)
                 if edge_rows:
                     self.backend.note_edge_mutations(edge_rows.keys(), edge_rows)

@@ -202,7 +202,11 @@ def test_measured_record_persists_beside_the_checkpoint(tmp_path):
     ex.run(PageRankProgram(max_iterations=4, tol=0.0), checkpoint_path=path, checkpoint_every=2)
     rec = ref_at.load_measured(path + ".autotune.json")
     assert rec["strategy"] == "ell" and rec["pad_ratio"] == ex.last_run_info["pad_ratio"]
-    assert rec["superstep_ms"] > 0 and rec["roofline_by_tier"] is None
+    # the run's per-tier roofline and the median of its record walls
+    walls = sorted(r["wall_ms"] for r in ex.last_run_info["superstep_records"])
+    assert rec["superstep_ms"] == walls[len(walls) // 2] > 0
+    assert rec["roofline_by_tier"] == ex.last_run_info["roofline_by_tier"]
+    assert set(rec["roofline_by_tier"]) == {"dense"}
     # the next executor's decision is calibrated by it
     nxt = GPUExecutor(CSR, strategy="auto", device="cpu")
     nxt.run(PageRankProgram(max_iterations=2, tol=0.0), checkpoint_path=str(tmp_path / "pr.npz"),

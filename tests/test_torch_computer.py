@@ -370,7 +370,7 @@ def test_compute_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
     {"computer.executor": "sharded"},
     {"storage.cdc.dir": "/tmp/x"},
     {"storage.distributed-load-workers": 2},
-    {"computer.ell-max-capacity": 64},
+    {"computer.price-book-path": "book.json"},
     {"no.such-option": 1},
 ])
 def test_options_the_port_does_not_honour_raise(config):

@@ -187,9 +187,16 @@ def test_default_auto_run_equals_reference_default():
 
 
 def test_auto_needs_the_tuner():
-    _rcsr, csr = graph("no_dangling")
-    with pytest.raises(ValueError, match="autotune=False"):
-        GPUExecutor(csr, strategy="auto", device="cpu", autotune=False)
+    rcsr, csr = graph("no_dangling")
+    # without the tuner "auto" takes the reference's footprint budget:
+    # ELL within ell_auto_bytes/ell_auto_pad, "segment" past either
+    ex = GPUExecutor(csr, strategy="auto", device="cpu", autotune=False)
+    ref = TPUExecutor(rcsr, strategy="auto", autotune=False)
+    assert ex.strategy == ref.strategy == "ell"
+    tight = GPUExecutor(csr, strategy="auto", device="cpu", autotune=False, ell_auto_bytes=8)
+    assert tight.strategy == TPUExecutor(
+        rcsr, strategy="auto", autotune=False, ell_auto_bytes=8
+    ).strategy == "segment"
     # a named strategy runs without it, and reports no decision
     ex = GPUExecutor(csr, strategy="ell", device="cpu", autotune=False)
     ex.run(PageRankProgram(max_iterations=3, tol=0.0))

@@ -306,10 +306,10 @@ def test_id_authority_refuses_another_block_size():
     ("computer.executor", "sharded", "Queue A #4"),
     ("storage.distributed-load-workers", 4, "Queue A #5"),
     ("storage.backend", "local", "Queue A #5"),
-    ("computer.ell-max-capacity", 64, "Queue A #2"),
-    ("computer.frontier-f-min", 8, "Queue A #2"),
+    ("computer.price-book-path", "book.json", "Queue A #5"),
+    ("metrics.trace-propagation", False, "Queue A #5"),
     ("computer.sharded-auto", False, "Queue A #4"),
-    ("metrics.enabled", True, "Queue A #3"),
+    ("metrics.history-enabled", True, "Queue A #5"),
     ("cache.db-cache", False, "Queue A #5"),
 ])
 def test_options_not_ported_raise_naming_the_roadmap_item(path, value, item):

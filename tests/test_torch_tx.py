@@ -266,8 +266,12 @@ def test_what_the_port_lacks_raises_naming_its_item():
     g = open_graph(dict(PORT_CONFIG))
     with pytest.raises(NotImplementedError, match="Queue A #5"):
         g.new_transaction(log_identifier="audit")
-    with pytest.raises(NotImplementedError, match="Queue A #3"):
-        g.new_transaction(metrics_group="web")
+    # a metrics group counts its commits (the registry is ported)
+    from janusgraph_tpu_torch.observability import registry
+
+    before_commits = registry.get_count("web.commit")
+    g.new_transaction(metrics_group="web").commit()
+    assert registry.get_count("web.commit") == before_commits + 1
     assert open_graph({"tx.read-only-default": True}).new_transaction().read_only
     for option in ("tx.log-tx", "schema.constraints", "query.fast-property"):
         with pytest.raises(ConfigurationError):
