@@ -117,6 +117,23 @@ Phases, each printing one JSON line:
            kernel runs), its base array-equal to a fresh scan and its ranks
            bitwise equal to run_on over it; (e) refresh_csr against the
            same scan; the walls of every submit and write
+  oltp     the Gremlin entry point on the same store, reopened with
+           computer.spillover: g.V().page_rank().order().by('pagerank',
+           desc).limit(10).id_() (its cold submit counted at one kernel run
+           a superstep: 20 iterations at most, fewer where tol=1e-9 stops
+           it; the ids and ranks equal a direct submit's, within 1e-4 of
+           float64), connected_component() on 16 seeds against scipy,
+           shortest_path(max_hops=4) from the out-degree hub (one path per
+           vertex it reaches) against a scipy BFS; then the
+           spillover of g.V(seeds).out('link').out('link').out('link')
+           .count() (seeds drawn from --seed until scipy counts ~60,000
+           paths): walked computer.spillover-min-seen times, spilled cold
+           (the snapshot pack) and warm, 3 kernel runs each and equal to the
+           walk, its dedup().count() and id_() variants equal to their walks,
+           a spill inside a transaction of ~100 edge writes (the patched
+           snapshot) equal to that transaction's walk, and a spill after the
+           commit through a delta refresh equal to a fresh walk; every
+           olap.spillover.fallback counter 0
   telemetry  the run records every run above published (the executor's
            _finish_run wrapped to time its host ms and to read the
            allocator just after): every record's roofline utilization in
@@ -1434,7 +1451,7 @@ def filtered_3hop(csr, key, value):
         TraversalStep,
         evaluate_filter_mask,
     )
-    from janusgraph_tpu_torch.predicates import Cmp
+    from janusgraph_tpu_torch.core.predicates import Cmp
 
     flt = (PropertyFilter(key, Cmp.GREATER_THAN, value),)
     fmask = evaluate_filter_mask(csr, flt)
@@ -2157,6 +2174,236 @@ def stored_delta_phase(stored, args, emit) -> dict:
             "max_abs_err": max(v["max_abs_err"] for v in lanes.values())}
 
 
+def spill_seeds(csr, rng, want_paths: int = 60_000, max_seeds: int = 64):
+    """Start vertices drawn from ``rng`` whose 3-hop out-path total, counted
+    with scipy from the CSR, reaches about ``want_paths`` and stays below
+    2^24 (the float32 count exactness the spillover refuses past): (seed
+    indices, the total)."""
+    from scipy.sparse import csr_matrix
+
+    n = csr.num_vertices
+    adj = csr_matrix((np.ones(csr.num_edges), csr.out_dst, csr.out_indptr), shape=(n, n))
+    paths3 = adj @ (adj @ (adj @ np.ones(n)))
+    cand = rng.permutation(np.flatnonzero((paths3 > 0) & (paths3 <= want_paths / 4)))
+    seeds, total = [], 0.0
+    for i in cand:
+        if total >= want_paths or len(seeds) == max_seeds:
+            break
+        seeds.append(int(i))
+        total += paths3[i]
+    if not seeds or total >= 2 ** 24:
+        raise RuntimeError(f"spill seeds: {len(seeds)} seeds, {total} paths")
+    return np.asarray(seeds), float(total), adj
+
+
+def oltp_phase(stored, args, emit) -> dict:
+    """The Gremlin entry point on the stored graph the phases before wrote
+    (the bulk-loaded graph500 graph, its written-back ranks and the delta
+    phase's writes), reopened over the same store with computer.spillover:
+    the page_rank() step's top 10 against a direct submit, the
+    connected_component() and shortest_path() steps against scipy, and the
+    OLTP->OLAP spillover of a 3-hop count (walked, spilled, spilled inside
+    a transaction, spilled after its commit through a delta refresh)."""
+    import torch
+    from scipy.sparse.csgraph import connected_components, dijkstra
+
+    from janusgraph_tpu_torch.core.codecs import Direction
+    from janusgraph_tpu_torch.core.graph import open_graph
+    from janusgraph_tpu_torch.core.traversal import GraphTraversalSource
+    from janusgraph_tpu_torch.observability import registry
+    from janusgraph_tpu_torch.olap import kernels
+    from janusgraph_tpu_torch.olap.programs import PageRankProgram
+
+    phase_t0 = time.perf_counter()
+    # a V() traversal holds every vertex: 2^20 and more here, past the
+    # default query.max-traversers budget of a million
+    g = open_graph({"computer.spillover": True, "query.max-traversers": 1 << 22},
+                   store_manager=stored["graph"].backend.manager)
+    planner = g.spillover_planner
+
+    def count(name):
+        return registry.snapshot().get(name, {}).get("count", 0)
+
+    # -- the top 10 by rank: the step's cold submit and the host walk
+    # around it. The step's program is PageRank(damping 0.85, 20
+    # iterations) at the default tol of 1e-9, which this sparse graph meets
+    # in fewer supersteps: the kernel runs once a superstep the run
+    # reports, and once in each superstep the fused loop computed past the
+    # stop and discarded (predicated_steps)
+    t0 = time.perf_counter()
+    step = g.traversal().V().page_rank().order().by("pagerank", reverse=True).limit(10).id_()
+    before = kernels.device_launches("cuda")
+    top = step.to_list()
+    torch.cuda.synchronize()
+    pr_runs = kernels.device_launches("cuda") - before
+    top_wall = time.perf_counter() - t0
+    step_run = registry.last_run("olap")
+    step_run_wall, pr_steps = step_run["wall_s"], step_run["supersteps"]
+    discarded = step_run.get("predicated_steps", 0)
+    if pr_runs != pr_steps + discarded or not 2 <= pr_steps <= 20:
+        raise RuntimeError(f"page_rank(): {pr_runs} kernel runs for {pr_steps} supersteps "
+                           f"and {discarded} discarded")
+    direct = g.compute().program(PageRankProgram(max_iterations=20)).submit()
+    if direct.run_info["supersteps"] != pr_steps:
+        raise RuntimeError(f"the direct submit ran {direct.run_info['supersteps']} supersteps")
+    csr = direct.csr
+    rank = direct.states["rank"]
+    pos = np.searchsorted(csr.vertex_ids, top)
+    # the ranks the step annotated (its traversal-local overlay) are the
+    # direct submit's, bit for bit
+    if not bits_equal(np.array([step._olap_overlay[v]["pagerank"] for v in top], np.float32),
+                      rank[pos]):
+        raise RuntimeError("page_rank()'s ranks differ from the direct submit's")
+    # ties broken by id on both sides (the step sorts stably in scan order)
+    order = np.lexsort((csr.vertex_ids, -rank.astype(np.float64)))[:10]
+    got = sorted(zip((-rank[pos]).tolist(), top))
+    want = sorted(zip((-rank[order]).tolist(), csr.vertex_ids[order].tolist()))
+    if got != want or not np.array_equal(csr.vertex_ids[pos], top):
+        raise RuntimeError(f"page_rank() top 10 {got} against the direct submit's {want}")
+    want64 = pagerank_fp64(csr, pr_steps)
+    rel = max_rel(rank[pos], want64[pos])
+    if not rel <= RANK_REL:
+        raise RuntimeError(f"page_rank() top 10: max rel diff {rel} from float64")
+    emit("oltp_top10", vertices=csr.num_vertices, edges=csr.num_edges, wall_s=top_wall,
+         run_wall_s=step_run_wall, host_walk_s=top_wall - step_run_wall, kernel_runs=pr_runs,
+         supersteps=pr_steps, discarded_supersteps=discarded, max_rel_diff_vs_fp64=rel,
+         ids=top, seconds=time.perf_counter() - phase_t0)
+
+    # -- connected_component() on seeds, shortest_path() from the hub
+    n = csr.num_vertices
+    rng = np.random.default_rng(args.seed + 10)
+    seeds, paths_total, adj = spill_seeds(csr, rng)
+    cc_seeds = rng.choice(n, 16, replace=False)
+    t0 = time.perf_counter()
+    comps = g.traversal().V(*csr.vertex_ids[cc_seeds].tolist()).connected_component() \
+        .values("component").to_list()
+    cc_wall = time.perf_counter() - t0
+    ncomp, labels = connected_components(adj, directed=True, connection="weak")
+    lowest = np.full(ncomp, n, dtype=np.int64)
+    np.minimum.at(lowest, labels, np.arange(n))
+    if comps != csr.vertex_ids[lowest[labels[cc_seeds]]].tolist():
+        raise RuntimeError("connected_component() differs from scipy's components")
+    hub = int(np.argmax(csr.out_degree))
+    hops = dijkstra(adj, directed=True, unweighted=True, indices=hub, limit=4)
+    reach = np.flatnonzero((hops <= 4) & (np.arange(n) != hub))
+    t0 = time.perf_counter()
+    paths = g.traversal().V(int(csr.vertex_ids[hub])).shortest_path(max_hops=4).to_list()
+    sp_wall = time.perf_counter() - t0
+    ends = np.searchsorted(csr.vertex_ids, [p[-1].id for p in paths])
+    if sorted(ends.tolist()) != reach.tolist() or any(
+            len(p) != hops[e] + 1 or p[0].id != csr.vertex_ids[hub] for p, e in zip(paths, ends)):
+        raise RuntimeError("shortest_path() paths differ from scipy's BFS")
+    emit("oltp_computer_steps",
+         connected_component={"wall_s": cc_wall, "seeds": len(cc_seeds)},
+         shortest_path={"wall_s": sp_wall, "hub_out_degree": int(csr.out_degree[hub]),
+                        "paths": len(paths), "max_len": max(map(len, paths), default=0)},
+         seconds=time.perf_counter() - phase_t0)
+
+    # -- the spillover: walk the 3-hop count on the row path until the
+    # digest table promotes it, then spill
+    seed_ids = csr.vertex_ids[seeds].tolist()
+
+    def chain(src=None):
+        return (src or g.traversal()).V(*seed_ids).out("link").out("link").out("link")
+
+    def walk(build):
+        """One run on the row path: (result, ms)."""
+        planner.enabled = False
+        try:
+            t0 = time.perf_counter()
+            out = build()
+            return out, (time.perf_counter() - t0) * 1e3
+        finally:
+            planner.enabled = True
+
+    def spill(build):
+        spilled = count("olap.spillover.spilled")
+        t0 = time.perf_counter()
+        out, runs = counted(build, 3)
+        wall = time.perf_counter() - t0
+        if count("olap.spillover.spilled") != spilled + 1:
+            raise RuntimeError("the promoted chain did not spill")
+        return out, wall, runs
+
+    min_seen = g.config.get("computer.spillover-min-seen")
+    planner.enabled = True
+    t0 = time.perf_counter()
+    for _ in range(min_seen):  # the row path: each walk feeds the digest table
+        walked = chain().count()
+    walk_ms = (time.perf_counter() - t0) / min_seen * 1e3
+    if walked != round(paths_total):
+        raise RuntimeError(f"the walk counted {walked} paths, scipy {paths_total}")
+    first, first_wall, first_runs = spill(lambda: chain().count())
+    warm, warm_wall, warm_runs = spill(lambda: chain().count())
+    warm_run_wall = registry.last_run("olap")["wall_s"]
+    if not first == warm == walked:
+        raise RuntimeError(f"spilled counts {first}, {warm} against the walk's {walked}")
+    variants = {}
+    for name, build in (("dedup_count", lambda: chain().dedup().count()),
+                        ("id", lambda: sorted(chain().id_().to_list()))):
+        for _ in range(min_seen):
+            want_v = build()
+        got_v, wall_v, _r = spill(build)
+        if got_v != want_v:
+            raise RuntimeError(f"the spilled {name} differs from the walk's")
+        variants[name] = {"wall_s": wall_v, "size": got_v if name == "dedup_count" else len(got_v)}
+
+    # -- inside a transaction: ~100 edge writes around the seeds, spilled
+    # over the patched snapshot, against that transaction's walk
+    tx = g.new_transaction()
+    src = GraphTraversalSource(g, tx)
+
+    def step_out(vs):
+        return np.unique(csr.out_dst[np.concatenate(
+            [np.arange(csr.out_indptr[v], csr.out_indptr[v + 1]) for v in vs])])
+
+    hop1 = step_out(seeds)
+    removed = 0
+    for v in np.concatenate([hop1, np.setdiff1d(step_out(hop1), hop1)]):
+        edges = tx.get_edges(tx.get_vertex(int(csr.vertex_ids[v])), Direction.OUT, ("link",))
+        if edges:
+            tx.remove_edge(edges[0])
+            removed += 1
+            if removed == 50:
+                break
+    ends_to = rng.choice(n, 50)
+    for s_, d_ in zip(rng.choice(hop1, 50), ends_to):
+        tx.add_edge(tx.get_vertex(int(csr.vertex_ids[s_])), "link",
+                    tx.get_vertex(int(csr.vertex_ids[d_])))
+    in_tx, tx_wall, tx_runs = spill(lambda: chain(src).count())
+    tx_walk, tx_walk_ms = walk(lambda: chain(src).count())
+    if in_tx != tx_walk or in_tx == walked:
+        raise RuntimeError(f"in-transaction spill {in_tx}, its walk {tx_walk}, before {walked}")
+    patched = registry.last_run("olap.spillover")["spillover"]["overlay"]
+
+    # -- committed: the next spill refreshes the snapshot from the change
+    # capture (materialize, zero store reads)
+    tx.commit()
+    refreshes = count("olap.spillover.delta_refreshes")
+    after, after_wall, after_runs = spill(lambda: chain().count())
+    fresh_walk, fresh_ms = walk(lambda: chain().count())
+    if count("olap.spillover.delta_refreshes") != refreshes + 1:
+        raise RuntimeError("the spill after the commit did not refresh from the capture")
+    if after != fresh_walk or after != in_tx:
+        raise RuntimeError(f"spill after commit {after}, fresh walk {fresh_walk}, in tx {in_tx}")
+    fallbacks = {k: v.get("count", 0) for k, v in registry.snapshot().items()
+                 if k.startswith("olap.spillover.fallback")}
+    if any(fallbacks.values()):
+        raise RuntimeError(f"spillover fell back: {fallbacks}")
+    emit("oltp", vertices=n, edges=csr.num_edges, spillover={
+        "seeds": len(seeds), "paths_3hop": paths_total, "walk_ms_mean": walk_ms,
+        "min_seen": min_seen, "first_spill_wall_s": first_wall,
+        "warm_spill_wall_s": warm_wall, "warm_spill_run_wall_s": warm_run_wall,
+        "kernel_runs": [first_runs, warm_runs, tx_runs, after_runs], "variants": variants,
+        "in_tx": {"edges_added": len(ends_to), "edges_removed": removed, "overlay": patched,
+                  "wall_s": tx_wall, "count": in_tx, "walk_ms": tx_walk_ms},
+        "after_commit": {"wall_s": after_wall, "walk_ms": fresh_ms},
+        "delta_refreshes": count("olap.spillover.delta_refreshes"), "fallbacks": fallbacks,
+    }, seconds=time.perf_counter() - phase_t0)
+    g.close()
+    return {"launches": pr_runs, "launches_spill": warm_runs}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20)
@@ -2518,6 +2765,8 @@ def main() -> int:
     stored = stored_phase(csr, args, emit)
     kernels.reset_launch_counts()
     stored_delta = stored_delta_phase(stored, args, emit)
+    kernels.reset_launch_counts()
+    oltp = oltp_phase(stored, args, emit)
     telemetry_phase(emit)
     print(json.dumps({"kernels": [{
         "name": "sorted_segment_sum",
@@ -2549,6 +2798,11 @@ def main() -> int:
         # after a bulk burst on the "refresh" path (the compacted base)
         "launches_stored_delta": stored_delta["launches"],
         "launches_stored_refresh": stored_delta["launches_refresh"],
+        # g.V().page_rank()...limit(10) over the reopened stored graph (its
+        # cold submit), and a spilled 3-hop count (one run a hop on the
+        # "link" channel's plan)
+        "launches_oltp_page_rank": oltp["launches"],
+        "launches_oltp_spill": oltp["launches_spill"],
         # the kernel against its plain version on the stored path's in-plan
         # and "link" channel plan
         "max_abs_err_stored": stored["max_abs_err"],

@@ -1,16 +1,16 @@
 """Attribute serializer registry — the part of
-``janusgraph_tpu/core/attributes.py`` that the stored-graph OLAP path
-writes and reads: the framed encoding ``[type_id:2 BE][payload]`` and the
-codecs of bool (1), int/long (2), float/double (3), str (4) and bytes (5,
-what a schema definition is framed as), with the reference's type ids and
-bytes.
+``janusgraph_tpu/core/attributes.py`` that the stored graph and the
+traversal write and read: the framed encoding ``[type_id:2 BE][payload]``
+and the codecs of bool (1), int/long (2), float/double (3), str (4),
+bytes (5, what a schema definition is framed as) and ``Geoshape`` (9, the
+values the traversal's geo predicates test), with the reference's type ids
+and bytes.
 
-Left out: every other datatype (dates, UUIDs, geoshapes, numpy scalars and
-arrays, enums, dicts, pickles, ...). A cell that holds one still decodes:
+Left out: every other datatype (dates, UUIDs, numpy scalars and arrays,
+enums, dicts, pickles, ...). A cell that holds one still decodes:
 ``read_object`` returns an ``UnportedValue`` carrying its type id and its
-raw payload, so a scan that does not ask for that value passes over it (the
-Graph of the Gods' geoshape ``place`` on ``battled`` edges). Writing one
-raises ``SerializerError``.
+raw payload, so a scan that does not ask for that value passes over it.
+Writing one raises ``SerializerError``.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import zlib
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
+from janusgraph_tpu_torch.core.predicates import Geoshape
 from janusgraph_tpu_torch.exceptions import JanusGraphTorchError
 
 
@@ -172,6 +173,90 @@ class BytesSerializer(AttributeSerializer):
         return bytes(data)
 
 
+class GeoshapeSerializer(AttributeSerializer):
+    """Kind-tagged binary: 0x01 point[2d], 0x02 circle[3d], 0x03 box[4d],
+    0x04 polygon[count:2][2d each], 0x05 line, 0x06 multipoint (point
+    lists), 0x07/0x08/0x09 multilinestring/multipolygon/collection
+    ([count:2] nested length-prefixed sub-shapes) — the full Geoshape
+    vocabulary (reference: Geoshape.GeoShapeSerializer binary codec,
+    attribute/Geoshape.java:623)."""
+
+    type_id = 9
+    py_type = Geoshape
+
+    _PART_TAGS = {
+        "MultiLineString": b"\x07",
+        "MultiPolygon": b"\x08",
+        "GeometryCollection": b"\x09",
+    }
+
+    def write(self, value) -> bytes:
+        if value.kind == "Point":
+            return b"\x01" + struct.pack(">dd", value.lat, value.lon)
+        if value.kind == "Circle":
+            return b"\x02" + struct.pack(
+                ">ddd", value.lat, value.lon, value.radius_km
+            )
+        if value.kind == "Box":
+            (slat, slon), (nlat, nlon) = value.coords
+            return b"\x03" + struct.pack(">dddd", slat, slon, nlat, nlon)
+        tag = self._PART_TAGS.get(value.kind)
+        if tag is not None:
+            if len(value.parts) > 0xFFFF:
+                raise SerializerError(
+                    f"{value.kind} exceeds 65535 parts ({len(value.parts)})"
+                )
+            out = [tag, struct.pack(">H", len(value.parts))]
+            for p in value.parts:
+                sub = self.write(p)
+                out.append(struct.pack(">I", len(sub)))
+                out.append(sub)
+            return b"".join(out)
+        tag = {"Polygon": b"\x04", "Line": b"\x05", "MultiPoint": b"\x06"}[
+            value.kind
+        ]
+        if len(value.coords) > 0xFFFF:
+            raise SerializerError(
+                f"{value.kind} exceeds 65535 points ({len(value.coords)})"
+            )
+        out = [tag, struct.pack(">H", len(value.coords))]
+        for la, lo in value.coords:
+            out.append(struct.pack(">dd", la, lo))
+        return b"".join(out)
+
+    def read(self, data: bytes):
+        kind = data[0]
+        if kind == 1:
+            return Geoshape.point(*struct.unpack(">dd", data[1:17]))
+        if kind == 2:
+            return Geoshape.circle(*struct.unpack(">ddd", data[1:25]))
+        if kind == 3:
+            return Geoshape.box(*struct.unpack(">dddd", data[1:33]))
+        if kind in (7, 8, 9):
+            (n,) = struct.unpack(">H", data[1:3])
+            off = 3
+            parts = []
+            for _ in range(n):
+                (ln,) = struct.unpack(">I", data[off:off + 4])
+                off += 4
+                parts.append(self.read(data[off:off + ln]))
+                off += ln
+            if kind == 7:
+                return Geoshape.multilinestring(parts)
+            if kind == 8:
+                return Geoshape.multipolygon(parts)
+            return Geoshape.geometry_collection(parts)
+        (n,) = struct.unpack(">H", data[1:3])
+        pts = [
+            struct.unpack(">dd", data[3 + 16 * i : 19 + 16 * i]) for i in range(n)
+        ]
+        if kind == 5:
+            return Geoshape.line(pts)
+        if kind == 6:
+            return Geoshape.multipoint(pts)
+        return Geoshape.polygon(pts)
+
+
 class Serializer:
     """The registry: type-id <-> serializer <-> python type.
 
@@ -187,6 +272,7 @@ class Serializer:
             DoubleSerializer,
             StringSerializer,
             BytesSerializer,
+            GeoshapeSerializer,
         ):
             self.register(cls())
 

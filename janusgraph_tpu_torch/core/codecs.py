@@ -30,8 +30,10 @@ With no sort key and no inline properties (the bulk-load common case) an edge
 column is exactly 27 bytes — `bulk decode` = one reshape + three strided views.
 
 The port's copy of ``janusgraph_tpu/core/codecs.py``, with the same bytes.
-Left out: the OLTP traversal's query bounds (``get_bounds``,
-``get_adjacency_slice``, ``get_sort_range_slice``; ROADMAP Queue A #5).
+The traversal's vertex-centric reads slice through
+``get_adjacency_slice`` (one neighbour) and ``get_sort_range_slice`` (a
+sort-key range). Left out: ``get_bounds`` (whole relation categories),
+which nothing in the port reads.
 """
 
 from __future__ import annotations
@@ -389,6 +391,48 @@ class EdgeSerializer:
             start = base + sort_key_prefix
             return SliceQuery(start, _increment(start))
         return SliceQuery(prefix + bytes([d]), prefix + bytes([d + 1]))
+
+    # ------------------------------------------------- vertex-centric slices
+    def get_adjacency_slice(
+        self, type_id: int, direction: Direction, other_vid: int
+    ) -> SliceQuery:
+        """Point-lookup slice for edges of one type+direction to ONE specific
+        neighbor (reference: the AdjacentVertex*OptimizerStrategy rewrites —
+        graphdb/tinkerpop/optimize/strategy/AdjacentVertexFilter/HasId/Is —
+        turn neighborhood iteration into adjacency checks; here the check is
+        a single column-range read because other_vid sits at a fixed offset
+        in sort-key-free edge columns)."""
+        if direction == Direction.BOTH:
+            raise CodecError("adjacency lookups need a concrete direction")
+        cat = _category_byte(type_id, True, self.idm)
+        base = struct.pack(">BQBB", cat, type_id, int(direction), 0)
+        start = base + struct.pack(">Q", other_vid)
+        return SliceQuery(start, _increment(start))
+
+    def get_sort_range_slice(
+        self,
+        type_id: int,
+        direction: Direction,
+        lo: bytes,
+        hi: bytes,
+        sort_key_len: int,
+    ) -> SliceQuery:
+        """Column range covering sort keys in [lo, hi) for one edge type and
+        direction — the vertex-centric index RANGE scan (reference:
+        BasicVertexCentricQueryBuilder.java:780 interval constraints compiled
+        into key ranges by EdgeSerializer.java:235-319's order-preserving
+        sort-key encoding). lo/hi are order-preserving encodings of sort-key
+        value prefixes; hi is exclusive at its prefix."""
+        if direction == Direction.BOTH:
+            raise CodecError("sort-range scans need a concrete direction")
+        if len(lo) > sort_key_len or len(hi) > sort_key_len:
+            raise CodecError("sort-range bound longer than label sort key")
+        cat = _category_byte(type_id, True, self.idm)
+        base = struct.pack(">BQ", cat, type_id) + bytes(
+            [int(direction), sort_key_len]
+        )
+        end = base + hi if hi else _increment(base)
+        return SliceQuery(base + lo, end)
 
     # ------------------------------------------------------------- bulk decode
     def bulk_decode_edges(

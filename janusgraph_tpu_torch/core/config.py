@@ -3,9 +3,9 @@ of local and cluster-global values — the port's copy of
 ``GraphConfiguration`` and ``ConfigOption`` from
 ``janusgraph_tpu/core/config.py``.
 
-The registry holds only the options the stored-graph OLAP path and the
-transaction read, with the reference's names, defaults, mutability levels
-and validators. One default differs on purpose: ``computer.strategy`` is
+The registry holds only the options the stored-graph OLAP path, the
+transaction, the traversal and the spillover planner read, with the
+reference's names, defaults, mutability levels and validators. One default differs on purpose: ``computer.strategy`` is
 "segsum", the port's hand-kernel route (the reference defaults to "auto";
 ROADMAP "Deliberate differences"). The reference's values all stay valid,
 and "pallas", the reference's name for its hand kernel, means "segsum".
@@ -105,10 +105,10 @@ _NOT_PORTED: Dict[str, str] = {
     "computer.shard-": _ROADMAP_MULTI,
     "computer.exchange": _ROADMAP_MULTI,
     "computer.agg": _ROADMAP_MULTI,
-    # the rest of computer.* (the price book, spillover, result mode) and
-    # of metrics.* (trace propagation, history, profiling, SLOs, streams,
-    # the digest table, fleet outliers) serve the server and the remote
-    # store
+    # the rest of computer.* (the price book, result mode) and of
+    # metrics.* (trace propagation, history, profiling, SLOs, streams,
+    # fleet outliers) serve the server and the remote store; the rest of
+    # query.* serves the indexes
     "computer.": _ROADMAP_HOST,
     "metrics.": _ROADMAP_HOST,
     "cluster.": _ROADMAP_MULTI,
@@ -305,6 +305,85 @@ _option(
     "computer.features-native-matmul", bool,
     "dense programs' transforms through torch.matmul (TF32 off) instead of "
     "the fixed-order tree contraction", False,
+)
+_option(
+    "computer.spillover", bool,
+    "OLTP->OLAP spillover: recurring expensive multi-hop traversal shapes "
+    "(promoted from the digest table's measured mean cost) compile to an "
+    "OLAPTraversalProgram over a cached CSR snapshot, with tx-overlay "
+    "reconciliation for read-your-writes (olap/spillover.py; hook: "
+    "GraphTraversal._execute). An unsupported step, overlay overflow or "
+    "staleness breach falls back to the row walk; an error of the device "
+    "run reaches the caller", True,
+)
+_option(
+    "computer.spillover-min-cost-ms", float,
+    "measured mean wall (digest table) a traversal shape must exceed before "
+    "the spillover planner promotes it", 25.0, verifier=lambda v: v >= 0,
+)
+_option(
+    "computer.spillover-min-seen", int,
+    "executions of a shape the digest table must have observed before the "
+    "spillover planner considers promotion", 3, verifier=lambda v: v >= 1,
+)
+_option(
+    "computer.spillover-min-hops", int,
+    "expansion steps a chain needs before spillover is considered", 2,
+    verifier=lambda v: v >= 1,
+)
+_option(
+    "computer.spillover-max-overlay", int,
+    "uncommitted tx mutations beyond which spillover falls back to the row "
+    "walk instead of patching the snapshot", 4096, verifier=lambda v: v >= 0,
+)
+_option(
+    "computer.spillover-max-staleness", int,
+    "committed writes since the spillover snapshot was packed beyond which "
+    "spillover refuses (counter olap.spillover.stale) and repacks on the "
+    "next attempt; within it the snapshot refreshes from the change capture",
+    4096, verifier=lambda v: v >= 0,
+)
+_option(
+    "query.force-index", bool,
+    "refuse traversals that would fall back to a full graph scan (the port "
+    "has no indexes, so every V() without ids is such a scan)", False,
+)
+_option(
+    "query.ignore-unknown-index-key", bool,
+    "graph-centric queries over a property key absent from the schema: "
+    "false raises QueryError, true treats the condition as unsatisfiable",
+    False,
+)
+_option(
+    "query.max-repeat-loops", int,
+    "graph-wide bound on until-only repeat() loops", 64, verifier=lambda v: v > 0,
+)
+_option(
+    "query.max-traversers", int,
+    "frontier-size budget per traversal execution (0 = unlimited): an "
+    "exploding chain raises QueryError instead of consuming the process",
+    1_000_000, verifier=lambda v: v >= 0,
+)
+_option(
+    "query.batch", bool,
+    "batched multi-query prefetch in traversal expansion steps (off = one "
+    "slice read per vertex)", True,
+)
+_option(
+    "query.batch-size", int,
+    "multi-query prefetch chunk: vertices per batched multi-slice call",
+    2500, verifier=lambda v: v > 0,
+)
+_option(
+    "metrics.slow-query-threshold-ms", float,
+    "traversal executions slower than this bump the query.slow counter "
+    "(0 = off)", 0.0, verifier=lambda v: v >= 0,
+)
+_option(
+    "metrics.digest-top-k", int,
+    "capacity of the bounded query-digest table (top-K shapes by total "
+    "cost), which spillover promotion reads", 128, Mutability.LOCAL,
+    lambda v: v > 0,
 )
 _option("metrics.enabled", bool, "collect per-store operation metrics", False)
 _option(

@@ -1,6 +1,6 @@
 """The graph: open, wiring, ID assignment and schema persistence — the
 port's copy of the part of ``janusgraph_tpu/core/graph.py`` that the
-stored-graph OLAP path runs.
+stored-graph OLAP path and the traversal run.
 
 ``open_graph(config, store_manager=None)`` opens a ``JanusGraphTPU`` over
 an in-memory store (or over ``store_manager``, e.g.
@@ -8,11 +8,11 @@ an in-memory store (or over ``store_manager``, e.g.
 holds ``config``, ``backend``, ``idm``, ``serializer``,
 ``edge_serializer``, ``system_types``, ``schema_cache`` and ``id_assigner``
 (vertex, relation and schema id pools), and offers ``management()``,
-``new_transaction()``, ``compute()`` and ``close()``. Data goes in through
-OLTP transactions (``core/tx.py``, serialized by ``commit_tx`` under the
-graph-wide commit lock into the reference's cells) and the columnar bulk
-loader (``core/bulk.py``), and out through ``load_csr`` and
-``ComputerResult.write_back``. With ``computer.delta`` (the default) every
+``new_transaction()``, ``traversal()``, ``compute()`` and ``close()``.
+Data goes in through OLTP transactions (``core/tx.py``, serialized by
+``commit_tx`` under the graph-wide commit lock into the reference's cells)
+and the columnar bulk loader (``core/bulk.py``), and out through
+``load_csr`` and ``ComputerResult.write_back``. With ``computer.delta`` (the default) every
 committed edgestore batch also streams into the graph's ``ChangeCapture``
 (``olap/delta.py``), which the warm delta snapshot behind ``submit()``
 reads instead of the store.
@@ -23,10 +23,15 @@ overrides and structured logging (``metrics.*``); with ``metrics.enabled``
 the backend instruments its raw stores and the console and CSV reporters
 start (``util/metrics.py``), stopped again by ``close()``.
 
-Left out (ROADMAP Queue A #5): the OLTP traversal (``traversal``),
-indexes and index providers (the port makes none, so commits maintain
-none), the WAL, logs and schema broadcast, lock-consistency claims, cell
-TTLs, the instance registry, fault injection and the other store
+``traversal()`` is the Gremlin entry point (``core/traversal.py``); with
+``computer.spillover`` (the default, as the reference's) the graph holds a
+``SpilloverPlanner`` that runs promoted hot multi-hop chains on the OLAP
+engine (``olap/spillover.py``).
+
+Left out (ROADMAP Queue A #5): indexes and index providers (the port
+makes none, so commits maintain none and traversals scan), graph I/O
+(``g.io()``), the WAL, logs and schema broadcast, lock-consistency claims,
+cell TTLs, the instance registry, fault injection and the other store
 backends.
 """
 
@@ -179,7 +184,19 @@ class JanusGraphTPU:
                 self, limit=cfg.get("computer.delta-capture-limit")
             )
             self.backend.register_change_capture(self.change_capture.on_commit)
+        # resolved ONCE at open: these sit on the traversal's hottest paths
+        self._slow_query_threshold_ms = cfg.get("metrics.slow-query-threshold-ms")
+        self._query_batch = cfg.get("query.batch")
+        self._max_traversers = cfg.get("query.max-traversers")
         self._configure_telemetry()
+        # OLTP->OLAP spillover planner (computer.spillover; olap/
+        # spillover.py): promoted hot multi-hop traversal shapes run as an
+        # OLAPTraversalProgram over a cached CSR snapshot
+        self.spillover_planner = None
+        if cfg.get("computer.spillover"):
+            from janusgraph_tpu_torch.olap.spillover import SpilloverPlanner
+
+            self.spillover_planner = SpilloverPlanner(self)
         self._open = True
 
     def _configure_telemetry(self) -> None:
@@ -203,6 +220,7 @@ class JanusGraphTPU:
             peak_bytes_per_s=cfg.get("metrics.roofline-peak-bytes-per-s"),
             peak_mxu_flops=cfg.get("metrics.roofline-peak-mxu-flops"),
         )
+        profiler.digest_table.configure(capacity=cfg.get("metrics.digest-top-k"))
         if cfg.get("metrics.structured-logging"):
             import sys
 
@@ -255,6 +273,13 @@ class JanusGraphTPU:
             raise SchemaViolationError(f"{name} exists and is not a vertex label")
         return self.management().make_vertex_label(name)
 
+    def traversal(self):
+        """The Gremlin entry point: ``g = graph.traversal()``, then
+        ``g.V()...`` (``core/traversal.py``)."""
+        from janusgraph_tpu_torch.core.traversal import GraphTraversalSource
+
+        return GraphTraversalSource(self)
+
     def compute(self, executor: str = None):
         """OLAP entry point (reference: JanusGraph.compute()). Defaults the
         executor to the computer.executor config option: "tpu", the card;
@@ -264,8 +289,9 @@ class JanusGraphTPU:
         return GraphComputer(self, executor=executor)
 
     def close(self) -> None:
-        """Close the store; the delta snapshot and its cached executors (and
-        with them their device memory) go with it."""
+        """Close the store; the delta snapshot, the spillover snapshot and
+        their cached executors (and with them their device memory) go with
+        it."""
         if self._open:
             for r in self._metric_reporters:
                 try:
@@ -275,6 +301,8 @@ class JanusGraphTPU:
             if self._delta_snapshot is not None:
                 self._delta_snapshot.close()
                 self._delta_snapshot = None
+            if self.spillover_planner is not None:
+                self.spillover_planner.close()
             self.backend.register_change_capture(None)
             self.backend.close()
             self._open = False

@@ -16,8 +16,8 @@ schema-name index so lookups are one slice read.
 
 The port's copy of ``janusgraph_tpu/core/schema.py``: ``SystemTypes``,
 ``PropertyKey``, ``EdgeLabel``, ``VertexLabel``, ``SchemaCache`` and the
-definition codec, with the same definition bytes. Property keys of the five
-ported datatypes (Boolean, Long, Double, String, Bytes) can be made here; a
+definition codec, with the same definition bytes. Property keys of the six
+ported datatypes (Boolean, Long, Double, String, Bytes, Geoshape) can be made here; a
 stored key of another datatype (a graph the JAX package wrote) loads with
 an ``UnportedDataType`` that keeps its name, so its definition round-trips.
 Left out: ``RelationIndex`` and ``IndexDefinition`` (no indexes in the
@@ -39,6 +39,7 @@ from janusgraph_tpu_torch.core.codecs import (
     TypeInfo,
 )
 from janusgraph_tpu_torch.core.ids import IDManager, VertexIDType
+from janusgraph_tpu_torch.core.predicates import Geoshape
 from janusgraph_tpu_torch.exceptions import SchemaViolationError
 
 
@@ -66,8 +67,8 @@ class SystemTypes:
 
 @dataclass(frozen=True)
 class UnportedDataType:
-    """A schema datatype name the port does not decode (``Geoshape``,
-    ``Date``, ...): kept so a stored definition loads and round-trips."""
+    """A schema datatype name the port does not decode (``Date``,
+    ``UUID``, ...): kept so a stored definition loads and round-trips."""
 
     name: str
 
@@ -84,6 +85,7 @@ _DATA_TYPES: Dict[str, type] = {
     "Double": float,
     "String": str,
     "Bytes": bytes,
+    "Geoshape": Geoshape,
 }
 _DATA_TYPE_NAMES = {v: k for k, v in _DATA_TYPES.items()}
 

@@ -11,12 +11,16 @@ element creation (the reference's default ``ids.flush-ids=true``), so the
 same calls draw the same vertex and relation ids as the reference's, and
 ``graph.commit_tx`` writes the same cells.
 
-Left out (ROADMAP.md Queue A #5): ``prefetch`` (the multi-query slice
-batch), the sort-range ``get_edges`` and ``adjacency_edges`` (the
-vertex-centric index reads of the OLTP traversal), schema constraints
-(``schema.constraints`` is not honoured, so none apply) and the index
-copies of relation indexes (the port has none). ``log_identifier`` needs
-the WAL (Queue A #5) and raises ``NotImplementedError``.
+The traversal's reads are here too: ``prefetch`` (the multi-query slice
+batch, ``query.batch-size`` vertices a call), the sort-range
+``get_edges`` (the vertex-centric index's column range on a sort-keyed
+label) and ``adjacency_edges`` (point lookups of specific neighbours).
+
+Left out (ROADMAP.md Queue A #5): schema constraints
+(``schema.constraints`` is not honoured, so none apply) and relation
+indexes, with the index copies they write and the sort ranges they serve
+on labels without a sort key (the port has none). ``log_identifier``
+needs the WAL (Queue A #5) and raises ``NotImplementedError``.
 
 Telemetry, as the reference's: ``tx.begin`` and ``tx.rollback`` counters,
 a ``tx.commit`` span (added and deleted relations, lifetime) around a
@@ -43,6 +47,7 @@ from janusgraph_tpu_torch.core.ids import VertexIDType
 from janusgraph_tpu_torch.core.schema import EdgeLabel, PropertyKey
 from janusgraph_tpu_torch.exceptions import (
     InvalidElementError,
+    QueryError,
     ReadOnlyTransactionError,
     SchemaViolationError,
 )
@@ -484,13 +489,29 @@ class Transaction:
         v: Vertex,
         direction: Direction,
         labels: Sequence[str],
+        sort_range: Optional[tuple] = None,
     ) -> List[Edge]:
         """Edges incident to ``v`` in ``direction`` with one of ``labels``
-        (all user edges when empty), committed and added in this tx."""
+        (all user edges when empty), committed and added in this tx.
+        ``sort_range=(lo, hi)`` restricts a sort-keyed label to sort-key
+        values in [lo, hi), compiled into a column-range slice: the
+        vertex-centric index (reference: BasicVertexCentricQueryBuilder
+        interval constraints). lo/hi are a value (first sort-key property)
+        or a tuple of values (a prefix of the label's sort-key properties);
+        None leaves that bound open. Requires exactly one sort-keyed label
+        and a concrete direction."""
         es = self.graph.edge_serializer
         results: List[Edge] = []
+        sr_bytes = None
+        if sort_range is not None:
+            sr_bytes = self._encode_sort_range(labels, direction, sort_range)
         if not v.is_new:
-            for q in self._edge_slices(direction, labels):
+            if sr_bytes is not None:
+                el, lo_b, hi_b, sk_len = sr_bytes
+                slices = [es.get_sort_range_slice(el.id, direction, lo_b, hi_b, sk_len)]
+            else:
+                slices = self._edge_slices(direction, labels)
+            for q in slices:
                 for entry in self._read_slice(v.id, q):
                     rc = es.parse_relation(entry, self._codec_schema)
                     if rc.relation_id in self._deleted_ids:
@@ -509,6 +530,12 @@ class Transaction:
                     continue
                 if direction == Direction.IN and rel.in_vertex.id != v.id:
                     continue
+                if sr_bytes is not None:
+                    # the committed column range's [lo, hi) on the sort key
+                    _el, lo_b, hi_b, _len = sr_bytes
+                    sk = rel._sort_key or b""
+                    if (lo_b and sk < lo_b) or (hi_b and sk >= hi_b):
+                        continue
                 results.append(rel)
                 # a self-loop has two incidences: BOTH sees it twice, matching
                 # the committed representation (one OUT + one IN cell)
@@ -539,6 +566,129 @@ class Transaction:
             if e.id == rid.relation_id and e.in_vertex.id == rid.in_vertex_id:
                 return e
         return None
+
+    def adjacency_edges(
+        self,
+        v: Vertex,
+        direction: Direction,
+        labels: Sequence[str],
+        target_ids: Set[int],
+    ) -> List[Edge]:
+        """Edges from v to SPECIFIC neighbors as point lookups (one bounded
+        column slice per (label, target) instead of iterating the whole
+        neighborhood): the AdjacentVertex optimization. Labels with sort
+        keys (other_vid not at a fixed column offset) and tx-added edges
+        take the filtered general path."""
+        es = self.graph.edge_serializer
+        if not labels:
+            # no label restriction -> no per-type point lookup; filtered
+            # general read keeps the semantics
+            return [
+                e
+                for e in self.get_edges(v, direction, ())
+                if e.other(v).id in target_ids
+            ]
+        label_els = []
+        for name in labels:
+            el = self.schema_by_name(name)
+            if isinstance(el, EdgeLabel):
+                label_els.append(el)
+        results: List[Edge] = []
+        if not v.is_new:
+            for el in label_els:
+                if el.sort_key:
+                    # variable other_vid offset: filtered general read
+                    for e in self.get_edges(v, direction, (el.name,)):
+                        if e.other(v).id in target_ids:
+                            results.append(e)
+                    continue
+                dirs = (
+                    (Direction.OUT, Direction.IN)
+                    if direction == Direction.BOTH
+                    else (direction,)
+                )
+                for d in dirs:
+                    for t in target_ids:
+                        q = es.get_adjacency_slice(el.id, d, t)
+                        for entry in self._read_slice(v.id, q):
+                            rc = es.parse_relation(entry, self._codec_schema)
+                            if rc.relation_id in self._deleted_ids:
+                                continue
+                            results.append(self._edge_from_cache(v, rc))
+        with self._lock:
+            label_ids = {el.id for el in label_els}
+            for rel in self._added.get(v.id, ()):
+                if not isinstance(rel, Edge) or rel.is_removed:
+                    continue
+                if rel.type_id not in label_ids:
+                    continue
+                if direction == Direction.OUT and rel.out_vertex.id != v.id:
+                    continue
+                if direction == Direction.IN and rel.in_vertex.id != v.id:
+                    continue
+                if rel.other(v).id in target_ids:
+                    results.append(rel)
+                    # tx-added self-loops have two incidences under BOTH,
+                    # as in get_edges
+                    if (
+                        direction == Direction.BOTH
+                        and rel.out_vertex.id == v.id
+                        and rel.in_vertex.id == v.id
+                    ):
+                        results.append(rel)
+        return results
+
+    def _encode_sort_range(self, labels, direction, sort_range):
+        """Resolve (lo, hi) sort-range values into order-preserving byte
+        bounds for one sort-keyed label: (label, lo_bytes, hi_bytes,
+        width). The reference also routes a label without a sort key
+        through an enabled RelationTypeIndex; the port has none, so such a
+        label raises as the reference does without one."""
+        if len(labels) != 1:
+            raise QueryError("sort_range requires exactly one edge label")
+        if direction == Direction.BOTH:
+            raise QueryError("sort_range requires a concrete direction")
+        el = self.schema_by_name(labels[0])
+        if not isinstance(el, EdgeLabel):
+            raise QueryError(f"{labels[0]!r} is not an edge label")
+        if not el.sort_key:
+            raise QueryError(
+                f"label {labels[0]!r} has no sort key and no enabled "
+                "relation index covering this direction"
+            )
+        ser = self.graph.serializer
+        sk_len = 0
+        for key_id in el.sort_key:
+            pk = self.schema_by_id(key_id)
+            sk_len += ser.serializer_for_type(pk.data_type).fixed_width
+
+        def enc(bound):
+            if bound is None:
+                return b""
+            vals = bound if isinstance(bound, tuple) else (bound,)
+            if len(vals) > len(el.sort_key):
+                raise QueryError("sort_range bound has too many values")
+            out = []
+            for key_id, val in zip(el.sort_key, vals):
+                pk = self.schema_by_id(key_id)
+                if not isinstance(val, pk.data_type):
+                    try:
+                        coerced = pk.data_type(val)
+                    except (TypeError, ValueError) as e:
+                        raise QueryError(f"sort_range bound {val!r}: {e}") from e
+                    if coerced != val:
+                        # a float bound on an int sort key would be encoded
+                        # in a non-comparable byte space and match nothing
+                        raise QueryError(
+                            f"sort_range bound {val!r} is not exactly "
+                            f"representable as {pk.data_type.__name__}"
+                        )
+                    val = coerced
+                out.append(ser.write_ordered(val))
+            return b"".join(out)
+
+        lo, hi = sort_range
+        return el, enc(lo), enc(hi), sk_len
 
     def _label_ids(self, labels: Sequence[str]) -> Optional[Set[int]]:
         if not labels:
@@ -600,6 +750,28 @@ class Transaction:
         )
         self._slice_cache[ck] = entries
         return entries
+
+    def prefetch(
+        self, vertices: Sequence[Vertex], direction: Direction, labels: Sequence[str]
+    ) -> None:
+        """Batched multi-vertex slice prefetch (the multi-query path,
+        reference: StandardJanusGraphTx.executeMultiQuery:1118): fills the
+        per-tx slice cache so the get_edges that follow hit memory, in
+        chunks of query.batch-size vertices."""
+        vids = [v.id for v in vertices if not v.is_new]
+        if not vids:
+            return
+        chunk = self.graph.config.get("query.batch-size")
+        idm = self.graph.idm
+        for q in self._edge_slices(direction, labels):
+            missing = [vid for vid in vids if (vid, q) not in self._slice_cache]
+            for lo in range(0, len(missing), chunk):
+                part = missing[lo:lo + chunk]
+                res = self.backend_tx.edge_store_multi_query(
+                    [idm.get_key(vid) for vid in part], q
+                )
+                for vid in part:
+                    self._slice_cache[(vid, q)] = res[idm.get_key(vid)]
 
     # ------------------------------------------------------------------ labels
     def get_vertex_label(self, v: Vertex) -> str:

@@ -1,5 +1,5 @@
 """Exceptions of the port (the part of ``janusgraph_tpu/exceptions.py`` the
-OLAP path and the transaction raise)."""
+OLAP path, the transaction and the traversal raise)."""
 
 
 class JanusGraphTorchError(Exception):
@@ -51,3 +51,13 @@ class InvalidElementError(JanusGraphTorchError):
 
 class ReadOnlyTransactionError(JanusGraphTorchError):
     """A write through a read-only transaction."""
+
+
+class DeadlineExceededError(PermanentBackendError):
+    """The caller's ambient deadline (``core/deadline.py``) is spent. A
+    permanent error: no retry of an operation whose answer nobody waits for
+    can help."""
+
+
+class QueryError(JanusGraphTorchError):
+    """A malformed or unsupported query."""

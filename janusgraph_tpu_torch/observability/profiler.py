@@ -17,6 +17,13 @@ the port of the main-path half of ``janusgraph_tpu/observability/profiler.py``.
   ambient context (``ledger_scope``); ``accrue`` adds counters and
   annotates the current span with ``ledger.<field>``, ``accrue_wall``
   buckets walls by layer. Outside a scope both are no-ops.
+- **Query digests** (``traversal_shape``, ``shape_digest``,
+  :class:`DigestTable`, the process-wide ``digest_table`` and
+  ``digest_records``): every traversal execution is normalized to its
+  shape (step vocabulary and access path, literals stripped) and feeds a
+  bounded top-K table of measured walls, which the spillover planner's
+  promotion reads. The price book that persists the table stays with the
+  server (ROADMAP Queue A #5).
 - **Flame export** (``flame_lines``, ``flame_text``): a trace's span trees
   as collapsed stacks (``frame;frame;frame weight_us``).
 
@@ -27,8 +34,10 @@ while a CUDA graph is being captured.
 from __future__ import annotations
 
 import contextvars
+import hashlib
 import re
 import threading
+from collections import OrderedDict
 from contextlib import contextmanager
 from typing import Dict, List, Optional, Tuple
 
@@ -243,6 +252,146 @@ def accrue_wall(layer: str, ms: float) -> None:
     led = _LEDGER_VAR.get()
     if led is not None and ms:
         led.add_wall(layer, ms)
+
+
+# --------------------------------------------------------------------------
+# Query digests
+# --------------------------------------------------------------------------
+
+#: literals embedded in step labels (e.g. ``adjacentVertexHasId(1, 2)``)
+_LITERAL_RE = re.compile(r"\(.*\)|['\"].*['\"]|\d+", re.S)
+
+
+def traversal_shape(labels, plan: Optional[dict] = None) -> str:
+    """Normalize a traversal to its shape: the step vocabulary joined in
+    order with literals stripped, prefixed by the resolved access path
+    (index choice included — two queries that differ only in literals or
+    in nothing the planner sees share a shape)."""
+    plan = plan or {}
+    access = plan.get("access", "traversal")
+    index = plan.get("index")
+    head = f"{access}[{index}]" if index else str(access)
+    steps = [_LITERAL_RE.sub("", str(lb)).strip() or "step" for lb in labels]
+    return ">".join([head] + steps) if steps else head
+
+
+def shape_digest(shape: str) -> str:
+    """Stable 8-hex-char digest of a shape string."""
+    return hashlib.sha1(shape.encode()).hexdigest()[:8]
+
+
+class DigestTable:
+    """Bounded top-K table of query digests ranked by total cost.
+
+    One entry per digest: occurrence count, total wall, total cells, and
+    a log-bucket wall histogram for p50/p95. When the table exceeds its
+    capacity the entry with the smallest total cost is evicted — heavy
+    hitters survive, one-off shapes age out."""
+
+    def __init__(self, capacity: int = 128):
+        self.capacity = capacity
+        self._entries: "OrderedDict[str, dict]" = OrderedDict()
+        self._lock = threading.Lock()
+
+    def configure(self, capacity: Optional[int] = None) -> None:
+        with self._lock:
+            if capacity is not None and capacity > 0:
+                self.capacity = capacity
+
+    def observe(
+        self, digest: str, shape: str, wall_ms: float, cells: int = 0
+    ) -> None:
+        """Record one execution of a digest (host only: never inside a
+        CUDA graph capture)."""
+        from janusgraph_tpu_torch.observability.metrics_core import Histogram
+
+        with self._lock:
+            e = self._entries.get(digest)
+            if e is None:
+                e = self._entries[digest] = {
+                    "digest": digest,
+                    "shape": shape,
+                    "count": 0,
+                    "total_ms": 0.0,
+                    "total_cells": 0,
+                    "hist": Histogram(),
+                }
+            e["count"] += 1
+            e["total_ms"] += float(wall_ms)
+            e["total_cells"] += int(cells)
+            e["hist"].observe(float(wall_ms))
+            if len(self._entries) > self.capacity:
+                victim = min(
+                    self._entries, key=lambda d: self._entries[d]["total_ms"]
+                )
+                del self._entries[victim]
+
+    def mean_cost_ms(self, digest: str) -> Optional[float]:
+        """Measured mean wall of one digest (total/count), or None when
+        the table has never seen it (the spillover planner's promotion
+        reads it)."""
+        with self._lock:
+            e = self._entries.get(digest)
+            if e is None or not e["count"]:
+                return None
+            return e["total_ms"] / e["count"]
+
+    def top(self, k: int = 10) -> List[dict]:
+        """The k digests with the largest total cost, descending."""
+        with self._lock:
+            entries = list(self._entries.values())
+        entries.sort(key=lambda e: e["total_ms"], reverse=True)
+        out = []
+        for e in entries[:k]:
+            h = e["hist"]
+            out.append({
+                "digest": e["digest"],
+                "shape": e["shape"],
+                "count": e["count"],
+                "total_ms": round(e["total_ms"], 3),
+                "total_cells": e["total_cells"],
+                "p50_ms": round(h.percentile(0.50), 3),
+                "p95_ms": round(h.percentile(0.95), 3),
+            })
+        return out
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+
+#: process-wide digest table: the traversal feeds it, the spillover planner
+#: reads it
+digest_table = DigestTable()
+
+
+def digest_records(table: DigestTable) -> List[dict]:
+    """A table's entries as plain records (histogram bucket counts
+    included, at the live table's log-bucket resolution)."""
+    with table._lock:
+        entries = [dict(e) for e in table._entries.values()]
+    out = []
+    for e in entries:
+        h = e["hist"]
+        with h._lock:
+            counts = list(h._counts)
+            hcount, htotal, hmax = h.count, h.total, h.max
+        out.append({
+            "digest": e["digest"],
+            "shape": e["shape"],
+            "count": e["count"],
+            "total_ms": e["total_ms"],
+            "total_cells": e["total_cells"],
+            "hist": {
+                "counts": counts, "count": hcount,
+                "total": htotal, "max": hmax,
+            },
+        })
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -133,6 +133,26 @@ class ComputerResult:
                    batch=self.graph.config.get("computer.write-back-batch"))
 
 
+def executor_device(executor: str) -> torch.device:
+    """The device a ``computer.executor`` value names: "tpu" (the
+    reference's name for its one accelerator) is the CUDA card and raises
+    where there is none, before anything loads; "cpu" runs the plain
+    PyTorch versions on the CPU; "sharded" raises (ROADMAP Queue A #4)."""
+    if executor == "sharded":
+        raise ConfigurationError(
+            "the sharded executor is not ported yet: ROADMAP.md Queue A #4 "
+            "(multi-GPU)"
+        )
+    if executor not in ("tpu", "cpu"):
+        raise ConfigurationError(f"unknown executor {executor!r}")
+    if executor == "tpu" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; graph.compute(executor='cpu') "
+            "runs the plain PyTorch path on the CPU"
+        )
+    return resolve_device(None if executor == "tpu" else "cpu")
+
+
 class GraphComputer:
     """The graph.compute() front end (reference: JanusGraphComputer). Executor
     kind, aggregation strategy, sync cadence and checkpointing default to
@@ -142,21 +162,8 @@ class GraphComputer:
         self.graph = graph
         if executor is None:
             executor = graph.config.get("computer.executor")
-        if executor == "sharded":
-            raise ConfigurationError(
-                "the sharded executor is not ported yet: ROADMAP.md Queue A #4 "
-                "(multi-GPU)"
-            )
-        if executor not in ("tpu", "cpu"):
-            raise ConfigurationError(f"unknown executor {executor!r}")
+        self.device = executor_device(executor)
         self.executor_kind = executor
-        # "tpu" is the card: without one this raises before any load
-        if executor == "tpu" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; graph.compute(executor='cpu') "
-                "runs the plain PyTorch path on the CPU"
-            )
-        self.device = resolve_device(None if executor == "tpu" else "cpu")
         self._edge_labels: Optional[Sequence[str]] = None
         self._vertex_labels: Optional[Sequence[str]] = None
         self._property_keys: Sequence[str] = ()

@@ -28,7 +28,7 @@ from janusgraph_tpu_torch.olap.vertex_program import (
     EdgeTransform,
     VertexProgram,
 )
-from janusgraph_tpu_torch.predicates import _CmpPredicate
+from janusgraph_tpu_torch.core.predicates import _CmpPredicate
 
 
 @dataclass(frozen=True)

@@ -127,7 +127,9 @@ def reconstruct_path(result, target_index: int):
     """Walk the predecessor chain on the host: [seed, ..., target], or None
     if the target was never reached. ``result`` is the output of a
     track_paths=True run."""
-    pred = np.asarray(result["predecessor"]).astype(np.int64)
+    # read in place: a copy of the n-length array per target would make
+    # one path per reached vertex (the shortest_path() step) O(n) each
+    pred = np.asarray(result["predecessor"])
     dist = np.asarray(result["distance"])
     if target_index >= len(pred) or dist[target_index] >= INF:
         return None

@@ -186,6 +186,11 @@ class BackendTransaction:
     def edge_store_query(self, query: KeySliceQuery) -> EntryList:
         return self.backend.edgestore.get_slice(query, self.store_tx)
 
+    def edge_store_multi_query(
+        self, keys: Sequence[bytes], slice_query: SliceQuery
+    ) -> Dict[bytes, EntryList]:
+        return self.backend.edgestore.get_slice_multi(keys, slice_query, self.store_tx)
+
     def index_query(self, query: KeySliceQuery) -> EntryList:
         return self.backend.indexstore.get_slice(query, self.store_tx)
 

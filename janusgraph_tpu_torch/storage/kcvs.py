@@ -168,6 +168,14 @@ class KeyColumnValueStore(abc.ABC):
         """Return entries of row ``query.key`` with columns in the slice range,
         sorted ascending by column, truncated at ``limit``."""
 
+    def get_slice_multi(
+        self, keys: Sequence[bytes], slice_query: SliceQuery, txh: StoreTransaction
+    ) -> Dict[bytes, EntryList]:
+        """Batched multi-row slice (the multi-query path). Default: loop."""
+        return {
+            k: self.get_slice(KeySliceQuery(k, slice_query), txh) for k in keys
+        }
+
     @abc.abstractmethod
     def mutate(
         self,

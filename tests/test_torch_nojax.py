@@ -118,6 +118,38 @@ print("OK", round(float(res.states["rank"].sum()), 4), loaded)
 """
 
 
+TRAVERSAL_RUN = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["janusgraph_tpu"] = None
+from janusgraph_tpu_torch.core.graph import open_graph
+from janusgraph_tpu_torch.core.predicates import Geoshape
+from janusgraph_tpu_torch.core.traversal import P
+from janusgraph_tpu_torch.observability import registry
+g = open_graph({"computer.executor": "cpu", "computer.spillover-min-cost-ms": 0.0,
+                "computer.spillover-min-seen": 1})
+t = g.traversal()
+vs = [t.add_v("person", name=f"p{i}", loc=Geoshape.point(i, i)) for i in range(8)]
+for i, v in enumerate(vs):
+    t.add_e(v, "knows", vs[(i + 1) % 8])
+    t.add_e(v, "knows", vs[(i + 3) % 8])
+t.commit()
+assert g.traversal().V().out().count() == 16
+assert g.traversal().V().has("loc", P.geo_within(Geoshape.box(-1, -1, 2.5, 2.5))).count() == 3
+walk = g.traversal().V().out("knows").out("knows").count()  # teaches the shape
+spilled = g.traversal().V().out("knows").out("knows").count()
+assert walk == spilled == 32
+assert registry.snapshot()["olap.spillover.spilled"]["count"] == 1
+ranks = g.traversal().V().page_rank().values("pagerank").to_list()
+assert abs(sum(ranks) - 1.0) < 1e-5
+g.close()
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+    m == "jax" or m.startswith("jax.")
+    or m == "janusgraph_tpu" or m.startswith("janusgraph_tpu.")))
+print("OK", spilled, loaded)
+"""
+
+
 def _forbidden(name):
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
@@ -152,6 +184,19 @@ def test_stored_path_runs_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "OK 1.0 []", proc.stdout
+
+
+def test_traversal_and_spillover_run_with_jax_blocked():
+    """graph.traversal(): a scan, a geo predicate, a walked and then a
+    spilled 2-hop count, and the page_rank() step, with both blocked."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", TRAVERSAL_RUN], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "OK 32 []", proc.stdout
 
 
 def _port_files():
@@ -190,13 +235,19 @@ STORED_PATH_MODULES = (
     "storage/backend.py", "olap/csr.py", "olap/computer.py", "core/tx.py",
     "core/elements.py", "olap/delta.py",
 )
+#: modules of the traversal path (graph.traversal(), its computer steps and
+#: the spillover planner)
+TRAVERSAL_PATH_MODULES = (
+    "exceptions.py", "core/deadline.py", "core/predicates.py", "core/profile.py",
+    "core/traversal.py", "observability/profiler.py", "olap/spillover.py",
+)
 
 
 def test_no_port_file_imports_jax_or_reference():
     files = _port_files()
     assert len(files) > 10 and os.path.exists(files[0])
     pkg = os.path.join(ROOT, "janusgraph_tpu_torch")
-    for rel in STORED_PATH_MODULES:
+    for rel in STORED_PATH_MODULES + TRAVERSAL_PATH_MODULES:
         assert os.path.join(pkg, rel) in files, rel
     assert os.path.exists(os.path.join(pkg, "csrc", "graphcsr.cpp"))
     bad = []

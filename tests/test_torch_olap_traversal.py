@@ -41,7 +41,7 @@ from janusgraph_tpu_torch.olap.programs import (
     select_paths,
     steps_from_spec,
 )
-from janusgraph_tpu_torch.predicates import Cmp
+from janusgraph_tpu_torch.core.predicates import Cmp
 
 CSR_FIELDS = ("vertex_ids", "out_indptr", "out_dst", "in_indptr", "in_src", "out_degree",
               "in_edge_weight", "out_edge_weight", "properties", "labels", "in_edge_type",

@@ -166,9 +166,9 @@ def test_serializer_frames_equal_reference(value):
 
 
 def test_unported_datatype_decodes_as_a_raw_value():
-    from janusgraph_tpu.core.attributes import GeoshapePoint
+    import uuid
 
-    framed = RefSerializer().write_object(GeoshapePoint(38.1, 23.7))
+    framed = RefSerializer().write_object(uuid.UUID(int=0x1234_5678_9ABC))
     value, used = Serializer().read_object(framed)
     assert isinstance(value, UnportedValue) and used == len(framed)
     assert value.type_id == struct.unpack(">H", framed[:2])[0]
