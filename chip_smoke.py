@@ -104,6 +104,22 @@ Phases, each printing one JSON line:
            runs) equal to float64 at every vertex below 2^24 paths and
            within 1e-4 above, write_back and a reload that returns the
            ranks bit for bit
+  stored_local  the same graph in a persistent local directory
+           (storage.backend "local", fsync on): the bulk load and close (the
+           WAL's bytes), a reopen (the replay) and a cold submit through
+           the in-process scan, cold submits through 2, 4 and 8 loader
+           processes (storage.distributed-load-workers; no probe open:
+           submit() passes the open graph's partition count; each
+           worker's replay and scan, the merge), each with 20 kernel
+           runs, its CSR equal to the stored phase's as sets of vertex ids
+           and edges and its ranks bitwise equal to that phase's where
+           the arrays are (else within 1e-6 relative), and within 1e-6
+           relative of float64 on either path; one
+           transaction of 1,000 edges of a LOCK-consistency label against
+           the same on a default label, no lock claim left, and the warm
+           submit that reads both (fused, overlay 2,000); compact(), the
+           reopen from the snapshot (the same cells), drop_graph (no store
+           file left)
   stored_delta  the same graph, written on: (a) one OLTP transaction of
            ~2,000 edge adds, ~500 edge removals, a new vertex with an edge
            and a removed vertex, then PageRank and CC through submit() on
@@ -1934,10 +1950,204 @@ def stored_phase(csr, args, emit) -> dict:
          max_vertex_3hop=float(counts.max()), vertices_exact_3hop=int(exact.sum()),
          write_back_s=write_back_s, reload_s=reload_s, plan_checks=plan_checks,
          seconds=time.perf_counter() - phase_t0)
-    return {"graph": g, "loaded": loaded, "walls": walls, "run_walls": run_walls,
+    return {"graph": g, "loaded": loaded, "rank": rank, "walls": walls, "run_walls": run_walls,
             "launches": submit_runs[0], "launches_warm": submit_runs[1],
             "launches_traverse": trav_runs,
             "max_abs_err": max(c["max_abs_err"] for c in plan_checks.values())}
+
+
+def stored_local_phase(stored, csr, args, emit) -> dict:
+    """The stored phase's graph in a persistent local directory
+    (storage.backend "local", storage.fsync on): the columnar bulk load and
+    close, a reopen (the WAL replay) and a cold submit through the
+    in-process scan, then cold submits through 2, 4 and 8 loader processes
+    (storage.distributed-load-workers), each against the stored phase's
+    CSR and ranks; a transaction of 1,000 edges of a LOCK-consistency label
+    against the same writes on a default label, and the warm submit that
+    reads them; compact(), the reopen from the snapshot, drop_graph."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from janusgraph_tpu_torch.core.bulk import bulk_add_edges, bulk_add_vertices
+    from janusgraph_tpu_torch.core.codecs import Consistency
+    from janusgraph_tpu_torch.core.graph import drop_graph, open_graph
+    from janusgraph_tpu_torch.observability import registry
+    from janusgraph_tpu_torch.olap import kernels
+    from janusgraph_tpu_torch.olap.programs import PageRankProgram
+
+    phase_t0 = time.perf_counter()
+    ref_csr, ref_rank = stored["loaded"], stored["rank"]
+    n = csr.num_vertices
+    cap = min(2_000_000, csr.num_edges)
+    src = np.repeat(np.arange(n), np.diff(csr.out_indptr))[:cap]
+    dst = np.asarray(csr.out_dst[:cap], dtype=np.int64)
+    want64 = pagerank_fp64(ref_csr, 20)
+    td = tempfile.mkdtemp(prefix="stored_local_")
+    directory = os.path.join(td, "graph")
+    cfg = {"storage.backend": "local", "storage.directory": directory}
+
+    def pagerank():
+        return PageRankProgram(max_iterations=20, tol=0.0)
+
+    def edge_key(c):
+        s = np.repeat(np.arange(c.num_vertices, dtype=np.int64), np.diff(c.out_indptr))
+        return np.sort(s * c.num_vertices + c.out_dst)
+
+    def held(res, label):
+        """The loaded CSR against the stored phase's (as sets of vertex ids
+        and edges), and the ranks: bitwise equal to the stored phase's
+        where the arrays are equal, else within 1e-6 relative of them;
+        within 1e-6 relative of float64 either way."""
+        got = res.csr
+        if not np.array_equal(got.vertex_ids, ref_csr.vertex_ids):
+            raise RuntimeError(f"{label}: the loaded vertex ids are not the stored phase's")
+        if not np.array_equal(edge_key(got), edge_key(ref_csr)):
+            raise RuntimeError(f"{label}: the loaded edges are not the stored phase's")
+        same = all(np.array_equal(getattr(got, f), getattr(ref_csr, f)) for f in
+                   ("out_indptr", "out_dst", "in_indptr", "in_src"))
+        rank = res.states["rank"]
+        if not np.isfinite(rank).all():
+            raise RuntimeError(f"{label}: ranks are not finite")
+        rel_ref = max_rel(rank, ref_rank)
+        rel64 = float(np.max(np.abs(rank.astype(np.float64) - want64) / want64))
+        if rel64 > 1e-6:
+            raise RuntimeError(f"{label}: ranks rel {rel64} of float64")
+        if same:
+            if not bits_equal(rank, ref_rank):
+                raise RuntimeError(f"{label}: equal CSR arrays, ranks not bitwise equal")
+            held_by = "bitwise"
+        elif rel_ref > 1e-6:
+            raise RuntimeError(f"{label}: ranks rel {rel_ref} of the stored phase's")
+        else:
+            held_by = "rel 1e-6"
+        return {"csr_arrays_equal": same, "ranks_held": held_by,
+                "max_rel_vs_stored": rel_ref, "max_rel_vs_fp64": rel64}
+
+    def submit(graph, label, path):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res, runs = counted(lambda: graph.compute().program(pagerank()).submit(), 20)
+        wall = time.perf_counter() - t0
+        if res.run_info["snapshot"]["path"] != path:
+            raise RuntimeError(f"{label}: submit() took {res.run_info['snapshot']}, expected {path}")
+        if kernels.launch_counts()["sorted_segment_sum"] < 1:
+            raise RuntimeError(f"{label}: the segment sum was not launched")
+        if res.run_info["routing"]["device"] != "cuda" or res.run_info["supersteps"] != 20:
+            raise RuntimeError(f"{label}: not 20 supersteps on the card: {res.run_info}")
+        return res, runs, {"submit_wall_s": wall, "run_wall_s": res.run_info["run_wall_s"],
+                           "kernel_runs": runs, **held(res, label)}
+
+    try:
+        # (1) load and persist
+        g = open_graph(cfg)
+        t0 = time.perf_counter()
+        vids = bulk_add_vertices(g, n)
+        bulk_v_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bulk_add_edges(g, "link", vids[src], vids[dst])
+        bulk_e_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        g.close()
+        close_s = time.perf_counter() - t0
+        wal_path = os.path.join(directory, "store.wal")
+        wal_bytes = os.path.getsize(wal_path)
+
+        # (2) reopen (the WAL replay), a cold submit through the scan
+        t0 = time.perf_counter()
+        g = open_graph(cfg)
+        replay_s = time.perf_counter() - t0
+        cells = {name: len(st.mem.data) for name, st in g.backend.manager.kv_manager._stores.items()}
+        res1, runs1, w1 = submit(g, "workers=1", "cold")
+        rank1 = res1.states["rank"]
+        del res1
+
+        # (3) distributed loads; the reopened graph stays open (its WAL
+        # shared with the loaders, which append on close)
+        per_w = {}
+        for w in (2, 4, 8):
+            t0 = time.perf_counter()
+            gw = open_graph(dict(cfg, **{"storage.distributed-load-workers": w}))
+            open_s = time.perf_counter() - t0
+            res, runs, rec = submit(gw, f"workers={w}", "distributed")
+            rec.update(open_s=open_s, load=registry.last_run("olap.distributed_load"))
+            if rec["load"]["workers"] != w or rec["load"]["probed"]:
+                raise RuntimeError(f"workers={w}: the load ran {rec['load']}")
+            per_w[w] = rec
+            del res
+            gw.close()
+
+        # (4) a LOCK-consistency label against a default one, 1,000 edges a
+        # transaction, then the warm submit that reads both
+        mgmt = g.management()
+        mgmt.make_edge_label("locked_link")
+        mgmt.set_consistency("locked_link", Consistency.LOCK)
+        mgmt.make_edge_label("plain_link")
+        rng = np.random.default_rng(args.seed)
+        commits = {}
+        for label in ("locked_link", "plain_link"):
+            a = vids[rng.integers(0, n, 1000)]
+            b = vids[rng.integers(0, n, 1000)]
+            tx = g.new_transaction()
+            for x, y in zip(a.tolist(), b.tolist()):
+                tx.add_edge(tx.get_vertex(x), label, tx.get_vertex(y))
+            t0 = time.perf_counter()
+            tx.commit()
+            commits[label] = time.perf_counter() - t0
+        lock_rows = sum(1 for _ in g.backend.manager.open_database("edgestore_lock_").kv.scan(
+            b"", None, None))
+        if lock_rows:
+            raise RuntimeError(f"{lock_rows} lock claims left after the commits")
+        kernels.reset_launch_counts()
+        before = kernels.device_launches("cuda")
+        t0 = time.perf_counter()
+        warm = g.compute().program(pagerank()).submit()
+        torch.cuda.synchronize()
+        warm_wall = time.perf_counter() - t0
+        warm_runs = kernels.device_launches("cuda") - before
+        if warm.run_info["snapshot"] != {"path": "fused", "overlay": 2000} or warm_runs < 20:
+            raise RuntimeError(f"the warm submit after the commits: {warm.run_info['snapshot']}, "
+                               f"{warm_runs} kernel runs")
+        wrank = warm.states["rank"]
+        if (wrank.shape != rank1.shape or not np.isfinite(wrank).all()
+                or abs(float(wrank.astype(np.float64).sum()) - 1.0) > 1e-3
+                or bits_equal(wrank, rank1)):
+            raise RuntimeError("the warm submit's ranks do not show the writes")
+        del warm
+
+        # (5) compact, reopen from the snapshot, drop
+        kv = g.backend.manager.kv_manager
+        cells = {name: len(st.mem.data) for name, st in kv._stores.items()}
+        t0 = time.perf_counter()
+        kv.compact()
+        compact_s = time.perf_counter() - t0
+        snapshot_bytes = os.path.getsize(os.path.join(directory, "store.snapshot"))
+        g.close()
+        t0 = time.perf_counter()
+        g = open_graph(cfg)
+        snapshot_reopen_s = time.perf_counter() - t0
+        again = {name: len(st.mem.data) for name, st in g.backend.manager.kv_manager._stores.items()}
+        if {k: v for k, v in again.items() if v} != {k: v for k, v in cells.items() if v}:
+            raise RuntimeError(f"the reopen from the snapshot holds {again}, not {cells}")
+        drop_graph(g)
+        left = sorted(f for f in os.listdir(directory) if f.startswith("store."))
+        if left:
+            raise RuntimeError(f"drop_graph left {left}")
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+
+    emit("stored_local", vertices=n, edges=cap, fsync=True,
+         bulk_vertices_s=bulk_v_s, bulk_edges_s=bulk_e_s, close_s=close_s,
+         wal_bytes=wal_bytes, replay_s=replay_s, cells=cells,
+         workers_1=w1, workers=per_w,
+         locked_commit_s=commits["locked_link"], plain_commit_s=commits["plain_link"],
+         warm_after_commits_wall_s=warm_wall, warm_after_commits_kernel_runs=warm_runs,
+         compact_s=compact_s, snapshot_bytes=snapshot_bytes,
+         snapshot_reopen_s=snapshot_reopen_s, seconds=time.perf_counter() - phase_t0)
+    return {"launches": runs1, "launches_by_workers": {w: r["kernel_runs"] for w, r in per_w.items()},
+            "launches_locked_warm": warm_runs}
 
 
 def stored_delta_phase(stored, args, emit) -> dict:
@@ -2763,6 +2973,7 @@ def main() -> int:
     dense_phase(csr, args, emit)
     ldbc_launches = ldbc_phase(emit)
     stored = stored_phase(csr, args, emit)
+    stored_local = stored_local_phase(stored, csr, args, emit)
     kernels.reset_launch_counts()
     stored_delta = stored_delta_phase(stored, args, emit)
     kernels.reset_launch_counts()
@@ -2793,6 +3004,13 @@ def main() -> int:
         "launches_stored": stored["launches"],
         "launches_stored_warm": stored["launches_warm"],
         "launches_stored_traverse": stored["launches_traverse"],
+        # the same graph in a local directory: the cold submit after a
+        # reopen (in-process scan), through 2, 4 and 8 loader processes,
+        # and the warm submit after the LOCK-consistency commit
+        "launches_stored_local": stored_local["launches"],
+        **{f"launches_stored_local_w{w}": r
+           for w, r in stored_local["launches_by_workers"].items()},
+        "launches_stored_local_locked": stored_local["launches_locked_warm"],
         # after an OLTP transaction, PageRank through submit() on the
         # "fused" path (base, adds and tombstones each superstep), and
         # after a bulk burst on the "refresh" path (the compacted base)

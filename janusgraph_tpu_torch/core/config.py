@@ -3,12 +3,17 @@ of local and cluster-global values — the port's copy of
 ``GraphConfiguration`` and ``ConfigOption`` from
 ``janusgraph_tpu/core/config.py``.
 
-The registry holds only the options the stored-graph OLAP path, the
-transaction, the traversal and the spillover planner read, with the
-reference's names, defaults, mutability levels and validators. One default differs on purpose: ``computer.strategy`` is
-"segsum", the port's hand-kernel route (the reference defaults to "auto";
-ROADMAP "Deliberate differences"). The reference's values all stay valid,
-and "pallas", the reference's name for its hand kernel, means "segsum".
+The registry holds only the options the stored-graph OLAP path (with the
+local store and distributed loading), the backend's cache, retry guard and
+lockers, the transaction and its schema checks, the traversal and the
+spillover planner read, with the reference's names, types, defaults,
+mutability levels and validators (``tests/test_torch_config_registry.py``
+holds them to it). Two defaults differ on purpose (ROADMAP "Deliberate
+differences"): ``computer.strategy`` is "segsum", the port's hand-kernel
+route (the reference defaults to "auto"), and
+``computer.frontier-cc-min-edges`` keeps CC dense. The reference's values
+all stay valid, and "pallas", the reference's name for its hand kernel,
+means "segsum".
 
 ``computer.executor`` keeps the reference's values: "tpu" is the one
 accelerator, here the CUDA card; "cpu" is ``GPUExecutor(device="cpu")``,
@@ -16,8 +21,9 @@ the plain PyTorch versions on the CPU (not the reference's numpy
 ``CPUExecutor``).
 
 Every other option of the reference raises ``ConfigurationError`` naming
-the ROADMAP item that brings it, as do ``computer.executor`` = "sharded", ``storage.distributed-load-workers`` > 1
-and a ``storage.backend`` other than "inmemory". Nothing is ignored.
+the ROADMAP item that brings it, as do ``computer.executor`` = "sharded"
+and ``storage.backend`` = "sharded" or "remote" (the remote and sharded
+stores). Nothing is ignored.
 
 Left out: the management writes (``set_global``) and the instance
 registry.
@@ -90,11 +96,11 @@ def _option(path, datatype, description, default,
 
 _ROADMAP_MULTI = "ROADMAP.md Queue A #4 (multi-GPU)"
 _ROADMAP_HOST = "ROADMAP.md Queue A #5 (the host system beyond OLAP)"
+_ROADMAP_REMOTE = "ROADMAP.md Queue A #5.5 (the remote and sharded stores)"
 
 #: honoured options whose value the port refuses: path -> (refuses, item)
 _REFUSED_VALUES: Dict[str, tuple] = {
-    "storage.backend": (lambda v: v != "inmemory", _ROADMAP_HOST),
-    "storage.distributed-load-workers": (lambda v: v > 1, _ROADMAP_HOST),
+    "storage.backend": (lambda v: v in ("sharded", "remote"), _ROADMAP_REMOTE),
     "computer.executor": (lambda v: v == "sharded", _ROADMAP_MULTI),
 }
 
@@ -128,14 +134,103 @@ _NOT_PORTED: Dict[str, str] = {
 
 _option("storage.backend", str, "store manager shorthand", "inmemory", Mutability.LOCAL)
 _option(
+    "storage.directory", str, "data directory for persistent backends", "",
+    Mutability.LOCAL,
+)
+_option(
+    "storage.fsync", bool,
+    "fsync WAL appends on the persistent local backend (localstore). "
+    "Default True: matches the backend's own durable default", True,
+    Mutability.LOCAL,
+)
+_option(
+    "storage.read-only", bool,
+    "open the storage backend read-only: every mutation attempt raises", False,
+    Mutability.LOCAL,
+)
+_option(
     "storage.scan-retries", int,
     "per-partition retry budget for temporary failures mid-scan (resume "
     "from just past the last row)", 3, verifier=lambda v: v >= 0,
 )
 _option(
     "storage.distributed-load-workers", int,
-    "worker processes for distributed CSR loading (0/1 = in-process)", 0,
+    "worker PROCESSES for distributed CSR loading at graph.compute() "
+    "(olap/distributed_load.py): each scans a disjoint storage-partition "
+    "range of a shared backend (storage.backend 'local') and the parent "
+    "merges once; 0/1 = in-process loader. Raw-scan loads only: property, "
+    "weight and label-filtered snapshots load in-process", 0,
     verifier=lambda v: v >= 0,
+)
+_option(
+    "storage.distributed-load-timeout-s", float,
+    "shared deadline for the distributed-load worker pool (a hung worker "
+    "fails the load rather than leaking scanners past it)", 600.0,
+    verifier=lambda v: v > 0,
+)
+_option(
+    "storage.retry-time-ms", float,
+    "time budget for retrying temporary backend failures with backoff",
+    10_000.0,
+)
+_option(
+    "storage.backoff-base-ms", float,
+    "initial backoff of the temporary-failure retry guard (backend_op)",
+    50.0, verifier=lambda v: v > 0,
+)
+_option(
+    "storage.backoff-max-ms", float,
+    "backoff ceiling of the temporary-failure retry guard (backend_op)",
+    2000.0, verifier=lambda v: v > 0,
+)
+_option(
+    "storage.write-attempts", int,
+    "cap the retry guard's replay count in addition to its time budget "
+    "(0 = time budget only)", 0, verifier=lambda v: v >= 0,
+)
+_option("cache.db-cache", bool, "enable the store-level slice cache", True, Mutability.LOCAL)
+_option(
+    "cache.db-cache-size", int, "slice cache entry budget", 65536,
+    verifier=lambda v: v > 0,
+)
+_option(
+    "cache.db-cache-time-ms", float,
+    "slice cache TTL bounding cross-instance staleness (0 = no expiry)",
+    10_000.0,
+)
+_option(
+    "cache.db-cache-clean-wait-ms", float,
+    "grace period after a row invalidation during which the slice cache "
+    "refuses to re-admit that row", 0.0, verifier=lambda v: v >= 0,
+)
+_option(
+    "cache.edgestore-fraction", float,
+    "share of cache.db-cache-size given to the edgestore; the rest goes to "
+    "the graph-index store", 0.8, verifier=lambda v: 0.0 < v < 1.0,
+)
+_option(
+    "locks.wait-ms", float, "claim re-read wait of the consistent-key locker", 1.0,
+    Mutability.GLOBAL_OFFLINE,
+)
+_option(
+    "locks.expiry-ms", float, "lock claims older than this are expired", 10_000.0,
+    Mutability.GLOBAL_OFFLINE,
+)
+_option("locks.retries", int, "lock acquisition attempts", 3, verifier=lambda v: v > 0)
+_option(
+    "locks.clean-expired", bool,
+    "delete expired lock-claim columns encountered during lock checks "
+    "(dead holders' claims otherwise linger)", False,
+)
+_option(
+    "schema.default", str, "auto-create schema on first use ('auto'|'none')", "auto",
+    verifier=lambda v: v in ("auto", "none"),
+)
+_option(
+    "schema.constraints", bool,
+    "enforce label property/connection constraints on writes (with "
+    "schema.default=auto missing constraints are auto-created, with 'none' "
+    "they reject)", False, Mutability.GLOBAL_OFFLINE,
 )
 _option(
     "ids.partition-bits", int, "bits of the vertex id reserved for the partition",
@@ -249,7 +344,7 @@ _option(
 _option(
     "computer.delta-snapshot-path", str,
     "file the compacted base CSR is saved to (tmp+rename npz); empty = in "
-    "memory only", "",
+    "memory only", "", Mutability.LOCAL,
 )
 _option(
     "computer.ell-max-capacity", int,
@@ -385,13 +480,19 @@ _option(
     "cost), which spillover promotion reads", 128, Mutability.LOCAL,
     lambda v: v > 0,
 )
-_option("metrics.enabled", bool, "collect per-store operation metrics", False)
+_option(
+    "metrics.enabled", bool, "collect per-store operation metrics", False,
+    Mutability.LOCAL,
+)
 _option(
     "metrics.merge-stores", bool,
     "report store metrics under one 'stores' bucket instead of per-store names",
-    False,
+    False, Mutability.LOCAL,
 )
-_option("metrics.prefix", str, "prefix prepended to every emitted metric name", "janusgraph")
+_option(
+    "metrics.prefix", str, "prefix prepended to every emitted metric name",
+    "janusgraph", Mutability.LOCAL,
+)
 _option(
     "metrics.console-interval-ms", float,
     "periodic console metrics reporter (0 = off; util/metrics.py)", 0.0,
@@ -401,7 +502,10 @@ _option(
     "metrics.csv-interval-ms", float, "periodic CSV metrics reporter (0 = off)", 0.0,
     Mutability.LOCAL, lambda v: v >= 0,
 )
-_option("metrics.csv-directory", str, "directory the CSV reporter writes into", "")
+_option(
+    "metrics.csv-directory", str, "directory the CSV reporter writes into", "",
+    Mutability.LOCAL,
+)
 _option(
     "metrics.slow-op-threshold-ms", float,
     "spans slower than this land in the always-on slow-op ring (0 = off)", 100.0,

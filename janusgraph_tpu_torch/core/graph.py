@@ -1,21 +1,34 @@
-"""The graph: open, wiring, ID assignment and schema persistence — the
-port's copy of the part of ``janusgraph_tpu/core/graph.py`` that the
-stored-graph OLAP path and the traversal run.
+"""The graph: open, wiring, ID assignment, schema persistence and the
+commit — the port's copy of the part of ``janusgraph_tpu/core/graph.py``
+that the stored-graph OLAP path, the transaction and the traversal run.
 
 ``open_graph(config, store_manager=None)`` opens a ``JanusGraphTPU`` over
-an in-memory store (or over ``store_manager``, e.g.
-``InMemoryStoreManager.from_rows`` of a graph the JAX package wrote). It
-holds ``config``, ``backend``, ``idm``, ``serializer``,
-``edge_serializer``, ``system_types``, ``schema_cache`` and ``id_assigner``
-(vertex, relation and schema id pools), and offers ``management()``,
-``new_transaction()``, ``traversal()``, ``compute()`` and ``close()``.
-Data goes in through OLTP transactions (``core/tx.py``, serialized by
-``commit_tx`` under the graph-wide commit lock into the reference's cells)
-and the columnar bulk loader (``core/bulk.py``), and out through
-``load_csr`` and ``ComputerResult.write_back``. With ``computer.delta`` (the default) every
+the store manager that ``storage.backend`` names in the store-manager
+table (``register_store_manager`` adds to it): "inmemory", or "local", a
+persistent directory (``storage.directory``, ``storage.fsync``;
+``storage/localstore.py``), whose files the JAX package reads and writes
+too. ``store_manager`` overrides the table (e.g.
+``InMemoryStoreManager.from_rows`` of a graph the JAX package wrote).
+``drop_graph`` destroys a graph's storage and closes it. The graph holds
+``config``, ``backend``, ``idm``, ``serializer``, ``edge_serializer``,
+``system_types``, ``schema_cache`` and ``id_assigner`` (vertex, relation
+and schema id pools), and offers ``management()``, ``new_transaction()``,
+``traversal()``, ``compute()`` and ``close()``. Data goes in through OLTP
+transactions (``core/tx.py``, serialized by ``commit_tx`` under the
+graph-wide commit lock into the reference's cells) and the columnar bulk
+loader (``core/bulk.py``), and out through ``load_csr`` and
+``ComputerResult.write_back``. With ``computer.delta`` (the default) every
 committed edgestore batch also streams into the graph's ``ChangeCapture``
 (``olap/delta.py``), which the warm delta snapshot behind ``submit()``
 reads instead of the store.
+
+The commit takes consistent-key locks on every cell it touches of a
+LOCK-consistency type, verified with their expected values inside the
+backend transaction's commit (``storage/locking.py``), and writes the
+cells of a type or static vertex label with a TTL with their expiry
+(stores with cell TTL only: ``set_ttl`` refuses others). The backend
+reads through the slice cache (``cache.*``) and the retry guard
+(``storage.retry-time-ms`` ...); ``storage.read-only`` refuses writes.
 
 Telemetry at open, as the reference's: the tracer's slow-op threshold and
 buffers, the flight recorder's ring and dump directory, the roofline peak
@@ -30,15 +43,16 @@ engine (``olap/spillover.py``).
 
 Left out (ROADMAP Queue A #5): indexes and index providers (the port
 makes none, so commits maintain none and traversals scan), graph I/O
-(``g.io()``), the WAL, logs and schema broadcast, lock-consistency claims,
-cell TTLs, the instance registry, fault injection and the other store
-backends.
+(``g.io()``), the WAL, logs and schema broadcast (a schema change evicts
+in-process only), the instance registry, fault injection and the
+"sharded" and "remote" stores (#5.5; their factories raise).
 """
 
 from __future__ import annotations
 
 import struct
 import threading
+import time
 from typing import Dict, Optional
 
 from janusgraph_tpu_torch.core.attributes import Serializer
@@ -66,7 +80,7 @@ from janusgraph_tpu_torch.core.schema import (
 )
 from janusgraph_tpu_torch.core.tx import Transaction
 from janusgraph_tpu_torch.core.elements import Edge
-from janusgraph_tpu_torch.exceptions import SchemaViolationError
+from janusgraph_tpu_torch.exceptions import ConfigurationError, SchemaViolationError
 from janusgraph_tpu_torch.storage.backend import Backend, GlobalConfigStore
 from janusgraph_tpu_torch.storage.idauthority import (
     ConsistentKeyIDAuthority,
@@ -76,9 +90,68 @@ from janusgraph_tpu_torch.storage.inmemory import InMemoryStoreManager
 from janusgraph_tpu_torch.storage.kcvs import KeySliceQuery, SliceQuery
 
 
+def _open_local(cfg):
+    from janusgraph_tpu_torch.storage.localstore import open_local_kcvs
+
+    directory = cfg.get("storage.directory")
+    if not directory:
+        raise ConfigurationError("storage.backend=local requires storage.directory")
+    return open_local_kcvs(directory, fsync=cfg.get("storage.fsync"))
+
+
+def _not_ported_store(name):
+    def factory(cfg):
+        raise ConfigurationError(
+            f"storage.backend={name!r} is not ported yet: ROADMAP.md Queue A "
+            "#5.5 (the remote and sharded stores)"
+        )
+
+    return factory
+
+
+# reference: StandardStoreManager.java:82 shorthand registry. Factories take
+# the GraphConfiguration.
+_STORE_MANAGERS = {
+    "inmemory": lambda cfg: InMemoryStoreManager(),
+    "local": _open_local,
+    "sharded": _not_ported_store("sharded"),
+    "remote": _not_ported_store("remote"),
+}
+
+
+def register_store_manager(name: str, factory) -> None:
+    """Register a storage adapter shorthand: ``factory(cfg)`` returns a
+    store manager (reference: StandardStoreManager.java:82)."""
+    _STORE_MANAGERS[name] = factory
+
+
 def open_graph(config: Optional[dict] = None, store_manager=None) -> "JanusGraphTPU":
     """JanusGraphFactory.open equivalent."""
     return JanusGraphTPU(config, store_manager=store_manager)
+
+
+def drop_graph(graph: "JanusGraphTPU") -> None:
+    """DESTROY the graph's storage and close it (reference:
+    JanusGraphFactory.drop). Irreversible. The store manager clears every
+    store; a local directory loses its ``store.wal`` and
+    ``store.snapshot`` (nothing else of the directory is touched). The
+    delta snapshot and the cached executors go with ``close()``. The
+    reference also clears the mixed-index providers, the logs and the
+    instance registry, which the port does not have (ROADMAP Queue A #5).
+
+    Storage is cleared BEFORE close(): the local backend's clear_storage
+    reopens its WAL handle, and only the following close() releases it.
+    The local store's files are then unlinked (the reference leaves a WAL
+    that holds only the frames its close() appends)."""
+    manager = graph.backend.manager
+    try:
+        manager.clear_storage()
+    finally:
+        if graph._open:
+            graph.close()
+    kv = getattr(manager, "kv_manager", None)
+    if hasattr(kv, "remove_files"):
+        kv.remove_files()
 
 
 class VertexIDAssigner:
@@ -146,21 +219,44 @@ class JanusGraphTPU:
         self.config = GraphConfiguration(dict(config or {}))
         cfg = self.config
         if store_manager is None:
-            # only "inmemory" passes the option's check
-            store_manager = InMemoryStoreManager()
+            backend_name = cfg.get("storage.backend")
+            factory = _STORE_MANAGERS.get(backend_name)
+            if factory is None:
+                raise ConfigurationError(f"unknown storage backend {backend_name!r}")
+            store_manager = factory(cfg)
         self.serializer = Serializer()
         # reconcile cluster-global options BEFORE building the backend so
         # stored GLOBAL/FIXED values govern its construction
-        cfg.attach_backend(GlobalConfigStore(store_manager))
+        cfg.attach_backend(GlobalConfigStore(
+            store_manager, read_only=cfg.get("storage.read-only")
+        ))
+        ttl_ms = cfg.get("cache.db-cache-time-ms")
         self.backend = Backend(
-            store_manager, id_block_size=cfg.get("ids.block-size"),
+            store_manager,
+            cache_enabled=cfg.get("cache.db-cache"),
+            cache_size=cfg.get("cache.db-cache-size"),
+            id_block_size=cfg.get("ids.block-size"),
+            cache_clean_wait_seconds=cfg.get("cache.db-cache-clean-wait-ms") / 1000.0,
+            read_only=cfg.get("storage.read-only"),
+            cache_ttl_seconds=(ttl_ms / 1000.0) if ttl_ms > 0 else None,
             metrics_enabled=cfg.get("metrics.enabled"),
             metrics_merge_stores=cfg.get("metrics.merge-stores"),
+            edgestore_cache_fraction=cfg.get("cache.edgestore-fraction"),
+            retry_time_s=cfg.get("storage.retry-time-ms") / 1000.0,
+            backoff_base_s=cfg.get("storage.backoff-base-ms") / 1000.0,
+            backoff_max_s=cfg.get("storage.backoff-max-ms") / 1000.0,
+            retry_attempts=cfg.get("storage.write-attempts"),
         )
         self.idm = IDManager(partition_bits=cfg.get("ids.partition-bits"))
         self.edge_serializer = EdgeSerializer(self.serializer, self.idm)
         self.system_types = SystemTypes(self.idm)
         self.backend.id_authority.wait_ms = cfg.get("ids.authority-wait-ms")
+        self.backend.configure_lockers(
+            wait_ms=cfg.get("locks.wait-ms"),
+            expiry_ms=cfg.get("locks.expiry-ms"),
+            retries=cfg.get("locks.retries"),
+            clean_expired=cfg.get("locks.clean-expired"),
+        )
         self.id_assigner = VertexIDAssigner(
             self.backend.id_authority, self.idm,
             renew_fraction=cfg.get("ids.renew-percentage"),
@@ -168,6 +264,13 @@ class JanusGraphTPU:
         self.schema_cache = SchemaCache(
             self._load_schema_by_name, self._load_schema_by_id
         )
+        self.auto_schema = cfg.get("schema.default") == "auto"
+        # cached: read on every property and edge write (GLOBAL_OFFLINE, so
+        # immutable while the graph is open)
+        self.schema_constraints = bool(cfg.get("schema.constraints"))
+        #: serializes the schema fields' read-modify-writes (auto-created
+        #: constraints arrive from concurrent writer transactions)
+        self._schema_rmw_lock = threading.Lock()
         #: relation-type index ids (no relation indexes in the port)
         self.relation_index_ids = frozenset()
         #: commits are serialized graph-wide (reference: commit_tx)
@@ -271,7 +374,17 @@ class JanusGraphTPU:
             return el
         if el is not None:
             raise SchemaViolationError(f"{name} exists and is not a vertex label")
+        if not self.auto_schema and name != "vertex":
+            raise SchemaViolationError(f"undefined vertex label: {name}")
         return self.management().make_vertex_label(name)
+
+    def evict_schema_element(self, sid: int) -> None:
+        """Drop a changed schema element from every cache layer of this
+        instance (the reference broadcasts this over its management log to
+        every open instance; the port evicts in-process, ROADMAP Queue A
+        #5.3)."""
+        self.schema_cache.invalidate_id(sid)
+        self.backend.clear_caches()
 
     def traversal(self):
         """The Gremlin entry point: ``g = graph.traversal()``, then
@@ -319,7 +432,10 @@ class JanusGraphTPU:
         st = self.system_types
         btx = tx.backend_tx
         with self._commit_lock:
-            self._refuse_unported(tx)
+            # -- 0.5 LOCK-consistency claims for the touched cells of LOCK
+            # types; verified and released by btx.commit() (a failed
+            # commit's rollback releases them)
+            self._register_consistency_locks(tx)
             # -- 1. vertex existence + label cells for new vertices
             for vid, label_id in tx._new_vertex_labels.items():
                 if vid in tx._removed_vertices:
@@ -335,6 +451,13 @@ class JanusGraphTPU:
                         self.id_assigner.assign_relation_id(),
                     ),
                 ]
+                # vertex-label TTL: the existence and label cells expire,
+                # so the whole vertex does; its relations become ghosts
+                vl = tx.schema_by_id(label_id) if label_id else None
+                vttl = getattr(vl, "ttl_seconds", 0)
+                if vttl:
+                    vexp = time.time_ns() + int(vttl * 1e9)
+                    adds = [(c, v, vexp) for c, v in adds]
                 btx.mutate_edges(self.idm.get_key(vid), adds, [])
             # -- 2. deleted relations FIRST
             for rel in tx._deleted:
@@ -366,29 +489,6 @@ class JanusGraphTPU:
             assert not self.relation_index_ids
             # -- 6. flush while still holding the lock
             btx.commit()
-
-    def _refuse_unported(self, tx: Transaction) -> None:
-        """LOCK consistency needs the consistent-key locker and a TTL a
-        store with cell TTLs; neither is ported, so a commit that reaches
-        one raises before anything is written."""
-        added = {
-            rel.type_id for rels in tx._added.values() for rel in rels
-            if not rel.is_removed
-        }
-        for tid in added | {rel.type_id for rel in tx._deleted}:
-            el = tx.schema_by_id(tid)
-            if getattr(el, "consistency", None) == Consistency.LOCK:
-                raise NotImplementedError(
-                    f"{el.name} has LOCK consistency: the consistent-key "
-                    "locker is not ported yet (ROADMAP.md Queue A #5)"
-                )
-        for sid in added | set(tx._new_vertex_labels.values()):
-            el = tx.schema_by_id(sid)
-            if getattr(el, "ttl_seconds", 0):
-                raise NotImplementedError(
-                    f"{el.name} has a TTL: cell TTLs need a store that keeps "
-                    "them, which is not ported yet (ROADMAP.md Queue A #5)"
-                )
 
     def _relation_cells(self, tx: Transaction, rel):
         """[(vertex-key, (column, value))] a relation serializes to: an
@@ -425,10 +525,68 @@ class JanusGraphTPU:
             ),
         )]
 
+    def _register_consistency_locks(self, tx: Transaction) -> None:
+        """One consistent-key lock claim for every cell the commit touches
+        of a type with LOCK consistency (reference:
+        StandardJanusGraph.prepareCommit acquiring edge locks). The
+        expected value comes from the transaction's own mutations: a
+        deleted relation's cell must still hold its encoding, an added
+        cell's column must be absent. So a concurrent commit that changed a
+        touched cell after this transaction read it fails the
+        expected-value pass inside btx.commit()."""
+        # (key, cell column) -> expected value bytes | None (absent)
+        cells: dict = {}
+
+        def touch(rel, deleted: bool):
+            el = tx.schema_by_id(rel.type_id)
+            if getattr(el, "consistency", None) != Consistency.LOCK:
+                return
+            for key, (col, val) in self._relation_cells(tx, rel):
+                if deleted:
+                    cells[(key, col)] = val
+                else:
+                    cells.setdefault((key, col), None)
+
+        for rel in tx._deleted:
+            touch(rel, True)
+        for rels in tx._added.values():
+            for rel in rels:
+                if not rel.is_removed:
+                    touch(rel, False)
+        for (key, col) in sorted(cells):
+            val = cells[(key, col)]
+            tx.backend_tx.acquire_edge_lock(
+                key, col, expected=[(col, val)] if val is not None else []
+            )
+
     def _write_relation(self, tx: Transaction, rel, delete: bool) -> None:
+        expire = 0
+        if not delete:
+            el = tx.schema_by_id(rel.type_id)
+            ttl = getattr(el, "ttl_seconds", 0)
+            # a (static) TTL'd vertex label folds into its relations' TTL:
+            # static vertices gain relations only in their creating
+            # transaction, so _new_vertex_labels covers them
+            vids = (
+                [rel.out_vertex.id, rel.in_vertex.id]
+                if isinstance(rel, Edge)
+                else [rel.vertex.id]
+            )
+            for vid in vids:
+                lbl_id = tx._new_vertex_labels.get(vid)
+                if lbl_id:
+                    vttl = getattr(tx.schema_by_id(lbl_id), "ttl_seconds", 0)
+                    if vttl:
+                        ttl = vttl if not ttl else min(ttl, vttl)
+            if ttl:
+                expire = time.time_ns() + int(ttl * 1e9)
         for key, cell in self._relation_cells(tx, rel):
             if delete:
                 tx.backend_tx.mutate_edges(key, [], [cell[0]])
+            elif expire:
+                # cell-TTL entry (column, value, expire_ns), kept by stores
+                # with cell TTL; set_ttl refuses TTL'd types on others
+                tx.backend_tx.mutate_edges(key, [(cell[0], cell[1], expire)], [])
             else:
                 tx.backend_tx.mutate_edges(key, [cell], [])
 

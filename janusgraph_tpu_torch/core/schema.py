@@ -299,3 +299,10 @@ class SchemaCache:
                 el = self._by_name.pop(name, None)
                 if el is not None:
                     self._by_id.pop(el.id, None)
+
+    def invalidate_id(self, sid: int) -> None:
+        with self._lock:
+            self._generation += 1
+            el = self._by_id.pop(sid, None)
+            if el is not None:
+                self._by_name.pop(el.name, None)

@@ -16,11 +16,16 @@ batch, ``query.batch-size`` vertices a call), the sort-range
 ``get_edges`` (the vertex-centric index's column range on a sort-keyed
 label) and ``adjacency_edges`` (point lookups of specific neighbours).
 
-Left out (ROADMAP.md Queue A #5): schema constraints
-(``schema.constraints`` is not honoured, so none apply) and relation
-indexes, with the index copies they write and the sort ranges they serve
-on labels without a sort key (the port has none). ``log_identifier``
-needs the WAL (Queue A #5) and raises ``NotImplementedError``.
+The schema options apply as in the reference: ``schema.default`` "none"
+refuses an undefined key or label instead of making it, and with
+``schema.constraints`` a labelled element carries only declared keys and
+an edge only declared connections (``mgmt.add_properties``,
+``mgmt.add_connection``; auto mode declares them on first write).
+
+Left out (ROADMAP.md Queue A #5): relation indexes, with the index copies
+they write and the sort ranges they serve on labels without a sort key
+(the port has none). ``log_identifier`` needs the WAL (Queue A #5.3) and
+raises ``NotImplementedError``.
 
 Telemetry, as the reference's: ``tx.begin`` and ``tx.rollback`` counters,
 a ``tx.commit`` span (added and deleted relations, lifetime) around a
@@ -123,8 +128,8 @@ class Transaction:
     def _property_key(self, name: str, value=None) -> PropertyKey:
         el = self.schema_by_name(name)
         if el is None:
-            # schema.default is not honoured: the reference's default,
-            # "auto", makes what is missing
+            if not self.graph.auto_schema:
+                raise SchemaViolationError(f"undefined property key: {name}")
             el = self.graph.management().make_property_key(
                 name, type(value) if value is not None else str
             )
@@ -132,9 +137,67 @@ class Transaction:
             raise SchemaViolationError(f"{name} is not a property key")
         return el
 
+    # -- schema constraints (reference: StandardJanusGraphTx.java:669-698):
+    # with schema.constraints on, labelled elements carry only declared
+    # keys and connections; auto schema declares a missing one, "none"
+    # refuses it. The default "vertex" label is exempt.
+    def _vertex_label_el(self, v: Vertex):
+        name = self.get_vertex_label(v)
+        if name == "vertex":
+            return None
+        return self.schema_by_name(name)
+
+    def _check_property_constraint(self, v: Vertex, pk: PropertyKey) -> None:
+        if not self.graph.schema_constraints:
+            return
+        vl = self._vertex_label_el(v)
+        if vl is None or not hasattr(vl, "allowed_property_ids"):
+            return
+        if pk.id in vl.allowed_property_ids:
+            return
+        if self.graph.auto_schema:
+            self.graph.management().add_properties(vl.name, pk.name)
+            return
+        raise SchemaViolationError(
+            f"property {pk.name!r} is not declared for vertex label "
+            f"{vl.name!r} (schema.constraints; mgmt.add_properties)"
+        )
+
+    def _check_edge_property_constraint(self, el: EdgeLabel, pk: PropertyKey) -> None:
+        if not self.graph.schema_constraints:
+            return
+        if pk.id in el.allowed_property_ids:
+            return
+        if self.graph.auto_schema:
+            self.graph.management().add_properties(el.name, pk.name)
+            return
+        raise SchemaViolationError(
+            f"property {pk.name!r} is not declared for edge label "
+            f"{el.name!r} (schema.constraints; mgmt.add_properties)"
+        )
+
+    def _check_connection_constraint(self, el: EdgeLabel, out_v: Vertex, in_v: Vertex) -> None:
+        if not self.graph.schema_constraints:
+            return
+        ovl = self._vertex_label_el(out_v)
+        ivl = self._vertex_label_el(in_v)
+        if ovl is None or ivl is None:
+            return  # a default-labelled endpoint is exempt
+        if (ovl.id, ivl.id) in el.connections:
+            return
+        if self.graph.auto_schema:
+            self.graph.management().add_connection(el.name, ovl.name, ivl.name)
+            return
+        raise SchemaViolationError(
+            f"connection {ovl.name!r}-[{el.name!r}]->{ivl.name!r} is not "
+            "declared (schema.constraints; mgmt.add_connection)"
+        )
+
     def _edge_label(self, name: str) -> EdgeLabel:
         el = self.schema_by_name(name)
         if el is None:
+            if not self.graph.auto_schema:
+                raise SchemaViolationError(f"undefined edge label: {name}")
             el = self.graph.management().make_edge_label(name)
         if not isinstance(el, EdgeLabel):
             raise SchemaViolationError(f"{name} is not an edge label")
@@ -217,10 +280,12 @@ class Transaction:
             raise InvalidElementError("endpoint vertex was removed in this tx")
         el = self._edge_label(label)
         self._check_multiplicity(el, out_v, in_v)
+        self._check_connection_constraint(el, out_v, in_v)
         rid = self.graph.id_assigner.assign_relation_id()
         prop_ids = {}
         for k, val in props.items():
             pk = self._property_key(k, val)
+            self._check_edge_property_constraint(el, pk)
             prop_ids[pk.id] = val
         sort_key = self._build_sort_key(el, prop_ids)
         e = Edge(
@@ -277,12 +342,14 @@ class Transaction:
             raise InvalidElementError("vertex was removed in this tx")
         pk = self._property_key(key, value)
         value = self._coerce_value(pk, key, value)
-        # resolve + validate metas BEFORE the SINGLE removal below: a write
+        # resolve + validate metas BEFORE any destructive step (the SINGLE
+        # removal below and the durable auto-schema constraint): a write
         # that is going to be rejected must not leave mutations behind
         meta_ids = {}
         for mk, mv in meta.items():
             mpk = self._property_key(mk, mv)
             meta_ids[mpk.id] = self._coerce_value(mpk, mk, mv)
+        self._check_property_constraint(v, pk)
         if pk.cardinality == Cardinality.SINGLE:
             for existing in self.get_properties(v, key):
                 self.remove_property(existing)
@@ -340,6 +407,8 @@ class Transaction:
             )
         pk = self._property_key(key, value)
         label = self.schema_by_id(e.type_id)
+        if isinstance(label, EdgeLabel):
+            self._check_edge_property_constraint(label, pk)
         if e.is_new:
             e._props[pk.id] = value
             # sort-key columns encode property values: rebuild so the stored

@@ -1,5 +1,11 @@
 """Exceptions of the port (the part of ``janusgraph_tpu/exceptions.py`` the
-OLAP path, the transaction and the traversal raise)."""
+OLAP path, the storage layer, the transaction and the traversal raise).
+
+Backend errors split into *temporary* ones, which the retry guard
+(``storage/backend_op.py``) replays with backoff, and *permanent* ones,
+which it lets through at once. The locking errors sit in that taxonomy:
+lock contention and an expired lease are temporary, a changed expected
+value is permanent."""
 
 
 class JanusGraphTorchError(Exception):
@@ -22,6 +28,16 @@ class TemporaryBackendError(BackendError):
 
 class PermanentBackendError(BackendError):
     """A storage failure no retry gets past."""
+
+
+class TemporaryLockingError(TemporaryBackendError):
+    """Lock contention or an expired lease; a retry of the transaction may
+    succeed."""
+
+
+class PermanentLockingError(PermanentBackendError):
+    """The lock protocol failed for good (an expected value changed under
+    the lock)."""
 
 
 class IDPoolExhaustedError(JanusGraphTorchError):

@@ -18,7 +18,11 @@ or a program that cannot consume it fused, is folded into a new base by
 snapshot, so a warm submit reuses their device packs and captured CUDA
 graphs. ``run_info["snapshot"]`` says which path the submit took. A
 filtered submit (``edges``/``vertices``/``properties``/``weight``) scans
-the store through ``load_csr``.
+the store through ``load_csr``. With ``storage.distributed-load-workers``
+W > 1 over a "local" store, an unfiltered submit loads through W loader
+processes (``olap/distributed_load.py``; ``run_info["snapshot"]`` is
+``{"path": "distributed", "workers": W}``), never through the delta
+snapshot, as in the reference; a failed load raises.
 
 Executors: "tpu" (the default; the reference's name for its one
 accelerator) runs on the CUDA card and raises where there is none; "cpu"
@@ -38,9 +42,9 @@ children; it records its routing (``registry.record_run("olap.routing",
 ...)``) and takes ``run_info`` from ``registry.last_run("olap")`` plus
 ``routing`` (and the port's ``snapshot``).
 
-Left out: OLAP admission (the server's, ROADMAP Queue A #5), distributed
-loading and sharded routing. ``run_on`` is the array-level entry point
-beside it.
+Left out: OLAP admission (the server's, ROADMAP Queue A #5), sharded
+routing (#4) and distributed loading over the remote store (#5.5).
+``run_on`` is the array-level entry point beside it.
 """
 
 from __future__ import annotations
@@ -276,12 +280,33 @@ class GraphComputer:
         plain = not (
             property_keys or self._weight_key or self._edge_labels or self._vertex_labels
         )
+        cfg = self.graph.config
+        # distributed CSR loading (storage.distributed-load-workers): N
+        # worker processes scan disjoint partition sets of a shared backend
+        # and the parent merges once; the raw scan carries no property,
+        # weight or filter columns, so those load in-process. A distributed
+        # load bypasses the warm delta snapshot, as in the reference, and a
+        # failed load raises
+        workers = cfg.get("storage.distributed-load-workers")
+        distributed = workers > 1 and plain and cfg.get("storage.backend") == "local"
         with tracer.span("olap.load_csr") as ls:
-            delta_snap = _delta.get_snapshot(self.graph) if plain else None
+            delta_snap = (
+                _delta.get_snapshot(self.graph) if plain and workers <= 1 else None
+            )
             delta_view = None
             if delta_snap is not None:
                 csr, delta_view, snapshot = delta_snap.acquire()
                 ls.annotate(delta_path=snapshot["path"], overlay=snapshot.get("overlay", 0))
+            elif distributed:
+                from janusgraph_tpu_torch.olap.distributed_load import distributed_load_csr
+
+                csr = distributed_load_csr(
+                    dict(cfg.local), num_workers=workers,
+                    timeout_s=cfg.get("storage.distributed-load-timeout-s"),
+                    partition_bits=self.graph.idm.partition_bits,
+                )
+                snapshot = {"path": "distributed", "workers": workers}
+                ls.annotate(distributed_workers=workers)
             else:
                 csr = load_csr(
                     self.graph,

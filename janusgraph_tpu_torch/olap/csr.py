@@ -18,9 +18,11 @@ carries a reference snapshot across, so both packages compute on the same
 graph state. ``channel_edges`` flattens a typed edge view
 (``EdgeChannel``) into an edge list.
 
-Left out: the merge of several scans in ``build_csr_from_raw``
-(distributed loading, ROADMAP Queue A #5) and the unordered-scan branch of ``_scan_raw`` (the in-memory
-store scans in key order).
+``build_csr_from_raw`` merges one or more raw scans: the distributed
+loader (``olap/distributed_load.py``) hands it one per worker process.
+
+Left out: the unordered-scan branch of ``_scan_raw`` (both ported stores
+scan in key order).
 """
 
 from __future__ import annotations
@@ -136,7 +138,7 @@ def load_csr(
     raw = _scan_raw(
         graph, label_ids, vlabel_ids, prop_key_ids, weight_key_id, partitions
     )
-    return build_csr_from_raw(idm, raw)
+    return build_csr_from_raw(idm, [raw])
 
 
 def _scan_raw(
@@ -316,19 +318,40 @@ def _scan_raw(
     }
 
 
-def build_csr_from_raw(idm, raw) -> CSRGraph:
-    """One _scan_raw output -> a validated CSRGraph (the reference also
-    merges several, one per loader process; distributed loading waits for
-    ROADMAP Queue A #5)."""
-    src, dst = raw["src"], raw["dst"]
-    et, w = raw["etype"], raw["weights"]
-    raw_props: Dict[str, Dict[int, object]] = raw["raw_props"]
+def build_csr_from_raw(idm, raws) -> CSRGraph:
+    """Merge one or more _scan_raw outputs (e.g. from N loader processes
+    over disjoint partition sets) into a validated CSRGraph."""
+    vid_parts, vlabel_parts = [], []
+    src_parts, dst_parts, et_parts, w_parts = [], [], [], []
+    raw_props: Dict[str, Dict[int, object]] = {}
+    any_et = any(r["etype"] is not None for r in raws)
+    any_w = any(r["weights"] is not None for r in raws)
+    for r in raws:
+        vid_parts.append(np.asarray(r["vertex_id_list"], dtype=np.int64))
+        vlabel_parts.append(np.asarray(r["vertex_labels"], dtype=np.int64))
+        src_parts.append(r["src"])
+        dst_parts.append(r["dst"])
+        if any_et:
+            et_parts.append(
+                r["etype"] if r["etype"] is not None
+                else np.zeros(len(r["src"]), dtype=np.int32)
+            )
+        if any_w:
+            w_parts.append(
+                r["weights"] if r["weights"] is not None
+                else np.ones(len(r["src"]), dtype=np.float32)
+            )
+        for name, mapping in r["raw_props"].items():
+            raw_props.setdefault(name, {}).update(mapping)
+    src = np.concatenate(src_parts) if src_parts else np.empty(0, np.int64)
+    dst = np.concatenate(dst_parts) if dst_parts else np.empty(0, np.int64)
+    et = np.concatenate(et_parts) if any_et else None
+    w = np.concatenate(w_parts) if any_w else None
 
     # one unique pass; return_index picks each id's label
-    vertex_ids, first_idx = np.unique(
-        np.asarray(raw["vertex_id_list"], dtype=np.int64), return_index=True
-    )
-    vlabels_all = np.asarray(raw["vertex_labels"], dtype=np.int64)
+    vids_all = np.concatenate(vid_parts) if vid_parts else np.empty(0, np.int64)
+    vlabels_all = np.concatenate(vlabel_parts) if vlabel_parts else np.empty(0, np.int64)
+    vertex_ids, first_idx = np.unique(vids_all, return_index=True)
     label_arr = vlabels_all[first_idx] if len(vlabels_all) else None
     n = len(vertex_ids)
     if len(src):

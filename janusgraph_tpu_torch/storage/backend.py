@@ -1,5 +1,6 @@
-"""Backend orchestration: opens the named stores and the ID authority, and
-builds buffered backend transactions — the port's copy of
+"""Backend orchestration: opens the named stores and the ID authority, wires
+the slice caches and the consistent-key lockers, and builds buffered
+backend transactions — the port's copy of
 ``janusgraph_tpu/storage/backend.py``.
 
 ``Backend`` opens ``edgestore``, ``graphindex``, ``system_properties`` (with
@@ -10,23 +11,35 @@ it (``touched_since``/``touched_count_since``, what ``refresh_csr``
 re-reads; past 1,000,000 rows the tracker resets and records its overflow
 epoch) and streams the batch to the registered change capture
 (``register_change_capture``, the delta snapshot's feed).
-``BackendTransaction`` buffers writes per store and row and flushes them
-as one ``mutate_many`` at commit. With ``metrics.enabled`` the raw
-``edgestore`` and ``graphindex`` are wrapped in ``MetricInstrumentedStore``
-(``util/metrics.py``) and a commit's batched write is timed as
-``storage.mutateMany`` with ``storage.<store>.mutate.rows`` counted, as the
-reference does.
+With ``metrics.enabled`` the raw ``edgestore`` and ``graphindex`` are
+wrapped in ``MetricInstrumentedStore`` (``util/metrics.py``), and with
+``cache.db-cache`` (the default) in an ``ExpirationCacheStore`` over that,
+split ``cache.edgestore-fraction`` / the rest between the two. Each store
+has a consistent-key locker over its own lock store (``edgestore_lock_``,
+``graphindex_lock_``), mediated in-process per store manager.
 
-Left out: the slice caches (the reference wraps its stores in them after
-the metrics), the consistent-key lockers and lock stores, the read-only
-mode and the retry guard around each storage call (ROADMAP Queue A #5).
+``BackendTransaction`` buffers writes per store and row and flushes them
+as one ``mutate_many`` at commit, after the lock checks (claims verified,
+expected values re-read past the cache), then invalidates the cached rows
+it wrote. Every read and the flush run under ``Backend.guard``, the retry
+guard of ``backend_op.py`` (``storage.retry-time-ms``,
+``storage.backoff-*``, ``storage.write-attempts``). ``storage.read-only``
+refuses every buffered write and every global-config write.
+
+Left out: the id authority's conflict-avoidance modes, the resource
+ledger's per-query cell accounting and the WAL's pre-flush hook (the txlog
+is ROADMAP Queue A #5.3).
 """
 
 from __future__ import annotations
 
 import threading
+import uuid
 from typing import Dict, List, Optional, Sequence
 
+from janusgraph_tpu_torch.exceptions import PermanentBackendError
+from janusgraph_tpu_torch.storage import backend_op
+from janusgraph_tpu_torch.storage.cache import ExpirationCacheStore
 from janusgraph_tpu_torch.storage.idauthority import (
     ConsistentKeyIDAuthority,
     ID_STORE_NAME,
@@ -42,6 +55,7 @@ from janusgraph_tpu_torch.storage.kcvs import (
 EDGESTORE_NAME = "edgestore"
 INDEXSTORE_NAME = "graphindex"
 SYSTEM_PROPERTIES_NAME = "system_properties"
+LOCK_STORE_SUFFIX = "_lock_"
 
 
 class GlobalConfigStore:
@@ -50,11 +64,15 @@ class GlobalConfigStore:
 
     _CONFIG_KEY = b"\x00config"
 
-    def __init__(self, manager: KeyColumnValueStoreManager):
+    def __init__(self, manager: KeyColumnValueStoreManager, read_only: bool = False):
         self._store = manager.open_database(SYSTEM_PROPERTIES_NAME)
         self._tx = manager.begin_transaction()
+        #: storage.read-only: global-config writes refuse
+        self.read_only = read_only
 
     def set_global_config(self, name: str, value: bytes) -> None:
+        if self.read_only:
+            raise PermanentBackendError("storage.read-only: global config writes refused")
         self._store.mutate(
             self._CONFIG_KEY, [(name.encode(), value)], [], self._tx
         )
@@ -74,27 +92,59 @@ class Backend:
     def __init__(
         self,
         manager: KeyColumnValueStoreManager,
+        cache_enabled: bool = True,
+        cache_size: int = 65536,
         id_block_size: int = 10_000,
+        cache_ttl_seconds: Optional[float] = 10.0,
+        cache_clean_wait_seconds: float = 0.0,
         metrics_enabled: bool = False,
         metrics_merge_stores: bool = False,
+        edgestore_cache_fraction: float = 0.8,
+        read_only: bool = False,
+        retry_time_s: float = 10.0,
+        backoff_base_s: Optional[float] = None,
+        backoff_max_s: Optional[float] = None,
+        retry_attempts: int = 0,
     ):
         self.manager = manager
         self.metrics_enabled = metrics_enabled
+        #: storage.read-only: every mutation through this backend raises
+        self.read_only = read_only
+        #: the retry guard's shape for this backend's read and flush paths
+        self.retry_time_s = retry_time_s
+        self.backoff_base_s = backoff_base_s
+        self.backoff_max_s = backoff_max_s
+        self.retry_attempts = retry_attempts
         self._base_tx = manager.begin_transaction()
-        self.edgestore = manager.open_database(EDGESTORE_NAME)
-        self.indexstore = manager.open_database(INDEXSTORE_NAME)
+        edgestore = manager.open_database(EDGESTORE_NAME)
+        indexstore = manager.open_database(INDEXSTORE_NAME)
         if metrics_enabled:
-            # instrument the raw stores (before any cache layer, as the
-            # reference does)
+            # instrument the raw stores, before the cache layer, so cache
+            # hits show as the gap between the tx-level and store-level
+            # counts (as the reference does)
             from janusgraph_tpu_torch.util.metrics import MetricInstrumentedStore
 
-            self.edgestore = MetricInstrumentedStore(self.edgestore, merge_stores=metrics_merge_stores)
-            self.indexstore = MetricInstrumentedStore(self.indexstore, merge_stores=metrics_merge_stores)
+            edgestore = MetricInstrumentedStore(edgestore, merge_stores=metrics_merge_stores)
+            indexstore = MetricInstrumentedStore(indexstore, merge_stores=metrics_merge_stores)
+        if cache_enabled:
+            f = edgestore_cache_fraction
+            edgestore = ExpirationCacheStore(
+                edgestore, max(1, int(cache_size * f)),
+                ttl_seconds=cache_ttl_seconds,
+                clean_wait_seconds=cache_clean_wait_seconds,
+            )
+            indexstore = ExpirationCacheStore(
+                indexstore, max(1, int(cache_size * (1.0 - f))),
+                ttl_seconds=cache_ttl_seconds,
+                clean_wait_seconds=cache_clean_wait_seconds,
+            )
+        self.edgestore = edgestore
+        self.indexstore = indexstore
         self.system_properties = manager.open_database(SYSTEM_PROPERTIES_NAME)
-        self.global_config = GlobalConfigStore(manager)
+        self.global_config = GlobalConfigStore(manager, read_only=read_only)
         self.id_store = manager.open_database(ID_STORE_NAME)
         self.id_authority = ConsistentKeyIDAuthority(
-            self.id_store, self._base_tx, block_size=id_block_size,
+            self.id_store, self._base_tx, block_size=id_block_size, read_only=read_only,
         )
         #: mutation-epoch tracker: edgestore row key -> epoch of its last
         #: committed mutation (refresh_csr re-reads only these rows)
@@ -107,6 +157,36 @@ class Backend:
         self._overflow_epoch = 0
         #: the delta snapshot's change-capture sink (register_change_capture)
         self._change_capture = None
+        # consistent-key lockers over dedicated lock stores, one in-process
+        # mediator per store manager
+        from janusgraph_tpu_torch.storage.locking import ConsistentKeyLocker, mediator_for
+
+        self.rid = uuid.uuid4().bytes[:8]
+        mediator = mediator_for(manager)
+        self.edge_locker = ConsistentKeyLocker(
+            manager.open_database(EDGESTORE_NAME + LOCK_STORE_SUFFIX),
+            manager.begin_transaction, self.rid, mediator,
+        )
+        self.index_locker = ConsistentKeyLocker(
+            manager.open_database(INDEXSTORE_NAME + LOCK_STORE_SUFFIX),
+            manager.begin_transaction, self.rid, mediator,
+        )
+
+    def clear_caches(self) -> None:
+        """Drop every cached slice (what a schema change evicts)."""
+        for store in (self.edgestore, self.indexstore):
+            if isinstance(store, ExpirationCacheStore):
+                store.invalidate_all()
+
+    def configure_lockers(
+        self, wait_ms: float, expiry_ms: float, retries: int,
+        clean_expired: bool = False,
+    ) -> None:
+        for locker in (self.edge_locker, self.index_locker):
+            locker.wait_ms = wait_ms
+            locker.expiry_ms = expiry_ms
+            locker.retries = retries
+            locker.clean_expired = clean_expired
 
     def begin_transaction(self, config: Optional[dict] = None) -> "BackendTransaction":
         return BackendTransaction(self, self.manager.begin_transaction(config))
@@ -161,6 +241,16 @@ class Backend:
     def get_global_config(self, name: str) -> Optional[bytes]:
         return self.global_config.get_global_config(name)
 
+    def guard(self, op):
+        """Run one backend operation under this backend's retry guard."""
+        return backend_op.execute(
+            op,
+            max_time_s=self.retry_time_s,
+            base_delay_s=self.backoff_base_s,
+            max_delay_s=self.backoff_max_s,
+            max_attempts=self.retry_attempts,
+        )
+
     def close(self) -> None:
         self.edgestore.close()
         self.indexstore.close()
@@ -183,19 +273,39 @@ class BackendTransaction:
         self._open = True
 
     # ----------------------------------------------------------------- reads
+    # each read rides Backend.guard: temporary failures replay with
+    # jittered backoff instead of surfacing into the transaction layer
     def edge_store_query(self, query: KeySliceQuery) -> EntryList:
-        return self.backend.edgestore.get_slice(query, self.store_tx)
+        return self.backend.guard(
+            lambda: self.backend.edgestore.get_slice(query, self.store_tx)
+        )
 
     def edge_store_multi_query(
         self, keys: Sequence[bytes], slice_query: SliceQuery
     ) -> Dict[bytes, EntryList]:
-        return self.backend.edgestore.get_slice_multi(keys, slice_query, self.store_tx)
+        return self.backend.guard(
+            lambda: self.backend.edgestore.get_slice_multi(keys, slice_query, self.store_tx)
+        )
 
     def index_query(self, query: KeySliceQuery) -> EntryList:
-        return self.backend.indexstore.get_slice(query, self.store_tx)
+        return self.backend.guard(
+            lambda: self.backend.indexstore.get_slice(query, self.store_tx)
+        )
+
+    def index_query_uncached(self, query: KeySliceQuery) -> EntryList:
+        """Past the slice cache: claim-time reads that back lock
+        expectations must not see TTL-stale rows."""
+        store = self.backend.indexstore
+        if isinstance(store, ExpirationCacheStore):
+            store = store.wrapped
+        return self.backend.guard(lambda: store.get_slice(query, self.store_tx))
 
     # ---------------------------------------------------------------- writes
     def _buffer(self, store: str, key: bytes, additions: EntryList, deletions: Sequence[bytes]):
+        if self.backend.read_only:
+            raise PermanentBackendError(
+                "storage.read-only: the backend was opened read-only"
+            )
         with self._lock:
             rows = self._mutations.setdefault(store, {})
             m = rows.setdefault(key, KCVMutation())
@@ -212,32 +322,93 @@ class BackendTransaction:
             not m.is_empty() for rows in self._mutations.values() for m in rows.values()
         )
 
+    # ----------------------------------------------------------------- locks
+    def acquire_edge_lock(self, key: bytes, column: bytes, expected=None) -> None:
+        from janusgraph_tpu_torch.storage.locking import KeyColumn
+
+        self.backend.edge_locker.write_lock(KeyColumn(key, column), self, expected)
+
+    def acquire_index_lock(self, key: bytes, column: bytes, expected=None) -> None:
+        """An index-cell lock (the unique composite indexes take these,
+        ROADMAP Queue A #5.2)."""
+        from janusgraph_tpu_torch.storage.locking import KeyColumn
+
+        self.backend.index_locker.write_lock(KeyColumn(key, column), self, expected)
+
+    def _check_and_release_locks(self, commit: bool) -> None:
+        be = self.backend
+        try:
+            if commit:
+                for locker, store in (
+                    (be.edge_locker, be.edgestore),
+                    (be.index_locker, be.indexstore),
+                ):
+                    if not locker.held_by(self):
+                        continue
+                    # expected-value reads see the real store, never a
+                    # possibly stale slice cache
+                    if isinstance(store, ExpirationCacheStore):
+                        store = store.wrapped
+                    locker.check_locks(self)
+                    locker.check_expected_values(
+                        self,
+                        lambda t, _s=store: be.guard(
+                            lambda: _s.get_slice(
+                                KeySliceQuery(
+                                    t.key, SliceQuery(t.column, t.column + b"\x00"),
+                                ),
+                                self.store_tx,
+                            )
+                        ),
+                    )
+        except Exception:
+            be.edge_locker.delete_locks(self)
+            be.index_locker.delete_locks(self)
+            raise
+
     # ---------------------------------------------------------------- commit
     def commit(self) -> None:
         if not self._open:
             return
         try:
+            self._check_and_release_locks(commit=True)
             if self._mutations:
+                flush = lambda: self.backend.manager.mutate_many(  # noqa: E731
+                    self._mutations, self.store_tx
+                )
                 if self.backend.metrics_enabled:
                     # batched writes bypass the per-store wrapper, so they
                     # are timed here
                     from janusgraph_tpu_torch.util.metrics import metrics
 
                     with metrics.time("storage.mutateMany"):
-                        self.backend.manager.mutate_many(self._mutations, self.store_tx)
+                        self.backend.guard(flush)
                     for store_name, rows in self._mutations.items():
                         metrics.counter(f"storage.{store_name}.mutate.rows").inc(len(rows))
                 else:
-                    self.backend.manager.mutate_many(self._mutations, self.store_tx)
+                    self.backend.guard(flush)
                 edge_rows = self._mutations.get(EDGESTORE_NAME)
                 if edge_rows:
                     self.backend.note_edge_mutations(edge_rows.keys(), edge_rows)
+                # invalidate the cached slices of every written row
+                for store_name, rows in self._mutations.items():
+                    store = {
+                        EDGESTORE_NAME: self.backend.edgestore,
+                        INDEXSTORE_NAME: self.backend.indexstore,
+                    }.get(store_name)
+                    if isinstance(store, ExpirationCacheStore):
+                        for key in rows:
+                            store.invalidate(key)
                 self._mutations = {}
             self.store_tx.commit()
         finally:
+            self.backend.edge_locker.delete_locks(self)
+            self.backend.index_locker.delete_locks(self)
             self._open = False
 
     def rollback(self) -> None:
         self._mutations = {}
+        self.backend.edge_locker.delete_locks(self)
+        self.backend.index_locker.delete_locks(self)
         self.store_tx.rollback()
         self._open = False

@@ -43,6 +43,7 @@ from typing import Dict, Optional
 from janusgraph_tpu_torch.exceptions import (
     ConfigurationError,
     IDPoolExhaustedError,
+    PermanentBackendError,
     TemporaryBackendError,
 )
 from janusgraph_tpu_torch.storage.kcvs import (
@@ -105,10 +106,14 @@ class ConsistentKeyIDAuthority:
         uid: Optional[bytes] = None,
         max_retries: int = 20,
         wait_ms: float = 2.0,
+        read_only: bool = False,
     ):
         self.store = store
         self.txh = txh
         self.block_size = block_size
+        #: storage.read-only: refuse block claims up front (the claim
+        #: protocol writes to the id store before anything else would)
+        self.read_only = read_only
         self.uid = uid if uid is not None else (
             uuid.uuid4().bytes[:12] + os.getpid().to_bytes(4, "big")
         )
@@ -148,6 +153,8 @@ class ConsistentKeyIDAuthority:
             )
 
     def get_id_block(self, namespace: int, partition: int) -> IDBlock:
+        if self.read_only:
+            raise PermanentBackendError("storage.read-only: id-block claims write to the id store")
         key = _partition_key(namespace, partition)
         for _ in range(self.max_retries):
             frontier = self._read_frontier(key)

@@ -4,8 +4,10 @@ store): rows are copy-on-write snapshots of parallel sorted (columns,
 values) lists, a mutation builds a fresh row and swaps one reference, and
 key scans are ordered.
 
-Left out: cell TTL (3-tuple additions, expiry filtering, ``purge_expired``;
-``storage/ttl.py`` waits with it). Every cell lives until it is deleted.
+Cell TTL, as the reference's: an addition ``(column, value, expire_ns)``
+records the cell's expiry in a side table; reads filter expired cells
+(before a slice's limit) and ``purge_expired`` reclaims them. The store
+advertises ``cell_ttl``, so ``set_ttl`` accepts it.
 
 Added: ``InMemoryStoreManager.from_rows`` opens a manager over plain bytes
 (``{store: {key: [(column, value), ...]}}``), which is how a graph that the
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import bisect
 import threading
+import time
 from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 from janusgraph_tpu_torch.storage.kcvs import (
@@ -94,16 +97,50 @@ class InMemoryKeyColumnValueStore(KeyColumnValueStore):
         #: the row keys in byte order, rebuilt after a write that added or
         #: dropped a row (None until then)
         self._sorted_keys: Optional[List[bytes]] = None
+        # cell-TTL side table: (key, column) -> expire_ns, filled only by
+        # 3-tuple additions (column, value, expire_ns)
+        self._expiry: Dict[Tuple[bytes, bytes], int] = {}
+        # per-row count of TTL'd cells: limited slices only widen their
+        # range for rows that hold expiring cells
+        self._expiry_rows: Dict[bytes, int] = {}
 
     @property
     def name(self) -> str:
         return self._name
 
+    def _filter_expired(self, key: bytes, entries: EntryList) -> EntryList:
+        if not self._expiry_rows.get(key):
+            return entries
+        now = time.time_ns()
+        out = []
+        for e in entries:
+            exp = self._expiry.get((key, e[0]))
+            if exp is not None and exp <= now:
+                continue
+            out.append(e)
+        return out
+
+    def _drop_expiry(self, key: bytes, col: bytes) -> None:
+        if self._expiry.pop((key, col), None) is not None:
+            n = self._expiry_rows.get(key, 0) - 1
+            if n > 0:
+                self._expiry_rows[key] = n
+            else:
+                self._expiry_rows.pop(key, None)
+
     def get_slice(self, query: KeySliceQuery, txh: StoreTransaction) -> EntryList:
         row = self._rows.get(query.key)
         if row is None:
             return []
-        return row.slice(query.slice)
+        sq = query.slice
+        if sq.limit is not None and self._expiry_rows.get(query.key):
+            # filter BEFORE limiting: expired cells must not occupy the
+            # limit window
+            live = self._filter_expired(
+                query.key, row.slice(SliceQuery(sq.start, sq.end))
+            )
+            return live[: sq.limit]
+        return self._filter_expired(query.key, row.slice(sq))
 
     def mutate(
         self,
@@ -113,10 +150,25 @@ class InMemoryKeyColumnValueStore(KeyColumnValueStore):
         txh: StoreTransaction,
     ) -> None:
         with self._write_lock:
+            plain = []
+            added_cols = set()
+            for e in additions:
+                if len(e) >= 3 and e[2]:
+                    if (key, e[0]) not in self._expiry:
+                        self._expiry_rows[key] = self._expiry_rows.get(key, 0) + 1
+                    self._expiry[(key, e[0])] = e[2]
+                elif self._expiry_rows:
+                    self._drop_expiry(key, e[0])
+                plain.append((e[0], e[1]))
+                added_cols.add(e[0])
+            if self._expiry_rows:
+                for col in deletions:
+                    # additions override same-column deletions: their
+                    # freshly recorded expiry survives too
+                    if col not in added_cols:
+                        self._drop_expiry(key, col)
             row = self._rows.get(key)
-            new_row = (row or _EMPTY_ROW).mutated(
-                [(e[0], e[1]) for e in additions], deletions
-            )
+            new_row = (row or _EMPTY_ROW).mutated(plain, deletions)
             if new_row.is_empty():
                 if self._rows.pop(key, None) is not None:
                     self._sorted_keys = None
@@ -148,9 +200,31 @@ class InMemoryKeyColumnValueStore(KeyColumnValueStore):
             row = self._rows.get(k)
             if row is None:
                 continue
-            entries = row.slice(sq)
+            entries = self._filter_expired(k, row.slice(sq))
             if entries:
                 yield k, entries
+
+    def purge_expired(self) -> int:
+        """Reclaim expired cells (reads only filter them). Returns the
+        number of cells purged."""
+        now = time.time_ns()
+        with self._write_lock:
+            dead = [(k, c) for (k, c), exp in self._expiry.items() if exp <= now]
+            by_key: Dict[bytes, List[bytes]] = {}
+            for k, c in dead:
+                by_key.setdefault(k, []).append(c)
+                self._drop_expiry(k, c)
+            for k, cols in by_key.items():
+                row = self._rows.get(k)
+                if row is None:
+                    continue
+                new_row = row.mutated([], cols)
+                if new_row.is_empty():
+                    self._rows.pop(k, None)
+                    self._sorted_keys = None
+                else:
+                    self._rows[k] = new_row
+        return len(dead)
 
     # -- introspection used by the OLAP bulk loader ------------------------
     def row_count(self) -> int:
@@ -159,6 +233,8 @@ class InMemoryKeyColumnValueStore(KeyColumnValueStore):
     def clear(self) -> None:
         with self._write_lock:
             self._rows.clear()
+            self._expiry.clear()
+            self._expiry_rows.clear()
             self._sorted_keys = None
 
 
@@ -176,6 +252,7 @@ class InMemoryStoreManager(KeyColumnValueStoreManager):
             batch_mutation=True,
             key_consistent=True,
             persists=False,
+            cell_ttl=True,
         )
 
     @classmethod

@@ -1,8 +1,8 @@
 """Key-Column-Value store SPI — the layer-1 storage contract: the port's
 copy of ``janusgraph_tpu/storage/kcvs.py``. Left out: native per-cell
-locking (``acquire_lock``), ``get_local_key_partition``, the batched
-``get_slice_multi`` and ``SliceQuery``'s ``with_limit``/``contains``/
-``subsumes``, which nothing on the port's path calls.
+locking (``acquire_lock``; the consistent-key locker in ``locking.py``
+serves every store), ``get_local_key_partition`` and ``SliceQuery``'s
+``with_limit``/``subsumes``, which nothing on the port's path calls.
 
 The whole graph (vertices, edges, properties, schema, indexes, ID counters,
 logs, config) lives in a handful of named stores of *sorted wide rows*:
@@ -44,6 +44,9 @@ class SliceQuery:
     start: bytes = b""
     end: Optional[bytes] = None
     limit: Optional[int] = None
+
+    def contains(self, column: bytes) -> bool:
+        return self.start <= column and (self.end is None or column < self.end)
 
 
 @dataclass(frozen=True)

@@ -1,2 +1,3 @@
 """Utilities of the port: the metric-instrumented store and the periodic
-reporters (``util/metrics.py``)."""
+reporters (``util/metrics.py``), and the cluster timestamp providers
+(``util/timestamps.py``)."""

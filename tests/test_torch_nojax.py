@@ -150,6 +150,35 @@ print("OK", spilled, loaded)
 """
 
 
+LOCAL_RUN = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["janusgraph_tpu"] = None
+import numpy as np
+from janusgraph_tpu_torch.core.bulk import bulk_add_edges, bulk_add_vertices
+from janusgraph_tpu_torch.core.graph import drop_graph, open_graph
+from janusgraph_tpu_torch.olap.csr import load_csr
+from janusgraph_tpu_torch.olap.programs import PageRankProgram
+cfg = {"storage.backend": "local", "storage.directory": sys.argv[1],
+       "computer.executor": "cpu", "storage.distributed-load-timeout-s": 120.0}
+g = open_graph(cfg)
+rng = np.random.default_rng(1)
+vids = bulk_add_vertices(g, 40)
+bulk_add_edges(g, "link", vids[rng.integers(0, 40, 160)], vids[rng.integers(0, 40, 160)])
+one = load_csr(g)
+g.close()
+g = open_graph(dict(cfg, **{"storage.distributed-load-workers": 2}))
+res = g.compute().program(PageRankProgram(max_iterations=5)).submit()
+assert res.run_info["snapshot"] == {"path": "distributed", "workers": 2}
+assert np.array_equal(res.csr.in_src, one.in_src) and res.csr.num_edges == 160
+drop_graph(g)
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+    m == "jax" or m.startswith("jax.")
+    or m == "janusgraph_tpu" or m.startswith("janusgraph_tpu.")))
+print("OK", res.csr.num_vertices, loaded)
+"""
+
+
 def _forbidden(name):
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
@@ -199,6 +228,28 @@ def test_traversal_and_spillover_run_with_jax_blocked():
     assert proc.stdout.strip() == "OK 32 []", proc.stdout
 
 
+def test_loader_workers_run_with_stub_jax_first_on_the_path(tmp_path):
+    """A local graph loaded through 2 loader processes whose PYTHONPATH
+    starts with a ``jax`` and a ``janusgraph_tpu`` that raise on import:
+    the workers, which run in their own temporary directory, import
+    neither, so the load succeeds."""
+    stub = tmp_path / "stub"
+    for name in FORBIDDEN:
+        (stub / name).mkdir(parents=True)
+        (stub / name / "__init__.py").write_text(
+            f"raise RuntimeError('{name} must not be imported by the port')\n"
+        )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(stub), ROOT] + (
+        [env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    proc = subprocess.run(
+        [sys.executable, "-c", LOCAL_RUN, str(tmp_path / "graph")], cwd=str(tmp_path),
+        env=env, capture_output=True, text=True, timeout=180,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "OK 40 []", proc.stdout
+
+
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, dirs, names in os.walk(os.path.join(ROOT, "janusgraph_tpu_torch")):
@@ -233,7 +284,9 @@ STORED_PATH_MODULES = (
     "core/schema.py", "core/config.py", "core/management.py", "core/graph.py",
     "core/bulk.py", "storage/kcvs.py", "storage/inmemory.py", "storage/idauthority.py",
     "storage/backend.py", "olap/csr.py", "olap/computer.py", "core/tx.py",
-    "core/elements.py", "olap/delta.py",
+    "core/elements.py", "olap/delta.py", "storage/kvstore.py", "storage/localstore.py",
+    "storage/cache.py", "storage/locking.py", "storage/ttl.py", "storage/backend_op.py",
+    "util/timestamps.py", "olap/input_format.py", "olap/distributed_load.py",
 )
 #: modules of the traversal path (graph.traversal(), its computer steps and
 #: the spillover planner)

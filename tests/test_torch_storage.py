@@ -304,13 +304,13 @@ def test_id_authority_refuses_another_block_size():
 @pytest.mark.parametrize("path,value,item", [
     ("tx.log-tx", True, "Queue A #5"),
     ("computer.executor", "sharded", "Queue A #4"),
-    ("storage.distributed-load-workers", 4, "Queue A #5"),
-    ("storage.backend", "local", "Queue A #5"),
+    ("storage.backend", "remote", "Queue A #5.5"),
+    ("storage.backend", "sharded", "Queue A #5.5"),
     ("computer.price-book-path", "book.json", "Queue A #5"),
     ("metrics.trace-propagation", False, "Queue A #5"),
     ("computer.sharded-auto", False, "Queue A #4"),
     ("metrics.history-enabled", True, "Queue A #5"),
-    ("cache.db-cache", False, "Queue A #5"),
+    ("cache.tx-cache-size", 100, "Queue A #5"),
 ])
 def test_options_not_ported_raise_naming_the_roadmap_item(path, value, item):
     with pytest.raises(ConfigurationError, match=item):

@@ -273,23 +273,33 @@ def test_what_the_port_lacks_raises_naming_its_item():
     g.new_transaction(metrics_group="web").commit()
     assert registry.get_count("web.commit") == before_commits + 1
     assert open_graph({"tx.read-only-default": True}).new_transaction().read_only
-    for option in ("tx.log-tx", "schema.constraints", "query.fast-property"):
+    for option in ("tx.log-tx", "attributes.allow-pickle", "query.fast-property"):
         with pytest.raises(ConfigurationError):
             open_graph({option: True})
     g.close()
-    # a LOCK-consistency label written by the reference reaches the locker
+    # a LOCK-consistency label written by the reference commits through the
+    # locker in both packages, to equal rows, and leaves no lock claim
     ref = ref_open_graph(dict(REF_CONFIG))
     ref.management().make_edge_label("locked")
     ref.management().set_consistency("locked", ref_codecs.Consistency.LOCK)
-    rows = ref.backend.manager.dump_rows() if hasattr(ref.backend.manager, "dump_rows") else {
-        name: {k: list(zip(r.columns, r.values)) for k, r in st._rows.items()}
-        for name, st in ref.backend.manager._stores.items()}
+    rows = {name: {k: list(zip(r.columns, r.values)) for k, r in st._rows.items()}
+            for name, st in ref.backend.manager._stores.items()}
     ref.close()
-    g = open_graph(dict(PORT_CONFIG), store_manager=InMemoryStoreManager.from_rows(rows))
-    tx = g.new_transaction()
-    tx.add_edge(tx.add_vertex(), "locked", tx.add_vertex())
-    before = _rows(g)
-    with pytest.raises(NotImplementedError, match="locker"):
+    from janusgraph_tpu.storage.inmemory import InMemoryStoreManager as RefManager
+
+    ref_mgr = RefManager()
+    for name, store_rows in rows.items():
+        store = ref_mgr.open_database(name)
+        for key, entries in store_rows.items():
+            store.mutate(key, entries, [], ref_mgr.begin_transaction())
+    after = []
+    for graph in (ref_open_graph(dict(REF_CONFIG, **{"locks.wait-ms": 0.0}), store_manager=ref_mgr),
+                  open_graph(dict(PORT_CONFIG, **{"locks.wait-ms": 0.0}),
+                             store_manager=InMemoryStoreManager.from_rows(rows))):
+        tx = graph.new_transaction()
+        tx.add_edge(tx.add_vertex(), "locked", tx.add_vertex())
         tx.commit()
-    assert _rows(g) == before
-    g.close()
+        after.append(_rows(graph, ("edgestore", "graphindex", "edgestore_lock_")))
+        graph.close()
+    assert after[0] == after[1]
+    assert not after[1]["edgestore_lock_"]
