@@ -5,10 +5,11 @@ of local and cluster-global values — the port's copy of
 
 The registry holds only the options the stored-graph OLAP path (with the
 local store and distributed loading), the backend's cache, retry guard and
-lockers, the transaction and its schema checks, the traversal and the
-spillover planner read, with the reference's names, types, defaults,
-mutability levels and validators (``tests/test_torch_config_registry.py``
-holds them to it). Two defaults differ on purpose (ROADMAP "Deliberate
+lockers, the transaction and its schema checks, the indexes (the
+``memindex`` and ``localindex`` providers and the scan framework), the
+traversal and the spillover planner read, with the reference's names,
+types, defaults, mutability levels and validators
+(``tests/test_torch_config_registry.py`` holds them to it). Two defaults differ on purpose (ROADMAP "Deliberate
 differences"): ``computer.strategy`` is "segsum", the port's hand-kernel
 route (the reference defaults to "auto"), and
 ``computer.frontier-cc-min-edges`` keeps CC dense. The reference's values
@@ -21,9 +22,10 @@ the plain PyTorch versions on the CPU (not the reference's numpy
 ``CPUExecutor``).
 
 Every other option of the reference raises ``ConfigurationError`` naming
-the ROADMAP item that brings it, as do ``computer.executor`` = "sharded"
-and ``storage.backend`` = "sharded" or "remote" (the remote and sharded
-stores). Nothing is ignored.
+the ROADMAP item that brings it, as do ``computer.executor`` =
+"sharded", ``storage.backend`` = "sharded" or "remote" (the remote and
+sharded stores) and ``index.search.backend`` = "remote" with the remote
+index provider's options (#5.5). Nothing is ignored.
 
 Left out: the management writes (``set_global``) and the instance
 registry.
@@ -102,6 +104,7 @@ _ROADMAP_REMOTE = "ROADMAP.md Queue A #5.5 (the remote and sharded stores)"
 _REFUSED_VALUES: Dict[str, tuple] = {
     "storage.backend": (lambda v: v in ("sharded", "remote"), _ROADMAP_REMOTE),
     "computer.executor": (lambda v: v == "sharded", _ROADMAP_MULTI),
+    "index.search.backend": (lambda v: v == "remote", _ROADMAP_REMOTE),
 }
 
 #: options of the reference the port does not honour yet, by path or by
@@ -125,6 +128,12 @@ _NOT_PORTED: Dict[str, str] = {
     "graph.": _ROADMAP_HOST,
     "log.": _ROADMAP_HOST,
     "tx.": _ROADMAP_HOST,
+    # the remote index provider's options (index.search.backend = "remote")
+    "index.search.hostname": _ROADMAP_REMOTE,
+    "index.search.port": _ROADMAP_REMOTE,
+    "index.search.pool-size": _ROADMAP_REMOTE,
+    "index.search.retry-time-ms": _ROADMAP_REMOTE,
+    "index.search.pipeline": _ROADMAP_REMOTE,
     "index.": _ROADMAP_HOST,
     "locks.": _ROADMAP_HOST,
     "server.": _ROADMAP_HOST,
@@ -152,6 +161,15 @@ _option(
     "storage.scan-retries", int,
     "per-partition retry budget for temporary failures mid-scan (resume "
     "from just past the last row)", 3, verifier=lambda v: v >= 0,
+)
+_option(
+    "storage.scan-batch-size", int, "rows per scan-framework batch", 4096,
+    verifier=lambda v: v > 0,
+)
+_option(
+    "storage.scan-parallelism", int,
+    "worker threads assembling scan batches (0 = one per partition)", 0,
+    verifier=lambda v: v >= 0,
 )
 _option(
     "storage.distributed-load-workers", int,
@@ -440,8 +458,30 @@ _option(
 )
 _option(
     "query.force-index", bool,
-    "refuse traversals that would fall back to a full graph scan (the port "
-    "has no indexes, so every V() without ids is such a scan)", False,
+    "refuse traversals that would fall back to a full graph scan (a V() "
+    "start step that no index answers)", False,
+)
+_option(
+    "query.hard-max-limit", int,
+    "clamp on index-query limits (reference: query.hard-max-limit)",
+    1 << 20, verifier=lambda v: v > 0,
+)
+_option("index.search.backend", str, "mixed index provider shorthand", "memindex",
+        Mutability.LOCAL)
+_option("index.search.directory", str, "index data directory", "", Mutability.LOCAL)
+_option(
+    "index.search.fsync", bool, "fsync the persistent local index provider", False,
+    Mutability.LOCAL,
+)
+_option(
+    "index.search.scroll-page-size", int,
+    "page size of IndexProvider.query_stream scroll-style paging", 1000,
+    verifier=lambda v: v > 0,
+)
+_option(
+    "index.search.max-result-set-size", int,
+    "hard cap on mixed-index hits per query (read in mixed_index_query)",
+    50_000, verifier=lambda v: v > 0,
 )
 _option(
     "query.ignore-unknown-index-key", bool,

@@ -41,19 +41,29 @@ start (``util/metrics.py``), stopped again by ``close()``.
 ``SpilloverPlanner`` that runs promoted hot multi-hop chains on the OLAP
 engine (``olap/spillover.py``).
 
-Left out (ROADMAP Queue A #5): indexes and index providers (the port
-makes none, so commits maintain none and traversals scan), graph I/O
-(``g.io()``), the WAL, logs and schema broadcast (a schema change evicts
-in-process only), the instance registry, fault injection and the
-"sharded" and "remote" stores (#5.5; their factories raise).
+Indexes, as the reference's: composite indexes (rows in ``graphindex``,
+``core/index.py``), mixed indexes (documents in an index provider,
+``indexing/``: "memindex" or the "localindex" directory, opened once per
+store manager and shared by every graph over it) and vertex-centric
+relation indexes (copies of an edge under the index's type id). The
+commit writes composite rows and checks unique keys under the commit lock
+before the flush, and flushes mixed-index documents after the primary
+store; ``index_lookup``, ``mixed_index_query``, ``index_query`` and
+``index_totals`` read them.
+
+Left out (ROADMAP Queue A #5): graph I/O (``g.io()``), the WAL, logs and
+schema broadcast (a schema change evicts in-process only), the instance
+registry, fault injection, the remote index provider and the "sharded"
+and "remote" stores (#5.5; their factories raise).
 """
 
 from __future__ import annotations
 
+import logging
 import struct
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from janusgraph_tpu_torch.core.attributes import Serializer
 from janusgraph_tpu_torch.core.codecs import (
@@ -64,13 +74,19 @@ from janusgraph_tpu_torch.core.codecs import (
 )
 from janusgraph_tpu_torch.core.config import GraphConfiguration
 from janusgraph_tpu_torch.core.ids import IDManager, VertexIDType
+from janusgraph_tpu_torch.core.index import IndexSerializer
 from janusgraph_tpu_torch.core.management import (
+    INDEX_NAME_PREFIX,
+    INDEX_REGISTRY_KEY,
+    RELINDEX_REGISTRY_KEY,
     SCHEMA_NAME_INDEX_PREFIX,
     ManagementSystem,
 )
 from janusgraph_tpu_torch.core.schema import (
     EdgeLabel,
+    IndexDefinition,
     PropertyKey,
+    RelationIndex,
     SchemaCache,
     SystemTypes,
     decode_definition,
@@ -79,7 +95,7 @@ from janusgraph_tpu_torch.core.schema import (
     VertexLabel,
 )
 from janusgraph_tpu_torch.core.tx import Transaction
-from janusgraph_tpu_torch.core.elements import Edge
+from janusgraph_tpu_torch.core.elements import Edge, VertexProperty
 from janusgraph_tpu_torch.exceptions import ConfigurationError, SchemaViolationError
 from janusgraph_tpu_torch.storage.backend import Backend, GlobalConfigStore
 from janusgraph_tpu_torch.storage.idauthority import (
@@ -87,8 +103,9 @@ from janusgraph_tpu_torch.storage.idauthority import (
     StandardIDPool,
 )
 from janusgraph_tpu_torch.storage.inmemory import InMemoryStoreManager
-from janusgraph_tpu_torch.storage.kcvs import KeySliceQuery, SliceQuery
+from janusgraph_tpu_torch.storage.kcvs import KeyRangeQuery, KeySliceQuery, SliceQuery
 
+_logger = logging.getLogger(__name__)
 
 def _open_local(cfg):
     from janusgraph_tpu_torch.storage.localstore import open_local_kcvs
@@ -135,23 +152,50 @@ def drop_graph(graph: "JanusGraphTPU") -> None:
     JanusGraphFactory.drop). Irreversible. The store manager clears every
     store; a local directory loses its ``store.wal`` and
     ``store.snapshot`` (nothing else of the directory is touched). The
-    delta snapshot and the cached executors go with ``close()``. The
-    reference also clears the mixed-index providers, the logs and the
-    instance registry, which the port does not have (ROADMAP Queue A #5).
+    mixed-index providers attached to the store manager are cleared too,
+    so a re-open starts from nothing. The delta snapshot and the cached
+    executors go with ``close()``. The reference also clears the logs and
+    the instance registry, which the port does not have (ROADMAP Queue A
+    #5.3).
 
     Storage is cleared BEFORE close(): the local backend's clear_storage
     reopens its WAL handle, and only the following close() releases it.
     The local store's files are then unlinked (the reference leaves a WAL
     that holds only the frames its close() appends)."""
     manager = graph.backend.manager
+    providers = graph.index_providers
     try:
         manager.clear_storage()
+        for provider in providers.values():
+            try:
+                provider.clear_storage()
+            except NotImplementedError:
+                pass
+        providers.clear()
     finally:
         if graph._open:
             graph.close()
     kv = getattr(manager, "kv_manager", None)
     if hasattr(kv, "remove_files"):
         kv.remove_files()
+
+
+class _MultiIndexTransaction:
+    """Fans commit/rollback out to one IndexTransaction per provider."""
+
+    def __init__(self, txs):
+        self._txs = txs
+
+    def has_mutations(self) -> bool:
+        return any(t.has_mutations() for t in self._txs)
+
+    def commit(self) -> None:
+        for t in self._txs:
+            t.commit()
+
+    def rollback(self) -> None:
+        for t in self._txs:
+            t.rollback()
 
 
 class VertexIDAssigner:
@@ -261,6 +305,26 @@ class JanusGraphTPU:
             self.backend.id_authority, self.idm,
             renew_fraction=cfg.get("ids.renew-percentage"),
         )
+        self.index_serializer = IndexSerializer(self.serializer)
+        # mixed-index providers: shared per store manager, standing in for
+        # the external index services' durability across a graph's reopen
+        # (reference: Backend.java:167 Map<String,IndexProvider>)
+        from janusgraph_tpu_torch.indexing import open_index_provider
+
+        shared = getattr(store_manager, "_shared_index_providers", None)
+        if shared is None:
+            shared = {}
+            store_manager._shared_index_providers = shared
+        if "search" not in shared:
+            shared["search"] = open_index_provider(
+                cfg.get("index.search.backend"),
+                directory=cfg.get("index.search.directory"),
+                fsync=cfg.get("index.search.fsync"),
+                scroll_page_size=cfg.get("index.search.scroll-page-size"),
+            )
+        self.index_providers: Dict[str, object] = shared
+        # {index_name: {field: KeyInformation}} for provider.mutate calls
+        self._mixed_key_infos: Dict[str, Dict[str, object]] = {}
         self.schema_cache = SchemaCache(
             self._load_schema_by_name, self._load_schema_by_id
         )
@@ -271,10 +335,13 @@ class JanusGraphTPU:
         #: serializes the schema fields' read-modify-writes (auto-created
         #: constraints arrive from concurrent writer transactions)
         self._schema_rmw_lock = threading.Lock()
-        #: relation-type index ids (no relation indexes in the port)
+        self.indexes: Dict[str, IndexDefinition] = {}
+        #: {edge label id: (RelationIndex, ...)} and the indexes' type ids
+        self.relation_indexes: Dict[int, tuple] = {}
         self.relation_index_ids = frozenset()
         #: commits are serialized graph-wide (reference: commit_tx)
         self._commit_lock = threading.Lock()
+        self._load_index_registry()
         # delta-CSR change capture (computer.delta; olap/delta.py): every
         # committed edgestore batch streams into a bounded ring, so the
         # warm snapshot behind submit() refreshes from the records alone
@@ -427,7 +494,8 @@ class JanusGraphTPU:
         label cells of new vertices, deleted relations (so a later
         addition of the same column wins under the mutation merge), added
         relations, then the existence and label cells of removed
-        vertices."""
+        vertices, then the index rows; mixed-index documents flush after
+        the primary store."""
         es = self.edge_serializer
         st = self.system_types
         btx = tx.backend_tx
@@ -484,11 +552,29 @@ class JanusGraphTPU:
                         dels.append(col)
                 if dels:
                     btx.mutate_edges(key, [], dels)
-            # -- 5. index updates: the port makes no indexes
-            # (core/management.py), so there is nothing to maintain
-            assert not self.relation_index_ids
-            # -- 6. flush while still holding the lock
+            # -- 5. composite index rows and unique checks
+            self._apply_index_updates(tx, btx)
+            # -- 5.5 mixed-index document mutations, derived while the tx
+            # state is still consistent (flushed after the primary commit:
+            # reference prepareCommit :645-663, storage-then-indexes
+            # :759-766)
+            index_tx = self._prepare_mixed_index_updates(tx)
+            # -- 6. flush while still holding the lock (unique-index safety)
             btx.commit()
+        # -- 6.5 mixed-index documents: secondary persistence; a failure
+        # never unwinds the committed primary (reindex heals it)
+        if index_tx is not None and index_tx.has_mutations():
+            try:
+                if getattr(tx, "_fail_mixed_for_test", False):
+                    raise RuntimeError("injected mixed-index failure")
+                index_tx.commit()
+            except Exception:
+                _logger.error(
+                    "mixed-index persistence failed for a committed "
+                    "transaction; primary storage is authoritative — run "
+                    "reindex to heal (WAL off: no automatic heal)",
+                    exc_info=True,
+                )
 
     def _relation_cells(self, tx: Transaction, rel):
         """[(vertex-key, (column, value))] a relation serializes to: an
@@ -580,7 +666,10 @@ class JanusGraphTPU:
                         ttl = vttl if not ttl else min(ttl, vttl)
             if ttl:
                 expire = time.time_ns() + int(ttl * 1e9)
-        for key, cell in self._relation_cells(tx, rel):
+        cells = self._relation_cells(tx, rel)
+        if isinstance(rel, Edge):
+            cells = cells + self._relation_index_cells(tx, rel, delete)
+        for key, cell in cells:
             if delete:
                 tx.backend_tx.mutate_edges(key, [], [cell[0]])
             elif expire:
@@ -589,6 +678,389 @@ class JanusGraphTPU:
                 tx.backend_tx.mutate_edges(key, [(cell[0], cell[1], expire)], [])
             else:
                 tx.backend_tx.mutate_edges(key, [cell], [])
+
+    def _relation_index_cells(
+        self, tx: Transaction, rel, for_delete: bool = False
+    ) -> list:
+        """Extra cells an edge writes for each RelationTypeIndex on its
+        label (reference: RelationTypeIndex — the index is itself a
+        relation type; its cells duplicate the edge under the index's type
+        id with the index sort key in the column). Edges missing an indexed
+        sort-key property are skipped (they are simply not indexed).
+        Deletions target the cells of EVERY index regardless of status —
+        a DISABLED index must not orphan cells that would resurface as
+        phantom edges on re-enable."""
+        out = []
+        ris = self.relation_indexes.get(rel.type_id, ())
+        if not ris:
+            return out
+        es = self.edge_serializer
+        ser = self.serializer
+        for ri in ris:
+            if not for_delete and ri.status not in ("REGISTERED", "ENABLED"):
+                continue
+            sk = ri.sort_key_bytes(ser, rel._props)
+            if sk is None:
+                continue
+            if ri.direction in (int(Direction.OUT), int(Direction.BOTH)):
+                out.append((
+                    self.idm.get_key(rel.out_vertex.id),
+                    es.write_edge(
+                        ri.id, Direction.OUT, rel.in_vertex.id,
+                        rel.id, sk, rel._props or None,
+                    ),
+                ))
+            if ri.direction in (int(Direction.IN), int(Direction.BOTH)):
+                out.append((
+                    self.idm.get_key(rel.in_vertex.id),
+                    es.write_edge(
+                        ri.id, Direction.IN, rel.out_vertex.id,
+                        rel.id, sk, rel._props or None,
+                    ),
+                ))
+        return out
+
+    def _matches_label(self, tx, idx: IndexDefinition, vid: int) -> bool:
+        if idx.label_constraint is None:
+            return True
+        v = tx._vertex_handle(vid)
+        return tx.get_vertex_label(v) == idx.label_constraint
+
+    def mixed_index_fields(self, idx: IndexDefinition, register: bool = False):
+        """{field_name: (key_id, KeyInformation)}; the provider store name is
+        the index name (reference: IndexSerializer.getStoreName)."""
+        from janusgraph_tpu_torch.indexing import KeyInformation, Mapping
+
+        fields = {}
+        for kid in idx.key_ids:
+            pk = self.schema_cache.get_by_id(kid)
+            if not isinstance(pk, PropertyKey):
+                continue
+            info = KeyInformation(
+                pk.data_type,
+                Mapping(idx.mapping_for(kid)),
+                pk.cardinality.name,
+            )
+            fields[pk.name] = (kid, info)
+        if register:
+            provider = self.index_providers[idx.backing]
+            infos = self._mixed_key_infos.setdefault(idx.name, {})
+            for fname, (_kid, info) in fields.items():
+                if fname not in infos:
+                    infos[fname] = info
+                    provider.register(idx.name, fname, info)
+        return fields
+
+    # ---------------------------------------------------------- index updates
+    def _apply_index_updates(self, tx: Transaction, btx) -> None:
+        if not self.indexes:
+            return
+        # vertices whose properties changed in this tx
+        changed: set = set()
+        for vid, rels in tx._added.items():
+            if any(isinstance(r, VertexProperty) and not r.is_removed for r in rels):
+                changed.add(vid)
+        for rel in tx._deleted:
+            if isinstance(rel, VertexProperty):
+                changed.add(rel.vertex.id)
+        changed.update(tx._removed_vertices)
+        if not changed:
+            return
+
+        for idx in list(self.indexes.values()):
+            if idx.mixed:
+                continue  # document updates prepared separately (step 5.5)
+            if idx.status in ("DISABLED", "INSTALLED"):
+                continue  # writes flow only to REGISTERED/ENABLED indexes
+            # phase 1: compute every vertex's (before, after) transition so
+            # unique checks can see sibling mutations in this same tx —
+            # both new claims and releases of previously-owned values
+            transitions = []
+            for vid in changed:
+                before = self._index_values_committed(tx, idx, vid)
+                after = (
+                    None
+                    if vid in tx._removed_vertices
+                    else self._index_values_current(tx, idx, vid)
+                )
+                if idx.label_constraint is not None and (before or after):
+                    v = tx._vertex_handle(vid)
+                    if tx.get_vertex_label(v) != idx.label_constraint:
+                        continue
+                if before == after:
+                    continue
+                transitions.append((vid, before, after))
+
+            if idx.unique:
+                releasing = {t[1]: t[0] for t in transitions if t[1] is not None}
+                claims: Dict[tuple, int] = {}
+                for vid, _before, after in transitions:
+                    if after is None:
+                        continue
+                    # distributed claim: lock the unique index row and pin
+                    # the slice observed now — commit re-verifies it
+                    # (reference: prepareCommit lock acquisition :561-605 →
+                    # BackendTransaction.acquireIndexLock → ConsistentKeyLocker)
+                    row = self.index_serializer.index_row_key(idx, after)
+                    col = b"\x00"
+                    expected = btx.index_query_uncached(
+                        KeySliceQuery(row, SliceQuery(col, col + b"\x00"))
+                    )
+                    btx.acquire_index_lock(row, col, expected)
+                    prior = claims.get(after)
+                    if prior is not None and prior != vid:
+                        raise SchemaViolationError(
+                            f"unique index {idx.name} violated within "
+                            f"transaction for values {after!r}"
+                        )
+                    claims[after] = vid
+                    # committed owner is fine if it releases the value in
+                    # this same tx (e.g. remove-then-readd)
+                    existing = self.index_serializer.query(
+                        idx, after, btx, uncached=True
+                    )
+                    conflict = [
+                        owner
+                        for owner in existing
+                        if owner != vid and releasing.get(after) != owner
+                    ]
+                    if conflict:
+                        raise SchemaViolationError(
+                            f"unique index {idx.name} violated for values "
+                            f"{after!r}"
+                        )
+
+            # phase 2: emit mutations — ALL deletions before ALL additions,
+            # so a value released by one vertex and claimed by another in the
+            # same tx (same row/column on unique indexes) nets to the claim
+            # under temporal merge, regardless of vertex iteration order
+            pending = []
+            for vid, before, after in transitions:
+                pending.extend(
+                    self.index_serializer.index_updates(idx, vid, before, after)
+                )
+            # index entries of TTL'd key types expire with their data cells
+            # (earliest deadline wins) — otherwise expired properties leave
+            # phantom index hits + permanent index garbage
+            idx_ttl = 0
+            for key_id in idx.key_ids:
+                kt = getattr(tx.schema_by_id(key_id), "ttl_seconds", 0)
+                if kt:
+                    idx_ttl = kt if not idx_ttl else min(idx_ttl, kt)
+            idx_expire = 0
+            if idx_ttl:
+                idx_expire = time.time_ns() + int(idx_ttl * 1e9)
+            for row, _adds, dels in pending:
+                if dels:
+                    btx.mutate_index(row, [], dels)
+            for row, adds, _dels in pending:
+                if adds:
+                    if idx_expire:
+                        adds = [(e[0], e[1], idx_expire) for e in adds]
+                    btx.mutate_index(row, adds, [])
+
+    def _index_values_committed(self, tx, idx: IndexDefinition, vid: int):
+        """Value tuple from committed storage only (pre-tx state)."""
+        es = self.edge_serializer
+        values = []
+        for key_id in idx.key_ids:
+            q = es.get_type_slice(key_id, False)
+            entries = tx._read_slice(vid, q)
+            if not entries:
+                return None
+            rc = es.parse_relation(entries[0], tx._codec_schema)
+            values.append(rc.value)
+        return tuple(values)
+
+    def _index_values_current(self, tx, idx: IndexDefinition, vid: int):
+        """Value tuple as visible in the tx (committed minus deleted plus
+        added)."""
+        v = tx._vertex_handle(vid)
+        values = []
+        for key_id in idx.key_ids:
+            el = self.schema_cache.get_by_id(key_id)
+            props = tx.get_properties(v, el.name)
+            if not props:
+                return None
+            values.append(props[0].value)
+        return tuple(values)
+
+    # ------------------------------------------------------- mixed index I/O
+    def _mixed_indexes(self):
+        return [
+            i
+            for i in self.indexes.values()
+            if i.mixed and i.status in ("REGISTERED", "ENABLED")
+        ]
+
+    def _committed_key_values(self, tx, key_id: int, vid: int) -> List[object]:
+        """All committed values of one property key on one vertex."""
+        es = self.edge_serializer
+        q = es.get_type_slice(key_id, False)
+        out = []
+        for e in tx._read_slice(vid, q):
+            rc = es.parse_relation(e, tx._codec_schema)
+            out.append(rc.value)
+        return out
+
+    def _prepare_mixed_index_updates(self, tx: Transaction):
+        """Build the IndexTransaction holding this tx's document mutations
+        (reference: IndexSerializer.getIndexUpdates mixed-index branch)."""
+        mixed = self._mixed_indexes()
+        if not mixed:
+            return None
+        # {vid: {touched property key ids}} — the diff only needs to look at
+        # keys the tx actually wrote, not every indexed field
+        touched: Dict[int, set] = {}
+        for vid, rels in tx._added.items():
+            for r in rels:
+                if isinstance(r, VertexProperty) and not r.is_removed:
+                    touched.setdefault(vid, set()).add(r.type_id)
+        for rel in tx._deleted:
+            if isinstance(rel, VertexProperty):
+                touched.setdefault(rel.vertex.id, set()).add(rel.type_id)
+        for vid in tx._removed_vertices:
+            touched.setdefault(vid, set())
+        if not touched:
+            return None
+        from janusgraph_tpu_torch.indexing import IndexTransaction
+
+        # one IndexTransaction per backing provider would be more faithful;
+        # a single one keyed by store (= index name) is equivalent here
+        # because every store name is globally unique
+        txs: Dict[str, IndexTransaction] = {}
+        for idx in mixed:
+            provider = self.index_providers[idx.backing]
+            itx = txs.get(idx.backing)
+            if itx is None:
+                itx = txs[idx.backing] = IndexTransaction(
+                    provider, self._mixed_key_infos
+                )
+            fields = self.mixed_index_fields(idx, register=True)
+            for vid, touched_kids in touched.items():
+                docid = str(vid)
+                if vid in tx._removed_vertices:
+                    itx.delete(idx.name, docid, None, None, delete_all=True)
+                    continue
+                if not self._matches_label(tx, idx, vid):
+                    continue
+                v = tx._vertex_handle(vid)
+                for fname, (kid, _info) in fields.items():
+                    if kid not in touched_kids:
+                        continue
+                    before = self._committed_key_values(tx, kid, vid)
+                    after = [p.value for p in tx.get_properties(v, fname)]
+                    for val in before:
+                        if val not in after:
+                            itx.delete(idx.name, docid, fname, val)
+                    for val in after:
+                        if val not in before:
+                            itx.add(
+                                idx.name, docid, fname, val, is_new=not before
+                            )
+        if len(txs) == 1:
+            return next(iter(txs.values()))
+        if not txs:
+            return None
+        return _MultiIndexTransaction(list(txs.values()))
+
+    def mixed_index_query(
+        self,
+        tx: Transaction,
+        idx: IndexDefinition,
+        conditions,
+        orders=(),
+        limit=None,
+        offset=0,
+    ) -> List[int]:
+        """Query a mixed index with [(key_name, Predicate, value)] conditions
+        (reference: IndexSerializer.query mixed branch → IndexProvider.query)."""
+        from janusgraph_tpu_torch.indexing import (
+            And,
+            IndexQuery,
+            Order,
+            PredicateCondition,
+        )
+
+        if idx.status != "ENABLED":
+            raise SchemaViolationError(
+                f"index {idx.name} is {idx.status}, not ENABLED"
+            )
+        cond = And(
+            tuple(
+                PredicateCondition(k, p, val) for k, p, val in conditions
+            )
+        )
+        q = IndexQuery(
+            cond,
+            tuple(Order(k, desc) for k, desc in orders),
+            self._clamp_index_limit(limit),
+            offset,
+        )
+        provider = self.index_providers[idx.backing]
+        from janusgraph_tpu_torch.observability import registry, span as _span
+        from janusgraph_tpu_torch.observability.profiler import accrue
+
+        with _span("index.mixed-query", index=idx.name,
+                   conditions=len(conditions)):
+            with registry.time("query.index.mixed"):
+                hits = [int(d) for d in provider.query(idx.name, q)]
+            # remote providers account hits at the wire (echo/fallback);
+            # counting here too would double them
+            if not getattr(provider, "ledger_self_accounting", False):
+                accrue(index_hits=len(hits))
+            return hits
+
+    def _clamp_index_limit(self, limit):
+        """index.search.max-result-set-size + query.hard-max-limit: every
+        mixed-index query gets a bounded limit (reference:
+        index.[X].max-result-set-size, query.hard-max-limit)."""
+        cap = min(
+            self.config.get("index.search.max-result-set-size"),
+            self.config.get("query.hard-max-limit"),
+        )
+        return cap if limit is None else min(limit, cap)
+
+    def index_query(self, index_name: str, query: str, limit=None, offset=0):
+        """Direct provider-syntax query returning [(vertex_id, score)]
+        (reference: core/schema/JanusGraphIndexQuery /
+        graphdb/query/graph/IndexQueryBuilder — `v.name:hercules` strings)."""
+        from janusgraph_tpu_torch.indexing import RawQuery
+
+        idx = self.indexes.get(index_name)
+        if idx is None or not idx.mixed:
+            raise SchemaViolationError(f"{index_name} is not a mixed index")
+        provider = self.index_providers[idx.backing]
+        hits = provider.raw_query(
+            idx.name, RawQuery(query, self._clamp_index_limit(limit), offset)
+        )
+        return [(int(d), score) for d, score in hits]
+
+    def index_totals(self, index_name: str, query: str) -> int:
+        from janusgraph_tpu_torch.indexing import RawQuery
+
+        idx = self.indexes.get(index_name)
+        if idx is None or not idx.mixed:
+            raise SchemaViolationError(f"{index_name} is not a mixed index")
+        return self.index_providers[idx.backing].totals(
+            idx.name, RawQuery(query)
+        )
+
+    # -------------------------------------------------------- index-based read
+    def index_lookup(self, tx: Transaction, index_name: str, values) -> List[int]:
+        idx = self.indexes.get(index_name)
+        if idx is None:
+            raise SchemaViolationError(f"unknown index {index_name}")
+        from janusgraph_tpu_torch.observability import registry, span as _span
+        from janusgraph_tpu_torch.observability.profiler import accrue
+
+        with _span("index.lookup", index=index_name):
+            with registry.time("query.index.composite"):
+                hits = self.index_serializer.query(
+                    idx, values, tx.backend_tx
+                )
+            accrue(index_hits=len(hits))
+            return hits
 
     # ------------------------------------------------------ schema persistence
     def persist_schema_element(self, el) -> None:
@@ -605,14 +1077,43 @@ class JanusGraphTPU:
             ),
         ]
         btx.mutate_edges(key, adds, [])
-        # name -> id lookup row
+        # name -> id lookup row (index names live in their own namespace)
+        prefix = (
+            INDEX_NAME_PREFIX
+            if isinstance(el, IndexDefinition)
+            else SCHEMA_NAME_INDEX_PREFIX
+        )
         btx.mutate_index(
-            SCHEMA_NAME_INDEX_PREFIX + el.name.encode(),
+            prefix + el.name.encode(),
             [(struct.pack(">Q", el.id), b"")],
             [],
         )
         btx.commit()
         self.schema_cache.invalidate(el.name)
+
+    def update_schema_element(self, el) -> None:
+        """Replace an existing element's stored definition (reference:
+        ManagementSystem updateSchemaVertex — rewrite the definition
+        property), then evict caches and broadcast."""
+        es = self.edge_serializer
+        st = self.system_types
+        btx = self.backend.begin_transaction()
+        key = self.idm.get_key(el.id)
+        q = es.get_type_slice(st.SCHEMA_DEF, False)
+        old = btx.edge_store_query(KeySliceQuery(key, q))
+        dels = [col for col, _ in old]
+        add = es.write_property(
+            st.SCHEMA_DEF,
+            self.id_assigner.assign_relation_id(),
+            encode_definition(el.definition()),
+        )
+        btx.mutate_edges(key, [add], dels)
+        btx.commit()
+        self.schema_cache.invalidate(el.name)
+        self.schema_cache.invalidate_id(el.id)
+        if isinstance(el, IndexDefinition):
+            self.register_index(el)
+        self.evict_schema_element(el.id)
 
     def _load_schema_by_name(self, name: str):
         btx = self.backend.begin_transaction()
@@ -644,3 +1145,58 @@ class JanusGraphTPU:
             else:
                 definition = decode_definition(rc.value)
         return schema_element_from_definition(sid, name, definition)
+
+    def load_all_schema_elements(self) -> List:
+        """Scan the schema-name index prefix (management enumeration)."""
+        out = []
+        btx = self.backend.begin_transaction()
+        store = self.backend.indexstore
+        it = store.get_keys(
+            KeyRangeQuery(
+                SCHEMA_NAME_INDEX_PREFIX,
+                SCHEMA_NAME_INDEX_PREFIX + b"\xff",
+                SliceQuery(),
+            ),
+            btx.store_tx,
+        )
+        for _key, entries in it:
+            for col, _ in entries:
+                (sid,) = struct.unpack(">Q", col)
+                el = self.schema_cache.get_by_id(sid)
+                if el is not None:
+                    out.append(el)
+        return out
+
+    def register_index(self, idx: IndexDefinition) -> None:
+        # copy-on-write: readers always see a consistent dict
+        self.indexes = {**self.indexes, idx.name: idx}
+
+    def _load_index_registry(self) -> None:
+        btx = self.backend.begin_transaction()
+        entries = btx.index_query(KeySliceQuery(INDEX_REGISTRY_KEY, SliceQuery()))
+        fresh: Dict[str, IndexDefinition] = {}
+        for col, _ in entries:
+            (sid,) = struct.unpack(">Q", col)
+            el = self.schema_cache.get_by_id(sid)
+            if isinstance(el, IndexDefinition):
+                fresh[el.name] = el
+        # atomic swap: commit threads iterate a snapshot, never a dict being
+        # mutated by the systemlog reader thread
+        self.indexes = fresh
+        # relation-type (vertex-centric) indexes, grouped by edge label
+        rentries = btx.index_query(
+            KeySliceQuery(RELINDEX_REGISTRY_KEY, SliceQuery())
+        )
+        by_label: Dict[int, tuple] = {}
+        rel_ids = set()
+        for col, _ in rentries:
+            (sid,) = struct.unpack(">Q", col)
+            el = self.schema_cache.get_by_id(sid)
+            if isinstance(el, RelationIndex):
+                by_label[el.label_id] = by_label.get(el.label_id, ()) + (el,)
+                rel_ids.add(el.id)
+        self.relation_indexes = by_label
+        #: type ids whose cells are index copies — excluded from untyped
+        #: edge enumeration (reference: RelationTypeIndex types are
+        #: invisible system relation types)
+        self.relation_index_ids = frozenset(rel_ids)

@@ -20,9 +20,9 @@ definition codec, with the same definition bytes. Property keys of the six
 ported datatypes (Boolean, Long, Double, String, Bytes, Geoshape) can be made here; a
 stored key of another datatype (a graph the JAX package wrote) loads with
 an ``UnportedDataType`` that keeps its name, so its definition round-trips.
-Left out: ``RelationIndex`` and ``IndexDefinition`` (no indexes in the
-port; an element of those kinds raises ``SchemaViolationError`` when
-loaded).
+``RelationIndex`` (a vertex-centric index on an edge label) and
+``IndexDefinition`` (a composite or mixed graph index) carry the same
+definitions as the reference's, so either package loads the other's.
 """
 
 from __future__ import annotations
@@ -205,6 +205,100 @@ class VertexLabel:
         return d
 
 
+@dataclass(frozen=True)
+class RelationIndex:
+    """A vertex-centric index on one edge label, built AFTER the label
+    exists (reference: core/schema/RelationTypeIndex.java via
+    mgmt.buildEdgeIndex): edges of the label are additionally written as
+    cells under THIS type id with the index's sort key encoded in the
+    column, so sort-range slices work without the label itself being
+    sort-keyed. Index cells are invisible to untyped edge enumeration."""
+
+    id: int
+    name: str
+    label_id: int
+    #: property-key ids forming the index sort key (fixed-width encodings)
+    sort_key: Tuple[int, ...] = ()
+    #: Direction value the index covers (int(Direction.BOTH) = both)
+    direction: int = 2
+    # REGISTERED (written, not yet queryable) -> ENABLED -> DISABLED
+    status: str = "REGISTERED"
+
+    @property
+    def is_property_key(self) -> bool:
+        return False
+
+    @property
+    def is_edge_label(self) -> bool:
+        return False
+
+    def definition(self) -> dict:
+        return {
+            "kind": "relindex",
+            "label": self.label_id,
+            "sortKey": list(self.sort_key),
+            "direction": self.direction,
+            "status": self.status,
+        }
+
+    def type_info(self) -> TypeInfo:
+        return TypeInfo(self.id, True, Cardinality.SINGLE, self.sort_key)
+
+    def sort_key_bytes(self, serializer, props) -> Optional[bytes]:
+        """Order-preserving index sort-key bytes for an edge's properties,
+        or None when a key is missing (such edges are simply not indexed).
+        The ONE encoding shared by the write path, the reindex job, and
+        the tx overlay filter."""
+        parts = []
+        for key_id in self.sort_key:
+            if not props or key_id not in props:
+                return None
+            parts.append(serializer.write_ordered(props[key_id]))
+        return b"".join(parts)
+
+
+@dataclass(frozen=True)
+class IndexDefinition:
+    """A graph index over property keys, optionally label-constrained.
+    Composite (exact-match rows in `graphindex`) or mixed (documents in an
+    external IndexProvider) — reference: core/schema/JanusGraphIndex.java;
+    mixed/composite split graphdb/types/CompositeIndexType +
+    MixedIndexType."""
+
+    id: int
+    name: str
+    key_ids: Tuple[int, ...]
+    unique: bool = False
+    label_constraint: Optional[str] = None
+    # lifecycle (reference core/schema/SchemaStatus.java):
+    # INSTALLED -> REGISTERED -> ENABLED -> DISABLED
+    status: str = "ENABLED"
+    mixed: bool = False
+    backing: Optional[str] = None  # index backend shorthand for mixed
+    # key_id -> Mapping name (TEXT/STRING/TEXTSTRING), mixed only
+    mappings: Tuple[Tuple[int, str], ...] = ()
+
+    def definition(self) -> dict:
+        d = {
+            "kind": "index",
+            "keys": list(self.key_ids),
+            "unique": self.unique,
+            "label": self.label_constraint,
+            "status": self.status,
+        }
+        if self.mixed:
+            d["mixed"] = True
+            d["backing"] = self.backing
+            d["mappings"] = [list(m) for m in self.mappings]
+        return d
+
+    def mapping_for(self, key_id: int) -> str:
+        for kid, m in self.mappings:
+            if kid == key_id:
+                return m
+        return "DEFAULT"
+
+
 def schema_element_from_definition(sid: int, name: str, d: dict):
     kind = d["kind"]
     if kind == "property":
@@ -234,7 +328,28 @@ def schema_element_from_definition(sid: int, name: str, d: dict):
             d.get("ttl", 0),
             tuple(d.get("allowedProps", ())),
         )
-    raise SchemaViolationError(f"schema kind {kind!r} is not ported")
+    if kind == "relindex":
+        return RelationIndex(
+            sid,
+            name,
+            d["label"],
+            tuple(d.get("sortKey", ())),
+            d.get("direction", 2),
+            d.get("status", "REGISTERED"),
+        )
+    if kind == "index":
+        return IndexDefinition(
+            sid,
+            name,
+            tuple(d["keys"]),
+            d.get("unique", False),
+            d.get("label"),
+            d.get("status", "ENABLED"),
+            d.get("mixed", False),
+            d.get("backing"),
+            tuple((int(k), str(m)) for k, m in d.get("mappings", ())),
+        )
+    raise SchemaViolationError(f"unknown schema kind {kind!r}")
 
 
 def encode_definition(d: dict) -> bytes:
@@ -286,7 +401,10 @@ class SchemaCache:
             with self._lock:
                 if self._generation == gen:
                     self._by_id[sid] = el
-                    self._by_name[el.name] = el
+                    # index names are a separate namespace: never let an
+                    # index shadow a relation type of the same name
+                    if not isinstance(el, IndexDefinition):
+                        self._by_name[el.name] = el
         return el
 
     def invalidate(self, name: Optional[str] = None) -> None:

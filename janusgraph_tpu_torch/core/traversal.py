@@ -8,10 +8,13 @@ JanusGraphStepStrategy.java, which folds leading has() chains into the
 start step; JanusGraphLocalQueryOptimizerStrategy.java, which batches
 vertex expansion through multiQuery prefetch):
 
-- `g.V().has('name', 'x')` folds its has-chain into the start step. The
-  port has no indexes (``core/schema.py``), so no composite or mixed index
-  covers it and the start resolves to the scan, as the reference does
-  without an index; ``query.force-index`` refuses that scan.
+- `g.V().has('name', 'x')` folds its has-chain, matches it against the
+  registered composite indexes, and starts from an index lookup instead of a
+  full scan when every index key is covered by equality conditions (a
+  ``within`` folds as a union of at most 64 point lookups); failing that,
+  the conditions a mixed index supports are pushed down to its provider.
+  ``profile()`` names the plan ("composite-index", "composite-index-union",
+  "mixed-index" or "full-scan"); ``query.force-index`` refuses the scan.
 - `out()/in_()/both()/outE()/...` prefetch the needed slices for ALL current
   traversers with one batched multi-query before expanding.
 
@@ -29,6 +32,7 @@ graph I/O formats wait on ROADMAP.md Queue A #5.
 from __future__ import annotations
 
 import enum
+import itertools
 from collections import Counter
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -348,9 +352,10 @@ class GraphTraversalSource:
 
         Concurrency: like the reference, merge does NOT serialize racing
         upserts by itself — two overlapping transactions can both miss
-        and both create. The reference guards the merge key with a UNIQUE
-        composite index and its consistent-key lock; the port has neither
-        yet (ROADMAP.md Queue A #5)."""
+        and both create. Guard the merge key with a UNIQUE composite
+        index (and its consistent-key lock under LOCK consistency): the
+        second commit then fails with SchemaViolationError and a retry
+        matches."""
         start = _start_merge_vertex(self, dict(match))
         t = GraphTraversal(self, start)
         t._last_merge = start.spec
@@ -408,7 +413,7 @@ class _start_new_vertex:
 def _merge_find_vertices(source, match) -> List[Vertex]:
     """Vertices matching a merge_v map: T.id short-circuits to a point
     lookup; otherwise label + property equalities run through the normal
-    V().has() start."""
+    V().has() start so composite-index folding applies."""
     vid, label, props = _split_merge_map(match)
     tx = source.tx
     if vid is not None:
@@ -653,10 +658,89 @@ class _start_vertices:
                 )
             self.plan = {"access": "unknown-key", "keys": unknown}
             return []
-        # full scan: index folding (composite point lookups, mixed-index
-        # pushdown) waits on the indexes (ROADMAP.md Queue A #5), so every
-        # start without ids scans, as the reference's does without an
-        # index covering its conditions; query.force-index refuses it
+        # index folding: find a composite index fully covered by eq (one
+        # value) or within (a finite value set) conditions — within folds
+        # as a UNION of point lookups, the reference's Contain.IN handling
+        # (GraphCentricQueryBuilder constraints2Indexes), capped so a huge
+        # IN-list degrades to the scan instead of exploding combinations
+        cands: Dict[str, list] = {}
+        for key, p in has_conditions:
+            if key is None:
+                continue
+            if p.eq_value is not None:
+                # an eq ALWAYS narrows: it overrides a within() on the
+                # same key (their conjunction is at most that one value)
+                cands[key] = [p.eq_value]
+            elif p.predicate is Contain.IN and key not in cands:
+                cands[key] = list(p.condition)
+        # label equality (if any) gates label-constrained indexes
+        label_eq = None
+        for key, p in has_conditions:
+            if key is None and p.eq_value is not None:
+                label_eq = p.eq_value
+        covered = _covered_indexes(self.source.graph, cands, label_eq)
+        over_cap_best = None  # (n_combos, idx, names) fallback
+        chosen = None
+        for idx in covered:
+            names = [
+                self.source.graph.schema_cache.get_by_id(k).name
+                for k in idx.key_ids
+            ]
+            # cap decided ARITHMETICALLY (materializing a huge cartesian
+            # just to reject it would be the blowup the cap prevents);
+            # over-cap: try the next (narrower) covered index
+            n_combos = 1
+            for n in names:
+                n_combos *= len(cands[n])
+            if n_combos > 64:
+                if over_cap_best is None or n_combos < over_cap_best[0]:
+                    over_cap_best = (n_combos, idx, names)
+                continue
+            chosen = (n_combos, idx, names)
+            break
+        if chosen is None and over_cap_best is not None and (
+            self.source.graph.config.get("query.force-index")
+        ):
+            # under query.force-index an over-cap union still beats the
+            # REFUSED scan: run the fewest-combo covered index uncapped
+            # (the product stays lazy; cost is the user's own IN-list)
+            chosen = over_cap_best
+        if chosen is not None:
+            n_combos, idx, names = chosen
+            combos = itertools.product(*[cands[n] for n in names])
+            self.plan = {
+                "access": (
+                    "composite-index" if n_combos == 1
+                    else "composite-index-union"
+                ),
+                "index": idx.name,
+            }
+            if n_combos > 1:
+                self.plan["point_lookups"] = n_combos
+            seen = set()
+            vids = []
+            for combo in combos:
+                for vid in self.source.graph.index_lookup(
+                    tx, idx.name, list(combo)
+                ):
+                    if vid not in seen:
+                        seen.add(vid)
+                        vids.append(vid)
+            return _index_hits_with_tx_overlay(tx, vids, has_conditions)
+        # mixed-index folding: push supported predicate conditions down to an
+        # IndexProvider (reference: GraphCentricQueryBuilder index selection
+        # falling back from composite to mixed indexes)
+        hit = _select_mixed_index(self.source.graph, has_conditions, label_eq)
+        if hit is not None:
+            midx, covered = hit
+            self.plan = {
+                "access": "mixed-index",
+                "index": midx.name,
+                "conditions_pushed": len(covered),
+            }
+            vids = self.source.graph.mixed_index_query(tx, midx, covered)
+            return _index_hits_with_tx_overlay(tx, vids, has_conditions)
+        # full scan (the reference warns here; query.force-index refuses)
         if graph.config.get("query.force-index"):
             raise QueryError(
                 "query.force-index is set and this traversal has no "
@@ -699,6 +783,78 @@ class _start_edges:
                     seen.add(e.id)
                     out.append(Traverser(e))
         return _apply_has(out, has_conditions, tx)
+
+
+def _index_hits_with_tx_overlay(tx, vids, has_conditions) -> List[Traverser]:
+    """Committed index hits can't see this tx's writes: add tx-created
+    vertices AND loaded vertices whose properties changed in-tx; _apply_has
+    then re-checks every condition on current values."""
+    out = [Traverser(v) for vid in vids if (v := tx.get_vertex(vid))]
+    dirty = {
+        vid
+        for vid, rels in tx._added.items()
+        if any(isinstance(r, VertexProperty) for r in rels)
+    }
+    dirty.update(
+        r.vertex.id for r in tx._deleted if isinstance(r, VertexProperty)
+    )
+    out.extend(
+        Traverser(v)
+        for v in tx._vertex_cache.values()
+        if not v.is_removed and (v.is_new or v.id in dirty)
+    )
+    return _apply_has(_dedup(out), has_conditions, tx)
+
+
+def _select_mixed_index(graph, has_conditions, label_eq=None):
+    """Pick the mixed index covering the most pushable conditions; returns
+    (index, [(key, predicate, condition), ...]) or None."""
+    best = None
+    for idx in graph.indexes.values():
+        if not idx.mixed or idx.status != "ENABLED":
+            continue
+        if idx.label_constraint is not None and idx.label_constraint != label_eq:
+            continue
+        provider = graph.index_providers.get(idx.backing)
+        if provider is None:
+            continue
+        fields = graph.mixed_index_fields(idx)
+        covered = []
+        for key, p in has_conditions:
+            if key is None or p.predicate is None or key not in fields:
+                continue
+            _kid, info = fields[key]
+            if provider.supports(info, p.predicate):
+                covered.append((key, p.predicate, p.condition))
+        if covered and (best is None or len(covered) > len(best[1])):
+            best = (idx, covered)
+    return best
+
+
+def _covered_indexes(graph, eqs: dict, label_eq=None) -> list:
+    """Every ENABLED composite index whose keys the conditions cover,
+    WIDEST first (the caller may skip a wide index whose within-cartesian
+    exceeds the point-lookup cap in favor of a narrower covered one)."""
+    out = []
+    for idx in graph.indexes.values():
+        if idx.mixed or idx.status != "ENABLED":
+            continue  # exact-row lookups on ENABLED composite indexes only
+        # a label-constrained index only covers vertices of that label: it is
+        # usable only when the query pins the label to exactly that value
+        if idx.label_constraint is not None and idx.label_constraint != label_eq:
+            continue
+        names = []
+        for k in idx.key_ids:
+            el = graph.schema_cache.get_by_id(k)
+            if el is None:
+                break
+            names.append(el.name)
+        if len(names) != len(idx.key_ids):
+            continue
+        if all(n in eqs for n in names):
+            out.append(idx)
+    out.sort(key=lambda i: len(i.key_ids), reverse=True)
+    return out
 
 
 def _element_value(t: Traverser, key: str, tx):

@@ -22,10 +22,10 @@ refuses an undefined key or label instead of making it, and with
 an edge only declared connections (``mgmt.add_properties``,
 ``mgmt.add_connection``; auto mode declares them on first write).
 
-Left out (ROADMAP.md Queue A #5): relation indexes, with the index copies
-they write and the sort ranges they serve on labels without a sort key
-(the port has none). ``log_identifier`` needs the WAL (Queue A #5.3) and
-raises ``NotImplementedError``.
+Relation indexes: their copies of an edge are invisible to untyped reads,
+and a sort range on a label without a sort key goes through an ENABLED
+relation index. ``log_identifier`` needs the WAL (ROADMAP.md Queue A #5.3)
+and raises ``NotImplementedError``.
 
 Telemetry, as the reference's: ``tx.begin`` and ``tx.rollback`` counters,
 a ``tx.commit`` span (added and deleted relations, lifetime) around a
@@ -580,6 +580,7 @@ class Transaction:
                 slices = [es.get_sort_range_slice(el.id, direction, lo_b, hi_b, sk_len)]
             else:
                 slices = self._edge_slices(direction, labels)
+            relidx_ids = self.graph.relation_index_ids
             for q in slices:
                 for entry in self._read_slice(v.id, q):
                     rc = es.parse_relation(entry, self._codec_schema)
@@ -587,6 +588,17 @@ class Transaction:
                         continue
                     if direction != Direction.BOTH and rc.direction != direction:
                         continue  # unlabeled ranges span both directions
+                    if rc.type_id in relidx_ids:
+                        if sr_bytes is None:
+                            # index copies are invisible to plain scans
+                            continue
+                        # an index-routed range surfaces the edge under its
+                        # label, with the label's (empty) sort key, so a
+                        # later delete rebuilds the primary column
+                        rc.type_id = self.graph.schema_cache.get_by_id(
+                            rc.type_id
+                        ).label_id
+                        rc.sort_key = b""
                     results.append(self._edge_from_cache(v, rc))
         with self._lock:
             label_ids = self._label_ids(labels)
@@ -602,7 +614,14 @@ class Transaction:
                 if sr_bytes is not None:
                     # the committed column range's [lo, hi) on the sort key
                     _el, lo_b, hi_b, _len = sr_bytes
-                    sk = rel._sort_key or b""
+                    if isinstance(_el, EdgeLabel):
+                        sk = rel._sort_key or b""
+                    else:
+                        # index-routed range: the index's sort key from the
+                        # added edge's properties
+                        sk = _el.sort_key_bytes(self.graph.serializer, rel._props)
+                        if sk is None:
+                            continue  # an unindexed edge is out of range
                     if (lo_b and sk < lo_b) or (hi_b and sk >= hi_b):
                         continue
                 results.append(rel)
@@ -709,10 +728,10 @@ class Transaction:
 
     def _encode_sort_range(self, labels, direction, sort_range):
         """Resolve (lo, hi) sort-range values into order-preserving byte
-        bounds for one sort-keyed label: (label, lo_bytes, hi_bytes,
-        width). The reference also routes a label without a sort key
-        through an enabled RelationTypeIndex; the port has none, so such a
-        label raises as the reference does without one."""
+        bounds for one sort-keyed label: (target, lo_bytes, hi_bytes,
+        width). ``target`` is the label when it carries a sort key, else an
+        ENABLED RelationIndex on the label covering the direction; both
+        compile to the same vertex-centric column-range slice."""
         if len(labels) != 1:
             raise QueryError("sort_range requires exactly one edge label")
         if direction == Direction.BOTH:
@@ -721,10 +740,17 @@ class Transaction:
         if not isinstance(el, EdgeLabel):
             raise QueryError(f"{labels[0]!r} is not an edge label")
         if not el.sort_key:
-            raise QueryError(
-                f"label {labels[0]!r} has no sort key and no enabled "
-                "relation index covering this direction"
-            )
+            for cand in self.graph.relation_indexes.get(el.id, ()):
+                if cand.status == "ENABLED" and cand.direction in (
+                    int(Direction.BOTH), int(direction)
+                ):
+                    el = cand
+                    break
+            else:
+                raise QueryError(
+                    f"label {labels[0]!r} has no sort key and no enabled "
+                    "relation index covering this direction"
+                )
         ser = self.graph.serializer
         sk_len = 0
         for key_id in el.sort_key:

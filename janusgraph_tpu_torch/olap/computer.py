@@ -32,8 +32,8 @@ raises (ROADMAP Queue A #4).
 ``write_back`` takes the columnar float path of the reference
 (``tpu_executor.py`` ``_write_back_columnar``) for SINGLE float keys and
 its transactional path (``_write_back_tx``, batched OLTP transactions) for
-the others: the same cells, batch for batch. The port has no indexes, so
-no key takes the transactional path for that reason.
+the others and for every key an index covers, so that the index follows
+(composite rows, mixed-index documents): the same cells, batch for batch.
 
 Telemetry, as the reference's: ``submit()`` runs under an ``olap.submit``
 span with the ``olap.load_csr`` snapshot load, the executor's ``olap.run``
@@ -411,8 +411,9 @@ def write_back(graph, csr: CSRGraph, result: Dict[str, np.ndarray], keys=None,
     float keys as raw property cells (one cell per vertex, batched backend
     transactions, relation ids drawn in spans), every other key through
     batched OLTP transactions (``v.property(name, float(value))``, so the
-    key's cardinality and type checks apply); keys that do not exist yet
-    are made as float keys first. The port has no indexes to maintain."""
+    key's cardinality and type checks apply, and the commit maintains the
+    indexes that cover the key); keys that do not exist yet are made as
+    float keys first."""
     from janusgraph_tpu_torch.core.codecs import Cardinality
 
     mgmt = graph.management()
@@ -423,7 +424,9 @@ def write_back(graph, csr: CSRGraph, result: Dict[str, np.ndarray], keys=None,
     vids = csr.vertex_ids
     for name in names:
         pk = graph.schema_cache.get_by_name(name)
-        if pk.cardinality != Cardinality.SINGLE or pk.data_type is not float:
+        indexed = any(pk.id in idx.key_ids for idx in graph.indexes.values())
+        if indexed or pk.cardinality != Cardinality.SINGLE or pk.data_type is not float:
+            # tx path: index maintenance and schema type checks stay enforced
             _write_back_tx(graph, vids, name, result[name], batch)
             continue
         _write_back_columnar(graph, vids, pk, result[name], batch)

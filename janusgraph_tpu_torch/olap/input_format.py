@@ -11,13 +11,17 @@ and records are ``StarVertex`` (adjacency and properties of one vertex).
 An external engine can consume splits independently: each split reads
 only its own key ranges.
 
+``DistributedIndexManagement`` runs an index's ``IndexRepairJob``
+(``olap/jobs.py``) over the splits on worker threads, one scanner per
+split, and merges their metrics.
+
 Left out: ``load_shard_csrs`` (one CSR per shard for the sharded
-executor) raises, naming ROADMAP Queue A #4 (multi-GPU), and
-``DistributedIndexManagement`` waits for the indexes (Queue A #5.2).
+executor) raises, naming ROADMAP Queue A #4 (multi-GPU).
 """
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional, Tuple
 
@@ -146,3 +150,49 @@ def _codec_schema(graph):
         return el.type_info()
 
     return lookup
+
+
+class DistributedIndexManagement:
+    """Worker-parallel index maintenance across input splits
+    (reference: MapReduceIndexManagement.java:276 running IndexRepairJob /
+    IndexRemoveJob as Hadoop MR jobs)."""
+
+    def __init__(self, graph, num_workers: int = 4):
+        self.graph = graph
+        self.num_workers = num_workers
+
+    def reindex(self, index_name: str):
+        """REINDEX across splits in parallel; returns merged ScanMetrics."""
+        from janusgraph_tpu_torch.olap.jobs import IndexRepairJob
+        from janusgraph_tpu_torch.storage.scan import ScanMetrics, StandardScanner
+
+        g = self.graph
+        idx = g.indexes.get(index_name)
+        if idx is None:
+            raise KeyError(f"no index named {index_name!r}")
+        fmt = GraphInputFormat(g)
+        splits = fmt.splits(self.num_workers)
+        merged = ScanMetrics()
+
+        def run_split(split: InputSplit) -> ScanMetrics:
+            job = IndexRepairJob(g, idx)
+            btx = g.backend.begin_transaction()
+            scanner = StandardScanner(
+                g.backend.edgestore,
+                btx.store_tx,
+                ordered_scan=g.backend.manager.features.ordered_scan,
+            )
+            ranges = [
+                g.idm.partition_key_range(p) for p in split.partitions
+            ]
+            return scanner.execute(job, key_ranges=ranges, num_workers=1)
+
+        from janusgraph_tpu_torch.observability import capture_scope
+
+        # pool workers start from an empty contextvars context; without
+        # the capture the per-split scan spans detach from the caller's
+        # trace and ledger/deadline attribution is lost (JG402)
+        with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+            for metrics in pool.map(capture_scope(run_split), splits):
+                merged.merge(metrics)
+        return merged

@@ -329,8 +329,9 @@ class BackendTransaction:
         self.backend.edge_locker.write_lock(KeyColumn(key, column), self, expected)
 
     def acquire_index_lock(self, key: bytes, column: bytes, expected=None) -> None:
-        """An index-cell lock (the unique composite indexes take these,
-        ROADMAP Queue A #5.2)."""
+        """An index-cell lock: the commit takes one on the row of every
+        value it claims in a unique composite index, with the slice it
+        observed as the expected value."""
         from janusgraph_tpu_torch.storage.locking import KeyColumn
 
         self.backend.index_locker.write_lock(KeyColumn(key, column), self, expected)
