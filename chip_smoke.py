@@ -107,7 +107,7 @@ Phases, each printing one JSON line:
   stored_local  the same graph in a persistent local directory
            (storage.backend "local", fsync on): the bulk load and close (the
            WAL's bytes), a reopen (the replay) and a cold submit through
-           the in-process scan, cold submits through 2, 4 and 8 loader
+           the in-process scan, a cold submit through 8 loader
            processes (storage.distributed-load-workers; no probe open:
            submit() passes the open graph's partition count; each
            worker's replay and scan, the merge), each with 20 kernel
@@ -150,6 +150,21 @@ Phases, each printing one JSON line:
            snapshot) equal to that transaction's walk, and a spill after the
            commit through a delta refresh equal to a fresh walk; every
            olap.spillover.fallback counter 0
+  logs     the durable logs on the same store: two instances (one with the
+           durable CDC log, storage.cdc.dir), tx.log-tx on through
+           management().set_config, open_instances(); 1,000-edge commits
+           with the WAL off (2) and on (10, with a user log whose processor
+           must see all 10,000 edge additions; the txlog's four markers for
+           each); the CDC log replayed from the snapshot's cursor and folded
+           into it (DeltaOverlay.from_batches + materialize), array-equal to
+           a fresh load_csr, PageRank over it (20 kernel runs) bitwise equal
+           to PageRank over the scan, the kernel against its plain version
+           on its in-plan; a torn commit of 1,000 edges (half its rows
+           flushed), rolled forward by a third instance's open, every edge
+           read back, a second recovery that finds nothing, that instance's
+           submit (20 kernel runs, a fresh scan) bitwise equal to run_on
+           over a fresh load_csr; a schema eviction acknowledged by every
+           open instance; every time with the card's name and power limit
   indexed  the same store reopened with the slice cache off: a mixed index
            over every vertex's rank (memindex) built and reindexed through
            the scan framework, the top-1,000 range query planned
@@ -1982,7 +1997,7 @@ def stored_local_phase(stored, csr, args, emit) -> dict:
     """The stored phase's graph in a persistent local directory
     (storage.backend "local", storage.fsync on): the columnar bulk load and
     close, a reopen (the WAL replay) and a cold submit through the
-    in-process scan, then cold submits through 2, 4 and 8 loader processes
+    in-process scan, then a cold submit through 8 loader processes
     (storage.distributed-load-workers), each against the stored phase's
     CSR and ranks; a transaction of 1,000 edges of a LOCK-consistency label
     against the same writes on a default label, and the warm submit that
@@ -2086,10 +2101,14 @@ def stored_local_phase(stored, csr, args, emit) -> dict:
         rank1 = res1.states["rank"]
         del res1
 
-        # (3) distributed loads; the reopened graph stays open (its WAL
-        # shared with the loaders, which append on close)
+        # (3) a distributed load through 8 loader processes (the card's
+        # machine has 8 cores); the reopened graph stays open (its WAL
+        # shared with the loaders, which append on open and close). Runs
+        # through 2 and 4 loaders, which took as long (each worker replays
+        # the whole store; PERF.md §5), were cut to fit the logs phase in
+        # the time limit
         per_w = {}
-        for w in (2, 4, 8):
+        for w in (8,):
             t0 = time.perf_counter()
             gw = open_graph(dict(cfg, **{"storage.distributed-load-workers": w}))
             open_s = time.perf_counter() - t0
@@ -2634,6 +2653,262 @@ def oltp_phase(stored, args, emit) -> dict:
     }, seconds=time.perf_counter() - phase_t0)
     g.close()
     return {"launches": pr_runs, "launches_spill": warm_runs}
+
+
+class TearingFlush:
+    """Swap a store manager's ``mutate_many`` for one call: apply the first
+    half of the batch's rows (in the batch's order), then fail, as a crash
+    between row writes would."""
+
+    def __init__(self, manager):
+        self.manager, self.original, self.rows = manager, manager.mutate_many, 0
+        manager.mutate_many = self
+
+    def __call__(self, mutations, txh):
+        self.manager.mutate_many = self.original
+        flat = [(s, k, m) for s, rows in mutations.items() for k, m in rows.items()]
+        self.rows = len(flat)
+        keep = {}
+        for s, k, m in flat[: len(flat) // 2]:
+            keep.setdefault(s, {})[k] = m
+        self.original(keep, txh)
+        raise RuntimeError("crash in the middle of the flush")
+
+
+def logs_phase(stored, args, emit, card: str) -> dict:
+    """The durable logs on the stored graph the phases before wrote: (1) two
+    instances over its store manager, one with the durable CDC log
+    (storage.cdc.dir), tx.log-tx on through management().set_config,
+    open_instances() listing both; (2) a snapshot, two 1,000-edge commits
+    with the WAL off and ten with it on and a user log, a log processor
+    that must see all 10,000 edge additions, the txlog's four markers for
+    each; (3) the CDC log replayed from the snapshot's cursor, folded into
+    the snapshot (DeltaOverlay.from_batches + materialize), array-equal to
+    a fresh load_csr, PageRank over it on the card (20 kernel runs) bitwise
+    equal to PageRank over the scan, and the kernel against its plain
+    version on the folded in-plan; (4) a torn commit of 1,000 edges (half
+    its rows flushed, PRECOMMIT and PREFLUSH in the txlog), a third
+    instance whose open rolls it forward, every edge readable, a second
+    recovery that finds nothing, and that instance's submit on the card
+    (20 kernel runs) bitwise equal to run_on over a fresh scan; (5) a
+    schema eviction acknowledged by every open instance. Every time is
+    printed with the card's name and power limit (``card``)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from janusgraph_tpu_torch.core.codecs import Direction
+    from janusgraph_tpu_torch.core.graph import open_graph
+    from janusgraph_tpu_torch.core.txlog import LogTxStatus, TornCommitRecovery, decode_tx_entry
+    from janusgraph_tpu_torch.olap import GPUExecutor, kernels, run_on
+    from janusgraph_tpu_torch.olap import delta as D
+    from janusgraph_tpu_torch.olap.csr import load_csr, load_csr_snapshot
+    from janusgraph_tpu_torch.olap.programs import PageRankProgram
+
+    phase_t0 = time.perf_counter()
+    mgr = stored["graph"].backend.manager
+    cdc_dir = tempfile.mkdtemp(prefix="jg_cdc_")
+    rng = np.random.default_rng(args.seed + 13)
+
+    def pagerank():
+        return PageRankProgram(max_iterations=20, tol=0.0)
+
+    # -- (1) two instances; the WAL on through the management API
+    g1 = open_graph({}, store_manager=mgr)
+    g2 = open_graph({"storage.cdc.dir": cdc_dir}, store_manager=mgr)
+    m2 = g2.management()
+    instances = sorted(m2.open_instances())
+    if instances != sorted([g1.instance_id, g2.instance_id]):
+        raise RuntimeError(f"open_instances() {instances}")
+    t0 = time.perf_counter()
+    csr0, epoch0 = load_csr_snapshot(g2)
+    snapshot_s = time.perf_counter() - t0
+    live = csr0.vertex_ids
+
+    def burst(graph, log_identifier=None):
+        """One transaction of 1,000 "link" edges between live vertices: its
+        commit's wall, and the transaction."""
+        tx = graph.new_transaction(log_identifier=log_identifier)
+        for s_, d_ in zip(rng.choice(live, 1000), rng.choice(live, 1000)):
+            tx.add_edge(tx.get_vertex(int(s_)), "link", tx.get_vertex(int(d_)))
+        t0 = time.perf_counter()
+        tx.commit()
+        return time.perf_counter() - t0, tx
+
+    wal_off_s = [burst(g2)[0] for _ in range(2)]
+    m2.set_config("tx.log-tx", True)
+    if not (g2._wal_enabled and m2.get_config("tx.log-tx")):
+        raise RuntimeError("set_config('tx.log-tx', True) did not turn the WAL on")
+
+    # -- (2) ten WAL-on commits with a user log, and its processor
+    seen = {"edges": 0, "states": 0, "first": None, "last": None}
+
+    def on_state(state):
+        seen["edges"] += sum(1 for c in state.added if c.kind == "edge")
+        seen["states"] += 1
+        seen["first"] = seen["first"] or time.perf_counter()
+        seen["last"] = time.perf_counter()
+
+    g2.open_log_processor("smoke").add_processor(on_state).build()
+    time.sleep(0.1)  # the processor reads from now
+    wal_t0 = time.time_ns()
+    wal_on_s, commit_ends = [], []
+    for _ in range(10):
+        wall, _tx = burst(g2, "smoke")
+        wal_on_s.append(wall)
+        commit_ends.append(time.perf_counter())
+    deadline = time.perf_counter() + 30.0
+    while seen["edges"] < 10_000 and time.perf_counter() < deadline:
+        time.sleep(0.005)
+    if seen["edges"] != 10_000 or seen["states"] != 10:
+        raise RuntimeError(f"the log processor saw {seen['edges']} edge additions in "
+                           f"{seen['states']} transactions, not 10,000 in 10")
+    by_tx = {}
+    for msg in g2.log_manager.open_log("txlog").read_range(wal_t0):
+        e = decode_tx_entry(msg.content, msg.timestamp_ns)
+        by_tx.setdefault((msg.sender, e.tx_id), []).append(e.status)
+    full = [LogTxStatus.PRECOMMIT, LogTxStatus.PREFLUSH, LogTxStatus.PRIMARY_SUCCESS,
+            LogTxStatus.SECONDARY_SUCCESS]
+    if len(by_tx) != 10 or any(v != full for v in by_tx.values()):
+        raise RuntimeError(f"the txlog holds {by_tx}")
+
+    # -- (3) the CDC log replayed onto the card
+    t0 = time.perf_counter()
+    cursor = g2.cdc_log.cursor_for_epoch(epoch0)
+    replayed = g2.cdc_log.replay_from(cursor)
+    replay_s = time.perf_counter() - t0
+    if replayed is None or len(replayed[0]) != 12:
+        raise RuntimeError(f"the CDC replay from cursor {cursor}: {replayed and len(replayed[0])}")
+    t0 = time.perf_counter()
+    overlay = D.DeltaOverlay.from_batches([b for _e, b in replayed[0]])
+    folded = D.materialize(csr0, overlay, idm=g2.idm)
+    materialize_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fresh = load_csr(g2)
+    fresh_s = time.perf_counter() - t0
+    for k in ("vertex_ids", "out_indptr", "in_indptr", "out_dst", "in_src", "out_edge_type"):
+        if not np.array_equal(getattr(folded, k), getattr(fresh, k)):
+            raise RuntimeError(f"the CDC-folded CSR's {k} differs from a fresh load_csr")
+    if fresh.num_edges != csr0.num_edges + 12_000:
+        raise RuntimeError(f"{fresh.num_edges} edges after 12,000 on {csr0.num_edges}")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    folded_rank, folded_runs = counted(lambda: run_on(folded, pagerank())["rank"], 20)
+    folded_run_s = time.perf_counter() - t0
+    fresh_rank, _r = counted(lambda: run_on(fresh, pagerank())["rank"], 20)
+    if not np.isfinite(folded_rank).all() or not bits_equal(folded_rank, fresh_rank):
+        raise RuntimeError("PageRank over the CDC-folded CSR differs from the fresh scan's")
+    ex = GPUExecutor(folded, strategy="segsum")
+    in_plan = ex._segsum_plan("in")
+    data = torch.rand(in_plan.num_edges, generator=torch.Generator(device="cuda").manual_seed(
+        args.seed + 13), device="cuda")
+    _p, _g, plan_err = check_plan("logs_in", in_plan, data, kernels)
+    del ex, data
+    cdc_stats = g2.cdc_log.stats()
+    cdc_bytes = sum(os.path.getsize(os.path.join(cdc_dir, f)) for f in os.listdir(cdc_dir))
+
+    # -- (4) a torn commit, and the third instance's open that heals it
+    tear = TearingFlush(mgr)
+    tx = g2.new_transaction()
+    torn_edges = {}
+    for s_, d_ in zip(rng.choice(live, 1000), rng.choice(live, 1000)):
+        e = tx.add_edge(tx.get_vertex(int(s_)), "link", tx.get_vertex(int(d_)))
+        torn_edges[e.id] = int(s_)
+    torn_t0 = time.time_ns()
+    try:
+        tx.commit()
+    except RuntimeError as err:
+        if "crash" not in str(err):
+            raise
+    else:
+        raise RuntimeError("the torn commit committed")
+    torn_status = {}
+    for msg in g2.log_manager.open_log("txlog").read_range(torn_t0):
+        e = decode_tx_entry(msg.content)
+        torn_status.setdefault(e.tx_id, []).append(e.status.name)
+    if list(torn_status.values()) != [["PRECOMMIT", "PREFLUSH"]]:
+        raise RuntimeError(f"the torn commit's txlog: {torn_status}")
+    torn_tx_id = next(iter(torn_status))
+    # the crash: the instance's threads stop, nothing else closes
+    g2.log_manager.close()
+    g2.cdc_log.close()
+    t0 = time.perf_counter()
+    g3 = open_graph({"tx.max-commit-time-ms": 0.0}, store_manager=mgr)
+    reopen_s = time.perf_counter() - t0
+    report = g3.last_torn_recovery
+    if report != {"replayed": [torn_tx_id], "rolled_back": []}:
+        raise RuntimeError(f"the recovery at open: {report}")
+    t0 = time.perf_counter()
+    again = TornCommitRecovery(g3).run()
+    again_s = time.perf_counter() - t0
+    if again != {"replayed": [], "rolled_back": []}:
+        raise RuntimeError(f"a second recovery: {again}")
+    tx = g3.new_transaction(read_only=True)
+    found = set()
+    for src in set(torn_edges.values()):
+        found.update(e.id for e in tx.get_edges(tx.get_vertex(src), Direction.OUT, ("link",))
+                     if e.id in torn_edges)
+    tx.rollback()
+    if len(found) != len(torn_edges):
+        raise RuntimeError(f"{len(found)} of the torn commit's {len(torn_edges)} edges read back")
+    t0 = time.perf_counter()
+    res, recovered_runs = counted(lambda: g3.compute().program(pagerank()).submit(), 20)
+    submit_s = time.perf_counter() - t0
+    fresh3 = load_csr(g3)
+    want3, _r = counted(lambda: run_on(fresh3, pagerank())["rank"], 20)
+    path = res.run_info["snapshot"]["path"]
+    if path != "cold" or res.csr.num_edges != fresh.num_edges + 1000:
+        raise RuntimeError(f"the recovered submit: {res.run_info['snapshot']}, "
+                           f"{res.csr.num_edges} edges")
+    if not bits_equal(res.states["rank"], want3):
+        raise RuntimeError("the recovered graph's submit differs from run_on over a fresh scan")
+
+    # -- (5) the schema eviction broadcast; the dead instance force-closed
+    m3 = g3.management()
+    m3.force_close_instance(g2.instance_id)
+    expected = sorted(m3.open_instances())
+    if expected != sorted([g1.instance_id, g3.instance_id]):
+        raise RuntimeError(f"open_instances() after the force-close: {expected}")
+    key = m3.make_property_key("logs_note", str)
+    ml = g3.management_logger
+    timeout_s = g3.config.get("schema.eviction-ack-timeout-ms") / 1000.0
+    t0 = time.perf_counter()
+    evict_id = ml.broadcast_eviction(key.id)
+    acked = ml.wait_for_acks(evict_id, len(expected), timeout_s)
+    ack_s = time.perf_counter() - t0
+    acks = sorted(ml._acks[evict_id])
+    if not acked or acks != expected:
+        raise RuntimeError(f"the eviction was acknowledged by {acks} of {expected}")
+    # the stored graph's later phases run with the WAL off, as before
+    m3.set_config("tx.log-tx", False)
+    m3.set_config("tx.max-commit-time-ms", 10_000.0)
+    g3.close()
+    g1.close()
+    shutil.rmtree(cdc_dir, ignore_errors=True)
+    emit("logs", card=card, vertices=csr0.num_vertices, edges_before=csr0.num_edges,
+         instances=len(instances), snapshot_s=snapshot_s,
+         commit_1000_edges_s={"wal_off": wal_off_s, "wal_on": wal_on_s},
+         processor={"edges": seen["edges"], "transactions": seen["states"],
+                    "first_seen_after_commit_start_s": seen["first"] - (
+                        commit_ends[0] - wal_on_s[0]),
+                    "drain_after_last_commit_s": seen["last"] - commit_ends[-1]},
+         txlog_markers=[s.name for s in full],
+         cdc={"records": len(replayed[0]), "cursor": cursor, "segments": cdc_stats[
+             "sealed_segments"], "tail_records": cdc_stats["tail_records"], "bytes": cdc_bytes,
+              "replay_s": replay_s, "materialize_s": materialize_s, "fresh_load_csr_s": fresh_s},
+         folded={"kernel_runs": folded_runs, "run_on_wall_s": folded_run_s,
+                 "ranks": "bitwise equal to the fresh scan's", "in_plan_max_abs_err": plan_err},
+         torn={"tx_id": torn_tx_id, "rows": tear.rows, "rows_flushed": tear.rows // 2,
+               "reopen_s": reopen_s, "report": report, "second_run": again,
+               "second_run_s": again_s, "edges_read_back": len(found)},
+         recovered_submit={"wall_s": submit_s, "path": path, "kernel_runs": recovered_runs,
+                           "ranks": "bitwise equal to run_on over a fresh scan"},
+         eviction={"acks": acks, "ack_s": ack_s, "timeout_s": timeout_s},
+         seconds=time.perf_counter() - phase_t0)
+    return {"launches": folded_runs, "launches_recovered": recovered_runs,
+            "max_abs_err": plan_err}
 
 
 def indexed_phase(stored, args, emit) -> dict:
@@ -3316,6 +3591,8 @@ def main() -> int:
     kernels.reset_launch_counts()
     oltp = oltp_phase(stored, args, emit)
     kernels.reset_launch_counts()
+    logs = logs_phase(stored, args, emit, smi)
+    kernels.reset_launch_counts()
     indexed = indexed_phase(stored, args, emit)
     gods_run = gods_phase(args, emit)
     telemetry_phase(emit)
@@ -3345,7 +3622,7 @@ def main() -> int:
         "launches_stored_warm": stored["launches_warm"],
         "launches_stored_traverse": stored["launches_traverse"],
         # the same graph in a local directory: the cold submit after a
-        # reopen (in-process scan), through 2, 4 and 8 loader processes,
+        # reopen (in-process scan), through 8 loader processes,
         # and the warm submit after the LOCK-consistency commit
         "launches_stored_local": stored_local["launches"],
         **{f"launches_stored_local_w{w}": r
@@ -3366,6 +3643,10 @@ def main() -> int:
         # snapshot, the warm submit after 1,000 timed edges (the "refresh"
         # path, from the change capture) and a cold submit (a fresh scan);
         # and the Graph of the Gods' PageRank
+        # the durable logs: PageRank over the CDC-folded CSR (run_on) and
+        # the submit of the instance that rolled the torn commit forward
+        "launches_logs_folded": logs["launches"],
+        "launches_logs_recovered": logs["launches_recovered"],
         "launches_indexed": indexed["launches"],
         "launches_indexed_cold": indexed["launches_cold"],
         "launches_indexed_snapshot": indexed["launches_snapshot"],
@@ -3373,6 +3654,7 @@ def main() -> int:
         # the kernel against its plain version on the indexed graph's and
         # the Gods' in-plans
         "max_abs_err_indexed": indexed["max_abs_err"],
+        "max_abs_err_logs": logs["max_abs_err"],
         "max_abs_err_gods": gods_run["max_abs_err"],
         # the kernel against its plain version on the stored path's in-plan
         # and "link" channel plan

@@ -27,15 +27,24 @@ the ROADMAP item that brings it, as do ``computer.executor`` =
 sharded stores) and ``index.search.backend`` = "remote" with the remote
 index provider's options (#5.5). Nothing is ignored.
 
-Left out: the management writes (``set_global``) and the instance
-registry.
+The durable logs' options (``log.*``, ``tx.log-tx``,
+``tx.max-commit-time-ms``, ``tx.recover-on-open``, ``storage.cdc.*``,
+``schema.eviction-ack-*``, ``graph.timestamps`` and the instance-id
+options) are the reference's. ``GraphConfiguration.set_global`` is the
+management write of a cluster option (``management().set_config``), and
+``InstanceRegistry`` keeps the open instances' ids in the global config
+(``generate_instance_id`` makes one).
 """
 
 from __future__ import annotations
 
 import json
+import os
+import threading
+import time
+import uuid
 from enum import Enum
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 from janusgraph_tpu_torch.exceptions import ConfigurationError
 
@@ -126,8 +135,6 @@ _NOT_PORTED: Dict[str, str] = {
     "cache.": _ROADMAP_HOST,
     "schema.": _ROADMAP_HOST,
     "graph.": _ROADMAP_HOST,
-    "log.": _ROADMAP_HOST,
-    "tx.": _ROADMAP_HOST,
     # the remote index provider's options (index.search.backend = "remote")
     "index.search.hostname": _ROADMAP_REMOTE,
     "index.search.port": _ROADMAP_REMOTE,
@@ -599,6 +606,101 @@ _option(
     "new transactions default to read-only (read in new_transaction)", False,
 )
 _option(
+    "tx.log-tx", bool, "write the WAL transaction log", False, Mutability.GLOBAL,
+)
+_option(
+    "tx.max-commit-time-ms", float,
+    "recovery considers a tx abandoned after this long", 10_000.0,
+    Mutability.GLOBAL,
+)
+_option(
+    "tx.recover-on-open", bool,
+    "run torn-commit recovery at graph open when the WAL is enabled: "
+    "PREFLUSH-without-PRIMARY_SUCCESS transactions older than "
+    "tx.max-commit-time-ms are rolled forward, PRECOMMIT-only ones rolled "
+    "back (core/txlog.py TornCommitRecovery)", True,
+)
+_option(
+    "log.num-buckets", int, "write-parallelism buckets per log partition", 4,
+    Mutability.GLOBAL_OFFLINE, lambda v: v > 0,
+)
+_option(
+    "log.send-batch-size", int, "max messages per batched log append", 256,
+    verifier=lambda v: v > 0,
+)
+_option(
+    "log.read-lag-ms", float,
+    "pullers stop this far behind now so a message of another sender stamped "
+    "earlier but flushed later is never skipped past the cursor; -1 = auto "
+    "(3x log.send-delay-ms + one graph.timestamps tick)", -1.0,
+)
+_option("log.read-interval-ms", float, "poll interval of log message pullers", 20.0)
+_option(
+    "log.send-delay-ms", float,
+    "max buffering delay before a log batch is flushed (the send thread)",
+    10.0, verifier=lambda v: v >= 0,
+)
+_option(
+    "log.ttl-seconds", float,
+    "expire log rows after this long (0 = keep; through the cell-TTL "
+    "wrapper)", 0.0, Mutability.GLOBAL_OFFLINE, lambda v: v >= 0,
+)
+_option(
+    "log.slice-granularity-ms", int,
+    "time window of one log row (FIXED: row keys derive from it)", 100,
+    Mutability.FIXED, lambda v: v > 0,
+)
+_option(
+    "storage.cdc.dir", str,
+    "directory of the durable segmented change-capture log (storage/cdc.py "
+    "CDCLog); empty = no durable CDC. Requires computer.delta", "",
+    Mutability.LOCAL,
+)
+_option(
+    "storage.cdc.segment-records", int,
+    "records per sealed CDC segment (power of two); the tail seals at this "
+    "boundary", 1024, Mutability.LOCAL, lambda v: v > 0 and v & (v - 1) == 0,
+)
+_option(
+    "storage.cdc.retention-segments", int,
+    "sealed CDC segments retained before the oldest is pruned (an honest "
+    "cursor gap)", 64, Mutability.LOCAL, lambda v: v >= 1,
+)
+_option(
+    "schema.eviction-ack-timeout-ms", float,
+    "how long a schema change waits for every open instance to acknowledge "
+    "the cache-eviction broadcast", 5000.0, verifier=lambda v: v > 0,
+)
+_option(
+    "schema.eviction-ack-poll-ms", float,
+    "polling cadence while a schema change waits for eviction acks", 5.0,
+    verifier=lambda v: v > 0,
+)
+_option(
+    "graph.timestamps", str,
+    "resolution of storage-visible timestamps stamped onto log messages: "
+    "nano | micro | milli", "nano", Mutability.GLOBAL_OFFLINE,
+    lambda v: v in ("nano", "micro", "milli"),
+)
+_option(
+    "graph.unique-instance-id", str,
+    "cluster-unique id of this open instance (generated when empty)", "",
+    Mutability.LOCAL,
+)
+_option(
+    "graph.unique-instance-id-suffix", str,
+    "discriminator appended to generated instance ids", "", Mutability.LOCAL,
+)
+_option(
+    "graph.use-hostname-for-unique-instance-id", bool,
+    "base generated instance ids on the host name", False, Mutability.LOCAL,
+)
+_option(
+    "graph.replace-instance-if-exists", bool,
+    "re-register over a stale instance id instead of refusing to open", False,
+    Mutability.LOCAL,
+)
+_option(
     "graph.set-vertex-id", bool,
     "allow callers to supply their own vertex ids (tx.add_vertex(vertex_id="
     "...)); custom ids bypass the id authority", False, Mutability.FIXED,
@@ -696,3 +798,73 @@ class GraphConfiguration:
         if path in self.local:
             return self.local[path]
         return opt.default
+
+    # -- management writes --------------------------------------------------
+    def set_global(self, path: str, value: Any, open_instances: int = 1) -> None:
+        """The management write of a cluster option (reference:
+        ManagementSystem.set)."""
+        opt = _lookup(path)
+        value = opt.check(value)
+        if opt.mutability is Mutability.FIXED:
+            raise ConfigurationError(f"{path} is FIXED and cannot be changed")
+        if opt.mutability is Mutability.LOCAL:
+            raise ConfigurationError(f"{path} is LOCAL; set it in the local config")
+        if opt.mutability is Mutability.GLOBAL_OFFLINE and open_instances > 1:
+            raise ConfigurationError(
+                f"{path} is GLOBAL_OFFLINE: requires all other instances closed "
+                f"({open_instances} open)"
+            )
+        self._store(path, value)
+
+
+# ---------------------------------------------------------------------------
+# Instance registry (reference: StandardJanusGraph.java:176-185 — instances
+# register a unique id in the global config; management lists and
+# force-closes them)
+
+_INSTANCE_PREFIX = "cluster.instance."
+
+
+def generate_instance_id(suffix: str = "", use_hostname: bool = False) -> str:
+    """A cluster-unique instance id: the pid and a random tail, on the host
+    name with ``graph.use-hostname-for-unique-instance-id``, with
+    ``graph.unique-instance-id-suffix`` appended."""
+    if use_hostname:
+        import socket
+
+        base = socket.gethostname().replace(".", "-")
+        core = f"{base}-{os.getpid():x}-{uuid.uuid4().hex[:6]}"
+    else:
+        core = f"{os.getpid():x}-{uuid.uuid4().hex[:12]}"
+    return f"{core}-{suffix}" if suffix else core
+
+
+class InstanceRegistry:
+    """The open instances' ids, as cells of the global config."""
+
+    def __init__(self, backend):
+        self.backend = backend
+        self._lock = threading.Lock()
+
+    def register(self, instance_id: str) -> None:
+        with self._lock:
+            if self.backend.get_global_config(_INSTANCE_PREFIX + instance_id):
+                raise ConfigurationError(
+                    f"instance id already registered: {instance_id} "
+                    "(another instance with this id is open; use "
+                    "management().force_close_instance to evict a stale one)"
+                )
+            self.backend.set_global_config(
+                _INSTANCE_PREFIX + instance_id,
+                json.dumps({"ts": time.time()}).encode(),
+            )
+
+    def deregister(self, instance_id: str) -> None:
+        with self._lock:
+            self.backend.del_global_config(_INSTANCE_PREFIX + instance_id)
+
+    def open_instances(self) -> List[str]:
+        return [
+            name[len(_INSTANCE_PREFIX):]
+            for name in self.backend.list_global_config(_INSTANCE_PREFIX)
+        ]

@@ -51,10 +51,27 @@ before the flush, and flushes mixed-index documents after the primary
 store; ``index_lookup``, ``mixed_index_query``, ``index_query`` and
 ``index_totals`` read them.
 
-Left out (ROADMAP Queue A #5): graph I/O (``g.io()``), the WAL, logs and
-schema broadcast (a schema change evicts in-process only), the instance
-registry, fault injection, the remote index provider and the "sharded"
-and "remote" stores (#5.5; their factories raise).
+The durable logs, as the reference's (``storage/log.py``,
+``core/txlog.py``): each open registers its ``instance_id`` in the
+instance registry (``graph.replace-instance-if-exists`` takes over a stale
+one) and opens a ``LogManager`` over the store manager. With ``tx.log-tx``
+(GLOBAL; ``management().set_config``) or a transaction's
+``log_identifier`` the commit writes the WAL: PRECOMMIT with the change
+records before the lock, PREFLUSH just before the flush, PRIMARY_SUCCESS
+after it, then the user log ``ulog_<id>`` and SECONDARY_SUCCESS or
+_FAILURE; nothing after the primary flush raises. At open, with the WAL on
+and ``tx.recover-on-open``, ``TornCommitRecovery`` rolls a torn commit
+forward (``replay_torn_changes``, ``restore_mixed_indexes``) or back
+(``last_torn_recovery``). ``open_log_processor`` tails a user log,
+``start_transaction_recovery`` heals failed secondaries, and a schema
+change broadcasts its eviction on ``systemlog`` to every open instance
+(``management_logger``). With ``storage.cdc.dir`` every batch of the
+change capture is also appended to the durable CDC log (``cdc_log``,
+``storage/cdc.py``).
+
+Left out (ROADMAP Queue A #5): graph I/O (``g.io()``), fault injection,
+the remote index provider and the "sharded" and "remote" stores (#5.5;
+their factories raise).
 """
 
 from __future__ import annotations
@@ -72,7 +89,11 @@ from janusgraph_tpu_torch.core.codecs import (
     Direction,
     EdgeSerializer,
 )
-from janusgraph_tpu_torch.core.config import GraphConfiguration
+from janusgraph_tpu_torch.core.config import (
+    GraphConfiguration,
+    InstanceRegistry,
+    generate_instance_id,
+)
 from janusgraph_tpu_torch.core.ids import IDManager, VertexIDType
 from janusgraph_tpu_torch.core.index import IndexSerializer
 from janusgraph_tpu_torch.core.management import (
@@ -150,13 +171,13 @@ def open_graph(config: Optional[dict] = None, store_manager=None) -> "JanusGraph
 def drop_graph(graph: "JanusGraphTPU") -> None:
     """DESTROY the graph's storage and close it (reference:
     JanusGraphFactory.drop). Irreversible. The store manager clears every
-    store; a local directory loses its ``store.wal`` and
-    ``store.snapshot`` (nothing else of the directory is touched). The
+    store, the logs (``txlog``, ``systemlog``, the user logs) and the
+    instance registry (a cell of ``system_properties``) with them; a local
+    directory loses its ``store.wal`` and ``store.snapshot`` (nothing else
+    of the directory is touched, a ``storage.cdc.dir`` neither). The
     mixed-index providers attached to the store manager are cleared too,
     so a re-open starts from nothing. The delta snapshot and the cached
-    executors go with ``close()``. The reference also clears the logs and
-    the instance registry, which the port does not have (ROADMAP Queue A
-    #5.3).
+    executors go with ``close()``.
 
     Storage is cleared BEFORE close(): the local backend's clear_storage
     reopens its WAL handle, and only the following close() releases it.
@@ -294,6 +315,10 @@ class JanusGraphTPU:
         self.idm = IDManager(partition_bits=cfg.get("ids.partition-bits"))
         self.edge_serializer = EdgeSerializer(self.serializer, self.idm)
         self.system_types = SystemTypes(self.idm)
+        self.instance_id = cfg.get("graph.unique-instance-id") or generate_instance_id(
+            suffix=cfg.get("graph.unique-instance-id-suffix"),
+            use_hostname=cfg.get("graph.use-hostname-for-unique-instance-id"),
+        )
         self.backend.id_authority.wait_ms = cfg.get("ids.authority-wait-ms")
         self.backend.configure_lockers(
             wait_ms=cfg.get("locks.wait-ms"),
@@ -341,6 +366,10 @@ class JanusGraphTPU:
         self.relation_index_ids = frozenset()
         #: commits are serialized graph-wide (reference: commit_tx)
         self._commit_lock = threading.Lock()
+        #: the index registry's reload (also from the management log's
+        #: reader thread) and registrations are serialized, so a reload that
+        #: read the registry before a new index cannot overwrite it
+        self._index_registry_lock = threading.RLock()
         self._load_index_registry()
         # delta-CSR change capture (computer.delta; olap/delta.py): every
         # committed edgestore batch streams into a bounded ring, so the
@@ -354,6 +383,18 @@ class JanusGraphTPU:
                 self, limit=cfg.get("computer.delta-capture-limit")
             )
             self.backend.register_change_capture(self.change_capture.on_commit)
+        # the durable CDC log (storage.cdc.dir; storage/cdc.py): every
+        # decoded capture batch also appends to a segmented on-disk log
+        self.cdc_log = None
+        if self.change_capture is not None and cfg.get("storage.cdc.dir"):
+            from janusgraph_tpu_torch.storage.cdc import CDCLog
+
+            self.cdc_log = CDCLog(
+                cfg.get("storage.cdc.dir"),
+                segment_records=cfg.get("storage.cdc.segment-records"),
+                retention_segments=cfg.get("storage.cdc.retention-segments"),
+            )
+            self.change_capture.add_sink(self.cdc_log.append)
         # resolved ONCE at open: these sit on the traversal's hottest paths
         self._slow_query_threshold_ms = cfg.get("metrics.slow-query-threshold-ms")
         self._query_batch = cfg.get("query.batch")
@@ -367,7 +408,62 @@ class JanusGraphTPU:
             from janusgraph_tpu_torch.olap.spillover import SpilloverPlanner
 
             self.spillover_planner = SpilloverPlanner(self)
+        self._open_logs(store_manager)
+
+    def _open_logs(self, store_manager) -> None:
+        """The instance registry, the log bus, the management logger's
+        reader and torn-commit recovery (reference: StandardJanusGraph's
+        open, Backend.java:267,312,316). A failure closes what it opened."""
+        from janusgraph_tpu_torch.storage.log import LogManager
+        from janusgraph_tpu_torch.util.timestamps import TimestampProviders
+
+        cfg = self.config
+        self.instance_registry = InstanceRegistry(self.backend)
+        self._registered = False
+        if not self.backend.read_only:
+            if cfg.get("graph.replace-instance-if-exists"):
+                # take over a stale registration instead of refusing to open
+                self.instance_registry.deregister(self.instance_id)
+            self.instance_registry.register(self.instance_id)
+            self._registered = True
+        self.log_manager = LogManager(
+            store_manager,
+            sender=self.backend.rid,
+            timestamps=TimestampProviders.of(cfg.get("graph.timestamps")),
+            read_lag_ms=cfg.get("log.read-lag-ms"),
+            read_only=cfg.get("storage.read-only"),
+            num_buckets=cfg.get("log.num-buckets"),
+            send_batch_size=cfg.get("log.send-batch-size"),
+            read_interval_ms=cfg.get("log.read-interval-ms"),
+            send_delay_ms=cfg.get("log.send-delay-ms"),
+            ttl_seconds=cfg.get("log.ttl-seconds"),
+            slice_granularity_ms=cfg.get("log.slice-granularity-ms"),
+        )
+        self._tx_log = None
+        self._mgmt_logger = None
+        self._tx_log_lock = threading.Lock()
+        #: tx.log-tx, resolved at open and on this instance's set_config
+        #: (a GLOBAL read goes to the store)
+        self._wal_enabled = bool(cfg.get("tx.log-tx"))
         self._open = True
+        self.last_torn_recovery = None
+        try:
+            # the schema-eviction broadcast's reader, registered from now
+            # (reference: StandardJanusGraph.java:187-189)
+            _ = self.management_logger
+            # torn-commit recovery: roll forward or back the txlog entries a
+            # crashed instance left in PREFLUSH or PRECOMMIT state
+            if (
+                self._wal_enabled
+                and cfg.get("tx.recover-on-open")
+                and not self.backend.read_only
+            ):
+                from janusgraph_tpu_torch.core.txlog import TornCommitRecovery
+
+                self.last_torn_recovery = TornCommitRecovery(self).run()
+        except BaseException:
+            self.close()
+            raise
 
     def _configure_telemetry(self) -> None:
         """Apply the metrics.* options to the process-wide tracer, flight
@@ -424,8 +520,8 @@ class JanusGraphTPU:
     ) -> Transaction:
         """An OLTP transaction. ``read_only`` defaults to
         tx.read-only-default; ``metrics_group`` counts its commits as
-        ``<group>.commit``; ``log_identifier`` (the WAL's user log) raises
-        until the WAL is ported."""
+        ``<group>.commit``; ``log_identifier`` names the user log
+        (``ulog_<id>``) the commit writes its changes to, through the WAL."""
         if read_only is None:
             read_only = self.config.get("tx.read-only-default")
         return Transaction(
@@ -446,12 +542,59 @@ class JanusGraphTPU:
         return self.management().make_vertex_label(name)
 
     def evict_schema_element(self, sid: int) -> None:
-        """Drop a changed schema element from every cache layer of this
-        instance (the reference broadcasts this over its management log to
-        every open instance; the port evicts in-process, ROADMAP Queue A
-        #5.3)."""
+        """Drop a schema element from every cache layer of this instance
+        and reload the index registry: the management log's receiver (a
+        schema change broadcasts it to every open instance) and the
+        changing instance's own eviction."""
         self.schema_cache.invalidate_id(sid)
         self.backend.clear_caches()
+        self._load_index_registry()
+
+    def schema_changed(self, sid: int) -> None:
+        """A schema element changed: evict it here, then broadcast the
+        eviction to every open instance over the management log
+        (reference: ManagementLogger.java:287)."""
+        self.evict_schema_element(sid)
+        self.management_logger.broadcast_eviction(sid)
+
+    # --------------------------------------------------------------- the logs
+    @property
+    def tx_log(self):
+        from janusgraph_tpu_torch.core.txlog import TransactionLog
+
+        with self._tx_log_lock:
+            if self._tx_log is None:
+                self._tx_log = TransactionLog(self.log_manager.open_log("txlog"))
+            return self._tx_log
+
+    @property
+    def management_logger(self):
+        from janusgraph_tpu_torch.core.txlog import ManagementLogger
+
+        with self._tx_log_lock:
+            if self._mgmt_logger is None:
+                self._mgmt_logger = ManagementLogger(self)
+            return self._mgmt_logger
+
+    def open_log_processor(self, identifier: str):
+        """Tail the user log ``ulog_<identifier>`` (reference:
+        JanusGraphFactory.openTransactionLog → LogProcessorFramework)."""
+        from janusgraph_tpu_torch.core.txlog import LogProcessorFramework
+
+        return LogProcessorFramework(self, identifier)
+
+    def start_transaction_recovery(self, start_ns: int = 0):
+        """Heal transactions whose secondary persistence failed (reference:
+        JanusGraphFactory.startTransactionRecovery)."""
+        from janusgraph_tpu_torch.core.txlog import TransactionRecovery
+
+        return TransactionRecovery(self, start_ns)
+
+    def _on_global_config_change(self, path: str, value) -> None:
+        """Refresh the GLOBAL options resolved at open when this instance
+        changes them (other instances read the stored value at reopen)."""
+        if path == "tx.log-tx":
+            self._wal_enabled = bool(value)
 
     def traversal(self):
         """The Gremlin entry point: ``g = graph.traversal()``, then
@@ -469,9 +612,9 @@ class JanusGraphTPU:
         return GraphComputer(self, executor=executor)
 
     def close(self) -> None:
-        """Close the store; the delta snapshot, the spillover snapshot and
-        their cached executors (and with them their device memory) go with
-        it."""
+        """Deregister the instance, close the logs, the CDC log and the
+        store; the delta snapshot, the spillover snapshot and their cached
+        executors (and with them their device memory) go with it."""
         if self._open:
             for r in self._metric_reporters:
                 try:
@@ -483,6 +626,11 @@ class JanusGraphTPU:
                 self._delta_snapshot = None
             if self.spillover_planner is not None:
                 self.spillover_planner.close()
+            if self._registered:
+                self.instance_registry.deregister(self.instance_id)
+            self.log_manager.close()
+            if self.cdc_log is not None:
+                self.cdc_log.close()
             self.backend.register_change_capture(None)
             self.backend.close()
             self._open = False
@@ -495,10 +643,22 @@ class JanusGraphTPU:
         addition of the same column wins under the mutation merge), added
         relations, then the existence and label cells of removed
         vertices, then the index rows; mixed-index documents flush after
-        the primary store."""
+        the primary store. With the WAL on (``tx.log-tx`` or the
+        transaction's ``log_identifier``) the txlog brackets it: PRECOMMIT
+        before the lock, PREFLUSH inside the flush, PRIMARY_SUCCESS, the
+        user log and the secondary marker after it."""
         es = self.edge_serializer
         st = self.system_types
         btx = tx.backend_tx
+        # -- 0. WAL PRECOMMIT with the change records, before storage is
+        # touched (reference: StandardJanusGraph.commit :698-703)
+        wal_enabled = self._wal_enabled or bool(tx.log_identifier)
+        tx_id = 0
+        changes = []
+        if wal_enabled:
+            changes = self._change_records(tx)
+            tx_id = self.tx_log.next_tx_id()
+            self.tx_log.precommit(tx_id, changes, tx.log_identifier or "")
         with self._commit_lock:
             # -- 0.5 LOCK-consistency claims for the touched cells of LOCK
             # types; verified and released by btx.commit() (a failed
@@ -559,22 +719,273 @@ class JanusGraphTPU:
             # reference prepareCommit :645-663, storage-then-indexes
             # :759-766)
             index_tx = self._prepare_mixed_index_updates(tx)
-            # -- 6. flush while still holding the lock (unique-index safety)
-            btx.commit()
+            # -- 6. flush while still holding the lock (unique-index
+            # safety). The WAL's PREFLUSH goes in after the lock checks
+            # pass, just before the batch reaches storage: a crash past it
+            # may leave a torn batch that TornCommitRecovery rolls forward;
+            # a failure before it left storage untouched
+            btx.commit(
+                preflush=(lambda: self.tx_log.preflush(tx_id)) if wal_enabled else None
+            )
         # -- 6.5 mixed-index documents: secondary persistence; a failure
-        # never unwinds the committed primary (reindex heals it)
+        # never unwinds the committed primary (recovery heals it with the
+        # WAL on, reindex without)
+        secondary_ok = True
         if index_tx is not None and index_tx.has_mutations():
             try:
                 if getattr(tx, "_fail_mixed_for_test", False):
                     raise RuntimeError("injected mixed-index failure")
                 index_tx.commit()
             except Exception:
+                secondary_ok = False
                 _logger.error(
                     "mixed-index persistence failed for a committed "
-                    "transaction; primary storage is authoritative — run "
-                    "reindex to heal (WAL off: no automatic heal)",
+                    "transaction%s; primary storage is authoritative — run "
+                    "transaction recovery (WAL on) or reindex to heal",
+                    "" if wal_enabled else " (WAL off: no automatic heal)",
                     exc_info=True,
                 )
+        # -- 7. WAL PRIMARY_SUCCESS, then the user log and the secondary
+        # marker (reference: :752-813). The primary has committed: nothing
+        # past this point may raise, or the caller would roll back a
+        # durably committed transaction
+        if wal_enabled:
+            try:
+                self.tx_log.primary_success(tx_id)
+            except Exception:
+                # recovery sees PRECOMMIT without PRIMARY_SUCCESS; the
+                # committed data itself is safe
+                return
+            try:
+                if not secondary_ok:
+                    raise RuntimeError("mixed-index persistence failed")
+                if tx.log_identifier:
+                    from janusgraph_tpu_torch.core.txlog import (
+                        LogTxStatus,
+                        TxLogEntry,
+                        encode_tx_entry,
+                    )
+
+                    if getattr(tx, "_fail_secondary_for_test", False):
+                        raise RuntimeError("injected secondary failure")
+                    ulog = self.log_manager.open_log("ulog_" + tx.log_identifier)
+                    ulog.add_now(encode_tx_entry(TxLogEntry(
+                        tx_id, LogTxStatus.PRECOMMIT, changes, tx.log_identifier,
+                    )))
+                self.tx_log.secondary(tx_id, success=True)
+            except Exception:
+                try:
+                    self.tx_log.secondary(tx_id, success=False)
+                except Exception:
+                    pass  # recovery treats a missing marker as a failure too
+
+    def _change_records(self, tx: Transaction):
+        """The transaction's mutations as self-contained change records,
+        the WAL's payload (reference: TransactionLogHeader): additions in
+        the commit's order, then deletions."""
+        from janusgraph_tpu_torch.core.txlog import ChangeRecord
+
+        records = []
+
+        def record(rel, added: bool):
+            if isinstance(rel, Edge):
+                records.append(ChangeRecord(
+                    "edge", added, rel.out_vertex.id, rel.in_vertex.id,
+                    rel.type_id, rel.id,
+                ))
+            else:
+                records.append(ChangeRecord(
+                    "property", added, rel.vertex.id, 0, rel.type_id, rel.id,
+                    self.serializer.write_object(rel.value),
+                ))
+
+        seen = set()
+        for rels in tx._added.values():
+            for rel in rels:
+                if rel.is_removed or rel.id in seen:
+                    continue
+                seen.add(rel.id)
+                record(rel, added=True)
+        for rel in tx._deleted:
+            record(rel, added=False)
+        return records
+
+    # ------------------------------------------------------------- recovery
+    def restore_mixed_indexes(self, changes) -> None:
+        """Recovery hook: re-derive the mixed-index documents of every
+        vertex a transaction touched from primary storage and overwrite the
+        provider's copy (reference: fixSecondaryFailure:151 →
+        IndexSerializer.reindexElement → IndexProvider.restore)."""
+        from janusgraph_tpu_torch.indexing import IndexEntry
+
+        touched = set()
+        for c in changes:
+            touched.add(c.vertex_id)
+            if c.kind != "property":
+                touched.add(c.other_id)
+        if not touched:
+            return
+        tx = self.new_transaction(read_only=True)
+        try:
+            per_provider: Dict[str, dict] = {}
+            for idx in self.indexes.values():
+                if not idx.mixed or idx.status == "DISABLED":
+                    continue
+                fields = self.mixed_index_fields(idx, register=True)
+                docs = per_provider.setdefault(idx.backing, {}).setdefault(idx.name, {})
+                for vid in touched:
+                    v = tx.get_vertex(vid)
+                    entries = []
+                    if v is not None and self._matches_label(tx, idx, vid):
+                        for fname, (_kid, _info) in fields.items():
+                            for p in tx.get_properties(v, fname):
+                                entries.append(IndexEntry(fname, p.value))
+                    docs[str(vid)] = entries
+            for backing, documents in per_provider.items():
+                self.index_providers[backing].restore(documents, self._mixed_key_infos)
+        finally:
+            tx.rollback()
+
+    def replay_torn_changes(self, changes) -> None:
+        """Idempotently re-apply a torn transaction's WAL change records to
+        primary storage (TornCommitRecovery's roll-forward).
+
+        Cell-exact where a surviving twin exists: an edge with one of its
+        two cells present gets the missing cell re-serialized from the
+        surviving copy (sort key and inline properties included). A
+        relation with no surviving cell replays from the record itself
+        (identity, value and endpoints; inline edge properties and sort
+        keys are not in the WAL payload). A new vertex's existence cell is
+        restored; composite-index rows of replayed property values are
+        re-added afterwards (``_replay_index_entries``)."""
+        es = self.edge_serializer
+        idm = self.idm
+        btx = self.backend.begin_transaction()
+        tx = self.new_transaction(read_only=True)
+        touched_props: Dict[int, set] = {}
+        exists_vids = set()
+        try:
+            for c in changes:
+                if c.kind == "edge":
+                    self._replay_edge(tx, btx, c)
+                    if c.added:
+                        exists_vids.update((c.vertex_id, c.other_id))
+                else:
+                    self._replay_property(tx, btx, c)
+                    if c.added:
+                        touched_props.setdefault(c.vertex_id, set()).add(c.type_id)
+                        exists_vids.add(c.vertex_id)
+            # the torn batch may have dropped a new vertex's existence cell
+            # (system cells are no change records): restore it, with the
+            # default label (the label edge's identity is not recorded)
+            st = self.system_types
+            exists_q = es.get_type_slice(st.EXISTS, False)
+            for vid in sorted(exists_vids):
+                key = idm.get_key(vid)
+                if btx.edge_store_query(KeySliceQuery(key, exists_q)):
+                    continue
+                btx.mutate_edges(key, [es.write_property(
+                    st.EXISTS, self.id_assigner.assign_relation_id(), True
+                )], [])
+            btx.commit()
+        finally:
+            tx.rollback()
+        self._replay_index_entries(touched_props)
+
+    def _find_relation_cell(self, tx, btx, vid: int, type_id: int, rel_id: int,
+                            is_edge: bool, direction=None):
+        """The stored cell of one relation on one row: (entry, parsed) or
+        (None, None)."""
+        es = self.edge_serializer
+        q = es.get_type_slice(type_id, is_edge)
+        key = self.idm.get_key(vid)
+        for entry in btx.edge_store_query(KeySliceQuery(key, q)):
+            rc = es.parse_relation(entry, tx._codec_schema)
+            if rc.relation_id != rel_id:
+                continue
+            if direction is not None and rc.direction != direction:
+                continue
+            return entry, rc
+        return None, None
+
+    def _replay_edge(self, tx, btx, c) -> None:
+        es = self.edge_serializer
+        idm = self.idm
+        out_cell, out_rc = self._find_relation_cell(
+            tx, btx, c.vertex_id, c.type_id, c.relation_id, True, Direction.OUT,
+        )
+        in_cell, in_rc = self._find_relation_cell(
+            tx, btx, c.other_id, c.type_id, c.relation_id, True, Direction.IN,
+        )
+        if not c.added:
+            if out_cell is not None:
+                btx.mutate_edges(idm.get_key(c.vertex_id), [], [out_cell[0]])
+            if in_cell is not None:
+                btx.mutate_edges(idm.get_key(c.other_id), [], [in_cell[0]])
+            return
+        label = tx.schema_by_id(c.type_id)
+        unidirected = getattr(label, "unidirected", False)
+        survivor = out_rc or in_rc
+        sort_key = survivor.sort_key if survivor is not None else b""
+        props = (survivor.properties or None) if survivor is not None else None
+        if out_cell is None:
+            btx.mutate_edges(idm.get_key(c.vertex_id), [es.write_edge(
+                c.type_id, Direction.OUT, c.other_id, c.relation_id, sort_key, props,
+            )], [])
+        if in_cell is None and not unidirected:
+            btx.mutate_edges(idm.get_key(c.other_id), [es.write_edge(
+                c.type_id, Direction.IN, c.vertex_id, c.relation_id, sort_key, props,
+            )], [])
+
+    def _replay_property(self, tx, btx, c) -> None:
+        es = self.edge_serializer
+        cell, _rc = self._find_relation_cell(
+            tx, btx, c.vertex_id, c.type_id, c.relation_id, False
+        )
+        if not c.added:
+            if cell is not None:
+                btx.mutate_edges(self.idm.get_key(c.vertex_id), [], [cell[0]])
+            return
+        if cell is not None:
+            return  # this cell survived the tear
+        pk = tx.schema_by_id(c.type_id)
+        card = pk.cardinality if isinstance(pk, PropertyKey) else Cardinality.SINGLE
+        value, _ = self.serializer.read_object(c.value_enc)
+        btx.mutate_edges(self.idm.get_key(c.vertex_id), [
+            es.write_property(c.type_id, c.relation_id, value, card)
+        ], [])
+
+    def _replay_index_entries(self, touched: Dict[int, set]) -> None:
+        """Re-add the composite-index rows of replayed property values (the
+        graphindex half of a torn batch; additions only: stale entries of
+        replayed deletions are healed by reindex, as in the reference)."""
+        if not touched:
+            return
+        tx = self.new_transaction(read_only=True)
+        btx = self.backend.begin_transaction()
+        try:
+            for idx in self.indexes.values():
+                if idx.mixed or idx.status in ("DISABLED", "INSTALLED"):
+                    continue
+                kid_set = set(idx.key_ids)
+                for vid, kids in sorted(touched.items()):
+                    if not (kid_set & kids):
+                        continue
+                    if idx.label_constraint is not None and not (
+                        self._matches_label(tx, idx, vid)
+                    ):
+                        continue
+                    after = self._index_values_committed(tx, idx, vid)
+                    if after is None:
+                        continue
+                    for row, adds, _dels in self.index_serializer.index_updates(
+                        idx, vid, None, after
+                    ):
+                        if adds:
+                            btx.mutate_index(row, adds, [])
+            btx.commit()
+        finally:
+            tx.rollback()
 
     def _relation_cells(self, tx: Transaction, rel):
         """[(vertex-key, (column, value))] a relation serializes to: an
@@ -1113,7 +1524,7 @@ class JanusGraphTPU:
         self.schema_cache.invalidate_id(el.id)
         if isinstance(el, IndexDefinition):
             self.register_index(el)
-        self.evict_schema_element(el.id)
+        self.schema_changed(el.id)
 
     def _load_schema_by_name(self, name: str):
         btx = self.backend.begin_transaction()
@@ -1169,9 +1580,14 @@ class JanusGraphTPU:
 
     def register_index(self, idx: IndexDefinition) -> None:
         # copy-on-write: readers always see a consistent dict
-        self.indexes = {**self.indexes, idx.name: idx}
+        with self._index_registry_lock:
+            self.indexes = {**self.indexes, idx.name: idx}
 
     def _load_index_registry(self) -> None:
+        with self._index_registry_lock:
+            self._load_index_registry_locked()
+
+    def _load_index_registry_locked(self) -> None:
         btx = self.backend.begin_transaction()
         entries = btx.index_query(KeySliceQuery(INDEX_REGISTRY_KEY, SliceQuery()))
         fresh: Dict[str, IndexDefinition] = {}

@@ -6,9 +6,14 @@
 ``add_connection``), each persisted through
 ``graph.persist_schema_element``. Each schema operation commits on its
 own, as in the reference. A changed element is evicted from this
-instance's caches (``graph.evict_schema_element``); the reference also
-broadcasts the eviction over its management log to other instances
-(ROADMAP Queue A #5.3).
+instance's caches and the eviction is broadcast over the management log
+to every open instance (``graph.schema_changed``);
+``broadcast_eviction(schema_id)`` does so and waits for every open
+instance's acknowledgement (``schema.eviction-ack-timeout-ms``).
+
+Cluster options and instances: ``get_config``, ``set_config`` (a GLOBAL or
+GLOBAL_OFFLINE option, through ``GraphConfiguration.set_global``),
+``open_instances`` and ``force_close_instance``.
 
 Indexes: ``build_composite_index``, ``build_mixed_index`` and
 ``add_index_key`` (graph indexes, registered under ``INDEX_REGISTRY_KEY``
@@ -152,7 +157,7 @@ class ManagementSystem:
             self._persist(updated)
             self.graph.schema_cache.invalidate(name)
             self.graph.schema_cache.invalidate_id(el.id)
-        self.graph.evict_schema_element(el.id)
+        self.graph.schema_changed(el.id)
         return updated
 
     def set_consistency(self, name: str, consistency: Consistency):
@@ -201,7 +206,7 @@ class ManagementSystem:
             self._persist(updated)
             self.graph.schema_cache.invalidate(label_name)
             self.graph.schema_cache.invalidate_id(el.id)
-        self.graph.evict_schema_element(el.id)
+        self.graph.schema_changed(el.id)
         return updated
 
     def add_connection(self, edge_label_name: str, out_label_name: str, in_label_name: str):
@@ -227,7 +232,7 @@ class ManagementSystem:
             self._persist(updated)
             self.graph.schema_cache.invalidate(edge_label_name)
             self.graph.schema_cache.invalidate_id(el.id)
-        self.graph.evict_schema_element(el.id)
+        self.graph.schema_changed(el.id)
         return updated
 
     def set_ttl(self, name: str, ttl_seconds: int):
@@ -308,8 +313,7 @@ class ManagementSystem:
             RELINDEX_REGISTRY_KEY, [(struct.pack(">Q", sid), b"")], []
         )
         btx.commit()
-        self.graph._load_index_registry()
-        self.graph.evict_schema_element(sid)
+        self.graph.schema_changed(sid)  # reloads the index registry
         return ri
 
     def reindex_relation_index(self, name: str) -> int:
@@ -379,8 +383,7 @@ class ManagementSystem:
         self._persist(updated)
         self.graph.schema_cache.invalidate(name)
         self.graph.schema_cache.invalidate_id(ri.id)
-        self.graph._load_index_registry()
-        self.graph.evict_schema_element(ri.id)
+        self.graph.schema_changed(ri.id)  # reloads the index registry
         return updated
 
     # ------------------------------------------------------------ graph indexes
@@ -520,8 +523,8 @@ class ManagementSystem:
         """Drive an index through its lifecycle (reference:
         ManagementSystem.updateIndex — SchemaAction REGISTER/REINDEX/ENABLE/
         DISABLE/REMOVE). A status change evicts the index from this
-        instance's caches; the reference also broadcasts it
-        (ManagementLogger.java:287; ROADMAP Queue A #5.3)."""
+        instance's caches and broadcasts the eviction to every open
+        instance (ManagementLogger.java:287)."""
         idx = self.graph.indexes.get(name)
         if idx is None:
             raise SchemaViolationError(f"unknown index {name}")
@@ -548,15 +551,13 @@ class ManagementSystem:
             btx.mutate_index(INDEX_NAME_PREFIX + idx.name.encode(), [],
                              [struct.pack(">Q", idx.id)])
             btx.commit()
-            self.graph.indexes = {
-                k: v for k, v in self.graph.indexes.items() if k != name
-            }
+            self.graph._load_index_registry()
             # forget provider field registrations so a same-name index built
             # later re-registers with ITS mappings, not the removed one's
             self.graph._mixed_key_infos.pop(idx.name, None)
             self.graph.schema_cache.invalidate(idx.name)
             self.graph.schema_cache.invalidate_id(idx.id)
-            self.graph.evict_schema_element(idx.id)
+            self.graph.schema_changed(idx.id)
             return metrics
         allowed, target = self._TRANSITIONS[action]
         if idx.status not in allowed:
@@ -723,7 +724,43 @@ class ManagementSystem:
     def _all_schema(self):
         return self.graph.load_all_schema_elements()
 
-    # ----------------------------------------------------------------- helpers
+    # -------------------------------------------------------- schema eviction
+    def broadcast_eviction(
+        self, schema_id: int, timeout_s: Optional[float] = None,
+    ) -> bool:
+        """Tell every open instance to drop ``schema_id`` from its caches
+        and wait for their acknowledgements (reference:
+        ManagementLogger.java:287). ``timeout_s`` defaults to
+        schema.eviction-ack-timeout-ms."""
+        if timeout_s is None:
+            timeout_s = self.graph.config.get("schema.eviction-ack-timeout-ms") / 1000.0
+        ml = self.graph.management_logger
+        evict_id = ml.broadcast_eviction(schema_id)
+        expected = len(self.open_instances())
+        return ml.wait_for_acks(evict_id, expected, timeout_s)
+
+    # --------------------------------------------- cluster config + instances
+    # (reference: ManagementSystem.set/get over GLOBAL options;
+    #  getOpenInstances/forceCloseInstance, StandardJanusGraph.java:176-185)
+    def get_config(self, path: str):
+        return self.graph.config.get(path)
+
+    def set_config(self, path: str, value) -> None:
+        self.graph.config.set_global(
+            path, value, open_instances=len(self.open_instances())
+        )
+        self.graph._on_global_config_change(path, value)
+
+    def open_instances(self) -> List[str]:
+        return self.graph.instance_registry.open_instances()
+
+    def force_close_instance(self, instance_id: str) -> None:
+        if instance_id == self.graph.instance_id:
+            raise SchemaViolationError(
+                "cannot force-close the current instance; use graph.close()"
+            )
+        self.graph.instance_registry.deregister(instance_id)
+
     def _check_fresh(self, name: str) -> None:
         if not name or name.startswith("\x00"):
             raise SchemaViolationError(f"invalid schema name {name!r}")

@@ -24,8 +24,10 @@ an edge only declared connections (``mgmt.add_properties``,
 
 Relation indexes: their copies of an edge are invisible to untyped reads,
 and a sort range on a label without a sort key goes through an ENABLED
-relation index. ``log_identifier`` needs the WAL (ROADMAP.md Queue A #5.3)
-and raises ``NotImplementedError``.
+relation index. ``log_identifier`` names the user log the commit writes
+its changes to through the WAL (``core/graph.py`` commit step 7); the
+attributes ``_fail_mixed_for_test`` and ``_fail_secondary_for_test``, set
+by tests, make the commit's secondary persistence fail.
 
 Telemetry, as the reference's: ``tx.begin`` and ``tx.rollback`` counters,
 a ``tx.commit`` span (added and deleted relations, lifetime) around a
@@ -68,13 +70,9 @@ class Transaction:
         log_identifier: Optional[str] = None,
         metrics_group: Optional[str] = None,
     ):
-        if log_identifier:
-            raise NotImplementedError(
-                "a transaction's user log (log_identifier) needs the WAL, "
-                "which is not ported yet: ROADMAP.md Queue A #5"
-            )
         self.graph = graph
         self.read_only = read_only
+        self.log_identifier = log_identifier
         # per-tx metric group (reference: StandardJanusGraphTx.java:258-262):
         # bare <group>.<op> names; the reporters prepend metrics.prefix
         self.metrics_group = metrics_group

@@ -19,6 +19,15 @@ Event categories the port records (the ``category`` field):
                     ``vertices``, ``wall_ms``, ``threshold``)
 ``slow_span``       a span crossed metrics.slow-op-threshold-ms (fed by the
                     tracer's ``on_slow`` hook)
+``torn_recovery``   TornCommitRecovery rolled a tx forward or back
+                    (core/txlog.py; ``action``, ``tx_id``, ``changes``)
+``cdc_seal``        the durable CDC log sealed its tail into a segment
+                    (storage/cdc.py; ``seq``, ``records``,
+                    ``first_cursor``, ``first_epoch``, ``last_epoch``)
+``cdc_replay``      a CDC replay was served or refused (``action``:
+                    ``serve``, ``gap``, ``poison``, ``corrupt``)
+``thread_error``    a log's send or pull loop caught an exception and
+                    went on (storage/log.py; ``thread``, ``error``)
 ==================  =======================================================
 
 Dumps (``dump()``) are JSON files under ``metrics.flight-dump-dir``

@@ -26,9 +26,15 @@ guard of ``backend_op.py`` (``storage.retry-time-ms``,
 ``storage.backoff-*``, ``storage.write-attempts``). ``storage.read-only``
 refuses every buffered write and every global-config write.
 
-Left out: the id authority's conflict-avoidance modes, the resource
-ledger's per-query cell accounting and the WAL's pre-flush hook (the txlog
-is ROADMAP Queue A #5.3).
+``BackendTransaction.commit(preflush=...)`` runs the WAL's pre-flush hook
+after the lock checks pass and just before the flush, and only when the
+transaction has mutations (``core/graph.py`` commit step 6). The logs
+(``TXLOG_NAME``, ``SYSTEMLOG_NAME``, ``ulog_<id>``) are stores of the same
+manager (``storage/log.py``); the instance registry lives in the global
+config (``del_global_config``, ``list_global_config``).
+
+Left out: the id authority's conflict-avoidance modes and the resource
+ledger's per-query cell accounting.
 """
 
 from __future__ import annotations
@@ -55,6 +61,8 @@ from janusgraph_tpu_torch.storage.kcvs import (
 EDGESTORE_NAME = "edgestore"
 INDEXSTORE_NAME = "graphindex"
 SYSTEM_PROPERTIES_NAME = "system_properties"
+TXLOG_NAME = "txlog"
+SYSTEMLOG_NAME = "systemlog"
 LOCK_STORE_SUFFIX = "_lock_"
 
 
@@ -70,9 +78,12 @@ class GlobalConfigStore:
         #: storage.read-only: global-config writes refuse
         self.read_only = read_only
 
-    def set_global_config(self, name: str, value: bytes) -> None:
+    def _check_writable(self) -> None:
         if self.read_only:
             raise PermanentBackendError("storage.read-only: global config writes refused")
+
+    def set_global_config(self, name: str, value: bytes) -> None:
+        self._check_writable()
         self._store.mutate(
             self._CONFIG_KEY, [(name.encode(), value)], [], self._tx
         )
@@ -84,6 +95,19 @@ class GlobalConfigStore:
             self._tx,
         )
         return entries[0][1] if entries else None
+
+    def del_global_config(self, name: str) -> None:
+        self._check_writable()
+        self._store.mutate(self._CONFIG_KEY, [], [name.encode()], self._tx)
+
+    def list_global_config(self, prefix: str = "") -> List[str]:
+        p = prefix.encode()
+        end = (p + b"\xff") if p else None
+        entries = self._store.get_slice(
+            KeySliceQuery(self._CONFIG_KEY, SliceQuery(p, end)),
+            self._tx,
+        )
+        return [col.decode() for col, _ in entries]
 
 
 class Backend:
@@ -241,6 +265,12 @@ class Backend:
     def get_global_config(self, name: str) -> Optional[bytes]:
         return self.global_config.get_global_config(name)
 
+    def del_global_config(self, name: str) -> None:
+        self.global_config.del_global_config(name)
+
+    def list_global_config(self, prefix: str = "") -> List[str]:
+        return self.global_config.list_global_config(prefix)
+
     def guard(self, op):
         """Run one backend operation under this backend's retry guard."""
         return backend_op.execute(
@@ -368,11 +398,16 @@ class BackendTransaction:
             raise
 
     # ---------------------------------------------------------------- commit
-    def commit(self) -> None:
+    def commit(self, preflush=None) -> None:
+        """``preflush``: the WAL's hook, called after the lock checks pass
+        and just before the batched flush, the point past which a crash can
+        tear the batch (``core/graph.py`` commit step 6)."""
         if not self._open:
             return
         try:
             self._check_and_release_locks(commit=True)
+            if preflush is not None and self.has_mutations():
+                preflush()
             if self._mutations:
                 flush = lambda: self.backend.manager.mutate_many(  # noqa: E731
                     self._mutations, self.store_tx

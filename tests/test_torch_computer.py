@@ -368,7 +368,7 @@ def test_compute_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("config", [
     {"computer.executor": "sharded"},
-    {"storage.cdc.dir": "/tmp/x"},
+    {"storage.faults.cdc-torn-at": 3},
     {"storage.backend": "remote"},
     {"computer.price-book-path": "book.json"},
     {"no.such-option": 1},

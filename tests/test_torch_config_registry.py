@@ -13,6 +13,7 @@ names, types and values.
 import pytest
 
 from janusgraph_tpu.core import config as ref_config
+from janusgraph_tpu.exceptions import ConfigurationError as RefConfigurationError
 from janusgraph_tpu_torch.core import config
 from janusgraph_tpu_torch.exceptions import ConfigurationError
 
@@ -79,3 +80,29 @@ def test_a_local_option_never_reads_the_stored_value():
     assert cfg.get("computer.delta-snapshot-path") == ""
     ref_cfg = ref_config.GraphConfiguration({}, backend=Stored())
     assert ref_cfg.get("computer.delta-snapshot-path") == ""
+
+
+#: the durable logs' options (the log bus, the WAL and its recovery, the
+#: CDC log, the management broadcast, the instance registry)
+LOG_OPTIONS = (
+    "log.num-buckets", "log.send-batch-size", "log.read-lag-ms", "log.read-interval-ms",
+    "log.send-delay-ms", "log.ttl-seconds", "log.slice-granularity-ms", "tx.log-tx",
+    "tx.max-commit-time-ms", "tx.recover-on-open", "storage.cdc.dir",
+    "storage.cdc.segment-records", "storage.cdc.retention-segments",
+    "schema.eviction-ack-timeout-ms", "schema.eviction-ack-poll-ms", "graph.timestamps",
+    "graph.unique-instance-id", "graph.unique-instance-id-suffix",
+    "graph.use-hostname-for-unique-instance-id", "graph.replace-instance-if-exists",
+)
+
+
+def test_the_logs_options_are_registered_and_validated_as_the_reference():
+    """Every option the reference honours for the logs is registered (the
+    parametrized case above holds its type, default and mutability), and a
+    value the reference's validator refuses is refused too."""
+    assert set(LOG_OPTIONS) <= set(config.REGISTRY)
+    for path, bad in (("storage.cdc.segment-records", 1000), ("log.num-buckets", 0),
+                      ("graph.timestamps", "pico"), ("log.send-delay-ms", -1.0)):
+        with pytest.raises(RefConfigurationError):
+            ref_config.REGISTRY[path].check(bad)
+        with pytest.raises(ConfigurationError):
+            config.GraphConfiguration({path: bad})

@@ -157,8 +157,18 @@ def test_reopen_compact_and_drop(tmp_path):
     assert os.path.getsize(os.path.join(d, "store.wal")) == 0
     g.close()
     g = open_graph(cfg)
-    # the snapshot holds every row; close() added only COMMIT frames
-    assert _mem(g.backend.manager.kv_manager) == rows
+    # the snapshot holds every row; close() added only COMMIT frames and
+    # the instance registry's cells: close() deregisters the instance and
+    # each open registers its own id
+    def registry_apart(mem):
+        rest = {name: {k: v for k, v in cells.items() if b"cluster.instance." not in k}
+                for name, cells in mem.items()}
+        ids = sorted(k for cells in mem.values() for k in cells if b"cluster.instance." in k)
+        return {name: cells for name, cells in rest.items() if cells}, ids
+
+    now, ids = registry_apart(_mem(g.backend.manager.kv_manager))
+    assert now == registry_apart(rows)[0]
+    assert len(ids) == 1 and ids[0].endswith(g.instance_id.encode())
     tx = g.new_transaction()
     tx.add_vertex("person", name="c")
     tx.commit()

@@ -179,6 +179,73 @@ print("OK", res.csr.num_vertices, loaded)
 """
 
 
+LOGS_RUN = r"""
+import sys, time
+sys.modules["jax"] = None
+sys.modules["janusgraph_tpu"] = None
+import numpy as np
+from janusgraph_tpu_torch.core.graph import open_graph
+from janusgraph_tpu_torch.core.txlog import LogTxStatus, TornCommitRecovery, decode_tx_entry
+from janusgraph_tpu_torch.olap import delta as D
+from janusgraph_tpu_torch.olap.csr import load_csr, load_csr_snapshot
+from janusgraph_tpu_torch.storage.inmemory import InMemoryStoreManager
+mgr = InMemoryStoreManager()
+cfg = {"computer.executor": "cpu", "storage.cdc.dir": sys.argv[1]}
+g = open_graph(dict(cfg), store_manager=mgr)
+g.management().set_config("tx.log-tx", True)
+tx = g.new_transaction()
+vs = [tx.add_vertex(name=f"v{i}") for i in range(20)]
+for i in range(19):
+    tx.add_edge(vs[i], "link", vs[i + 1])
+tx.commit()
+csr0, epoch0 = load_csr_snapshot(g)
+seen = []
+g.open_log_processor("feed").add_processor(seen.append).build()
+time.sleep(0.05)
+tx = g.new_transaction(log_identifier="feed")
+for i in range(10):
+    tx.add_edge(tx.get_vertex(vs[i].id), "link", tx.get_vertex(vs[19 - i].id))
+tx.commit()
+deadline = time.monotonic() + 5
+while not seen and time.monotonic() < deadline:
+    time.sleep(0.01)
+assert len(seen) == 1 and len(seen[0].added) == 10
+records, _ = g.cdc_log.replay_from(g.cdc_log.cursor_for_epoch(epoch0))
+folded = D.materialize(csr0, D.DeltaOverlay.from_batches([b for _e, b in records]), idm=g.idm)
+fresh = load_csr(g)
+assert np.array_equal(folded.out_dst, fresh.out_dst) and fresh.num_edges == 29
+flush = mgr.mutate_many
+def torn(mutations, txh):
+    mgr.mutate_many = flush
+    rows = [(s, k, m) for s, r in mutations.items() for k, m in r.items()]
+    keep = {}
+    for s, k, m in rows[: len(rows) // 2]:
+        keep.setdefault(s, {})[k] = m
+    flush(keep, txh)
+    raise RuntimeError("crash")
+mgr.mutate_many = torn
+tx = g.new_transaction()
+for i in range(5):
+    tx.add_edge(tx.get_vertex(vs[i].id), "link", tx.add_vertex(name=f"t{i}"))
+try:
+    tx.commit()
+except RuntimeError:
+    pass
+g.log_manager.close()
+h = open_graph({"computer.executor": "cpu", "tx.max-commit-time-ms": 0.0}, store_manager=mgr)
+assert len(h.last_torn_recovery["replayed"]) == 1
+assert TornCommitRecovery(h).run() == {"replayed": [], "rolled_back": []}
+assert load_csr(h).num_edges == 34
+statuses = [decode_tx_entry(m.content).status for m in h.log_manager.open_log("txlog").read_range(0)]
+assert statuses.count(LogTxStatus.PRIMARY_SUCCESS) == 3
+h.close()
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+    m == "jax" or m.startswith("jax.")
+    or m == "janusgraph_tpu" or m.startswith("janusgraph_tpu.")))
+print("OK", len(records), loaded)
+"""
+
+
 def _forbidden(name):
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
@@ -250,6 +317,20 @@ def test_loader_workers_run_with_stub_jax_first_on_the_path(tmp_path):
     assert proc.stdout.strip() == "OK 40 []", proc.stdout
 
 
+def test_logs_run_with_jax_blocked(tmp_path):
+    """A WAL-on commit with a user log and its processor, the CDC log's
+    replay folded into the snapshot, a torn commit and its recovery at the
+    next open, with both blocked."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", LOGS_RUN, str(tmp_path / "cdc")], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "OK 1 []", proc.stdout
+
+
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, dirs, names in os.walk(os.path.join(ROOT, "janusgraph_tpu_torch")):
@@ -287,6 +368,7 @@ STORED_PATH_MODULES = (
     "core/elements.py", "olap/delta.py", "storage/kvstore.py", "storage/localstore.py",
     "storage/cache.py", "storage/locking.py", "storage/ttl.py", "storage/backend_op.py",
     "util/timestamps.py", "olap/input_format.py", "olap/distributed_load.py",
+    "storage/log.py", "core/txlog.py", "storage/cdc.py",
 )
 #: modules of the traversal path (graph.traversal(), its computer steps and
 #: the spillover planner)

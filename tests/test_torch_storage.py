@@ -302,7 +302,7 @@ def test_id_authority_refuses_another_block_size():
 # ---------------------------------------------------------------- config
 
 @pytest.mark.parametrize("path,value,item", [
-    ("tx.log-tx", True, "Queue A #5"),
+    ("graph.graphname", "g2", "Queue A #5"),
     ("computer.executor", "sharded", "Queue A #4"),
     ("storage.backend", "remote", "Queue A #5.5"),
     ("storage.backend", "sharded", "Queue A #5.5"),

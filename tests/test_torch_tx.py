@@ -9,7 +9,8 @@ edge's property. After every commit their ``edgestore`` and
 ``vertices``, ``get_properties``, ``get_edges``, ``get_edge``,
 ``get_vertex_label``) give the same ids and values. Rollback leaves the
 store untouched in both; schema, multiplicity and read-only errors raise in
-both; what reaches a layer the port lacks raises naming its ROADMAP item.
+both; what reaches a layer the port lacks raises naming its ROADMAP item,
+and a user log, which the port now has, commits through the WAL.
 Exact equality throughout: these are bytes and ids, no tolerance applies.
 """
 
@@ -264,8 +265,18 @@ def test_read_only_and_custom_id_rules_raise_in_both():
 
 def test_what_the_port_lacks_raises_naming_its_item():
     g = open_graph(dict(PORT_CONFIG))
-    with pytest.raises(NotImplementedError, match="Queue A #5"):
-        g.new_transaction(log_identifier="audit")
+    # a user log (log_identifier) is ported since the WAL is: the commit
+    # writes the txlog's four markers (tests/test_torch_txlog.py holds them
+    # to the reference)
+    from janusgraph_tpu_torch.core.txlog import LogTxStatus, decode_tx_entry
+
+    tx = g.new_transaction(log_identifier="audit")
+    tx.add_vertex(name="x")
+    tx.commit()
+    statuses = [decode_tx_entry(m.content).status
+                for m in g.log_manager.open_log("txlog").read_range(0)]
+    assert statuses == [LogTxStatus.PRECOMMIT, LogTxStatus.PREFLUSH,
+                        LogTxStatus.PRIMARY_SUCCESS, LogTxStatus.SECONDARY_SUCCESS]
     # a metrics group counts its commits (the registry is ported)
     from janusgraph_tpu_torch.observability import registry
 
@@ -273,9 +284,12 @@ def test_what_the_port_lacks_raises_naming_its_item():
     g.new_transaction(metrics_group="web").commit()
     assert registry.get_count("web.commit") == before_commits + 1
     assert open_graph({"tx.read-only-default": True}).new_transaction().read_only
-    for option in ("tx.log-tx", "attributes.allow-pickle", "query.fast-property"):
+    for option in ("attributes.allow-pickle", "query.fast-property"):
         with pytest.raises(ConfigurationError):
             open_graph({option: True})
+    wal = open_graph({"tx.log-tx": True})
+    assert wal._wal_enabled
+    wal.close()
     g.close()
     # a LOCK-consistency label written by the reference commits through the
     # locker in both packages, to equal rows, and leaves no lock claim
