@@ -166,10 +166,10 @@ Phases, each printing one JSON line:
            over a fresh load_csr; a schema eviction acknowledged by every
            open instance; every time with the card's name and power limit
   indexed  the same store reopened with the slice cache off: a mixed index
-           over every vertex's rank (memindex) built and reindexed through
-           the scan framework, the top-1,000 range query planned
-           "mixed-index" against the same test walked row by row (equal
-           vertex sets); a vertex-centric "link" index by time and a
+           over every vertex's rank (memindex) built through the scan
+           framework, the top-1,000 range query planned
+           "mixed-index" equal to the snapshot's top 1,000 (the same
+           test walked row by row was cut for the io phase); a vertex-centric "link" index by time and a
            transaction of 1,000 timed edges, the warm submit through the
            change capture ("refresh") and a cold submit through a fresh
            scan (20 kernel runs each, m + 1,000 edges, equal edges, ranks
@@ -178,11 +178,27 @@ Phases, each printing one JSON line:
            reindex and a sort range equal to has('time', between) and to a
            filter; the indexed write-back on a 2^17-vertex load of the
            same draw (transactional, the index follows) beside a columnar
-           one
+           one, and the mixed index's reindex there
   gods     the Graph of the Gods (BASELINE.json config 1): PageRank through
            submit() (20 kernel runs) within 1e-6 of float64, the kernel on
            its in-plan, has('name', 'hercules') planned "composite-index",
            a duplicate name refused
+  io       every datatype and graph I/O: a typed R-MAT graph (scale 14,
+           edge factor 8) written through transactions, every vertex with
+           one property of each datatype GraphSON round-trips, an Int and
+           a Float column, every edge a Float weight; load_csr's weights
+           bit for bit and its object columns, PageRank through submit()
+           (20 kernel runs), weighted SSSP from the out-degree hub against
+           scipy's Dijkstra (relative 1e-5, a quarter of the graph reached), a
+           filtered OLAP traversal over the Int column (1 kernel run, the
+           mask equal to numpy's); export_graphson and import_graphson
+           into a graph that declares the Float and Int keys Double and
+           Long first: every vertex equal through its name, the weights
+           bit for bit, PageRank (20 kernel runs) within RANK_REL under the
+           id map (the import numbers the vertices in the export's row-key
+           order, so its sums run in another order); a GraphML round trip at scale 12 and its submit; the
+           g.io() and graph.io() spellings; the kernel against its plain
+           version on the three in-plans
   telemetry  the run records every run above published (the executor's
            _finish_run wrapped to time its host ms and to read the
            allocator just after): every record's roofline utilization in
@@ -228,6 +244,17 @@ RANK_REL = 1e-4
 #: stored-size load of the R-MAT draw, cut from scale 20 to fit the time
 #: limit)
 WRITE_BACK_SCALE = 17
+#: the io phase's typed graph: R-MAT scale and edge factor 8 (16,384
+#: vertices, 131,072 edges; scale 15 would take ~145 s of host time, past
+#: the phase's 90 s budget), its GraphML graph's scale, the transactions'
+#: batch sizes, and the relative tolerance of float32 SSSP against scipy's
+#: float64 Dijkstra over the same float32 weights
+IO_SCALE = 14
+IO_GRAPHML_SCALE = 12
+IO_VERTEX_BATCH = 4096
+IO_EDGE_BATCH = 16384
+IO_IMPORT_BATCH = 10000
+SSSP_RTOL = 1e-5
 
 
 class Telemetry:
@@ -2914,18 +2941,21 @@ def logs_phase(stored, args, emit, card: str) -> dict:
 def indexed_phase(stored, args, emit) -> dict:
     """Indexes on the stored graph the phases before wrote, reopened over
     the same store: (1) a mixed index over every vertex's rank (memindex),
-    built and reindexed through the scan framework, a range query that
-    plans "mixed-index" against the same query as a filtered row walk;
+    built through the scan framework, a range query that plans
+    "mixed-index" and finds the snapshot's top 1,000 (the filtered row
+    walk it was timed against is cut to make room for the io phase);
     (2) a vertex-centric index on "link" by time, a transaction of 1,000
     timed edges, the warm submit through the change capture and a cold
     submit through a fresh scan, each over the written edges and not the
     index's copies, then the relation index's reindex and a sort-range
     read from the vertex with the most timed edges; (3) a write_back of
     the indexed rank through the transactional path, which the index
-    follows, beside the columnar one. Step (3) runs on a 2^17-vertex graph
-    of the same R-MAT draw (``WRITE_BACK_SCALE``): at the stored size it
-    takes ~250 s of host time on the H100's machine (PERF.md §6), which
-    with the phases before would pass the smoke's time limit."""
+    follows, beside the columnar one, then the mixed index's reindex. Step
+    (3) runs on a 2^17-vertex graph of the same R-MAT draw
+    (``WRITE_BACK_SCALE``): at the stored size the write-back takes ~250 s
+    and the reindex 65-77 s of host time on the H100's machine (PERF.md
+    §5-6), which with the phases before would pass the smoke's time
+    limit."""
     import torch
 
     from janusgraph_tpu_torch.core.bulk import bulk_add_edges, bulk_add_vertices
@@ -2943,9 +2973,9 @@ def indexed_phase(stored, args, emit) -> dict:
     # a V() traversal holds every vertex; the transaction's 1,000 edges pass
     # the overlay cap, so the warm submit folds the captured overlay into a
     # new base (the "refresh" path: zero store reads, one kernel run a
-    # superstep); the slice cache is off: the backfill, the reindex, the
-    # row walk and the write-back each read every vertex once, so every
-    # read would miss it and churn it (PERF.md §6)
+    # superstep); the slice cache is off: the backfill, the reindex and
+    # the write-back each read every vertex once, so every read would miss
+    # it and churn it (PERF.md §6)
     cfg = {"query.max-traversers": 1 << 22, "computer.delta-max-overlay": 512,
            "cache.db-cache": False}
     g = open_graph(cfg, store_manager=mgr)
@@ -2958,16 +2988,11 @@ def indexed_phase(stored, args, emit) -> dict:
     t0 = time.perf_counter()
     mgmt.build_mixed_index("rankIdx", ["rank"])  # backfills through the repair job
     build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    reindexed = mgmt.reindex("rankIdx")
-    reindex_s = time.perf_counter() - t0
     if g.indexes["rankIdx"].status != "ENABLED":
         raise RuntimeError(f"rankIdx is {g.indexes['rankIdx'].status}")
     ranked = load_csr(g, property_keys=("rank",))
     n = ranked.num_vertices
     has_rank = ~np.isnan(ranked.properties["rank"])
-    if reindexed < int(has_rank.sum()):
-        raise RuntimeError(f"reindex processed {reindexed} rows for {has_rank.sum()} ranks")
 
     def top_query(vertex_ids, ranks):
         """t, the 1,000th-largest rank, and the ids of the vertices at or
@@ -2987,17 +3012,14 @@ def indexed_phase(stored, args, emit) -> dict:
     got1, index_wall, plan1 = rank_query(P.gte(t1))
     if plan1.get("access") != "mixed-index" or plan1.get("index") != "rankIdx":
         raise RuntimeError(f"the range query planned {plan1}")
-    # the same test made opaque (no predicate to push down): the start step
-    # walks every row
-    walked, walk_wall, walk_plan = rank_query(P(P.gte(t1).test, f"opaque_gte({t1!r})"))
-    if walk_plan.get("access") != "full-scan":
-        raise RuntimeError(f"the walk planned {walk_plan}")
-    if not got1 == walked == want1:
-        raise RuntimeError(f"rank >= t: the index found {len(got1)}, the walk {len(walked)}, "
+    # the same test walked row by row (54-59 s at this size) is cut to make
+    # room for the io phase: the snapshot's ranks are the oracle
+    if got1 != want1:
+        raise RuntimeError(f"rank >= t: the index found {len(got1)}, "
                            f"the snapshot {len(want1)}")
     emit("indexed_mixed", vertices=n, ranks=int(has_rank.sum()), build_s=build_s,
-         reindex_s=reindex_s, reindex_rows=reindexed, hits=len(got1), index_query_s=index_wall,
-         walk_query_s=walk_wall, plan=plan1, seconds=time.perf_counter() - phase_t0)
+         hits=len(got1), index_query_s=index_wall, plan=plan1,
+         seconds=time.perf_counter() - phase_t0)
 
     # -- (2) the vertex-centric index and 1,000 timed edges
     mgmt.make_property_key("time", int)
@@ -3145,6 +3167,13 @@ def indexed_phase(stored, args, emit) -> dict:
     if tx_calls != [1] or columnar_calls:
         raise RuntimeError(f"write_back of the indexed key: {len(tx_calls)} transactional, "
                            f"{len(columnar_calls)} columnar")
+    # the mixed index's reindex through the scan framework, on this graph:
+    # at the stored size it repeats the build's full scan (64.9-77.4 s)
+    t0 = time.perf_counter()
+    reindexed = gw.management().reindex("rankIdx")
+    reindex_s = time.perf_counter() - t0
+    if reindexed < sn:
+        raise RuntimeError(f"reindex processed {reindexed} rows for {sn} ranks")
     t2, want2 = top_query(second.csr.vertex_ids, second.states["rank"].astype(np.float64))
     got2, index_wall2, plan2 = rank_query(P.gte(t2), gw)
     if got2 != want2 or plan2.get("access") != "mixed-index":
@@ -3152,15 +3181,15 @@ def indexed_phase(stored, args, emit) -> dict:
                            f"{len(want2)} ({plan2})")
     gw.close()
     emit("indexed", vertices=n, edges=m + 1000, mixed_build_s=build_s,
-         mixed_reindex_s=reindex_s, reindex_rows=reindexed, index_query_s=index_wall,
-         walk_query_s=walk_wall, relindex_reindex_s=relindex_s,
+         index_query_s=index_wall, relindex_reindex_s=relindex_s,
          write_back={"vertices": sn, "edges": scap, "indexed_s": write_back_s,
                      "columnar_s": columnar_s, "build_s": small_build_s,
+                     "reindex_s": reindex_s, "reindex_rows": reindexed,
                      "kernel_runs": [first_runs, second_runs],
                      "index_query_after_s": index_wall2, "hits_after": len(got2)},
          write_back_columnar_stored_s=stored["write_back_s"],
-         cut=f"write_back on a 2^{WRITE_BACK_SCALE}-vertex graph of the same R-MAT draw "
-             "(the smoke's time limit)",
+         cut=f"write_back and the mixed index's reindex on a 2^{WRITE_BACK_SCALE}-vertex "
+             "graph of the same R-MAT draw, the row walk gone (the smoke's time limit)",
          seconds=time.perf_counter() - phase_t0)
     return {"launches": warm_runs, "launches_cold": cold_runs, "launches_snapshot": base_runs,
             "max_abs_err": in_err}
@@ -3224,6 +3253,345 @@ def gods_phase(args, emit) -> dict:
          in_plan_max_abs_err=err, plan=plan, duplicate_name=duplicate, top3=top_names)
     g.close()
     return {"launches": runs, "max_abs_err": err}
+
+
+def io_phase(args, emit, card: str) -> dict:
+    """Every datatype and graph I/O on the card (``IO_SCALE``, R-MAT edge
+    factor 8): (1) a typed source graph written through transactions in
+    batches, each vertex with a Long ``name`` (its index), one property of
+    every datatype GraphSON round-trips in the reference (Date, Instant,
+    Duration, LocalDate, LocalTime, Char, BigInteger, FloatList, a float32
+    Array, Geoshape, String, Boolean), an Int ``bucket`` and a Float
+    ``score``, each edge a Float ``w32`` weight in (0, 1]; (2) load_csr
+    with the weights (the written float32s, bit for bit) and the typed
+    columns (object columns equal to what was written), PageRank through
+    submit() (20 kernel runs), weighted SSSP against scipy's Dijkstra over
+    the same float32 weights, and a filtered OLAP traversal
+    has("bucket", gt(k)) whose mask equals numpy's; (3) export_graphson,
+    import_graphson into a graph that declares w32/score Double and bucket
+    Long first (the reference's "existing definitions win": both packages
+    refuse the Float and Int values otherwise), equal counts, every
+    vertex's properties equal to the source's through ``name``, the
+    imported weights equal bit for bit under the id map and PageRank over
+    the import (20 kernel runs) within RANK_REL of the source's under the
+    map (the import numbers the vertices in the export's row-key order, so
+    its CSR is the source's permuted); (4) a GraphML round trip at
+    ``IO_GRAPHML_SCALE`` with primitive properties and a submit over the
+    import; (5) the g.io(path).write()/.read() and graph.io("graphml")
+    spellings on a small graph; (6) the kernel against its plain version
+    on the imported in-plan. Every time is printed with the card's name
+    and power limit (``card``)."""
+    import datetime as dt
+    import os
+    import shutil
+    import tempfile
+
+    import scipy.sparse as sp
+    import torch
+    from scipy.sparse.csgraph import dijkstra
+
+    from janusgraph_tpu_torch import export_graphson, import_graphson
+    from janusgraph_tpu_torch.core.attributes import BigInt, Char, Instant
+    from janusgraph_tpu_torch.core.graph import open_graph
+    from janusgraph_tpu_torch.core.io import export_graphml, import_graphml
+    from janusgraph_tpu_torch.core.predicates import Cmp, Geoshape
+    from janusgraph_tpu_torch.olap import GPUExecutor, kernels, rmat_edges
+    from janusgraph_tpu_torch.olap.csr import load_csr
+    from janusgraph_tpu_torch.olap.programs import PageRankProgram, ShortestPathProgram
+    from janusgraph_tpu_torch.olap.programs.olap_traversal import (
+        PropertyFilter,
+        evaluate_filter_mask,
+    )
+    from janusgraph_tpu_torch.olap.programs.shortest_path import INF
+
+    phase_t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="jg_io_")
+    rng = np.random.default_rng(args.seed + 15)
+    n, src, dst = rmat_edges(IO_SCALE, edge_factor=8, seed=args.seed)
+    m = len(src)
+    w32 = (1.0 - rng.random(m)).astype(np.float32)  # in (0, 1]
+    bucket = rng.integers(0, 16, n).astype(np.int32)
+    score = rng.random(n).astype(np.float32)
+    micros = rng.integers(-(10 ** 14), 10 ** 14, n)
+    nanos = rng.integers(0, 10 ** 9, n)
+    coords = rng.uniform(-80, 80, (n, 2))
+    epoch = dt.datetime(1970, 1, 1, tzinfo=dt.timezone.utc)
+
+    def props(i):
+        us = int(micros[i])
+        return {
+            "name": i, "bucket": bucket[i], "score": score[i],
+            "when": epoch + dt.timedelta(microseconds=us),
+            "inst": Instant(us // 10 ** 6, int(nanos[i])),
+            "dur": dt.timedelta(microseconds=us),
+            "day": dt.date.fromordinal(1 + i % 700_000),
+            "tod": dt.time(i % 24, i % 60, i % 59, i % 1_000_000),
+            "ch": Char(chr(65 + i % 26)),
+            "big": BigInt((1 << 70) + i),
+            "fl": [float(coords[i, 0]), float(coords[i, 1])],
+            "arr": coords[i].astype(np.float32),
+            "loc": Geoshape.point(float(coords[i, 0]), float(coords[i, 1])),
+            "label_s": f"v{i}",
+            "even": i % 2 == 0,
+        }
+
+    def same(a, b):
+        if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+            return (isinstance(a, np.ndarray) and isinstance(b, np.ndarray)
+                    and a.dtype == b.dtype and np.array_equal(a, b))
+        return a == b
+
+    def pagerank():
+        return PageRankProgram(max_iterations=20, tol=0.0)
+
+    def in_plan_err(name, c):
+        ex = GPUExecutor(c, strategy="segsum")
+        plan = ex._segsum_plan("in")
+        data = torch.rand(plan.num_edges, generator=torch.Generator(
+            device="cuda").manual_seed(args.seed), device="cuda")
+        return check_plan(name, plan, data, kernels)[2]
+
+    # -- (1) the typed source graph, through transactions in batches
+    t0 = time.perf_counter()
+    g = open_graph({"query.max-traversers": 1 << 22})
+    vids = np.empty(n, dtype=np.int64)
+    for lo in range(0, n, IO_VERTEX_BATCH):
+        tx = g.new_transaction()
+        vs = [tx.add_vertex(**props(i)) for i in range(lo, min(n, lo + IO_VERTEX_BATCH))]
+        tx.commit()
+        vids[lo:lo + len(vs)] = [v.id for v in vs]
+    vertices_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for lo in range(0, m, IO_EDGE_BATCH):
+        tx = g.new_transaction()
+        hi = min(m, lo + IO_EDGE_BATCH)
+        ends = {int(v): tx.get_vertex(int(v)) for v in np.unique(
+            np.concatenate([vids[src[lo:hi]], vids[dst[lo:hi]]]))}
+        for k in range(lo, hi):
+            tx.add_edge(ends[int(vids[src[k]])], "link", ends[int(vids[dst[k]])], w32=w32[k])
+        tx.commit()
+    edges_s = time.perf_counter() - t0
+    types = {k: g.schema_cache.get_by_name(k).data_type.__name__ for k in props(0)}
+
+    # -- (2) the source graph on the card
+    t0 = time.perf_counter()
+    keys = ("name", "bucket", "score")
+    csr = load_csr(g, weight_key="w32", property_keys=keys)
+    load_s = time.perf_counter() - t0
+    names = csr.properties["name"].astype(np.int64)
+    if not np.array_equal(np.sort(names), np.arange(n)) or csr.num_edges != m:
+        raise RuntimeError(f"load_csr: {csr.num_vertices} v, {csr.num_edges} e")
+    if csr.out_edge_weight.dtype != np.float32:
+        raise RuntimeError(f"weights load as {csr.out_edge_weight.dtype}")
+    row = np.repeat(np.arange(n), np.diff(csr.out_indptr))
+
+    def edge_bits(c, nm):
+        """(source name, destination name, weight bits), sorted."""
+        r = np.repeat(np.arange(c.num_vertices), np.diff(c.out_indptr))
+        a = np.stack([nm[r], nm[c.out_dst], c.out_edge_weight.astype(np.float32)
+                      .view(np.uint32).astype(np.int64)])
+        return a[:, np.lexsort(a[::-1])]
+
+    written = np.stack([src.astype(np.int64), dst.astype(np.int64),
+                        w32.view(np.uint32).astype(np.int64)])
+    written = written[:, np.lexsort(written[::-1])]
+    if not np.array_equal(edge_bits(csr, names), written):
+        raise RuntimeError("the loaded weights are not the written float32s")
+    for key, want in (("bucket", bucket), ("score", score)):
+        col = csr.properties[key]
+        if col.dtype != object or type(col[0]) is not type(want[0]) or not np.array_equal(
+                col.astype(want.dtype).view(np.uint32 if key == "score" else np.int32),
+                want[names].view(np.uint32 if key == "score" else np.int32)):
+            raise RuntimeError(f"the {key} column: {col.dtype}, {type(col[0])}")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, pr_runs = counted(lambda: g.compute().program(pagerank()).submit(), 20)
+    submit_s = time.perf_counter() - t0
+    if res.run_info["routing"]["device"] != "cuda":
+        raise RuntimeError(f"the source submit: {res.run_info['routing']}")
+    src_rank = res.states["rank"]
+    rel = max_rel(src_rank, pagerank_fp64(res.csr, 20))
+    if not np.isfinite(src_rank).all() or not rel <= 1e-5:
+        raise RuntimeError(f"source PageRank: max rel diff {rel} from float64")
+    if not np.array_equal(res.csr.vertex_ids, csr.vertex_ids):
+        raise RuntimeError("the submit's snapshot orders the vertices otherwise than load_csr")
+    src_rank_by_name = np.empty(n, dtype=np.float32)
+    src_rank_by_name[names] = src_rank
+    # weighted SSSP from the out-degree hub, against scipy over the float32s
+    seed_index = int(np.argmax(np.diff(csr.out_indptr)))
+    t0 = time.perf_counter()
+    sssp = g.compute().weight("w32").program(
+        ShortestPathProgram(seed_index=seed_index, weighted=True)).submit()
+    sssp_s = time.perf_counter() - t0
+    # parallel edges: scipy would sum them, so keep the lightest of each
+    coo = sp.coo_matrix((csr.out_edge_weight.astype(np.float64), (row, csr.out_dst)),
+                        shape=(n, n))
+    order = np.lexsort((coo.data, coo.col, coo.row))
+    r_, c_, d_ = coo.row[order], coo.col[order], coo.data[order]
+    first = np.ones(len(r_), dtype=bool)
+    first[1:] = (r_[1:] != r_[:-1]) | (c_[1:] != c_[:-1])
+    lightest = sp.csr_matrix((d_[first], (r_[first], c_[first])), shape=(n, n))
+    want_d = dijkstra(lightest, indices=seed_index)
+    got_d = sssp.states["distance"]
+    if not np.array_equal(sssp.csr.vertex_ids, csr.vertex_ids):
+        raise RuntimeError("the SSSP snapshot orders the vertices otherwise than load_csr")
+    reach = np.isfinite(want_d)
+    away = reach & (want_d > 0)
+    sssp_rel = max_rel(got_d[away], want_d[away])
+    if not sssp_rel <= SSSP_RTOL or not (got_d[~reach] == np.float32(INF)).all() or (
+            got_d[seed_index] != 0 or away.sum() < n // 4):
+        raise RuntimeError(f"weighted SSSP: max rel diff {sssp_rel} from Dijkstra "
+                           f"({int(reach.sum())} reached)")
+    # the OLAP traversal's has("bucket", gt(k)) over the object column
+    k = 7
+    t0 = time.perf_counter()
+    trav, trav_runs = counted(lambda: g.compute().traverse(
+        ("out", ["link"], [("bucket", Cmp.GREATER_THAN, k)])).submit(), 1)
+    trav_s = time.perf_counter() - t0
+    tc = trav.csr
+    mask = evaluate_filter_mask(tc, [PropertyFilter("bucket", Cmp.GREATER_THAN, k)])
+    want_mask = (tc.properties["bucket"].astype(np.int32) > k).astype(np.float32)
+    want_count = np.diff(tc.in_indptr).astype(np.float32) * want_mask
+    if not np.array_equal(mask, want_mask) or not np.array_equal(
+            trav.states["count"], want_count):
+        raise RuntimeError("has('bucket', gt(k)): the mask or the counts differ from numpy")
+    emit("io_source", vertices=n, edges=m, types=types, vertices_s=vertices_s,
+         edges_s=edges_s, load_csr_s=load_s, submit_s=submit_s, kernel_runs=pr_runs,
+         pagerank_max_rel_vs_fp64=rel, sssp_s=sssp_s, sssp_reached=int(reach.sum()),
+         sssp_max_rel_vs_dijkstra=sssp_rel, sssp_rtol=SSSP_RTOL, traversal_s=trav_s,
+         traversal_kernel_runs=trav_runs, mask_kept=int(mask.sum()), card=card,
+         seconds=time.perf_counter() - phase_t0)
+
+    # -- (3) the GraphSON round trip
+    path = os.path.join(work, "graph.json")
+    t0 = time.perf_counter()
+    exported = export_graphson(g, path)
+    export_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    h = open_graph({"query.max-traversers": 1 << 22})
+    hm = h.management()
+    hm.make_property_key("w32", float)
+    hm.make_property_key("score", float)
+    hm.make_property_key("bucket", int)
+    t0 = time.perf_counter()
+    imported = import_graphson(h, path, batch_size=IO_IMPORT_BATCH)
+    import_s = time.perf_counter() - t0
+    if imported != exported or exported != {"vertices": n, "edges": m}:
+        raise RuntimeError(f"GraphSON: exported {exported}, imported {imported}")
+    t0 = time.perf_counter()
+    want_props = {}
+    tx = g.new_transaction()
+    for v in tx.vertices():
+        p = {q.key: q.value for q in v.properties()}
+        want_props[p["name"]] = p
+    tx.rollback()
+    tx = h.new_transaction()
+    checked = 0
+    for v in tx.vertices():
+        p = {q.key: q.value for q in v.properties()}
+        want = want_props[p["name"]]
+        if p.keys() != want.keys() or not all(same(p[key], want[key]) for key in p):
+            raise RuntimeError(f"vertex {p['name']}: {p} != {want}")
+        checked += 1
+    tx.rollback()
+    compare_s = time.perf_counter() - t0
+    if checked != n:
+        raise RuntimeError(f"compared {checked} of {n} vertices")
+    icsr = load_csr(h, weight_key="w32", property_keys=("name",))
+    inames = icsr.properties["name"].astype(np.int64)
+    if icsr.out_edge_weight.dtype != np.float32 or not np.array_equal(
+            edge_bits(icsr, inames), written):
+        raise RuntimeError("the imported weights are not the source's float32s")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ires, ipr_runs = counted(lambda: h.compute().program(pagerank()).submit(), 20)
+    isubmit_s = time.perf_counter() - t0
+    if not np.array_equal(ires.csr.vertex_ids, icsr.vertex_ids):
+        raise RuntimeError("the import's submit orders the vertices otherwise than load_csr")
+    irank_by_name = np.empty(n, dtype=np.float32)
+    irank_by_name[inames] = ires.states["rank"]
+    # the import assigns its ids in the export's order (the source's row-key
+    # order, not its id order), so its CSR is the source's with the vertices
+    # permuted: each in-segment sums its edges in another order and at
+    # other merge-path splits, so the ranks agree to RANK_REL, not bit for bit
+    bitwise = bits_equal(irank_by_name, src_rank_by_name)
+    rank_rel = max_rel(irank_by_name, src_rank_by_name)
+    permuted = not np.array_equal(inames, names)
+    if not rank_rel <= RANK_REL or not (bitwise or permuted):
+        raise RuntimeError(f"PageRank over the GraphSON import: max rel {rank_rel} from the "
+                           f"source's (bitwise {bitwise}, permuted {permuted})")
+    # (6) the kernel against its plain version on the source's and the
+    # import's in-plans
+    err = max(in_plan_err("io_source_in", csr), in_plan_err("io_import_in", icsr))
+    emit("io_graphson", vertices=n, edges=m, export_s=export_s, bytes=size,
+         import_s=import_s, compare_s=compare_s, vertices_compared=checked,
+         submit_s=isubmit_s, kernel_runs=ipr_runs, ranks_bitwise=bitwise,
+         ranks_max_rel=rank_rel, vertex_order_permuted=permuted,
+         in_plan_max_abs_err=err, card=card, seconds=time.perf_counter() - phase_t0)
+    g.close()
+    h.close()
+
+    # -- (4) GraphML at a smaller scale, primitive properties only
+    gn, gsrc, gdst = rmat_edges(IO_GRAPHML_SCALE, edge_factor=8, seed=args.seed + 1)
+    gm = open_graph({"query.max-traversers": 1 << 22})
+    tx = gm.new_transaction()
+    gvs = [tx.add_vertex("node", name=i, x=float(i) / 7, tag=f"n{i}", even=i % 2 == 0)
+           for i in range(gn)]
+    for k in range(len(gsrc)):
+        tx.add_edge(gvs[int(gsrc[k])], "link", gvs[int(gdst[k])], w=float(k) / 3)
+    tx.commit()
+    del gvs
+    xml = os.path.join(work, "graph.xml")
+    t0 = time.perf_counter()
+    xml_out = export_graphml(gm, xml)
+    xml_export_s = time.perf_counter() - t0
+    gi = open_graph({"query.max-traversers": 1 << 22})
+    t0 = time.perf_counter()
+    xml_in = import_graphml(gi, xml, batch_size=IO_IMPORT_BATCH)
+    xml_import_s = time.perf_counter() - t0
+    if xml_in != xml_out or xml_out != {"vertices": gn, "edges": len(gsrc)}:
+        raise RuntimeError(f"GraphML: exported {xml_out}, imported {xml_in}")
+    kernels.reset_launch_counts()
+    xres, xml_runs = counted(lambda: gi.compute().program(pagerank()).submit(), 20)
+    if xres.csr.num_edges != len(gsrc) or not np.isfinite(xres.states["rank"]).all():
+        raise RuntimeError(f"the GraphML import's submit: {xres.csr.num_edges} edges")
+    err = max(err, in_plan_err("io_graphml_in", xres.csr))
+    emit("io_graphml", vertices=gn, edges=len(gsrc), export_s=xml_export_s,
+         bytes=os.path.getsize(xml), import_s=xml_import_s, kernel_runs=xml_runs,
+         in_plans_max_abs_err=err, card=card,
+         seconds=time.perf_counter() - phase_t0)
+    gm.close()
+    gi.close()
+
+    # -- (5) the g.io() and graph.io() spellings on a small graph
+    small = open_graph()
+    t = small.traversal()
+    people = [t.add_v("person", name=f"p{i}", age=20 + i) for i in range(16)]
+    for i in range(16):
+        t.add_e(people[i], "knows", people[(i * 5 + 1) % 16])
+    t.commit()
+    spelled = {}
+    for spelling, fname in (("g_io_graphson", "s.json"), ("g_io_graphml", "s.xml"),
+                            ("graph_io_graphml", "s.graphml")):
+        target = open_graph()
+        p = os.path.join(work, fname)
+        if spelling == "graph_io_graphml":
+            wrote, read = small.io("graphml").write(p), target.io("graphml").read(p)
+        else:
+            wrote, read = small.traversal().io(p).write(), target.traversal().io(p).read()
+        ages = sorted(target.traversal().V().values("age").to_list())
+        if not wrote == read == {"vertices": 16, "edges": 16} or ages != list(range(20, 36)):
+            raise RuntimeError(f"{spelling}: wrote {wrote}, read {read}, ages {ages}")
+        spelled[spelling] = read
+        target.close()
+    small.close()
+    shutil.rmtree(work, ignore_errors=True)
+    emit("io", vertices=n, edges=m, kernel_runs={"source": pr_runs, "import": ipr_runs,
+                                                  "graphml": xml_runs, "traversal": trav_runs},
+         graphson_bytes=size, spellings=spelled, card=card,
+         seconds=time.perf_counter() - phase_t0)
+    return {"launches": pr_runs, "launches_import": ipr_runs, "launches_graphml": xml_runs,
+            "launches_traversal": trav_runs, "max_abs_err": err}
 
 
 def main() -> int:
@@ -3595,6 +3963,8 @@ def main() -> int:
     kernels.reset_launch_counts()
     indexed = indexed_phase(stored, args, emit)
     gods_run = gods_phase(args, emit)
+    kernels.reset_launch_counts()
+    io_run = io_phase(args, emit, smi)
     telemetry_phase(emit)
     print(json.dumps({"kernels": [{
         "name": "sorted_segment_sum",
@@ -3651,6 +4021,14 @@ def main() -> int:
         "launches_indexed_cold": indexed["launches_cold"],
         "launches_indexed_snapshot": indexed["launches_snapshot"],
         "launches_gods": gods_run["launches"],
+        # the io phase: PageRank through submit() over the typed source
+        # graph, over its GraphSON import and over a GraphML import, and
+        # the filtered OLAP traversal over the Int column
+        "launches_io": io_run["launches"],
+        "launches_io_import": io_run["launches_import"],
+        "launches_io_graphml": io_run["launches_graphml"],
+        "launches_io_traversal": io_run["launches_traversal"],
+        "max_abs_err_io": io_run["max_abs_err"],
         # the kernel against its plain version on the indexed graph's and
         # the Gods' in-plans
         "max_abs_err_indexed": indexed["max_abs_err"],

@@ -144,7 +144,6 @@ _NOT_PORTED: Dict[str, str] = {
     "index.": _ROADMAP_HOST,
     "locks.": _ROADMAP_HOST,
     "server.": _ROADMAP_HOST,
-    "attributes.": _ROADMAP_HOST,
     "query.": _ROADMAP_HOST,
 }
 
@@ -472,6 +471,14 @@ _option(
     "query.hard-max-limit", int,
     "clamp on index-query limits (reference: query.hard-max-limit)",
     1 << 20, verifier=lambda v: v > 0,
+)
+_option(
+    "attributes.allow-pickle", str,
+    "arbitrary-object pickle frames in the attribute serializer: 'auto' "
+    "permits them only when the backing store is in-process/local-disk "
+    "(a remote KCVS peer must never be able to plant a pickle payload "
+    "that executes on read); 'true'/'false' force the choice",
+    "auto", Mutability.LOCAL, lambda v: v in ("auto", "true", "false"),
 )
 _option("index.search.backend", str, "mixed index provider shorthand", "memindex",
         Mutability.LOCAL)

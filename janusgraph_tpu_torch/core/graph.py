@@ -13,7 +13,10 @@ too. ``store_manager`` overrides the table (e.g.
 ``config``, ``backend``, ``idm``, ``serializer``, ``edge_serializer``,
 ``system_types``, ``schema_cache`` and ``id_assigner`` (vertex, relation
 and schema id pools), and offers ``management()``, ``new_transaction()``,
-``traversal()``, ``compute()`` and ``close()``. Data goes in through OLTP
+``traversal()``, ``compute()``, ``io()`` (GraphSON and GraphML,
+``core/io.py``) and ``close()``. The serializer takes its pickle mode from
+``attributes.allow-pickle`` ("auto": allowed unless the store manager is
+network-attached). Data goes in through OLTP
 transactions (``core/tx.py``, serialized by ``commit_tx`` under the
 graph-wide commit lock into the reference's cells) and the columnar bulk
 loader (``core/bulk.py``), and out through ``load_csr`` and
@@ -69,9 +72,8 @@ change broadcasts its eviction on ``systemlog`` to every open instance
 change capture is also appended to the durable CDC log (``cdc_log``,
 ``storage/cdc.py``).
 
-Left out (ROADMAP Queue A #5): graph I/O (``g.io()``), fault injection,
-the remote index provider and the "sharded" and "remote" stores (#5.5;
-their factories raise).
+Left out (ROADMAP Queue A #5.5): fault injection, the remote index
+provider and the "sharded" and "remote" stores (their factories raise).
 """
 
 from __future__ import annotations
@@ -289,7 +291,16 @@ class JanusGraphTPU:
             if factory is None:
                 raise ConfigurationError(f"unknown storage backend {backend_name!r}")
             store_manager = factory(cfg)
-        self.serializer = Serializer()
+        pickle_mode = cfg.get("attributes.allow-pickle")
+        if pickle_mode == "auto":
+            # a network-attached KCVS store is a trust boundary: any
+            # co-writer could plant a pickle frame that executes on read,
+            # so auto disables object-pickle payloads there (asked of the
+            # resolved store manager, as the reference does)
+            allow_pickle = not store_manager.features.network_attached
+        else:
+            allow_pickle = pickle_mode == "true"
+        self.serializer = Serializer(allow_pickle=allow_pickle)
         # reconcile cluster-global options BEFORE building the backend so
         # stored GLOBAL/FIXED values govern its construction
         cfg.attach_backend(GlobalConfigStore(
@@ -511,6 +522,30 @@ class JanusGraphTPU:
     # ------------------------------------------------------------- lifecycle
     def management(self) -> ManagementSystem:
         return ManagementSystem(self)
+
+    def io(self, format: str = "graphson"):
+        """TinkerPop-style io facade (reference: graph.io(IoCore.graphml())
+        .writeGraph(path)): ``graph.io("graphml").write(path)`` /
+        ``.read(path)``. Formats: graphson (typed, schema-carrying,
+        line-delimited) | graphml (TinkerPop XML, primitives only)."""
+        from janusgraph_tpu_torch.core import io as _io_mod
+
+        try:
+            writer = getattr(_io_mod, f"export_{format}")
+            reader = getattr(_io_mod, f"import_{format}")
+        except AttributeError:
+            raise ConfigurationError(
+                f"unknown io format {format!r} (graphson|graphml)"
+            )
+
+        class _Io:
+            def write(self, path_or_file, _g=self):
+                return writer(_g, path_or_file)
+
+            def read(self, path_or_file, _g=self, **kw):
+                return reader(_g, path_or_file, **kw)
+
+        return _Io()
 
     def new_transaction(
         self,

@@ -16,10 +16,8 @@ schema-name index so lookups are one slice read.
 
 The port's copy of ``janusgraph_tpu/core/schema.py``: ``SystemTypes``,
 ``PropertyKey``, ``EdgeLabel``, ``VertexLabel``, ``SchemaCache`` and the
-definition codec, with the same definition bytes. Property keys of the six
-ported datatypes (Boolean, Long, Double, String, Bytes, Geoshape) can be made here; a
-stored key of another datatype (a graph the JAX package wrote) loads with
-an ``UnportedDataType`` that keeps its name, so its definition round-trips.
+definition codec, with the same definition bytes and the reference's 22
+schema datatypes by their persisted names.
 ``RelationIndex`` (a vertex-centric index on an edge label) and
 ``IndexDefinition`` (a composite or mixed graph index) carry the same
 definitions as the reference's, so either package loads the other's.
@@ -65,39 +63,46 @@ class SystemTypes:
         return self._infos.get(type_id)
 
 
-@dataclass(frozen=True)
-class UnportedDataType:
-    """A schema datatype name the port does not decode (``Date``,
-    ``UUID``, ...): kept so a stored definition loads and round-trips."""
+def _attribute_types() -> Dict[str, type]:
+    """Schema-declarable property datatypes (reference: the ~60 datatype
+    registrations at StandardSerializer.java:78-132; names are the stable
+    schema-definition vocabulary persisted in schema cells)."""
+    import uuid as _uuid
+    from datetime import date as _d, datetime as _dt, time as _t, timedelta
+    from decimal import Decimal as _Decimal
 
-    name: str
+    import numpy as np
 
-    @property
-    def __name__(self) -> str:
-        return self.name
+    from janusgraph_tpu_torch.core.attributes import BigInt as _BigInt, Char, Instant
+
+    return {
+        "Boolean": bool,
+        "Long": int,
+        "Double": float,
+        "String": str,
+        "Bytes": bytes,
+        "Geoshape": Geoshape,
+        "FloatList": list,
+        "Date": _dt,
+        "UUID": _uuid.UUID,
+        "Byte": np.int8,
+        "Short": np.int16,
+        "Int": np.int32,
+        "Long64": np.int64,
+        "Float": np.float32,
+        "Char": Char,
+        "Instant": Instant,
+        "Duration": timedelta,
+        "LocalDate": _d,
+        "LocalTime": _t,
+        "Array": np.ndarray,
+        "BigInteger": _BigInt,
+        "Decimal": _Decimal,
+    }
 
 
-#: the schema-declarable datatypes the port writes and reads, by their
-#: persisted names (reference: ``schema._attribute_types``)
-_DATA_TYPES: Dict[str, type] = {
-    "Boolean": bool,
-    "Long": int,
-    "Double": float,
-    "String": str,
-    "Bytes": bytes,
-    "Geoshape": Geoshape,
-}
+_DATA_TYPES: Dict[str, type] = _attribute_types()
 _DATA_TYPE_NAMES = {v: k for k, v in _DATA_TYPES.items()}
-
-
-def _data_type(name: str):
-    return _DATA_TYPES.get(name) or UnportedDataType(name)
-
-
-def _data_type_name(data_type) -> str:
-    if isinstance(data_type, UnportedDataType):
-        return data_type.name
-    return _DATA_TYPE_NAMES[data_type]
 
 
 @dataclass(frozen=True)
@@ -124,7 +129,7 @@ class PropertyKey:
     def definition(self) -> dict:
         return {
             "kind": "property",
-            "dataType": _data_type_name(self.data_type),
+            "dataType": _DATA_TYPE_NAMES[self.data_type],
             "cardinality": int(self.cardinality),
             "consistency": int(self.consistency),
             "ttl": self.ttl_seconds,
@@ -305,7 +310,7 @@ def schema_element_from_definition(sid: int, name: str, d: dict):
         return PropertyKey(
             sid,
             name,
-            _data_type(d["dataType"]),
+            _DATA_TYPES[d["dataType"]],
             Cardinality(d["cardinality"]),
             Consistency(d.get("consistency", 0)),
             d.get("ttl", 0),

@@ -25,8 +25,9 @@ batch thinking of the OLAP path. The computer steps (``page_rank``,
 ``graph.compute().program(p).submit()`` and ``shortest_path`` through
 ``run_on`` over ``load_csr``, on the device ``computer.executor`` names
 (the CUDA card for "tpu", the CPU for "cpu"). A hot multi-hop chain can
-spill to the OLAP engine (``olap/spillover.py``). ``io()`` raises: the
-graph I/O formats wait on ROADMAP.md Queue A #5.
+spill to the OLAP engine (``olap/spillover.py``). ``io(path)`` reads or
+writes the graph as GraphSON or GraphML through ``graph.io()``
+(``core/io.py``).
 """
 
 from __future__ import annotations
@@ -376,13 +377,13 @@ class GraphTraversalSource:
         values — ``g.inject(1, 2).map_(...)`` shapes."""
         return GraphTraversal(self, _start_inject(self, values))
 
-    def io(self, path: str):
-        """TinkerPop IoStep spelling (``g.io('graph.json').read()``): the
-        graph I/O formats (GraphSON, GraphML) are not ported yet."""
-        raise NotImplementedError(
-            "g.io() needs the graph I/O formats, which are not ported yet: "
-            "ROADMAP.md Queue A #5"
-        )
+    def io(self, path: str) -> "_IoStep":
+        """TinkerPop IoStep spelling: ``g.io('graph.json').read()`` /
+        ``.write()`` — format inferred from the extension (.xml/.graphml
+        -> graphml, else graphson), overridable with ``.with_('graphml')``.
+        Delegates to graph.io() (core/io.py); read/write execute
+        immediately, like iterate()d Io traversals."""
+        return _IoStep(self.graph, path)
 
     def commit(self) -> None:
         self.tx.commit()
@@ -391,6 +392,29 @@ class GraphTraversalSource:
     def rollback(self) -> None:
         self.tx.rollback()
         self.tx = self.graph.new_transaction()
+
+
+class _IoStep:
+    """g.io(path).read()/.write() — the TinkerPop IoStep spelling over
+    the graph.io() facade."""
+
+    def __init__(self, graph, path: str):
+        self._graph = graph
+        self._path = path
+        lower = path.lower()
+        self._format = (
+            "graphml" if lower.endswith((".xml", ".graphml")) else "graphson"
+        )
+
+    def with_(self, format: str) -> "_IoStep":
+        self._format = format
+        return self
+
+    def read(self) -> dict:
+        return self._graph.io(self._format).read(self._path)
+
+    def write(self) -> dict:
+        return self._graph.io(self._format).write(self._path)
 
 
 # ---------------------------------------------------------------- start steps

@@ -42,6 +42,7 @@ import time
 from collections import defaultdict
 from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
+from janusgraph_tpu_torch.core.attributes import BigInt
 from janusgraph_tpu_torch.core.codecs import (
     Cardinality,
     Consistency,
@@ -110,13 +111,19 @@ class Transaction:
     @staticmethod
     def _coerce_value(pk: PropertyKey, key: str, value):
         """Type-check a value against its key's declared datatype, with the
-        int->float literal convenience; raises SchemaViolationError on
-        mismatch (shared by plain and META properties)."""
+        int->float / int->BigInt literal conveniences; raises
+        SchemaViolationError on mismatch (shared by plain and META
+        properties)."""
         if not isinstance(value, pk.data_type) or (
             pk.data_type is not bool and isinstance(value, bool)
         ):
             if pk.data_type is float and isinstance(value, int) and not isinstance(value, bool):
                 return float(value)
+            if pk.data_type is BigInt and isinstance(value, int) and not isinstance(value, bool):
+                # plain ints promote to declared BigInteger keys (and the
+                # codec reads back plain int, so round-trip writes stay
+                # legal)
+                return BigInt(value)
             raise SchemaViolationError(
                 f"property {key} expects {pk.data_type.__name__}, "
                 f"got {type(value).__name__}"

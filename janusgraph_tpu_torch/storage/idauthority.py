@@ -27,8 +27,10 @@ claim columns incomparable and blocks overlap.
 
 The port's copy of ``janusgraph_tpu/storage/idauthority.py`` (``IDBlock``,
 ``ConsistentKeyIDAuthority``, ``StandardIDPool``), with the same claim
-cells and blocks. Left out: the conflict-avoidance modes other than the
-default "none" (tagged claim keys) and the read-only guard.
+cells and blocks. ``ConflictAvoidanceMode`` is here as the enum the
+attribute serializer registers (type id 51); the authority runs the
+default "none" only. Left out: the other modes' tagged claim keys and the
+read-only guard.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import struct
 import threading
 import time
 import uuid
+from enum import Enum
 from typing import Dict, Optional
 
 from janusgraph_tpu_torch.exceptions import (
@@ -57,6 +60,27 @@ ID_STORE_NAME = "janusgraph_ids"
 
 _BLOCK_SIZE_KEY = b"\x00block_size"
 _BLOCK_SIZE_COL = b"size"
+
+
+class ConflictAvoidanceMode(Enum):
+    """How allocators avoid contending on the same id-block claim key
+    (reference: diskstorage/idmanagement/ConflictAvoidanceMode.java:76 —
+    a user-visible config enum serialized into global config). The members
+    and their order are the reference's: the serializer encodes a member
+    by its position.
+
+    NONE          — all instances race on one claim key per (ns, partition);
+                    the claim protocol resolves conflicts (default).
+    LOCAL_MANUAL  — this instance uses its locally configured tag.
+    GLOBAL_MANUAL — every instance is expected to carry a (distinct)
+                    configured tag.
+    GLOBAL_AUTO   — each authority draws a random tag at startup.
+    """
+
+    NONE = "none"
+    LOCAL_MANUAL = "local_manual"
+    GLOBAL_MANUAL = "global_manual"
+    GLOBAL_AUTO = "global_auto"
 
 
 def _partition_key(namespace: int, partition: int) -> bytes:

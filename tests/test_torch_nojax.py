@@ -246,6 +246,50 @@ print("OK", len(records), loaded)
 """
 
 
+IO_RUN = r"""
+import io, pickle, struct, sys
+sys.modules["jax"] = None
+sys.modules["janusgraph_tpu"] = None
+import numpy as np
+import janusgraph_tpu_torch
+from janusgraph_tpu_torch.core.attributes import Instant, Serializer, SerializerError
+from janusgraph_tpu_torch.core.codecs import Direction
+from janusgraph_tpu_torch.core.graph import open_graph
+g, h = open_graph({"computer.executor": "cpu"}), open_graph({"computer.executor": "cpu"})
+tx = g.new_transaction()
+a = tx.add_vertex("person", name="a", seen=Instant(5, 7), w=np.arange(3, dtype=np.float32))
+tx.add_edge(a, "knows", tx.add_vertex("person", name="b"), since=3)
+tx.commit()
+path = sys.argv[1]
+assert janusgraph_tpu_torch.export_graphson(g, path) == {"vertices": 2, "edges": 1}
+assert janusgraph_tpu_torch.import_graphson(h, path) == {"vertices": 2, "edges": 1}
+assert h.traversal().V().has("name", "a").values("seen").to_list() == [Instant(5, 7)]
+g.close(); h.close()
+ser = Serializer()
+cell = struct.pack(">H", 43) + b"janusgraph_tpu.core.attributes:Instant"
+assert ser.write_object(Instant) == cell and ser.read_object(cell)[0] is Instant
+frame = ser.write_object({Instant(1, 2), Direction.OUT})
+assert b"janusgraph_tpu.core.attributes" in frame and b"janusgraph_tpu_torch" not in frame
+assert ser.read_object(frame)[0] == {Instant(1, 2), Direction.OUT}
+mod, name = b"janusgraph_tpu.olap.csr", b"CSRGraph"
+# a protocol-4 pickle of the reference's class (SHORT_BINUNICODE twice,
+# STACK_GLOBAL, STOP), written by hand: pickling it would import it
+global_pickle = (b"\x80\x04\x8c" + bytes([len(mod)]) + mod + b"\x8c" + bytes([len(name)])
+                 + name + b"\x93.")
+assert pickle.loads(b"\x80\x04\x8c\x08builtins\x8c\x03int\x93.") is int
+refused = 0
+for bad in (struct.pack(">H", 43) + mod + b":" + name, struct.pack(">H", 42) + global_pickle):
+    try:
+        ser.read_object(bad)
+    except SerializerError:
+        refused += 1
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+    m == "jax" or m.startswith("jax.")
+    or m == "janusgraph_tpu" or m.startswith("janusgraph_tpu.")))
+print("OK", refused, loaded)
+"""
+
+
 def _forbidden(name):
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
@@ -331,6 +375,21 @@ def test_logs_run_with_jax_blocked(tmp_path):
     assert proc.stdout.strip() == "OK 1 []", proc.stdout
 
 
+def test_graph_io_and_reference_class_paths_run_with_jax_blocked(tmp_path):
+    """A GraphSON round trip through the package-level functions, and a
+    class cell and a pickle that name the reference's package: the ones
+    with a counterpart read as the port's classes, the others are refused,
+    and neither imports the reference, with both blocked."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", IO_RUN, str(tmp_path / "graph.json")], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "OK 2 []", proc.stdout
+
+
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, dirs, names in os.walk(os.path.join(ROOT, "janusgraph_tpu_torch")):
@@ -376,13 +435,16 @@ TRAVERSAL_PATH_MODULES = (
     "exceptions.py", "core/deadline.py", "core/predicates.py", "core/profile.py",
     "core/traversal.py", "observability/profiler.py", "olap/spillover.py",
 )
+#: modules of graph I/O (GraphSON, GraphML, g.io())
+IO_PATH_MODULES = ("core/io.py", "driver/__init__.py", "driver/graphson.py",
+                   "driver/relation_identifier.py")
 
 
 def test_no_port_file_imports_jax_or_reference():
     files = _port_files()
     assert len(files) > 10 and os.path.exists(files[0])
     pkg = os.path.join(ROOT, "janusgraph_tpu_torch")
-    for rel in STORED_PATH_MODULES + TRAVERSAL_PATH_MODULES:
+    for rel in STORED_PATH_MODULES + TRAVERSAL_PATH_MODULES + IO_PATH_MODULES:
         assert os.path.join(pkg, rel) in files, rel
     assert os.path.exists(os.path.join(pkg, "csrc", "graphcsr.cpp"))
     bad = []

@@ -26,7 +26,7 @@ from janusgraph_tpu.storage.kcvs import (
 )
 from janusgraph_tpu_torch.core import codecs as tc
 from janusgraph_tpu_torch.core import schema as ts
-from janusgraph_tpu_torch.core.attributes import Serializer, UnportedValue
+from janusgraph_tpu_torch.core.attributes import Serializer
 from janusgraph_tpu_torch.core.config import GraphConfiguration
 from janusgraph_tpu_torch.core.ids import IDManager, VertexIDType
 from janusgraph_tpu_torch.exceptions import ConfigurationError, InvalidIDError
@@ -166,12 +166,17 @@ def test_serializer_frames_equal_reference(value):
 
 
 def test_unported_datatype_decodes_as_a_raw_value():
+    """Once a stub (a datatype the port did not decode); every datatype is
+    ported now, so a UUID cell the reference wrote decodes to the
+    reference's value, as a fixed-width frame read mid-stream."""
     import uuid
 
     framed = RefSerializer().write_object(uuid.UUID(int=0x1234_5678_9ABC))
-    value, used = Serializer().read_object(framed)
-    assert isinstance(value, UnportedValue) and used == len(framed)
-    assert value.type_id == struct.unpack(">H", framed[:2])[0]
+    value, used = Serializer().read_object(framed + b"tail")
+    want, want_used = RefSerializer().read_object(framed + b"tail")
+    assert value == want == uuid.UUID(int=0x1234_5678_9ABC) and used == want_used == len(framed)
+    assert struct.unpack(">H", framed[:2])[0] == 7
+    assert Serializer().write_object(value) == framed
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -315,13 +315,27 @@ def test_force_index_refuses_the_scan():
         g.close()
 
 
-def test_io_waits_on_the_roadmap():
-    g = open_graph(dict(PORT_CONFIG))
+def test_io_waits_on_the_roadmap(tmp_path):
+    """Once a stub that raised; g.io() is ported now: a write and a read
+    through it carry the graph, and an unknown format raises as in the
+    reference."""
+    from janusgraph_tpu_torch.exceptions import ConfigurationError
+
+    g, h = open_graph(dict(PORT_CONFIG)), open_graph(dict(PORT_CONFIG))
     try:
-        with pytest.raises(NotImplementedError, match="Queue A #5"):
-            g.traversal().io("graph.json")
+        t = g.traversal()
+        a, b = t.add_v("person", name="a"), t.add_v("person", name="b")
+        t.add_e(a, "knows", b)
+        t.commit()
+        path = str(tmp_path / "graph.json")
+        assert g.traversal().io(path).write() == {"vertices": 2, "edges": 1}
+        assert h.traversal().io(path).read() == {"vertices": 2, "edges": 1}
+        assert h.traversal().V().out("knows").values("name").to_list() == ["b"]
+        with pytest.raises(ConfigurationError, match="unknown io format"):
+            g.traversal().io(path).with_("gryo").write()
     finally:
         g.close()
+        h.close()
 
 
 def test_prefetch_batches_into_the_slice_cache(graphs):
