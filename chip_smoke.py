@@ -120,6 +120,24 @@ Phases, each printing one JSON line:
            submit that reads both (fused, overlay 2,000); compact(), the
            reopen from the snapshot (the same cells), drop_graph (no store
            file left)
+  remote   the remote store at the same size, between stored_local's
+           8-loader submit and its transactions: `python -m
+           janusgraph_tpu_torch storage-server --directory DIR` in its own
+           process (its open, the replay, timed to its address line), then
+           over storage.backend "remote" a cold submit through the
+           in-process scan and one through 8 loader processes (each
+           worker's open, scan, first partition and the merge beside
+           stored_local's walls), each held as stored_local holds its
+           loads (20 kernel runs); a 1,000-edge transaction over the wire
+           and the warm fused submit (60 kernel runs) within RANK_REL of
+           PageRank over a fresh scan over the wire (whose edges are the
+           base's plus the commit's); a multi-slice read of 10,000
+           vertices' rows and 10,000 point reads from 8 threads with
+           storage.remote.pipeline on and off, equal (walls and the
+           pipeline's ops, wire frames and merged ops); the kernel against
+           its plain version on the phase's in-plan; the server stopped
+           (an early exit, or one that outlives SIGTERM, fails the run);
+           the phase must end within REMOTE_BUDGET_S
   stored_delta  the same graph, written on: (a) one OLTP transaction of
            ~2,000 edge adds, ~500 edge removals, a new vertex with an edge
            and a removed vertex, then PageRank and CC through submit() on
@@ -165,25 +183,26 @@ Phases, each printing one JSON line:
            submit (20 kernel runs, a fresh scan) bitwise equal to run_on
            over a fresh load_csr; a schema eviction acknowledged by every
            open instance; every time with the card's name and power limit
-  indexed  the same store reopened with the slice cache off: a mixed index
-           over every vertex's rank (memindex) built through the scan
-           framework, the top-1,000 range query planned
-           "mixed-index" equal to the snapshot's top 1,000 (the same
-           test walked row by row was cut for the io phase); a vertex-centric "link" index by time and a
-           transaction of 1,000 timed edges, the warm submit through the
-           change capture ("refresh") and a cold submit through a fresh
-           scan (20 kernel runs each, m + 1,000 edges, equal edges, ranks
-           within 1e-4 of each other and of float64), the kernel against
-           its plain version on their in-plan; the relation index's
-           reindex and a sort range equal to has('time', between) and to a
-           filter; the indexed write-back on a 2^17-vertex load of the
-           same draw (transactional, the index follows) beside a columnar
-           one, and the mixed index's reindex there
+  indexed  the same store reopened with the slice cache off: a
+           vertex-centric "link" index by time and a transaction of 1,000
+           timed edges, the warm submit through the change capture
+           ("refresh") and a cold submit through a fresh scan (20 kernel
+           runs each, m + 1,000 edges, equal edges, ranks within 1e-4 of
+           each other and of float64), the kernel against its plain
+           version on their in-plan; the relation index's reindex and a
+           sort range equal to has('time', between) and to a filter; then
+           on a 2^17-vertex load of the same draw: a mixed index over every
+           vertex's rank (memindex) built through the scan framework, the
+           top-1,000 range query planned "mixed-index" equal to the
+           snapshot's top 1,000 (the build at the stored size was cut for
+           the remote phase, the row walk for the io phase), the indexed
+           write-back (transactional, the index follows) beside a columnar
+           one, and the mixed index's reindex
   gods     the Graph of the Gods (BASELINE.json config 1): PageRank through
            submit() (20 kernel runs) within 1e-6 of float64, the kernel on
            its in-plan, has('name', 'hercules') planned "composite-index",
            a duplicate name refused
-  io       every datatype and graph I/O: a typed R-MAT graph (scale 14,
+  io       every datatype and graph I/O: a typed R-MAT graph (scale 13,
            edge factor 8) written through transactions, every vertex with
            one property of each datatype GraphSON round-trips, an Int and
            a Float column, every edge a Float weight; load_csr's weights
@@ -244,12 +263,13 @@ RANK_REL = 1e-4
 #: stored-size load of the R-MAT draw, cut from scale 20 to fit the time
 #: limit)
 WRITE_BACK_SCALE = 17
-#: the io phase's typed graph: R-MAT scale and edge factor 8 (16,384
-#: vertices, 131,072 edges; scale 15 would take ~145 s of host time, past
-#: the phase's 90 s budget), its GraphML graph's scale, the transactions'
-#: batch sizes, and the relative tolerance of float32 SSSP against scipy's
-#: float64 Dijkstra over the same float32 weights
-IO_SCALE = 14
+#: the io phase's typed graph: R-MAT scale and edge factor 8 (8,192
+#: vertices, 65,536 edges; at scale 14 the phase took 57-87 s of host time
+#: beside an H100, too close to the smoke's limit), its GraphML graph's
+#: scale, the transactions' batch sizes, and the relative tolerance of
+#: float32 SSSP against scipy's float64 Dijkstra over the same float32
+#: weights
+IO_SCALE = 13
 IO_GRAPHML_SCALE = 12
 IO_VERTEX_BATCH = 4096
 IO_EDGE_BATCH = 16384
@@ -2020,15 +2040,18 @@ def stored_phase(csr, args, emit) -> dict:
             "max_abs_err": max(c["max_abs_err"] for c in plan_checks.values())}
 
 
-def stored_local_phase(stored, csr, args, emit) -> dict:
+def stored_local_phase(stored, csr, args, emit, remote=None) -> dict:
     """The stored phase's graph in a persistent local directory
     (storage.backend "local", storage.fsync on): the columnar bulk load and
     close, a reopen (the WAL replay) and a cold submit through the
     in-process scan, then a cold submit through 8 loader processes
     (storage.distributed-load-workers), each against the stored phase's
-    CSR and ranks; a transaction of 1,000 edges of a LOCK-consistency label
-    against the same writes on a default label, and the warm submit that
-    reads them; compact(), the reopen from the snapshot, drop_graph."""
+    CSR and ranks; then ``remote(directory, held, submit, walls)`` (the
+    remote phase: a storage server in its own process over the same
+    directory, while this graph stays open); a transaction of 1,000 edges
+    of a LOCK-consistency label against the same writes on a default label,
+    and the warm submit that reads them; compact(), the reopen from the
+    snapshot, drop_graph. Its ``seconds`` leave the remote phase out."""
     import os
     import shutil
     import tempfile
@@ -2147,6 +2170,14 @@ def stored_local_phase(stored, csr, args, emit) -> dict:
             del res
             gw.close()
 
+        # the remote phase over this directory: the stored phase's graph
+        # and nothing else yet, so its loads are held to that phase's too
+        remote_out, remote_s = None, 0.0
+        if remote is not None:
+            t0 = time.perf_counter()
+            remote_out = remote(directory, held, submit, {"workers_1": w1, "workers": per_w})
+            remote_s = time.perf_counter() - t0
+
         # (4) a LOCK-consistency label against a default one, 1,000 edges a
         # transaction, then the warm submit that reads both
         mgmt = g.management()
@@ -2213,9 +2244,250 @@ def stored_local_phase(stored, csr, args, emit) -> dict:
          locked_commit_s=commits["locked_link"], plain_commit_s=commits["plain_link"],
          warm_after_commits_wall_s=warm_wall, warm_after_commits_kernel_runs=warm_runs,
          compact_s=compact_s, snapshot_bytes=snapshot_bytes,
-         snapshot_reopen_s=snapshot_reopen_s, seconds=time.perf_counter() - phase_t0)
+         snapshot_reopen_s=snapshot_reopen_s,
+         seconds=time.perf_counter() - phase_t0 - remote_s)
     return {"launches": runs1, "launches_by_workers": {w: r["kernel_runs"] for w, r in per_w.items()},
-            "launches_locked_warm": warm_runs}
+            "launches_locked_warm": warm_runs, "remote": remote_out}
+
+
+#: the remote phase's limits: the storage server's start (its replay of the
+#: directory included), and the budget of the whole phase
+SERVER_START_S = 120.0
+REMOTE_BUDGET_S = 120.0
+#: the remote phase's point reads from 8 threads (2.6-3.4 s for 10,000 on
+#: the H100's host, cut to make room in the phase's budget)
+POINT_READS = 2_000
+
+
+def start_storage_server(directory):
+    """``python -m janusgraph_tpu_torch storage-server --port 0 --directory
+    DIR`` in its own process (no CUDA context: the server never touches the
+    card); returns (the process, host, port, seconds to its address line).
+    Fails, with the process killed, if the line does not come within
+    SERVER_START_S."""
+    import os
+    import re
+    import threading
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "janusgraph_tpu_torch", "storage-server", "--port", "0",
+         "--directory", directory],
+        stdout=subprocess.PIPE, text=True, cwd=root, env=env,
+    )
+    line = []
+    reader = threading.Thread(target=lambda: line.append(proc.stdout.readline()), daemon=True)
+    reader.start()
+    reader.join(SERVER_START_S)
+    m = re.search(r"listening on ([\d.]+):(\d+)", line[0]) if line else None
+    if m is None:
+        proc.kill()
+        proc.wait(30)
+        raise RuntimeError(f"the storage server printed no address within {SERVER_START_S} s "
+                           f"(exit {proc.returncode}): {line}")
+    return proc, m.group(1), int(m.group(2)), time.perf_counter() - t0
+
+
+def stop_storage_server(proc) -> dict:
+    """Stop the server: it must still be running (an early exit fails the
+    run) and must be gone after SIGTERM."""
+    early = proc.poll()
+    proc.terminate()
+    try:
+        proc.wait(30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(30)
+        raise RuntimeError("the storage server outlived SIGTERM")
+    if early is not None:
+        raise RuntimeError(f"the storage server exited early with {early}")
+    return {"exit": proc.returncode}
+
+
+def remote_phase(directory, held, submit, local_walls, args, emit) -> dict:
+    """The remote store at the stored size, over the directory the
+    stored_local phase wrote (the stored phase's graph): a storage server
+    in its own process, then through storage.backend "remote" a cold
+    submit over the in-process scan and one through 8 loader processes,
+    each held as stored_local holds its loads (20 kernel runs); a
+    1,000-edge transaction over the wire and the warm fused submit that
+    reads it (60 kernel runs) against a fresh scan over the wire; the same
+    multi-slice read of 10,000 vertices' rows and point reads of the first
+    POINT_READS of those rows from 8 threads with storage.remote.pipeline
+    on and off (equal; walls and the pipeline's counters); the kernel against its plain version on this
+    phase's in-plan; the server stopped."""
+    import threading
+
+    import torch
+
+    from janusgraph_tpu_torch.core.graph import open_graph
+    from janusgraph_tpu_torch.observability import registry
+    from janusgraph_tpu_torch.olap import GPUExecutor, kernels, run_on
+    from janusgraph_tpu_torch.olap.csr import load_csr_snapshot
+    from janusgraph_tpu_torch.olap.programs import PageRankProgram
+    from janusgraph_tpu_torch.storage.kcvs import KeySliceQuery, SliceQuery
+    from janusgraph_tpu_torch.storage.remote import RemoteStoreManager
+
+    phase_t0 = time.perf_counter()
+    proc, host, port, server_open_s = start_storage_server(directory)
+    cfg = {"storage.backend": "remote", "storage.hostname": host, "storage.port": port}
+    graphs = []
+    try:
+        # (2) a cold submit through the in-process scan over the wire
+        t0 = time.perf_counter()
+        g = open_graph(cfg)
+        graphs.append(g)
+        open_s = time.perf_counter() - t0
+        res1, runs1, w1 = submit(g, "remote", "cold")
+        w1["open_s"] = open_s
+        base = res1.csr
+
+        # (3) a cold submit through 8 loader processes over the wire: their
+        # configs carry the server's address, none opens a directory
+        t0 = time.perf_counter()
+        gw = open_graph(dict(cfg, **{"storage.distributed-load-workers": 8}))
+        graphs.append(gw)
+        gw_open_s = time.perf_counter() - t0
+        res8, runs8, w8 = submit(gw, "remote workers=8", "distributed")
+        w8.update(open_s=gw_open_s, load=registry.last_run("olap.distributed_load"))
+        if w8["load"]["workers"] != 8 or w8["load"]["probed"]:
+            raise RuntimeError(f"remote workers=8: the load ran {w8['load']}")
+        del res8
+        gw.close()
+
+        # (4) 1,000 edges committed over the wire, the warm fused submit
+        # that reads them, and a fresh scan over the wire to hold it to
+        rng = np.random.default_rng(args.seed + 16)
+        n = base.num_vertices
+        a_idx, b_idx = rng.integers(0, n, 1000), rng.integers(0, n, 1000)
+        vids = base.vertex_ids
+        tx = g.new_transaction()
+        for x, y in zip(vids[a_idx].tolist(), vids[b_idx].tolist()):
+            tx.add_edge(tx.get_vertex(x), "link", tx.get_vertex(y))
+        t0 = time.perf_counter()
+        tx.commit()
+        commit_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        warm, warm_runs = counted(lambda: g.compute().program(
+            PageRankProgram(max_iterations=20, tol=0.0)).submit(), 60)
+        warm_wall = time.perf_counter() - t0
+        if warm.run_info["snapshot"] != {"path": "fused", "overlay": 1000}:
+            raise RuntimeError(f"remote warm submit: {warm.run_info['snapshot']}")
+        t0 = time.perf_counter()
+        fresh, _epoch = load_csr_snapshot(g)
+        fresh_scan_s = time.perf_counter() - t0
+        if not np.array_equal(fresh.vertex_ids, warm.csr.vertex_ids):
+            raise RuntimeError("remote: the fresh scan's vertices are not the warm submit's")
+
+        def edge_key(c):
+            s_ = np.repeat(np.arange(c.num_vertices, dtype=np.int64), np.diff(c.out_indptr))
+            return np.sort(s_ * c.num_vertices + c.out_dst)
+
+        want_edges = np.sort(np.concatenate([edge_key(base), a_idx.astype(np.int64) * n + b_idx]))
+        if not np.array_equal(edge_key(fresh), want_edges):
+            raise RuntimeError("remote: the fresh scan's edges are not the base plus the commit")
+        want = run_on(fresh, PageRankProgram(max_iterations=20, tol=0.0))["rank"]
+        rel_fresh = max_rel(warm.states["rank"], want)
+        if not np.isfinite(warm.states["rank"]).all() or not rel_fresh <= RANK_REL:
+            raise RuntimeError(f"remote warm submit vs a fresh scan: max rel {rel_fresh}")
+        del warm, want
+
+        # (5) the same reads with the pipeline on and off: one multi-slice
+        # of 10,000 vertices' whole rows, and point reads of the first
+        # POINT_READS of the same rows from 8 threads; equal results, walls
+        # and counters, no gate on their ratio
+        keys = [g.idm.get_key(int(v)) for v in vids[rng.choice(n, min(n, 10_000), replace=False)]]
+        point_keys = keys[:POINT_READS]
+        row_q = SliceQuery(bytes([0]), bytes([4]))
+        reads = {}
+        for pipe in (True, False):
+            client = RemoteStoreManager(host, port, pipeline=pipe)
+            try:
+                store = client.open_database("edgestore")
+                before = {k: registry.snapshot().get(f"storage.remote.pipeline.{k}", {}).get(
+                    "count", 0) for k in ("ops", "wire_frames", "merged_ops")}
+                t0 = time.perf_counter()
+                multi = store.get_slice_multi(keys, row_q, None)
+                multi_s = time.perf_counter() - t0
+                point, errs = {}, []
+
+                def worker(part):
+                    try:
+                        for k in part:
+                            point[k] = store.get_slice(KeySliceQuery(k, row_q), None)
+                    except Exception as e:  # noqa: BLE001 - raised below
+                        errs.append(e)
+
+                threads = [threading.Thread(target=worker, args=(point_keys[i::8],))
+                           for i in range(8)]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(300)
+                point_s = time.perf_counter() - t0
+                if errs or len(point) != len(point_keys):
+                    raise RuntimeError(f"remote point reads (pipeline={pipe}): {errs[:1]}")
+                if client._mux is not None:
+                    client._mux.flush_stats()
+                counters = {k: registry.snapshot().get(f"storage.remote.pipeline.{k}", {}).get(
+                    "count", 0) - v for k, v in before.items()}
+                reads[pipe] = {"multi": multi, "point": point, "multi_s": multi_s,
+                               "point_s": point_s, "mux_engaged": client._mux is not None,
+                               **counters}
+            finally:
+                client.close()
+        on, off = reads[True], reads[False]
+        if on["multi"] != off["multi"] or on["point"] != off["point"] or any(
+                on["multi"][k] != on["point"][k] for k in point_keys):
+            raise RuntimeError("remote: the pipelined and sync reads differ")
+        cells = sum(len(v) for v in on["multi"].values())
+        read_rec = {("pipeline_on" if p else "pipeline_off"): {
+            k: v for k, v in r.items() if k not in ("multi", "point")} for p, r in reads.items()}
+        del reads, on, off
+
+        # (6) the kernel against its plain version on this phase's in-plan,
+        # PageRank's messages at the cold submit's ranks
+        ex = GPUExecutor(base, strategy="segsum")
+        in_plan = ex._segsum_plan("in")
+        outdeg = torch.as_tensor(base.out_degree, device="cuda").clamp_min(1).float()
+        msg = torch.as_tensor(res1.states["rank"], device="cuda") / outdeg
+        data = torch.index_select(msg, 0, torch.as_tensor(base.in_src.astype(np.int64),
+                                                          device="cuda"))
+        _p, _g, in_err = check_plan("remote_in", in_plan, data, kernels)
+        nbytes = in_plan.function_bytes()
+        plan_check = {
+            "edges": in_plan.num_edges, "num_ctas": in_plan.num_ctas, "max_abs_err": in_err,
+            "kernel_ms": flushed_ms(lambda: kernels.sorted_segment_sum(data, in_plan), iters=10),
+            "plain_ms": flushed_ms(lambda: kernels.sorted_segment_sum_plain(data, in_plan),
+                                   iters=5),
+            "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
+        del ex, msg, data, res1
+        torch.cuda.synchronize()
+    finally:
+        for gr in graphs:
+            if gr._open:
+                gr.close()
+        stopped = stop_storage_server(proc)
+    seconds = time.perf_counter() - phase_t0
+    emit("remote", vertices=int(base.num_vertices), edges=int(base.num_edges),
+         server_open_s=server_open_s, server=stopped, workers_1=w1, workers=w8,
+         local_workers_1_submit_wall_s=local_walls["workers_1"]["submit_wall_s"],
+         local_workers_8_submit_wall_s=local_walls["workers"][8]["submit_wall_s"],
+         local_workers_8_load=local_walls["workers"][8]["load"],
+         commit_1000_edges_s=commit_s, warm_fused_wall_s=warm_wall,
+         warm_fused_kernel_runs=warm_runs, fresh_scan_s=fresh_scan_s,
+         max_rel_warm_vs_fresh=rel_fresh,
+         reads={"keys": len(keys), "point_keys": len(point_keys), "cells": cells, **read_rec},
+         plan_check=plan_check, budget_s=REMOTE_BUDGET_S, seconds=seconds)
+    if seconds > REMOTE_BUDGET_S:
+        raise RuntimeError(f"the remote phase took {seconds:.1f} s, past its {REMOTE_BUDGET_S} s")
+    return {"launches": runs1, "launches_w8": runs8, "launches_warm": warm_runs,
+            "max_abs_err": in_err}
 
 
 def stored_delta_phase(stored, args, emit) -> dict:
@@ -2940,22 +3212,21 @@ def logs_phase(stored, args, emit, card: str) -> dict:
 
 def indexed_phase(stored, args, emit) -> dict:
     """Indexes on the stored graph the phases before wrote, reopened over
-    the same store: (1) a mixed index over every vertex's rank (memindex),
-    built through the scan framework, a range query that plans
-    "mixed-index" and finds the snapshot's top 1,000 (the filtered row
-    walk it was timed against is cut to make room for the io phase);
-    (2) a vertex-centric index on "link" by time, a transaction of 1,000
-    timed edges, the warm submit through the change capture and a cold
-    submit through a fresh scan, each over the written edges and not the
-    index's copies, then the relation index's reindex and a sort-range
-    read from the vertex with the most timed edges; (3) a write_back of
-    the indexed rank through the transactional path, which the index
-    follows, beside the columnar one, then the mixed index's reindex. Step
-    (3) runs on a 2^17-vertex graph of the same R-MAT draw
-    (``WRITE_BACK_SCALE``): at the stored size the write-back takes ~250 s
-    and the reindex 65-77 s of host time on the H100's machine (PERF.md
-    §5-6), which with the phases before would pass the smoke's time
-    limit."""
+    the same store: (1) a vertex-centric index on "link" by time, a
+    transaction of 1,000 timed edges, the warm submit through the change
+    capture and a cold submit through a fresh scan, each over the written
+    edges and not the index's copies, then the relation index's reindex
+    and a sort-range read from the vertex with the most timed edges; (2) a
+    mixed index over every vertex's rank (memindex), built through the
+    scan framework, a range query that plans "mixed-index" and finds the
+    snapshot's top 1,000, a write_back of the indexed rank through the
+    transactional path, which the index follows, beside the columnar one,
+    then the mixed index's reindex. Step (2) runs on a 2^17-vertex graph
+    of the same R-MAT draw (``WRITE_BACK_SCALE``): at the stored size the
+    build takes 77-85 s, the write-back ~250 s and the reindex 65-77 s of
+    host time on the H100's machine (PERF.md §5-6), which with the phases
+    before would pass the smoke's time limit (the build moved there to
+    make room for the remote phase)."""
     import torch
 
     from janusgraph_tpu_torch.core.bulk import bulk_add_edges, bulk_add_vertices
@@ -2965,7 +3236,6 @@ def indexed_phase(stored, args, emit) -> dict:
     from janusgraph_tpu_torch.olap import GPUExecutor, kernels, rmat_csr, run_on
     from janusgraph_tpu_torch.olap import computer as computer_mod
     from janusgraph_tpu_torch.olap import delta as D
-    from janusgraph_tpu_torch.olap.csr import load_csr
     from janusgraph_tpu_torch.olap.programs import PageRankProgram
 
     phase_t0 = time.perf_counter()
@@ -2984,16 +3254,6 @@ def indexed_phase(stored, args, emit) -> dict:
     def pagerank():
         return PageRankProgram(max_iterations=20, tol=0.0)
 
-    # -- (1) the mixed index over every vertex's rank
-    t0 = time.perf_counter()
-    mgmt.build_mixed_index("rankIdx", ["rank"])  # backfills through the repair job
-    build_s = time.perf_counter() - t0
-    if g.indexes["rankIdx"].status != "ENABLED":
-        raise RuntimeError(f"rankIdx is {g.indexes['rankIdx'].status}")
-    ranked = load_csr(g, property_keys=("rank",))
-    n = ranked.num_vertices
-    has_rank = ~np.isnan(ranked.properties["rank"])
-
     def top_query(vertex_ids, ranks):
         """t, the 1,000th-largest rank, and the ids of the vertices at or
         above it."""
@@ -3008,20 +3268,7 @@ def indexed_phase(stored, args, emit) -> dict:
         got = set(q.to_list())
         return got, time.perf_counter() - t0, dict(q._start.plan)
 
-    t1, want1 = top_query(ranked.vertex_ids, ranked.properties["rank"])
-    got1, index_wall, plan1 = rank_query(P.gte(t1))
-    if plan1.get("access") != "mixed-index" or plan1.get("index") != "rankIdx":
-        raise RuntimeError(f"the range query planned {plan1}")
-    # the same test walked row by row (54-59 s at this size) is cut to make
-    # room for the io phase: the snapshot's ranks are the oracle
-    if got1 != want1:
-        raise RuntimeError(f"rank >= t: the index found {len(got1)}, "
-                           f"the snapshot {len(want1)}")
-    emit("indexed_mixed", vertices=n, ranks=int(has_rank.sum()), build_s=build_s,
-         hits=len(got1), index_query_s=index_wall, plan=plan1,
-         seconds=time.perf_counter() - phase_t0)
-
-    # -- (2) the vertex-centric index and 1,000 timed edges
+    # -- (1) the vertex-centric index and 1,000 timed edges
     mgmt.make_property_key("time", int)
     mgmt.build_edge_index("link", "linkByTime", ["time"], Direction.BOTH)
     kernels.reset_launch_counts()
@@ -3030,7 +3277,7 @@ def indexed_phase(stored, args, emit) -> dict:
     base_wall = time.perf_counter() - t0
     if base_res.run_info["snapshot"]["path"] != "cold":
         raise RuntimeError(f"the first submit: {base_res.run_info['snapshot']}")
-    m = base_res.csr.num_edges
+    n, m = base_res.csr.num_vertices, base_res.csr.num_edges
     snap = D.get_snapshot(g)
     rng = np.random.default_rng(args.seed + 12)
     live = base_res.csr.vertex_ids
@@ -3131,9 +3378,9 @@ def indexed_phase(stored, args, emit) -> dict:
          hub_timed_edges=len(times), range_hits=len(ranged), sort_range_s=range_s,
          has_between_s=has_s, seconds=time.perf_counter() - phase_t0)
 
-    # -- (3) the indexed write-back on the 2^17-vertex graph, loaded as the
-    # stored phase loads its own: the first out-edges in source order at the
-    # stored size's edges per vertex, label "link"
+    # -- (2) the mixed index and the indexed write-back on the 2^17-vertex
+    # graph, loaded as the stored phase loads its own: the first out-edges
+    # in source order at the stored size's edges per vertex, label "link"
     g.close()
     small = rmat_csr(WRITE_BACK_SCALE, 16, seed=args.seed)
     sn = small.num_vertices
@@ -3148,8 +3395,18 @@ def indexed_phase(stored, args, emit) -> dict:
     first.write_back(["rank"])  # the key has no index yet: the columnar path
     columnar_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    gw.management().build_mixed_index("rankIdx", ["rank"])
+    gw.management().build_mixed_index("rankIdx", ["rank"])  # backfills through the repair job
     small_build_s = time.perf_counter() - t0
+    if gw.indexes["rankIdx"].status != "ENABLED":
+        raise RuntimeError(f"rankIdx is {gw.indexes['rankIdx'].status}")
+    t1, want1 = top_query(first.csr.vertex_ids, first.states["rank"].astype(np.float64))
+    got1, index_wall, plan1 = rank_query(P.gte(t1), gw)
+    if plan1.get("access") != "mixed-index" or plan1.get("index") != "rankIdx":
+        raise RuntimeError(f"the range query planned {plan1}")
+    if got1 != want1:
+        raise RuntimeError(f"rank >= t: the index found {len(got1)}, the snapshot {len(want1)}")
+    emit("indexed_mixed", vertices=sn, ranks=sn, build_s=small_build_s, hits=len(got1),
+         index_query_s=index_wall, plan=plan1, seconds=time.perf_counter() - phase_t0)
     # new ranks to write: PageRank at damping 0.5 over the same snapshot
     second, second_runs = counted(lambda: gw.compute().program(
         PageRankProgram(damping=0.5, max_iterations=20, tol=0.0)).submit(), 20)
@@ -3180,7 +3437,7 @@ def indexed_phase(stored, args, emit) -> dict:
         raise RuntimeError(f"after write_back the index found {len(got2)} of the top "
                            f"{len(want2)} ({plan2})")
     gw.close()
-    emit("indexed", vertices=n, edges=m + 1000, mixed_build_s=build_s,
+    emit("indexed", vertices=n, edges=m + 1000, mixed_build_s=small_build_s,
          index_query_s=index_wall, relindex_reindex_s=relindex_s,
          write_back={"vertices": sn, "edges": scap, "indexed_s": write_back_s,
                      "columnar_s": columnar_s, "build_s": small_build_s,
@@ -3188,8 +3445,9 @@ def indexed_phase(stored, args, emit) -> dict:
                      "kernel_runs": [first_runs, second_runs],
                      "index_query_after_s": index_wall2, "hits_after": len(got2)},
          write_back_columnar_stored_s=stored["write_back_s"],
-         cut=f"write_back and the mixed index's reindex on a 2^{WRITE_BACK_SCALE}-vertex "
-             "graph of the same R-MAT draw, the row walk gone (the smoke's time limit)",
+         cut=f"the mixed index's build, range query and reindex and the write_back on a "
+             f"2^{WRITE_BACK_SCALE}-vertex graph of the same R-MAT draw, the row walk gone "
+             "(the smoke's time limit)",
          seconds=time.perf_counter() - phase_t0)
     return {"launches": warm_runs, "launches_cold": cold_runs, "launches_snapshot": base_runs,
             "max_abs_err": in_err}
@@ -3953,7 +4211,10 @@ def main() -> int:
     dense_phase(csr, args, emit)
     ldbc_launches = ldbc_phase(emit)
     stored = stored_phase(csr, args, emit)
-    stored_local = stored_local_phase(stored, csr, args, emit)
+    stored_local = stored_local_phase(
+        stored, csr, args, emit,
+        remote=lambda *a: remote_phase(*a, args=args, emit=emit))
+    remote = stored_local["remote"]
     kernels.reset_launch_counts()
     stored_delta = stored_delta_phase(stored, args, emit)
     kernels.reset_launch_counts()
@@ -3998,6 +4259,14 @@ def main() -> int:
         **{f"launches_stored_local_w{w}": r
            for w, r in stored_local["launches_by_workers"].items()},
         "launches_stored_local_locked": stored_local["launches_locked_warm"],
+        # the same directory served by a storage server in its own process
+        # (storage.backend "remote"): the cold submit over the in-process
+        # scan, through 8 loader processes, and the warm fused submit after
+        # a 1,000-edge commit over the wire
+        "launches_remote": remote["launches"],
+        "launches_remote_w8": remote["launches_w8"],
+        "launches_remote_warm": remote["launches_warm"],
+        "max_abs_err_remote": remote["max_abs_err"],
         # after an OLTP transaction, PageRank through submit() on the
         # "fused" path (base, adds and tombstones each superstep), and
         # after a bulk burst on the "refresh" path (the compacted base)

@@ -17,7 +17,17 @@ with no CUDA device and no explicit device they raise.
 """
 
 from janusgraph_tpu_torch.core.graph import open_graph  # noqa: F401
-from janusgraph_tpu_torch.device import resolve_device  # noqa: F401
+
+
+def __getattr__(name):
+    # ``torch`` loads with the first name that needs it, not with the
+    # package: a storage server and the distributed loader's workers never
+    # import it
+    if name == "resolve_device":
+        from janusgraph_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def export_graphson(graph, path_or_file):

@@ -21,11 +21,20 @@ accelerator, here the CUDA card; "cpu" is ``GPUExecutor(device="cpu")``,
 the plain PyTorch versions on the CPU (not the reference's numpy
 ``CPUExecutor``).
 
+The remote store's options are the reference's: ``storage.hostname``,
+``storage.port``, the client's pool, pipeline and breaker
+(``storage.connection-pool-size``, ``storage.parallel-backend-ops``,
+``storage.remote.*``, ``storage.breaker.*``), the propagation switches
+(``metrics.trace-propagation``, ``metrics.resource-ledger``,
+``server.deadline.propagation``), and the id layer's placement
+(``ids.placement``, ``ids.placement-key``) and conflict avoidance
+(``ids.authority.conflict-avoidance-*``).
+
 Every other option of the reference raises ``ConfigurationError`` naming
 the ROADMAP item that brings it, as do ``computer.executor`` =
-"sharded", ``storage.backend`` = "sharded" or "remote" (the remote and
-sharded stores) and ``index.search.backend`` = "remote" with the remote
-index provider's options (#5.5). Nothing is ignored.
+"sharded", ``storage.backend`` = "sharded" with ``storage.sharded-nodes``
+and ``storage.faults.*``, and ``index.search.backend`` = "remote" with the
+remote index provider's options (#5.5b). Nothing is ignored.
 
 The durable logs' options (``log.*``, ``tx.log-tx``,
 ``tx.max-commit-time-ms``, ``tx.recover-on-open``, ``storage.cdc.*``,
@@ -107,13 +116,15 @@ def _option(path, datatype, description, default,
 
 _ROADMAP_MULTI = "ROADMAP.md Queue A #4 (multi-GPU)"
 _ROADMAP_HOST = "ROADMAP.md Queue A #5 (the host system beyond OLAP)"
-_ROADMAP_REMOTE = "ROADMAP.md Queue A #5.5 (the remote and sharded stores)"
+_ROADMAP_SHARDED = (
+    "ROADMAP.md Queue A #5.5b (faults, the sharded store and the remote index)"
+)
 
 #: honoured options whose value the port refuses: path -> (refuses, item)
 _REFUSED_VALUES: Dict[str, tuple] = {
-    "storage.backend": (lambda v: v in ("sharded", "remote"), _ROADMAP_REMOTE),
+    "storage.backend": (lambda v: v == "sharded", _ROADMAP_SHARDED),
     "computer.executor": (lambda v: v == "sharded", _ROADMAP_MULTI),
-    "index.search.backend": (lambda v: v == "remote", _ROADMAP_REMOTE),
+    "index.search.backend": (lambda v: v == "remote", _ROADMAP_SHARDED),
 }
 
 #: options of the reference the port does not honour yet, by path or by
@@ -124,23 +135,24 @@ _NOT_PORTED: Dict[str, str] = {
     "computer.exchange": _ROADMAP_MULTI,
     "computer.agg": _ROADMAP_MULTI,
     # the rest of computer.* (the price book, result mode) and of
-    # metrics.* (trace propagation, history, profiling, SLOs, streams,
-    # fleet outliers) serve the server and the remote store; the rest of
-    # query.* serves the indexes
+    # metrics.* (history, profiling, SLOs, streams, fleet outliers) serve
+    # the server; the rest of query.* serves the indexes
     "computer.": _ROADMAP_HOST,
     "metrics.": _ROADMAP_HOST,
     "cluster.": _ROADMAP_MULTI,
+    "storage.sharded-nodes": _ROADMAP_SHARDED,
+    "storage.faults.": _ROADMAP_SHARDED,
     "storage.": _ROADMAP_HOST,
     "ids.": _ROADMAP_HOST,
     "cache.": _ROADMAP_HOST,
     "schema.": _ROADMAP_HOST,
     "graph.": _ROADMAP_HOST,
     # the remote index provider's options (index.search.backend = "remote")
-    "index.search.hostname": _ROADMAP_REMOTE,
-    "index.search.port": _ROADMAP_REMOTE,
-    "index.search.pool-size": _ROADMAP_REMOTE,
-    "index.search.retry-time-ms": _ROADMAP_REMOTE,
-    "index.search.pipeline": _ROADMAP_REMOTE,
+    "index.search.hostname": _ROADMAP_SHARDED,
+    "index.search.port": _ROADMAP_SHARDED,
+    "index.search.pool-size": _ROADMAP_SHARDED,
+    "index.search.retry-time-ms": _ROADMAP_SHARDED,
+    "index.search.pipeline": _ROADMAP_SHARDED,
     "index.": _ROADMAP_HOST,
     "locks.": _ROADMAP_HOST,
     "server.": _ROADMAP_HOST,
@@ -211,6 +223,127 @@ _option(
     "storage.write-attempts", int,
     "cap the retry guard's replay count in addition to its time budget "
     "(0 = time budget only)", 0, verifier=lambda v: v >= 0,
+)
+_option("storage.hostname", str, "remote storage server host", "", Mutability.LOCAL)
+_option("storage.port", int, "remote storage server port", 0, Mutability.LOCAL)
+_option(
+    "storage.connection-pool-size", int, "client connections to a remote backend", 4,
+    verifier=lambda v: v > 0,
+)
+_option(
+    "storage.parallel-backend-ops", bool,
+    "parallelize multi-key slice reads on a worker pool", True, Mutability.LOCAL,
+)
+_option(
+    "storage.remote.connect-timeout-ms", float,
+    "TCP connect timeout of the remote storage client", 30_000.0,
+    verifier=lambda v: v > 0,
+)
+_option(
+    "storage.remote.parallel-slice-factor", int,
+    "client-side multi-slice fan-out fires when the key count exceeds "
+    "factor x pool connections (read in RemoteStoreManager multi-slice)", 2,
+    verifier=lambda v: v >= 1,
+)
+_option(
+    "storage.remote.pipeline", bool,
+    "pipelined async wire framing against the remote KCVS server "
+    "(storage/pipeline.py): per-frame request ids, out-of-order completion, "
+    "op coalescing into batched wire frames and few-socket connection "
+    "multiplexing, negotiated through the server's 'pipeline' feature bit "
+    "(un-negotiated peers keep the synchronous framing byte for byte). "
+    "Routing is adaptive: a sequential caller or a microsecond-fast backend "
+    "stays on the sync pool; latency-dominated concurrency beyond the pool "
+    "size engages the mux", True,
+)
+_option(
+    "storage.remote.pipeline-connections", int,
+    "pipelined sockets per remote store client", 2, verifier=lambda v: v >= 1,
+)
+_option(
+    "storage.remote.pipeline-depth", int,
+    "bound of the pipelined send queue per connection: submits past it block "
+    "(backpressure, counted as pipeline stalls)", 128, verifier=lambda v: v >= 1,
+)
+_option(
+    "storage.remote.pipeline-max-batch", int,
+    "most ops coalesced into one pipelined wire frame", 64, verifier=lambda v: v >= 1,
+)
+_option(
+    "storage.remote.pipeline-multi-chunk", int,
+    "pipelined multi-slice reads split into chunks of this many keys, "
+    "gathered concurrently as sibling sub-frames", 512, verifier=lambda v: v >= 1,
+)
+_option(
+    "storage.remote.pipeline-stall-ms", float,
+    "a submit blocked on the full pipeline queue past this long counts as a "
+    "pipeline stall (counter + flight event)", 200.0, verifier=lambda v: v >= 0,
+)
+_option(
+    "storage.remote.pipeline-coalesce-us", float,
+    "group-commit window: with >=3 ops in flight the combiner holds a frame "
+    "open this long (once per response burst) so convoyed resubmits seal into "
+    "one carrier; 0 disables the window", 150.0, verifier=lambda v: v >= 0,
+)
+_option(
+    "storage.breaker.enabled", bool,
+    "circuit breaker on the remote store client (storage/circuit.py): "
+    "consecutive temporary failures trip it open and callers fail fast "
+    "instead of burning retry budget against a dead endpoint", False,
+)
+_option(
+    "storage.breaker.failure-threshold", int,
+    "consecutive temporary failures that trip the breaker open", 5,
+    verifier=lambda v: v > 0,
+)
+_option(
+    "storage.breaker.reset-ms", float,
+    "open-state dwell time before the breaker half-opens for probes", 1000.0,
+    verifier=lambda v: v > 0,
+)
+_option(
+    "storage.breaker.half-open-probes", int,
+    "concurrent probe calls admitted while half-open; one success closes, "
+    "one failure re-opens", 1, verifier=lambda v: v > 0,
+)
+_option(
+    "ids.placement", str,
+    "vertex partition placement strategy ('simple'|'property'; "
+    "core/placement.py)", "simple",
+    verifier=lambda v: v in ("simple", "property"),
+)
+_option(
+    "ids.placement-key", str,
+    "property whose hashed value picks the partition ('property' strategy)",
+    "", Mutability.LOCAL,
+)
+_option(
+    "ids.authority.conflict-avoidance-mode", str,
+    "id-block claim contention avoidance: none | local_manual | "
+    "global_manual | global_auto; the tagged modes stripe the block space so "
+    "allocators never race on one claim key", "none", Mutability.GLOBAL_OFFLINE,
+    lambda v: v in ("none", "local_manual", "global_manual", "global_auto"),
+)
+_option(
+    "ids.authority.conflict-avoidance-tag", int,
+    "this instance's claim tag for the manual conflict-avoidance modes", 0,
+    Mutability.LOCAL, lambda v: v >= 0,
+)
+_option(
+    "ids.authority.conflict-avoidance-tag-bits", int,
+    "bits of claim-tag space (num tags = 2^bits): the id-space striping "
+    "factor of the tagged modes", 4, Mutability.FIXED, lambda v: 0 < v <= 16,
+)
+_option(
+    "metrics.trace-propagation", bool,
+    "attach the ambient span's TraceContext to outbound remote-store op "
+    "frames (gated on the server's negotiated feature bit, so mixed old/new "
+    "deployments stay wire-compatible)", True,
+)
+_option(
+    "server.deadline.propagation", bool,
+    "forward the ambient deadline's remaining budget on remote-store op "
+    "frames (gated on the server's negotiated feature bit)", True,
 )
 _option("cache.db-cache", bool, "enable the store-level slice cache", True, Mutability.LOCAL)
 _option(
@@ -584,9 +717,9 @@ _option(
 )
 _option(
     "metrics.resource-ledger", bool,
-    "propagate the resource-ledger flag over the remote store protocols; the "
-    "in-memory store has no wire, so the ledger scopes (observability/"
-    "profiler.py) work alike either way", True,
+    "propagate the resource-ledger flag over the remote store protocol "
+    "(gated on the server's negotiated feature bit): the server echoes each "
+    "op's costs into the caller's ledger (observability/profiler.py)", True,
 )
 _option(
     "metrics.structured-logging", bool,

@@ -6,7 +6,11 @@ resource ledger (a contextvar, so nesting follows the call structure):
 open a :func:`deadline_scope` around a request, and :func:`check` raises
 :class:`~janusgraph_tpu_torch.exceptions.DeadlineExceededError` once it is
 spent. The traversal checks it at every step boundary, the spillover
-planner before it compiles and before it runs.
+planner before it compiles and before it runs. The remote store's client
+forwards the REMAINING milliseconds in a negotiated frame prefix
+(``storage/remote.py``), so the serving node's own work inherits the
+caller's budget: relative on the wire, since clocks are not comparable
+across hosts.
 
 Deadlines are ABSOLUTE ``time.monotonic()`` instants. A nested scope can
 only TIGHTEN the ambient deadline (min of the two): an inner layer granting
@@ -26,6 +30,10 @@ from janusgraph_tpu_torch.exceptions import DeadlineExceededError
 _DEADLINE_VAR: "contextvars.ContextVar[Optional[float]]" = (
     contextvars.ContextVar("janusgraph_tpu_torch_deadline", default=None)
 )
+
+#: wire ceiling for a remaining-budget prefix: u32 milliseconds (~49 days);
+#: the remote store's deadline prefix clamps to it (``storage/remote.py``)
+MAX_WIRE_MS = 0xFFFFFFFF
 
 
 def current_deadline() -> Optional[float]:

@@ -4,8 +4,8 @@ that the stored-graph OLAP path, the transaction and the traversal run.
 
 ``open_graph(config, store_manager=None)`` opens a ``JanusGraphTPU`` over
 the store manager that ``storage.backend`` names in the store-manager
-table (``register_store_manager`` adds to it): "inmemory", or "local", a
-persistent directory (``storage.directory``, ``storage.fsync``;
+table (``register_store_manager`` adds to it): "inmemory", "remote" (see
+below) or "local", a persistent directory (``storage.directory``, ``storage.fsync``;
 ``storage/localstore.py``), whose files the JAX package reads and writes
 too. ``store_manager`` overrides the table (e.g.
 ``InMemoryStoreManager.from_rows`` of a graph the JAX package wrote).
@@ -72,8 +72,16 @@ change broadcasts its eviction on ``systemlog`` to every open instance
 change capture is also appended to the durable CDC log (``cdc_log``,
 ``storage/cdc.py``).
 
-Left out (ROADMAP Queue A #5.5): fault injection, the remote index
-provider and the "sharded" and "remote" stores (their factories raise).
+"remote" opens a ``RemoteStoreManager`` (``storage/remote.py``) on
+``storage.hostname`` and ``storage.port``, a storage server in another
+process (``python -m janusgraph_tpu_torch storage-server``) or the
+reference's; without both it raises ``ConfigurationError``. The id
+authority claims under the ``ids.authority.conflict-avoidance-*`` mode and
+tag, and new vertices take their partition from the ``ids.placement``
+strategy (``core/placement.py``).
+
+Left out (ROADMAP Queue A #5.5b): fault injection, the remote index
+provider and the "sharded" store (its factory raises).
 """
 
 from __future__ import annotations
@@ -139,14 +147,48 @@ def _open_local(cfg):
     return open_local_kcvs(directory, fsync=cfg.get("storage.fsync"))
 
 
-def _not_ported_store(name):
-    def factory(cfg):
-        raise ConfigurationError(
-            f"storage.backend={name!r} is not ported yet: ROADMAP.md Queue A "
-            "#5.5 (the remote and sharded stores)"
-        )
+def _open_sharded(cfg):
+    raise ConfigurationError(
+        "storage.backend='sharded' is not ported yet: ROADMAP.md Queue A "
+        "#5.5b (faults, the sharded store and the remote index)"
+    )
 
-    return factory
+
+def _open_remote(cfg):
+    from janusgraph_tpu_torch.storage.remote import RemoteStoreManager
+
+    host = cfg.get("storage.hostname")
+    port = cfg.get("storage.port")
+    if not host or not port:
+        raise ConfigurationError(
+            "storage.backend=remote requires storage.hostname + storage.port"
+        )
+    return RemoteStoreManager(
+        host,
+        port,
+        pool_size=cfg.get("storage.connection-pool-size"),
+        retry_time_s=cfg.get("storage.retry-time-ms") / 1000.0,
+        backoff_base_s=cfg.get("storage.backoff-base-ms") / 1000.0,
+        backoff_max_s=cfg.get("storage.backoff-max-ms") / 1000.0,
+        parallel_ops=cfg.get("storage.parallel-backend-ops"),
+        connect_timeout_s=cfg.get("storage.remote.connect-timeout-ms") / 1000.0,
+        max_attempts=cfg.get("storage.write-attempts"),
+        parallel_slice_factor=cfg.get("storage.remote.parallel-slice-factor"),
+        breaker_enabled=cfg.get("storage.breaker.enabled"),
+        breaker_failure_threshold=cfg.get("storage.breaker.failure-threshold"),
+        breaker_reset_ms=cfg.get("storage.breaker.reset-ms"),
+        breaker_half_open_probes=cfg.get("storage.breaker.half-open-probes"),
+        trace_propagation=cfg.get("metrics.trace-propagation"),
+        resource_ledger=cfg.get("metrics.resource-ledger"),
+        deadline_propagation=cfg.get("server.deadline.propagation"),
+        pipeline=cfg.get("storage.remote.pipeline"),
+        pipeline_connections=cfg.get("storage.remote.pipeline-connections"),
+        pipeline_depth=cfg.get("storage.remote.pipeline-depth"),
+        pipeline_max_batch=cfg.get("storage.remote.pipeline-max-batch"),
+        pipeline_multi_chunk=cfg.get("storage.remote.pipeline-multi-chunk"),
+        pipeline_stall_ms=cfg.get("storage.remote.pipeline-stall-ms"),
+        pipeline_coalesce_us=cfg.get("storage.remote.pipeline-coalesce-us"),
+    )
 
 
 # reference: StandardStoreManager.java:82 shorthand registry. Factories take
@@ -154,8 +196,8 @@ def _not_ported_store(name):
 _STORE_MANAGERS = {
     "inmemory": lambda cfg: InMemoryStoreManager(),
     "local": _open_local,
-    "sharded": _not_ported_store("sharded"),
-    "remote": _not_ported_store("remote"),
+    "sharded": _open_sharded,
+    "remote": _open_remote,
 }
 
 
@@ -222,19 +264,24 @@ class _MultiIndexTransaction:
 
 
 class VertexIDAssigner:
-    """Maps new elements to IDs: round-robin partition placement for normal
-    vertices, canonical-partition ids for partitioned (vertex-cut) labels
-    (reference: idassigner/VertexIDAssigner.java)."""
+    """Maps new elements to IDs: the placement strategy's partition for
+    normal vertices (round robin by default, ``core/placement.py``),
+    canonical-partition ids for partitioned (vertex-cut) labels (reference:
+    idassigner/VertexIDAssigner.java + placement strategies)."""
 
     def __init__(
         self,
         authority: ConsistentKeyIDAuthority,
         idm: IDManager,
         renew_fraction: Optional[float] = None,
+        placement=None,
     ):
+        from janusgraph_tpu_torch.core.placement import SimpleBulkPlacementStrategy
+
         self.authority = authority
         self.idm = idm
         self.renew_fraction = renew_fraction  # ids.renew-percentage
+        self.placement = placement or SimpleBulkPlacementStrategy()
         self._vertex_pools: Dict[int, StandardIDPool] = {}
         self._relation_pool = StandardIDPool(
             authority, ConsistentKeyIDAuthority.NS_RELATION, 0,
@@ -258,10 +305,19 @@ class VertexIDAssigner:
                 self._vertex_pools[partition] = pool
             return pool
 
-    def assign_vertex_id(self, partitioned: bool = False) -> int:
+    def assign_vertex_id(
+        self,
+        partitioned: bool = False,
+        label=None,
+        props: Optional[dict] = None,
+    ) -> int:
         with self._lock:
-            partition = self._rr % self.idm.num_partitions
-            self._rr += 1
+            partition = self.placement.partition_for(
+                label, props, self.idm.num_partitions
+            )
+            if partition is None:
+                partition = self._rr % self.idm.num_partitions
+                self._rr += 1
         count = self._pool(partition).next_id()
         if partitioned:
             canonical = count % self.idm.num_partitions
@@ -312,6 +368,9 @@ class JanusGraphTPU:
             cache_enabled=cfg.get("cache.db-cache"),
             cache_size=cfg.get("cache.db-cache-size"),
             id_block_size=cfg.get("ids.block-size"),
+            id_conflict_mode=cfg.get("ids.authority.conflict-avoidance-mode"),
+            id_conflict_tag=cfg.get("ids.authority.conflict-avoidance-tag"),
+            id_conflict_tag_bits=cfg.get("ids.authority.conflict-avoidance-tag-bits"),
             cache_clean_wait_seconds=cfg.get("cache.db-cache-clean-wait-ms") / 1000.0,
             read_only=cfg.get("storage.read-only"),
             cache_ttl_seconds=(ttl_ms / 1000.0) if ttl_ms > 0 else None,
@@ -337,9 +396,14 @@ class JanusGraphTPU:
             retries=cfg.get("locks.retries"),
             clean_expired=cfg.get("locks.clean-expired"),
         )
+        from janusgraph_tpu_torch.core.placement import make_placement_strategy
+
         self.id_assigner = VertexIDAssigner(
             self.backend.id_authority, self.idm,
             renew_fraction=cfg.get("ids.renew-percentage"),
+            placement=make_placement_strategy(
+                cfg.get("ids.placement"), cfg.get("ids.placement-key")
+            ),
         )
         self.index_serializer = IndexSerializer(self.serializer)
         # mixed-index providers: shared per store manager, standing in for

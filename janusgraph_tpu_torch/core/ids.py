@@ -167,10 +167,9 @@ class IDManager:
         return vid & SCHEMA_MARK == SCHEMA_MARK
 
     def is_partitioned_vertex_id(self, vid: int) -> bool:
-        return (
-            not self.is_schema_vertex_id(vid)
-            and (vid & 0b111) == VertexIDType.PARTITIONED.suffix
-        )
+        # the suffix as a literal: an enum lookup per call costs more than
+        # the test (a scan asks this of every row)
+        return vid & 0b111 == 0b010  # VertexIDType.PARTITIONED.suffix
 
     def is_user_vertex_id(self, vid: int) -> bool:
         return vid > 0 and not self.is_schema_vertex_id(vid)
@@ -243,13 +242,24 @@ class IDManager:
         return [raw[i : i + 8] for i in range(0, len(raw), 8)]
 
     def get_vertex_id(self, key: bytes) -> int:
+        """The id whose row key is ``key``: ``make_vertex_id`` of its
+        count, partition and type, inlined (a scan decodes every row's key;
+        the count cannot pass its maximum, as ``rest`` holds its bits)."""
         key_int = int.from_bytes(key, "big")
-        rest_bits = TOTAL_BITS - self.partition_bits
+        pb = self.partition_bits
+        rest_bits = TOTAL_BITS - pb
         partition = key_int >> rest_bits
         rest = key_int & ((1 << rest_bits) - 1)
         t = _suffix_of(rest)
-        count = rest >> t.suffix_bits
-        return self.make_vertex_id(count, partition, t)
+        suffix, suffix_bits = t.value  # plain tuple: skip enum descriptors
+        count = rest >> suffix_bits
+        if count <= 0:
+            raise InvalidIDError(f"count {count} out of range for {t}")
+        if partition >= self._num_partitions:
+            raise InvalidIDError(f"partition {partition} out of range")
+        if suffix_bits == SCHEMA_SUFFIX_BITS and partition != 0:
+            raise InvalidIDError("schema vertices live in partition 0")
+        return (((count << pb) | partition) << suffix_bits) | suffix
 
     def partition_key_range(self, partition: int):
         """[start, end) row-key range covering one partition — the unit of

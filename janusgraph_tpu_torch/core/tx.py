@@ -266,7 +266,7 @@ class Transaction:
             vid = vertex_id
         else:
             vid = self.graph.id_assigner.assign_vertex_id(
-                partitioned=label_el.partitioned
+                partitioned=label_el.partitioned, label=label_el, props=props
             )
         v = Vertex(vid, self, LifeCycle.NEW)
         v._label_cache = label_el.name

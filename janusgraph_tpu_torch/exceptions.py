@@ -69,6 +69,14 @@ class ReadOnlyTransactionError(JanusGraphTorchError):
     """A write through a read-only transaction."""
 
 
+class CircuitOpenError(PermanentBackendError):
+    """A circuit breaker is open: the call failed fast without touching the
+    backend. Permanent from the retry guard's point of view (replaying an
+    open circuit inside one operation is pointless spin); the breaker itself
+    recovers independently via its half-open probe cycle
+    (``storage/circuit.py``)."""
+
+
 class DeadlineExceededError(PermanentBackendError):
     """The caller's ambient deadline (``core/deadline.py``) is spent. A
     permanent error: no retry of an operation whose answer nobody waits for

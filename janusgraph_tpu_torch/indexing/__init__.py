@@ -7,7 +7,7 @@ in-memory provider ("memindex", the default of ``index.search.backend``);
 ``localindex.py`` the persistent provider ("localindex", a directory in
 ``index.search.directory``) whose files are byte-compatible with the
 reference's. "remote" raises: the remote index provider waits for ROADMAP
-Queue A #5.5.
+Queue A #5.5b.
 """
 
 from janusgraph_tpu_torch.indexing.provider import (

@@ -10,7 +10,7 @@ with orders and limits; RawQuery for provider-syntax string queries).
 
 The port's copy of ``janusgraph_tpu/indexing/provider.py``. The shorthand
 "remote" is registered as a factory that raises: the remote index provider
-waits for ROADMAP Queue A #5.5.
+waits for ROADMAP Queue A #5.5b.
 
 Design divergence from the reference: conditions are tiny frozen dataclasses
 evaluated by each provider directly (no TinkerPop Condition hierarchy), and
@@ -303,7 +303,7 @@ def open_index_provider(
 
 def _remote_not_ported(**_kwargs):
     raise ConfigurationError(
-        "index backend 'remote' is not ported yet: ROADMAP.md Queue A #5.5 "
+        "index backend 'remote' is not ported yet: ROADMAP.md Queue A #5.5b "
         "(the remote index provider)"
     )
 

@@ -16,7 +16,10 @@ the port of the main-path half of ``janusgraph_tpu/observability/profiler.py``.
 - :class:`ResourceLedger` — a per-request cost accumulator carried on the
   ambient context (``ledger_scope``); ``accrue`` adds counters and
   annotates the current span with ``ledger.<field>``, ``accrue_wall``
-  buckets walls by layer. Outside a scope both are no-ops.
+  buckets walls by layer. Outside a scope both are no-ops. The ledger
+  block codec (``encode_ledger_block``, ``split_ledger_block``) carries a
+  per-op ledger over the remote store's wire, and ``merge_echo`` merges a
+  peer's echo without annotating a span.
 - **Query digests** (``traversal_shape``, ``shape_digest``,
   :class:`DigestTable`, the process-wide ``digest_table`` and
   ``digest_records``): every traversal execution is normalized to its
@@ -36,6 +39,7 @@ from __future__ import annotations
 import contextvars
 import hashlib
 import re
+import struct
 import threading
 from collections import OrderedDict
 from contextlib import contextmanager
@@ -151,6 +155,14 @@ COUNTER_FIELDS = (
     "d2h_bytes",
 )
 
+#: wire tags of the ledger block (tag-value pairs, so the block can grow
+#: without a protocol bump); wall_ns rides the wire but merges into
+#: wall_by_layer, not a counter. The reference's numbering: the blocks
+#: are byte-equal in both directions
+_FIELD_TAGS: Dict[str, int] = {f: i + 1 for i, f in enumerate(COUNTER_FIELDS)}
+_FIELD_TAGS["wall_ns"] = 15
+_TAG_FIELDS = {v: k for k, v in _FIELD_TAGS.items()}
+
 
 class ResourceLedger:
     """Per-request cost accumulator (cells, bytes, hits, retries, walls)."""
@@ -252,6 +264,65 @@ def accrue_wall(layer: str, ms: float) -> None:
     led = _LEDGER_VAR.get()
     if led is not None and ms:
         led.add_wall(layer, ms)
+
+
+def merge_echo(fields: Optional[dict], layer: str = "") -> None:
+    """Merge a remote peer's echoed ledger block into the ambient ledger
+    WITHOUT annotating a span: the peer annotated its own span with the
+    same fields, and the two sides of the wire must not double-count."""
+    if not fields:
+        return
+    led = _LEDGER_VAR.get()
+    if led is None:
+        return
+    counters = {k: v for k, v in fields.items() if k in _FIELD_TAGS and k != "wall_ns"}
+    led.add(**counters)
+    wall_ns = fields.get("wall_ns")
+    if wall_ns and layer:
+        led.add_wall(layer, wall_ns / 1e6)
+
+
+# ------------------------------------------------------------- wire codec
+_LEDGER_VERSION = 1
+
+
+def encode_ledger_block(fields: dict) -> bytes:
+    """``[u8 blen][ver:1][n:1]([tag:1][u64])*``: length-prefixed like the
+    trace-context prefix, so it can ride in front of any response body
+    (the remote store server echoes a per-op ledger in it)."""
+    pairs = [
+        (_FIELD_TAGS[k], int(v))
+        for k, v in fields.items()
+        if k in _FIELD_TAGS and v
+    ]
+    payload = bytes([_LEDGER_VERSION, len(pairs)]) + b"".join(
+        struct.pack(">BQ", tag, value) for tag, value in pairs
+    )
+    return bytes([len(payload)]) + payload
+
+
+def split_ledger_block(body: bytes) -> Tuple[Optional[dict], bytes]:
+    """Inverse of :func:`encode_ledger_block`: (fields|None, rest).
+    Malformed blocks degrade to None: a bad ledger must never fail the
+    response it rides on."""
+    if not body:
+        return None, body
+    blen = body[0]
+    if len(body) < 1 + blen or blen < 2:
+        return None, body
+    payload, rest = body[1 : 1 + blen], body[1 + blen :]
+    if payload[0] != _LEDGER_VERSION:
+        return None, body
+    n = payload[1]
+    if len(payload) != 2 + 9 * n:
+        return None, body
+    fields: Dict[str, int] = {}
+    for i in range(n):
+        tag, value = struct.unpack_from(">BQ", payload, 2 + 9 * i)
+        name = _TAG_FIELDS.get(tag)
+        if name is not None:
+            fields[name] = value
+    return fields, rest
 
 
 # --------------------------------------------------------------------------

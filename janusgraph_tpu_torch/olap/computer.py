@@ -19,7 +19,7 @@ snapshot, so a warm submit reuses their device packs and captured CUDA
 graphs. ``run_info["snapshot"]`` says which path the submit took. A
 filtered submit (``edges``/``vertices``/``properties``/``weight``) scans
 the store through ``load_csr``. With ``storage.distributed-load-workers``
-W > 1 over a "local" store, an unfiltered submit loads through W loader
+W > 1 over a "local" or "remote" store, an unfiltered submit loads through W loader
 processes (``olap/distributed_load.py``; ``run_info["snapshot"]`` is
 ``{"path": "distributed", "workers": W}``), never through the delta
 snapshot, as in the reference; a failed load raises.
@@ -42,8 +42,8 @@ children; it records its routing (``registry.record_run("olap.routing",
 ...)``) and takes ``run_info`` from ``registry.last_run("olap")`` plus
 ``routing`` (and the port's ``snapshot``).
 
-Left out: OLAP admission (the server's, ROADMAP Queue A #5), sharded
-routing (#4) and distributed loading over the remote store (#5.5).
+Left out: OLAP admission (the server's, ROADMAP Queue A #5) and sharded
+routing (#4).
 ``run_on`` is the array-level entry point beside it.
 """
 
@@ -288,7 +288,7 @@ class GraphComputer:
         # load bypasses the warm delta snapshot, as in the reference, and a
         # failed load raises
         workers = cfg.get("storage.distributed-load-workers")
-        distributed = workers > 1 and plain and cfg.get("storage.backend") == "local"
+        distributed = workers > 1 and plain and cfg.get("storage.backend") in ("remote", "local")
         with tracer.span("olap.load_csr") as ls:
             delta_snap = (
                 _delta.get_snapshot(self.graph) if plain and workers <= 1 else None

@@ -3,8 +3,9 @@
 analogue over real processes.
 
 The split unit is the storage partition: N worker processes each open the
-shared backend (a persistent local directory; an in-memory store is
-private to its process and refused), run the raw partition scan
+shared backend (a storage server, ``storage.backend`` "remote", or a
+persistent local directory; an in-memory store is private to its process
+and refused), run the raw partition scan
 (``csr._scan_raw``, no endpoint validation, since an edge's destination
 may live in another worker's partitions) over the partitions p with
 ``p % N == w``, and ship their arrays back through npz files; the parent
@@ -20,13 +21,18 @@ passes it, else read by one probe open of the graph. The workers share
 one deadline; a failed or hung worker kills the rest and raises, with no
 fallback to the in-process scan.
 
-Each worker opens the graph itself, so it replays the whole store (the
-local store's WAL and snapshot) before it scans its own partitions. Every
+Each worker opens the graph itself. Over a local directory it replays the
+whole store (the WAL and snapshot) before it scans its own partitions;
+over a storage server it replays nothing: its config carries the server's
+host and port, it opens no directory, and its scans stream over the wire
+from the one store the server holds. Every
 worker's environment has ``CUDA_VISIBLE_DEVICES`` empty: the loaders
-create no CUDA context, and the parent runs the program on the card. The
+create no CUDA context, and the parent runs the program on the card. A
+worker opens the graph without change capture and the spillover planner,
+so it never imports torch (its start would take seconds more). The
 workers find this package through ``PYTHONPATH`` (the package's root is
 appended to the caller's) and run in the load's temporary directory, so
-the store's directory is made absolute first; a worker refuses a local
+a local store's directory is made absolute first; a worker refuses a local
 directory that holds no store rather than open an empty one.
 
 Besides the reference's outputs, the load records its split into
@@ -72,6 +78,9 @@ def _worker_main(argv: Optional[Sequence[str]] = None) -> int:
         # opening would create an empty store there and scan nothing
         print(f"loader: no stored graph at {directory!r}", file=sys.stderr)
         return 2
+    # a loader only scans: no change capture and no spillover planner,
+    # whose modules need torch (its start would take seconds longer)
+    cfg.update({"computer.delta": False, "computer.spillover": False})
     t0 = time.perf_counter()
     graph = open_graph(cfg)
     open_s = time.perf_counter() - t0
@@ -116,16 +125,17 @@ def distributed_load_csr(
     partition_bits: Optional[int] = None,
 ):
     """Load a CSR snapshot with N worker processes over a SHARED backend
-    (``storage.backend`` "local": a persistent directory; an in-memory
-    backend would give each worker an empty private store, which is
-    rejected). ``partition_bits`` is the open graph's
-    ``idm.partition_bits`` where the caller holds one; without it one probe
-    open reads the stored value. Returns the merged, validated CSRGraph."""
+    (``storage.backend`` "remote", a storage server, or "local", a
+    persistent directory; an in-memory backend would give each worker an
+    empty private store, which is rejected). ``partition_bits`` is the open
+    graph's ``idm.partition_bits`` where the caller holds one; without it
+    one probe open reads the stored value (over "remote", from the
+    server). Returns the merged, validated CSRGraph."""
     backend = config.get("storage.backend", "inmemory")
-    if backend != "local":
+    if backend not in ("remote", "local"):
         raise ValueError(
             "distributed_load_csr needs a SHARED backend "
-            "(storage.backend='local'; 'remote' is ROADMAP.md Queue A #5.5); "
+            "(storage.backend='remote' or 'local'); "
             f"got {backend!r} whose state is private to each process"
         )
     from janusgraph_tpu_torch.core.graph import open_graph
@@ -135,7 +145,7 @@ def distributed_load_csr(
     # the workers run in a temporary directory: a relative store path
     # must name the caller's store, not an empty one there
     config = dict(config)
-    if config.get("storage.directory"):
+    if backend == "local" and config.get("storage.directory"):
         config["storage.directory"] = os.path.abspath(config["storage.directory"])
     # the partition count is the cluster's stored FIXED value, which can
     # differ from (or be absent in) the caller's dict: without the open

@@ -47,6 +47,7 @@ from janusgraph_tpu_torch.exceptions import PermanentBackendError
 from janusgraph_tpu_torch.storage import backend_op
 from janusgraph_tpu_torch.storage.cache import ExpirationCacheStore
 from janusgraph_tpu_torch.storage.idauthority import (
+    ConflictAvoidanceMode,
     ConsistentKeyIDAuthority,
     ID_STORE_NAME,
 )
@@ -119,6 +120,9 @@ class Backend:
         cache_enabled: bool = True,
         cache_size: int = 65536,
         id_block_size: int = 10_000,
+        id_conflict_mode: str = "none",
+        id_conflict_tag: int = 0,
+        id_conflict_tag_bits: int = 4,
         cache_ttl_seconds: Optional[float] = 10.0,
         cache_clean_wait_seconds: float = 0.0,
         metrics_enabled: bool = False,
@@ -168,7 +172,11 @@ class Backend:
         self.global_config = GlobalConfigStore(manager, read_only=read_only)
         self.id_store = manager.open_database(ID_STORE_NAME)
         self.id_authority = ConsistentKeyIDAuthority(
-            self.id_store, self._base_tx, block_size=id_block_size, read_only=read_only,
+            self.id_store, self._base_tx, block_size=id_block_size,
+            conflict_mode=ConflictAvoidanceMode(id_conflict_mode),
+            conflict_tag=id_conflict_tag,
+            conflict_tag_bits=id_conflict_tag_bits,
+            read_only=read_only,
         )
         #: mutation-epoch tracker: edgestore row key -> epoch of its last
         #: committed mutation (refresh_csr re-reads only these rows)

@@ -45,7 +45,7 @@ a snapshot whose epoch clears the gap. Seals and replays record
 
 Left out: the seeded torn-write fault (``CDCLog(fault_plan=)``,
 ``storage.faults.cdc-torn-at``), which comes with the fault injector
-(ROADMAP Queue A #5.5). A closed log refuses appends with ``CDCTornWrite``.
+(ROADMAP Queue A #5.5b). A closed log refuses appends with ``CDCTornWrite``.
 """
 
 from __future__ import annotations

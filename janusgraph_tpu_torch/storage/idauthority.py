@@ -26,11 +26,9 @@ every later authority must match or fails fast — differing sizes would make
 claim columns incomparable and blocks overlap.
 
 The port's copy of ``janusgraph_tpu/storage/idauthority.py`` (``IDBlock``,
-``ConsistentKeyIDAuthority``, ``StandardIDPool``), with the same claim
-cells and blocks. ``ConflictAvoidanceMode`` is here as the enum the
-attribute serializer registers (type id 51); the authority runs the
-default "none" only. Left out: the other modes' tagged claim keys and the
-read-only guard.
+``ConsistentKeyIDAuthority``, ``StandardIDPool``, ``ConflictAvoidanceMode``,
+which the attribute serializer also registers as type id 51), with the
+same claim cells, claim keys and blocks in every conflict-avoidance mode.
 """
 
 from __future__ import annotations
@@ -73,8 +71,13 @@ class ConflictAvoidanceMode(Enum):
                     the claim protocol resolves conflicts (default).
     LOCAL_MANUAL  — this instance uses its locally configured tag.
     GLOBAL_MANUAL — every instance is expected to carry a (distinct)
-                    configured tag.
+                    configured tag; same mechanics as LOCAL_MANUAL here,
+                    the distinction is operational intent.
     GLOBAL_AUTO   — each authority draws a random tag at startup.
+
+    A tagged authority claims under key+tag and owns the tag's whole
+    block-number subsequence (global block = local * num_tags + tag), so
+    tagged allocators NEVER contend — at the cost of id-space striping.
     """
 
     NONE = "none"
@@ -130,6 +133,9 @@ class ConsistentKeyIDAuthority:
         uid: Optional[bytes] = None,
         max_retries: int = 20,
         wait_ms: float = 2.0,
+        conflict_mode: ConflictAvoidanceMode = ConflictAvoidanceMode.NONE,
+        conflict_tag: int = 0,
+        conflict_tag_bits: int = 4,
         read_only: bool = False,
     ):
         self.store = store
@@ -138,6 +144,23 @@ class ConsistentKeyIDAuthority:
         #: storage.read-only: refuse block claims up front (the claim
         #: protocol writes to the id store before anything else would)
         self.read_only = read_only
+        self.conflict_mode = conflict_mode
+        if conflict_mode is ConflictAvoidanceMode.NONE:
+            self.num_tags = 1
+            self.tag = 0
+        else:
+            self.num_tags = 1 << conflict_tag_bits
+            if conflict_mode is ConflictAvoidanceMode.GLOBAL_AUTO:
+                import random
+
+                self.tag = random.randrange(self.num_tags)
+            else:
+                if not 0 <= conflict_tag < self.num_tags:
+                    raise ValueError(
+                        f"conflict-avoidance tag {conflict_tag} outside "
+                        f"[0, 2^{conflict_tag_bits})"
+                    )
+                self.tag = conflict_tag
         self.uid = uid if uid is not None else (
             uuid.uuid4().bytes[:12] + os.getpid().to_bytes(4, "big")
         )
@@ -180,6 +203,11 @@ class ConsistentKeyIDAuthority:
         if self.read_only:
             raise PermanentBackendError("storage.read-only: id-block claims write to the id store")
         key = _partition_key(namespace, partition)
+        if self.num_tags > 1:
+            # tagged claim space: no cross-tag contention; the frontier
+            # under key+tag counts TAG-LOCAL blocks, remapped to a globally
+            # disjoint block-number stripe below
+            key += struct.pack(">H", self.tag)
         for _ in range(self.max_retries):
             frontier = self._read_frontier(key)
             block_end = frontier + self.block_size
@@ -201,6 +229,12 @@ class ConsistentKeyIDAuthority:
             )
             if rivals and rivals[0][0] == claim_col:
                 self._frontier_cache[key] = block_end
+                if self.num_tags > 1:
+                    # local block b -> global block b*num_tags + tag: every
+                    # tag owns a disjoint stripe of the id space
+                    b = frontier // self.block_size
+                    start = (b * self.num_tags + self.tag) * self.block_size
+                    return IDBlock(start + 1, self.block_size)
                 return IDBlock(frontier + 1, self.block_size)
             # lost the race: withdraw and retry from a fresh frontier
             self.store.mutate(key, [], [claim_col], self.txh)
@@ -322,7 +356,7 @@ class StandardIDPool:
                         self._current, self._next_block = self._next_block, None
                     else:
                         # same synchronous-fallback contract as next_id
-                                self._current = self._fetch()
+                        self._current = self._fetch()
                 start, taken = self._current.next_span(remaining)
                 if taken:
                     if self.max_id is not None and start + taken - 1 > self.max_id:

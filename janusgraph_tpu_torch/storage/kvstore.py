@@ -176,7 +176,7 @@ class OrderedKVAdapter(KeyColumnValueStore):
         # one C-level startswith per cell replaces the byte-walk decode
         # (this adapter is the OLAP full-scan hot path).
         limit = sq.limit
-        contains = sq.contains
+        s_start, s_end = sq.start, sq.end
         prefix: Optional[bytes] = None
         plen = 0
         cur_key: Optional[bytes] = None
@@ -192,7 +192,9 @@ class OrderedKVAdapter(KeyColumnValueStore):
                 plen = len(prefix)
                 cur_entries = []
             col = ck[plen:]
-            if contains(col) and (limit is None or len(cur_entries) < limit):
+            # sq.contains(col), inlined: this runs once a cell of the scan
+            if s_start <= col and (s_end is None or col < s_end) and (
+                    limit is None or len(cur_entries) < limit):
                 cur_entries.append((col, v))
         if cur_entries:
             yield cur_key, cur_entries

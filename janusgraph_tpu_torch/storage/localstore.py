@@ -41,6 +41,7 @@ _OP_DEL = 2
 _OP_COMMIT = 3
 
 _HDR = struct.Struct(">BIII")  # op, store_len, key_len, val_len  (+crc32 u32)
+_CRC = struct.Struct(">I")
 
 
 def _frame(op: int, store: bytes, key: bytes, val: bytes) -> bytes:
@@ -84,11 +85,8 @@ class _Memtable:
             keys = self.sorted_keys()
             lo = bisect.bisect_left(keys, start)
             hi = len(keys) if end is None else bisect.bisect_left(keys, end)
-            snapshot = [
-                (keys[i], self.data[keys[i]])
-                for i in range(lo, hi)
-                if keys[i] in self.data
-            ]
+            get = self.data.get
+            snapshot = [(k, v) for k in keys[lo:hi] if (v := get(k)) is not None]
         return iter(snapshot)
 
 
@@ -178,28 +176,44 @@ class LocalKVStoreManager(OrderedKeyValueStoreManager):
             self._replay_file(wal)
 
     def _replay_file(self, path: str) -> None:
+        """Apply a file's PUT and DEL records to the memtables, up to a torn
+        or corrupt tail. Recovery runs before any other thread can reach the
+        store, so the records go straight into each memtable's dict (no lock
+        a record), the CRC reads the file's bytes in place, and a store is
+        looked up by its raw name."""
         with open(path, "rb") as f:
             data = f.read()
+        view = memoryview(data)
+        unpack_crc = _CRC.unpack_from
+        unpack_hdr = _HDR.unpack_from
+        crc32 = zlib.crc32
+        head = 4 + _HDR.size
+        tables: Dict[bytes, _Memtable] = {}
         pos = 0
         n = len(data)
-        while pos + 4 + _HDR.size <= n:
-            (crc,) = struct.unpack_from(">I", data, pos)
-            op, sl, kl, vl = _HDR.unpack_from(data, pos + 4)
-            end = pos + 4 + _HDR.size + sl + kl + vl
+        while pos + head <= n:
+            (crc,) = unpack_crc(data, pos)
+            op, sl, kl, vl = unpack_hdr(data, pos + 4)
+            end = pos + head + sl + kl + vl
             if end > n:
                 break  # torn tail record
-            body = data[pos + 4 : end]
-            if zlib.crc32(body) & 0xFFFFFFFF != crc:
+            if crc32(view[pos + 4 : end]) & 0xFFFFFFFF != crc:
                 break  # corrupt tail: stop replay (prefix is consistent)
-            off = _HDR.size
-            store = body[off : off + sl].decode()
-            key = body[off + sl : off + sl + kl]
-            val = body[off + sl + kl : off + sl + kl + vl]
-            if op == _OP_PUT:
-                self.open_database(store).mem.put(key, val)
-            elif op == _OP_DEL:
-                self.open_database(store).mem.delete(key)
+            if op == _OP_PUT or op == _OP_DEL:
+                off = pos + head
+                name = data[off : off + sl]
+                mem = tables.get(name)
+                if mem is None:
+                    mem = tables[name] = self.open_database(name.decode()).mem
+                key = data[off + sl : off + sl + kl]
+                if op == _OP_PUT:
+                    mem.data[key] = data[off + sl + kl : end]
+                else:
+                    mem.data.pop(key, None)
             pos = end
+        view.release()
+        for mem in tables.values():
+            mem._sorted = None
 
     def compact(self) -> None:
         """Write a snapshot of all stores and truncate the WAL."""

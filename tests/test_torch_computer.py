@@ -369,7 +369,7 @@ def test_compute_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
 @pytest.mark.parametrize("config", [
     {"computer.executor": "sharded"},
     {"storage.faults.cdc-torn-at": 3},
-    {"storage.backend": "remote"},
+    {"storage.sharded-nodes": 3},
     {"computer.price-book-path": "book.json"},
     {"no.such-option": 1},
 ])

@@ -25,8 +25,8 @@ DEFAULT_DIFFERENCES = {
 
 #: values the reference accepts and the port refuses, with the item named
 REFUSED = [
-    ("storage.backend", "sharded", "Queue A #5.5"),
-    ("storage.backend", "remote", "Queue A #5.5"),
+    ("storage.backend", "sharded", "Queue A #5.5b"),
+    ("index.search.backend", "remote", "Queue A #5.5b"),
     ("computer.executor", "sharded", "Queue A #4"),
 ]
 
@@ -106,3 +106,30 @@ def test_the_logs_options_are_registered_and_validated_as_the_reference():
             ref_config.REGISTRY[path].check(bad)
         with pytest.raises(ConfigurationError):
             config.GraphConfiguration({path: bad})
+
+
+#: the remote store's, placement's and id authority's options, each with a
+#: value the reference's verifier refuses
+REMOTE_BAD_VALUES = [
+    ("storage.connection-pool-size", 0), ("storage.remote.connect-timeout-ms", 0.0),
+    ("storage.remote.parallel-slice-factor", 0), ("storage.remote.pipeline-connections", 0),
+    ("storage.remote.pipeline-depth", 0), ("storage.remote.pipeline-max-batch", 0),
+    ("storage.remote.pipeline-multi-chunk", 0), ("storage.remote.pipeline-stall-ms", -1.0),
+    ("storage.remote.pipeline-coalesce-us", -1.0), ("storage.breaker.failure-threshold", 0),
+    ("storage.breaker.reset-ms", 0.0), ("storage.breaker.half-open-probes", 0),
+    ("ids.placement", "hashed"), ("ids.authority.conflict-avoidance-mode", "tagged"),
+    ("ids.authority.conflict-avoidance-tag", -1),
+    ("ids.authority.conflict-avoidance-tag-bits", 0),
+    ("ids.authority.conflict-avoidance-tag-bits", 17),
+]
+
+
+@pytest.mark.parametrize("path,bad", REMOTE_BAD_VALUES)
+def test_remote_options_refuse_what_the_reference_refuses(path, bad):
+    """The remote store's options are registered and a value the
+    reference's verifier refuses is refused too (the parametrized case
+    above holds their types, defaults and mutability)."""
+    with pytest.raises(RefConfigurationError):
+        ref_config.REGISTRY[path].check(bad)
+    with pytest.raises(ConfigurationError):
+        config.GraphConfiguration({path: bad})

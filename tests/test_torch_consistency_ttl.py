@@ -1,7 +1,8 @@
 """Consistency modifiers and TTLs in the port, held to the JAX package's,
 after the reference's ``tests/test_consistency.py``, ``test_schema_ttl.py``
 and the TTL cases of ``test_storage_adapters.py`` (the remote-store cases
-wait for #5.5, the index and ghost-remover cases for #5.2).
+are twinned in ``test_torch_remote_store.py``, the index and ghost-remover
+cases wait for #5.2).
 
 Each case runs on both packages with the same calls and must end the same
 way: LOCK consistency rejects the stale one of two concurrent writers (two

@@ -1,9 +1,9 @@
 """Distributed CSR loading in the port, after the reference's
-``tests/test_distributed_load.py`` (its remote-store cases wait for the
-remote store, ROADMAP Queue A #5.5).
+``tests/test_distributed_load.py``.
 
 N real loader processes scan disjoint partition sets of one local
-directory and the parent merges: the result equals the single-process
+directory, or of a storage server's store over the wire, and the parent
+merges: the result equals the single-process
 ``load_csr`` of both packages on the same directory (vertex ids, labels
 and the edge set; the merge keeps partition order, so the arrays too).
 Cross-partition edges survive, a private backend is refused, the
@@ -87,10 +87,99 @@ def test_cross_partition_edges_survive_the_split(tmp_path):
     assert _csr_sets(csr) == _csr_sets(oracle)
 
 
-@pytest.mark.parametrize("backend", ["inmemory", "remote"])
+@pytest.mark.parametrize("backend", ["inmemory"])
 def test_rejects_a_backend_that_is_not_shared_local(backend):
     with pytest.raises(ValueError, match="SHARED backend"):
         distributed_load_csr({"storage.backend": backend})
+
+
+def test_two_workers_over_a_storage_server_equal_the_single_scan():
+    """Two loader processes scan a port storage server's store over the
+    wire (their config carries the host and port, no directory): the
+    merged CSR equals the single in-process scan over the same server, and
+    a submit with two workers gives its ranks."""
+    from janusgraph_tpu_torch.storage.inmemory import InMemoryStoreManager
+    from janusgraph_tpu_torch.storage.remote import RemoteStoreServer
+
+    server = RemoteStoreServer(InMemoryStoreManager()).start()
+    host, port = server.address
+    cfg = {"storage.backend": "remote", "storage.hostname": host, "storage.port": port,
+           "computer.executor": "cpu"}
+    g = None
+    try:
+        g = open_graph(cfg)
+        _seed(g, n=200, m=900, seed=11)
+        oracle = load_csr(g)
+        one = g.compute().program(PageRankProgram(max_iterations=8)).submit()
+        g.close()
+        csr = distributed_load_csr(cfg, num_workers=2, timeout_s=TIMEOUT_S)
+        assert _csr_sets(csr) == _csr_sets(oracle)
+        for field in CSR_FIELDS:
+            np.testing.assert_array_equal(getattr(csr, field), getattr(oracle, field))
+        rec = registry.last_run("olap.distributed_load")
+        assert rec["workers"] == 2 and rec["partitions"] == 32 and rec["probed"]
+        g = open_graph(dict(cfg, **{"storage.distributed-load-workers": 2}))
+        two = g.compute().program(PageRankProgram(max_iterations=8)).submit()
+        assert two.run_info["snapshot"] == {"path": "distributed", "workers": 2}
+        assert not registry.last_run("olap.distributed_load")["probed"]
+        np.testing.assert_array_equal(two.states["rank"], one.states["rank"])
+    finally:
+        if g is not None and g._open:
+            g.close()
+        server.stop()
+
+
+#: a fresh interpreter's prelude in which ``import torch`` fails
+_NO_TORCH = 'import sys; sys.modules["torch"] = None; '
+
+
+def test_the_storage_server_and_a_loader_worker_import_no_torch(tmp_path):
+    """Neither process touches the card, and neither loads torch: the
+    storage server (``python -m janusgraph_tpu_torch storage-server``) and
+    a loader worker over it both run in interpreters where ``import
+    torch`` fails, and the worker's partitions hold the single scan's
+    edges."""
+    import json
+    import re
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    server = subprocess.Popen(
+        [sys.executable, "-c", _NO_TORCH + "import runpy; sys.argv = ['x', 'storage-server', "
+         "'--port', '0']; runpy.run_module('janusgraph_tpu_torch', run_name='__main__')"],
+        stdout=subprocess.PIPE, text=True, env=env)
+    g = None
+    try:
+        m = re.search(r"listening on ([\d.]+):(\d+)", server.stdout.readline())
+        assert m, "the storage server printed no address"
+        cfg = {"storage.backend": "remote", "storage.hostname": m.group(1),
+               "storage.port": int(m.group(2)), "computer.executor": "cpu"}
+        g = open_graph(cfg)
+        _seed(g, n=120, m=500, seed=5)
+        oracle = load_csr(g)
+        g.close()
+        out = str(tmp_path / "part.npz")
+        worker = subprocess.run(
+            [sys.executable, "-c", _NO_TORCH + "import runpy; sys.argv = ['x'] + sys.argv[1:]; "
+             "runpy.run_module('janusgraph_tpu_torch.olap.distributed_load', "
+             "run_name='__main__')",
+             "--config", json.dumps(cfg), "--partitions", ",".join(map(str, range(32))),
+             "--out", out],
+            env=env, capture_output=True, text=True, timeout=TIMEOUT_S)
+        assert worker.returncode == 0, worker.stderr[-2000:]
+        assert server.poll() is None, "the storage server exited"
+        with np.load(out) as z:
+            got = set(zip(z["src"].tolist(), z["dst"].tolist()))
+            assert set(z["vertex_id_list"].tolist()) == _csr_sets(oracle)[0]
+        assert got == _csr_sets(oracle)[1]
+    finally:
+        if g is not None and g._open:
+            g.close()
+        server.terminate()
+        server.wait(timeout=30)
 
 
 def test_partition_bits_resolved_from_stored_config(tmp_path):

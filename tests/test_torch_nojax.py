@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither jax nor the JAX package.
 
-One check runs the port with both blocked in a fresh interpreter; the other
-scans every port module and chip_smoke.py for such imports. The module name
+Checks run the port with both blocked in a fresh interpreter (the remote
+store's server in a second one); another scans every port module and
+chip_smoke.py for such imports. The module name
 ``janusgraph_tpu_torch`` starts with ``janusgraph_tpu``, so the scan matches
 the exact module name or its dotted prefix, never the bare prefix."""
 
@@ -290,6 +291,40 @@ print("OK", refused, loaded)
 """
 
 
+REMOTE_RUN = r"""
+import re, subprocess, sys
+BLOCK = 'import sys; sys.modules["jax"] = None; sys.modules["janusgraph_tpu"] = None; '
+sys.modules["jax"] = None
+sys.modules["janusgraph_tpu"] = None
+server = subprocess.Popen(
+    [sys.executable, "-c", BLOCK + "from janusgraph_tpu_torch.cli import main; "
+     "sys.exit(main(['storage-server', '--port', '0']))"],
+    stdout=subprocess.PIPE, text=True)
+try:
+    m = re.search(r"listening on ([\d.]+):(\d+)", server.stdout.readline())
+    from janusgraph_tpu_torch.core.graph import open_graph
+    from janusgraph_tpu_torch.olap.programs import PageRankProgram
+    g = open_graph({"storage.backend": "remote", "storage.hostname": m.group(1),
+                    "storage.port": int(m.group(2)), "computer.executor": "cpu"})
+    tx = g.new_transaction()
+    vs = [tx.add_vertex("node") for _ in range(6)]
+    for i in range(6):
+        tx.add_edge(vs[i], "link", vs[(i + 1) % 6])
+    tx.commit()
+    res = g.compute().program(PageRankProgram(max_iterations=5)).submit()
+    assert res.run_info["snapshot"]["path"] == "cold" and res.states["rank"].shape == (6,)
+    g.close()
+    alive = server.poll() is None
+finally:
+    server.terminate()
+    server.wait(timeout=10)
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+    m == "jax" or m.startswith("jax.")
+    or m == "janusgraph_tpu" or m.startswith("janusgraph_tpu.")))
+print("OK", round(float(res.states["rank"].sum()), 4), alive, loaded)
+"""
+
+
 def _forbidden(name):
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
@@ -390,6 +425,20 @@ def test_graph_io_and_reference_class_paths_run_with_jax_blocked(tmp_path):
     assert proc.stdout.strip() == "OK 2 []", proc.stdout
 
 
+def test_remote_store_runs_with_jax_blocked():
+    """A port storage server in its own process and a port client: a graph
+    over the wire, a commit and a CPU submit(), with both blocked in both
+    processes."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", REMOTE_RUN], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "OK 1.0 True []", proc.stdout
+
+
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, dirs, names in os.walk(os.path.join(ROOT, "janusgraph_tpu_torch")):
@@ -438,13 +487,18 @@ TRAVERSAL_PATH_MODULES = (
 #: modules of graph I/O (GraphSON, GraphML, g.io())
 IO_PATH_MODULES = ("core/io.py", "driver/__init__.py", "driver/graphson.py",
                    "driver/relation_identifier.py")
+#: modules of the remote store (the server, the client, its pipelined
+#: framing and breaker, placement, the command line)
+REMOTE_PATH_MODULES = ("storage/remote.py", "storage/pipeline.py", "storage/circuit.py",
+                       "core/placement.py", "cli.py", "__main__.py")
 
 
 def test_no_port_file_imports_jax_or_reference():
     files = _port_files()
     assert len(files) > 10 and os.path.exists(files[0])
     pkg = os.path.join(ROOT, "janusgraph_tpu_torch")
-    for rel in STORED_PATH_MODULES + TRAVERSAL_PATH_MODULES + IO_PATH_MODULES:
+    for rel in (STORED_PATH_MODULES + TRAVERSAL_PATH_MODULES + IO_PATH_MODULES
+                + REMOTE_PATH_MODULES):
         assert os.path.join(pkg, rel) in files, rel
     assert os.path.exists(os.path.join(pkg, "csrc", "graphcsr.cpp"))
     bad = []

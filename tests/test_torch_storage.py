@@ -309,10 +309,10 @@ def test_id_authority_refuses_another_block_size():
 @pytest.mark.parametrize("path,value,item", [
     ("graph.graphname", "g2", "Queue A #5"),
     ("computer.executor", "sharded", "Queue A #4"),
-    ("storage.backend", "remote", "Queue A #5.5"),
-    ("storage.backend", "sharded", "Queue A #5.5"),
+    ("storage.sharded-nodes", 3, "Queue A #5.5b"),
+    ("storage.backend", "sharded", "Queue A #5.5b"),
     ("computer.price-book-path", "book.json", "Queue A #5"),
-    ("metrics.trace-propagation", False, "Queue A #5"),
+    ("metrics.slo-enabled", True, "Queue A #5"),
     ("computer.sharded-auto", False, "Queue A #4"),
     ("metrics.history-enabled", True, "Queue A #5"),
     ("cache.tx-cache-size", 100, "Queue A #5"),
