@@ -102,42 +102,60 @@ Phases, each printing one JSON line:
            to run_on over the loaded CSR, within 1e-4 of float64; CC
            through submit() against scipy, a 3-hop traverse() (3 kernel
            runs) equal to float64 at every vertex below 2^24 paths and
-           within 1e-4 above, write_back and a reload that returns the
-           ranks bit for bit
+           within 1e-4 above (its write_back and reload run in indexed's
+           2^17-vertex step since the sharded phase came)
   stored_local  the same graph in a persistent local directory
            (storage.backend "local", fsync on): the bulk load and close (the
-           WAL's bytes), a reopen (the replay) and a cold submit through
-           the in-process scan, a cold submit through 8 loader
-           processes (storage.distributed-load-workers; no probe open:
-           submit() passes the open graph's partition count; each
-           worker's replay and scan, the merge), each with 20 kernel
-           runs, its CSR equal to the stored phase's as sets of vertex ids
-           and edges and its ranks bitwise equal to that phase's where
-           the arrays are (else within 1e-6 relative), and within 1e-6
-           relative of float64 on either path; one
-           transaction of 1,000 edges of a LOCK-consistency label against
-           the same on a default label, no lock claim left, and the warm
-           submit that reads both (fused, overlay 2,000); compact(), the
-           reopen from the snapshot (the same cells), drop_graph (no store
-           file left)
-  remote   the remote store at the same size, between stored_local's
-           8-loader submit and its transactions: `python -m
-           janusgraph_tpu_torch storage-server --directory DIR` in its own
-           process (its open, the replay, timed to its address line), then
-           over storage.backend "remote" a cold submit through the
-           in-process scan and one through 8 loader processes (each
-           worker's open, scan, first partition and the merge beside
-           stored_local's walls), each held as stored_local holds its
-           loads (20 kernel runs); a 1,000-edge transaction over the wire
-           and the warm fused submit (60 kernel runs) within RANK_REL of
-           PageRank over a fresh scan over the wire (whose edges are the
+           WAL's bytes); a cold submit through 8 loader processes
+           (storage.distributed-load-workers; the graph's open replays the
+           WAL; no probe open: submit() passes the open graph's partition
+           count; each worker's replay and scan, the merge) with its CSR
+           equal to the stored phase's as sets of vertex ids and edges, its
+           ranks bitwise equal to that phase's where the arrays are (else
+           within 1e-6 relative) and within 1e-6 relative of float64, 20
+           kernel runs; the directory is served by the remote phase below;
+           then on a 2^LOCAL_SCALE-vertex directory of the same draw (cut
+           from the stored size for the time limit): a reopen (the replay)
+           and a cold submit through the in-process scan, its CSR the
+           written graph edge for edge and its ranks within 1e-6 relative
+           of float64, 20 kernel runs; one transaction of 1,000 edges of a
+           LOCK-consistency label against the same on a default label, no
+           lock claim left, and the warm submit that reads both (fused,
+           overlay 2,000); compact(), the reopen from the snapshot (the
+           same cells), drop_graph (no store file left)
+  remote   the remote store at the stored size, inside stored_local:
+           `python -m janusgraph_tpu_torch storage-server --directory DIR`
+           in its own process (its open, the replay, timed to its address
+           line), then over storage.backend "remote" a cold submit through
+           the in-process scan and one through 8 loader processes (each
+           worker's open, scan, first partition and the merge), each with
+           its CSR equal to the stored phase's as sets of vertex ids and
+           edges, its ranks bitwise equal to that phase's where the arrays
+           are (else within 1e-6 relative) and within 1e-6 relative of
+           float64 (20 kernel runs); a 1,000-edge transaction over the
+           wire and the warm fused submit (60 kernel runs) within RANK_REL
+           of PageRank over a fresh scan over the wire (whose edges are the
            base's plus the commit's); a multi-slice read of 10,000
-           vertices' rows and 10,000 point reads from 8 threads with
+           vertices' rows and POINT_READS point reads from 8 threads with
            storage.remote.pipeline on and off, equal (walls and the
            pipeline's ops, wire frames and merged ops); the kernel against
            its plain version on the phase's in-plan; the server stopped
            (an early exit, or one that outlives SIGTERM, fails the run);
            the phase must end within REMOTE_BUDGET_S
+  sharded  the same draw on storage.backend "sharded" (SHARDED_NODES
+           in-memory nodes) with the seeded fault injector on
+           (SHARDED_FAULTS: 1 % read and write faults, a superstep
+           preemption, checkpoints every 2 supersteps): the columnar bulk
+           load, a cold submit on the card through the unordered scan,
+           preempted once and resumed once from its checkpoint (20 kernel
+           runs plus any superstep the resume recomputed), its ranks
+           bitwise equal to a fault-free run_on over its own CSR and held
+           to the stored phase's (bitwise where the arrays are equal, else
+           within RANK_REL of its ranks and of float64); the kernel against
+           its plain version on its in-plan, timed with the L2 flushed; a
+           batch of 2,000 rows read through a SHARDED_OUTAGE_S outage of
+           node 1 (the retry guard replays it) and again after, equal; the
+           journal by kind
   stored_delta  the same graph, written on: (a) one OLTP transaction of
            ~2,000 edge adds, ~500 edge removals, a new vertex with an edge
            and a removed vertex, then PageRank and CC through submit() on
@@ -191,9 +209,12 @@ Phases, each printing one JSON line:
            each other and of float64), the kernel against its plain
            version on their in-plan; the relation index's reindex and a
            sort range equal to has('time', between) and to a filter; then
-           on a 2^17-vertex load of the same draw: a mixed index over every
-           vertex's rank (memindex) built through the scan framework, the
-           top-1,000 range query planned "mixed-index" equal to the
+           on a 2^17-vertex load of the same draw: the ranks' columnar
+           write_back and a reload bit for bit, a mixed index over every
+           vertex's rank on a RemoteIndexServer over memindex in its own
+           process (index.search.backend "remote"; the server must not
+           import torch) built through the scan framework over the wire,
+           the top-1,000 range query planned "mixed-index" equal to the
            snapshot's top 1,000 (the build at the stored size was cut for
            the remote phase, the row walk for the io phase), the indexed
            write-back (transactional, the index follows) beside a columnar
@@ -202,7 +223,7 @@ Phases, each printing one JSON line:
            submit() (20 kernel runs) within 1e-6 of float64, the kernel on
            its in-plan, has('name', 'hercules') planned "composite-index",
            a duplicate name refused
-  io       every datatype and graph I/O: a typed R-MAT graph (scale 13,
+  io       every datatype and graph I/O: a typed R-MAT graph (scale 12,
            edge factor 8) written through transactions, every vertex with
            one property of each datatype GraphSON round-trips, an Int and
            a Float column, every edge a Float weight; load_csr's weights
@@ -263,13 +284,18 @@ RANK_REL = 1e-4
 #: stored-size load of the R-MAT draw, cut from scale 20 to fit the time
 #: limit)
 WRITE_BACK_SCALE = 17
-#: the io phase's typed graph: R-MAT scale and edge factor 8 (8,192
-#: vertices, 65,536 edges; at scale 14 the phase took 57-87 s of host time
-#: beside an H100, too close to the smoke's limit), its GraphML graph's
-#: scale, the transactions' batch sizes, and the relative tolerance of
-#: float32 SSSP against scipy's float64 Dijkstra over the same float32
-#: weights
-IO_SCALE = 13
+#: the scale of stored_local's second directory (the replay, the
+#: in-process submit, the LOCK commits, compact() and the snapshot reopen),
+#: cut from scale 20 to make room for the sharded phase
+LOCAL_SCALE = 17
+#: the io phase's typed graph: R-MAT scale and edge factor 8 (4,096
+#: vertices, 32,768 edges; the phase took 57-87 s of host time beside an
+#: H100 at scale 14 and 47 s at scale 13, cut to make room for the sharded
+#: phase; the SSSP from the hub reaches 1,271 of 4,096, past the quarter
+#: it must), its GraphML graph's scale, the transactions' batch sizes, and
+#: the relative tolerance of float32 SSSP against scipy's float64 Dijkstra
+#: over the same float32 weights
+IO_SCALE = 12
 IO_GRAPHML_SCALE = 12
 IO_VERTEX_BATCH = 4096
 IO_EDGE_BATCH = 16384
@@ -1867,7 +1893,8 @@ def stored_phase(csr, args, emit) -> dict:
     out-edges of the graph500 R-MAT graph in source order, label "link",
     written by the columnar bulk loader into an in-memory store, loaded by
     the edgestore scan, and run through graph.compute().submit() on the
-    card; the ranks are written back and read again."""
+    card (the ranks' write_back and reload run on the indexed phase's
+    2^17-vertex graph)."""
     import torch
     from scipy.sparse import coo_matrix
     from scipy.sparse.csgraph import connected_components
@@ -1875,7 +1902,7 @@ def stored_phase(csr, args, emit) -> dict:
     from janusgraph_tpu_torch.core.bulk import bulk_add_edges, bulk_add_vertices
     from janusgraph_tpu_torch.core.graph import open_graph
     from janusgraph_tpu_torch.olap import GPUExecutor, kernels, run_on
-    from janusgraph_tpu_torch.olap.csr import load_csr, load_csr_snapshot
+    from janusgraph_tpu_torch.olap.csr import load_csr_snapshot
     from janusgraph_tpu_torch.olap.programs import (
         ConnectedComponentsProgram,
         PageRankProgram,
@@ -1896,21 +1923,7 @@ def stored_phase(csr, args, emit) -> dict:
     t0 = time.perf_counter()
     loaded, epoch = load_csr_snapshot(g)
     load_s = time.perf_counter() - t0
-    if loaded.num_vertices != n or loaded.num_edges != cap:
-        raise RuntimeError(f"load_csr: {loaded.num_vertices} v, {loaded.num_edges} e")
-    # the loaded graph is the written one: vertex i of the loaded CSR is
-    # vids[order[i]]; its out-edges are the written edges, mapped through
-    # the same order (the scan sorts by vertex id)
-    order = np.argsort(vids, kind="stable")
-    if not np.array_equal(loaded.vertex_ids, vids[order]):
-        raise RuntimeError("load_csr: the vertex ids are not the written ones")
-    rank_of = np.empty(n, dtype=np.int64)
-    rank_of[order] = np.arange(n)
-    want_src, want_dst = rank_of[src], rank_of[dst]
-    got_src = np.repeat(np.arange(n), np.diff(loaded.out_indptr))
-    key = lambda a, b: np.sort(a.astype(np.int64) * n + b)  # noqa: E731
-    if not np.array_equal(key(got_src, loaded.out_dst), key(want_src, want_dst)):
-        raise RuntimeError("load_csr: the edges are not the written ones")
+    _check_written(loaded, vids, src, dst, "load_csr")
 
     emit("stored_load", vertices=n, edges=cap, bulk_vertices_s=bulk_v_s,
          bulk_edges_s=bulk_e_s, load_csr_s=load_s, epoch=epoch,
@@ -2011,15 +2024,6 @@ def stored_phase(csr, args, emit) -> dict:
     if not np.allclose(counts, x, rtol=1e-4, atol=0) or abs(total - x.sum()) > 1e-4 * x.sum():
         raise RuntimeError(f"traverse(): 3-hop total {total} against {x.sum()}")
 
-    t0 = time.perf_counter()
-    warm.write_back(["rank"])
-    write_back_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    back = load_csr(g, property_keys=("rank",))
-    reload_s = time.perf_counter() - t0
-    got = back.properties["rank"]
-    if got.dtype != np.float64 or not np.array_equal(got, rank.astype(np.float64)):
-        raise RuntimeError("the reloaded ranks are not the written ones")
     torch.cuda.synchronize()
     emit("stored", vertices=n, edges=cap, source="bench.py:3704-3723",
          bulk_vertices_s=bulk_v_s, bulk_edges_s=bulk_e_s, load_csr_s=load_s,
@@ -2032,91 +2036,90 @@ def stored_phase(csr, args, emit) -> dict:
          components=int(ncomp), traverse_wall_s=trav_wall, traverse_kernel_runs=trav_runs,
          total_3hop=total, total_3hop_fp64=float(x.sum()),
          max_vertex_3hop=float(counts.max()), vertices_exact_3hop=int(exact.sum()),
-         write_back_s=write_back_s, reload_s=reload_s, plan_checks=plan_checks,
-         seconds=time.perf_counter() - phase_t0)
-    return {"graph": g, "loaded": loaded, "rank": rank, "walls": walls, "run_walls": run_walls,
+         plan_checks=plan_checks, seconds=time.perf_counter() - phase_t0)
+    return {"graph": g, "loaded": loaded, "rank": rank, "rank64": want,
+            "walls": walls, "run_walls": run_walls,
             "launches": submit_runs[0], "launches_warm": submit_runs[1],
-            "launches_traverse": trav_runs, "write_back_s": write_back_s,
+            "launches_traverse": trav_runs,
             "max_abs_err": max(c["max_abs_err"] for c in plan_checks.values())}
 
 
-def stored_local_phase(stored, csr, args, emit, remote=None) -> dict:
-    """The stored phase's graph in a persistent local directory
-    (storage.backend "local", storage.fsync on): the columnar bulk load and
-    close, a reopen (the WAL replay) and a cold submit through the
-    in-process scan, then a cold submit through 8 loader processes
-    (storage.distributed-load-workers), each against the stored phase's
-    CSR and ranks; then ``remote(directory, held, submit, walls)`` (the
-    remote phase: a storage server in its own process over the same
-    directory, while this graph stays open); a transaction of 1,000 edges
-    of a LOCK-consistency label against the same writes on a default label,
-    and the warm submit that reads them; compact(), the reopen from the
-    snapshot, drop_graph. Its ``seconds`` leave the remote phase out."""
-    import os
-    import shutil
-    import tempfile
-
-    import torch
-
-    from janusgraph_tpu_torch.core.bulk import bulk_add_edges, bulk_add_vertices
-    from janusgraph_tpu_torch.core.codecs import Consistency
-    from janusgraph_tpu_torch.core.graph import drop_graph, open_graph
-    from janusgraph_tpu_torch.observability import registry
-    from janusgraph_tpu_torch.olap import kernels
-    from janusgraph_tpu_torch.olap.programs import PageRankProgram
-
-    phase_t0 = time.perf_counter()
-    ref_csr, ref_rank = stored["loaded"], stored["rank"]
-    n = csr.num_vertices
-    cap = min(2_000_000, csr.num_edges)
-    src = np.repeat(np.arange(n), np.diff(csr.out_indptr))[:cap]
-    dst = np.asarray(csr.out_dst[:cap], dtype=np.int64)
-    want64 = pagerank_fp64(ref_csr, 20)
-    td = tempfile.mkdtemp(prefix="stored_local_")
-    directory = os.path.join(td, "graph")
-    cfg = {"storage.backend": "local", "storage.directory": directory}
-
-    def pagerank():
-        return PageRankProgram(max_iterations=20, tol=0.0)
+def _held_to(ref_csr, ref_rank, want64, label, rel=1e-6):
+    """A check of a submit's load and ranks against a reference load of the
+    same graph (``ref_csr``, ``ref_rank``) and float64 PageRank
+    (``want64``): the same vertex ids and edges (as sets); ranks bitwise
+    equal to the reference's where the CSR arrays are equal, else within
+    ``rel`` relative of them; within ``rel`` relative of float64 either
+    way."""
 
     def edge_key(c):
         s = np.repeat(np.arange(c.num_vertices, dtype=np.int64), np.diff(c.out_indptr))
         return np.sort(s * c.num_vertices + c.out_dst)
 
-    def held(res, label):
-        """The loaded CSR against the stored phase's (as sets of vertex ids
-        and edges), and the ranks: bitwise equal to the stored phase's
-        where the arrays are equal, else within 1e-6 relative of them;
-        within 1e-6 relative of float64 either way."""
+    ref_edges = edge_key(ref_csr)
+
+    def held(res, name=label):
         got = res.csr
         if not np.array_equal(got.vertex_ids, ref_csr.vertex_ids):
-            raise RuntimeError(f"{label}: the loaded vertex ids are not the stored phase's")
-        if not np.array_equal(edge_key(got), edge_key(ref_csr)):
-            raise RuntimeError(f"{label}: the loaded edges are not the stored phase's")
-        same = all(np.array_equal(getattr(got, f), getattr(ref_csr, f)) for f in
-                   ("out_indptr", "out_dst", "in_indptr", "in_src"))
+            raise RuntimeError(f"{name}: the loaded vertex ids are not the reference load's")
+        if not np.array_equal(edge_key(got), ref_edges):
+            raise RuntimeError(f"{name}: the loaded edges are not the reference load's")
+        differ = [f for f in ("out_indptr", "out_dst", "in_indptr", "in_src")
+                  if not np.array_equal(getattr(got, f), getattr(ref_csr, f))]
         rank = res.states["rank"]
         if not np.isfinite(rank).all():
-            raise RuntimeError(f"{label}: ranks are not finite")
+            raise RuntimeError(f"{name}: ranks are not finite")
         rel_ref = max_rel(rank, ref_rank)
         rel64 = float(np.max(np.abs(rank.astype(np.float64) - want64) / want64))
-        if rel64 > 1e-6:
-            raise RuntimeError(f"{label}: ranks rel {rel64} of float64")
-        if same:
+        if rel64 > rel:
+            raise RuntimeError(f"{name}: ranks rel {rel64} of float64")
+        if not differ:
             if not bits_equal(rank, ref_rank):
-                raise RuntimeError(f"{label}: equal CSR arrays, ranks not bitwise equal")
+                raise RuntimeError(f"{name}: equal CSR arrays, ranks not bitwise equal")
             held_by = "bitwise"
-        elif rel_ref > 1e-6:
-            raise RuntimeError(f"{label}: ranks rel {rel_ref} of the stored phase's")
+        elif rel_ref > rel:
+            raise RuntimeError(f"{name}: ranks rel {rel_ref} of the reference load's")
         else:
-            held_by = "rel 1e-6"
-        return {"csr_arrays_equal": same, "ranks_held": held_by,
-                "max_rel_vs_stored": rel_ref, "max_rel_vs_fp64": rel64}
+            held_by = f"rel {rel:g}"
+        return {"csr_arrays_equal": not differ, "csr_arrays_differ": differ,
+                "ranks_held": held_by, "max_rel_vs_reference": rel_ref,
+                "max_rel_vs_fp64": rel64}
+
+    return held
+
+
+def _check_written(loaded, vids, src, dst, label):
+    """Fails unless ``loaded`` is the graph written as vertices ``vids`` and
+    edges ``vids[src] -> vids[dst]``: vertex i of the loaded CSR is
+    vids[order[i]] (the scan sorts by vertex id), and its out-edges are the
+    written edges mapped through the same order, as a set."""
+    n = len(vids)
+    if loaded.num_vertices != n or loaded.num_edges != len(src):
+        raise RuntimeError(f"{label}: {loaded.num_vertices} v, {loaded.num_edges} e loaded, "
+                           f"{n} v, {len(src)} e written")
+    order = np.argsort(vids, kind="stable")
+    if not np.array_equal(loaded.vertex_ids, vids[order]):
+        raise RuntimeError(f"{label}: the vertex ids are not the written ones")
+    rank_of = np.empty(n, dtype=np.int64)
+    rank_of[order] = np.arange(n)
+    got_src = np.repeat(np.arange(n, dtype=np.int64), np.diff(loaded.out_indptr))
+    key = lambda a, b: np.sort(a.astype(np.int64) * n + b)  # noqa: E731
+    if not np.array_equal(key(got_src, loaded.out_dst), key(rank_of[src], rank_of[dst])):
+        raise RuntimeError(f"{label}: the edges are not the written ones")
+
+
+def _submit_counted(held):
+    """``submit(graph, label, path)``: a cold PageRank(20, tol=0) submit on
+    the card, 20 kernel runs, through the expected snapshot path, its load
+    and ranks checked by ``held``; (result, runs, record)."""
+    from janusgraph_tpu_torch.olap import kernels
+    from janusgraph_tpu_torch.olap.programs import PageRankProgram
 
     def submit(graph, label, path):
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        res, runs = counted(lambda: graph.compute().program(pagerank()).submit(), 20)
+        res, runs = counted(lambda: graph.compute().program(
+            PageRankProgram(max_iterations=20, tol=0.0)).submit(), 20)
         wall = time.perf_counter() - t0
         if res.run_info["snapshot"]["path"] != path:
             raise RuntimeError(f"{label}: submit() took {res.run_info['snapshot']}, expected {path}")
@@ -2127,42 +2130,90 @@ def stored_local_phase(stored, csr, args, emit, remote=None) -> dict:
         return res, runs, {"submit_wall_s": wall, "run_wall_s": res.run_info["run_wall_s"],
                            "kernel_runs": runs, **held(res, label)}
 
+    return submit
+
+
+def _write_local(directory, csr, scale_edges):
+    """Open a local directory (fsync on), bulk-load the draw's vertices and
+    first ``scale_edges`` out-edges (label "link") and close it; the
+    written vertex ids, the edges' source and target indexes into them,
+    and a record of the walls and the WAL's bytes."""
+    import os
+
+    from janusgraph_tpu_torch.core.bulk import bulk_add_edges, bulk_add_vertices
+    from janusgraph_tpu_torch.core.graph import open_graph
+
+    n = csr.num_vertices
+    src = np.repeat(np.arange(n), np.diff(csr.out_indptr))[:scale_edges]
+    dst = np.asarray(csr.out_dst[:scale_edges], dtype=np.int64)
+    g = open_graph({"storage.backend": "local", "storage.directory": directory})
+    t0 = time.perf_counter()
+    vids = bulk_add_vertices(g, n)
+    bulk_v_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bulk_add_edges(g, "link", vids[src], vids[dst])
+    bulk_e_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g.close()
+    close_s = time.perf_counter() - t0
+    return vids, src, dst, {"bulk_vertices_s": bulk_v_s, "bulk_edges_s": bulk_e_s,
+                            "close_s": close_s,
+                            "wal_bytes": os.path.getsize(os.path.join(directory, "store.wal"))}
+
+
+def stored_local_phase(stored, csr, args, emit, remote=None) -> dict:
+    """The stored phase's graph in a persistent local directory
+    (storage.backend "local", storage.fsync on): the columnar bulk load and
+    close (the WAL's bytes); a cold submit through 8 loader processes
+    (storage.distributed-load-workers; the graph's open replays the WAL)
+    held to the stored phase's CSR and ranks; then ``remote(directory,
+    held, submit)`` (the remote phase: a storage server in its own process
+    over this directory, its loads held the same way). The rest runs on a
+    2^LOCAL_SCALE-vertex directory of the same draw (the first out-edges
+    in source order at the stored size's edges per vertex), written the
+    same way: a reopen (the WAL replay) and a cold submit through the
+    in-process scan, its load the written graph and its ranks within 1e-6
+    relative of float64; a transaction of 1,000 edges of a LOCK-consistency
+    label against the same on a default label and the warm submit that
+    reads both; compact(), the reopen from the snapshot, drop_graph. Its
+    ``seconds`` leave the remote phase out."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from janusgraph_tpu_torch.core.codecs import Consistency
+    from janusgraph_tpu_torch.core.graph import drop_graph, open_graph
+    from janusgraph_tpu_torch.observability import registry
+    from janusgraph_tpu_torch.olap import kernels, rmat_csr
+    from janusgraph_tpu_torch.olap.programs import PageRankProgram
+
+    phase_t0 = time.perf_counter()
+    n = csr.num_vertices
+    cap = min(2_000_000, csr.num_edges)
+    td = tempfile.mkdtemp(prefix="stored_local_")
+    directory = os.path.join(td, "graph")
+    small_dir = os.path.join(td, "small")
+    cfg = {"storage.backend": "local", "storage.directory": small_dir}
+
+    def pagerank():
+        return PageRankProgram(max_iterations=20, tol=0.0)
+
     try:
-        # (1) load and persist
-        g = open_graph(cfg)
-        t0 = time.perf_counter()
-        vids = bulk_add_vertices(g, n)
-        bulk_v_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        bulk_add_edges(g, "link", vids[src], vids[dst])
-        bulk_e_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        g.close()
-        close_s = time.perf_counter() - t0
-        wal_path = os.path.join(directory, "store.wal")
-        wal_bytes = os.path.getsize(wal_path)
-
-        # (2) reopen (the WAL replay), a cold submit through the scan
-        t0 = time.perf_counter()
-        g = open_graph(cfg)
-        replay_s = time.perf_counter() - t0
-        cells = {name: len(st.mem.data) for name, st in g.backend.manager.kv_manager._stores.items()}
-        res1, runs1, w1 = submit(g, "workers=1", "cold")
-        rank1 = res1.states["rank"]
-        del res1
-
-        # (3) a distributed load through 8 loader processes (the card's
-        # machine has 8 cores); the reopened graph stays open (its WAL
-        # shared with the loaders, which append on open and close). Runs
-        # through 2 and 4 loaders, which took as long (each worker replays
-        # the whole store; PERF.md §5), were cut to fit the logs phase in
-        # the time limit
+        # (1) the stored size: load and persist; a cold submit through 8
+        # loader processes (the card's machine has 8 cores), each of which
+        # replays the store, held to the stored phase's load
+        _vids, _src, _dst, stored_load = _write_local(directory, csr, cap)
+        held = _held_to(stored["loaded"], stored["rank"], stored["rank64"], "stored")
+        submit = _submit_counted(held)
         per_w = {}
         for w in (8,):
             t0 = time.perf_counter()
-            gw = open_graph(dict(cfg, **{"storage.distributed-load-workers": w}))
+            gw = open_graph({"storage.backend": "local", "storage.directory": directory,
+                             "storage.distributed-load-workers": w})
             open_s = time.perf_counter() - t0
-            res, runs, rec = submit(gw, f"workers={w}", "distributed")
+            res, _runs, rec = submit(gw, f"workers={w}", "distributed")
             rec.update(open_s=open_s, load=registry.last_run("olap.distributed_load"))
             if rec["load"]["workers"] != w or rec["load"]["probed"]:
                 raise RuntimeError(f"workers={w}: the load ran {rec['load']}")
@@ -2170,13 +2221,37 @@ def stored_local_phase(stored, csr, args, emit, remote=None) -> dict:
             del res
             gw.close()
 
-        # the remote phase over this directory: the stored phase's graph
-        # and nothing else yet, so its loads are held to that phase's too
+        # (2) the remote phase over the same directory
         remote_out, remote_s = None, 0.0
         if remote is not None:
             t0 = time.perf_counter()
-            remote_out = remote(directory, held, submit, {"workers_1": w1, "workers": per_w})
+            remote_out = remote(directory, held, submit)
             remote_s = time.perf_counter() - t0
+        shutil.rmtree(directory, ignore_errors=True)
+
+        # (3) the 2^LOCAL_SCALE directory: reopen (the WAL replay), a cold
+        # submit through the in-process scan, its load the written graph
+        small = rmat_csr(LOCAL_SCALE, 16, seed=args.seed)
+        sn = small.num_vertices
+        scap = min(2_000_000 >> (20 - LOCAL_SCALE), small.num_edges)
+        vids, ssrc, sdst, small_load = _write_local(small_dir, small, scap)
+        del small
+        t0 = time.perf_counter()
+        g = open_graph(cfg)
+        replay_s = time.perf_counter() - t0
+
+        def held_written(res, label):
+            _check_written(res.csr, vids, ssrc, sdst, label)
+            rank = res.states["rank"]
+            want64 = pagerank_fp64(res.csr, 20)
+            rel64 = float(np.max(np.abs(rank.astype(np.float64) - want64) / want64))
+            if not np.isfinite(rank).all() or rel64 > 1e-6:
+                raise RuntimeError(f"{label}: ranks rel {rel64} of float64")
+            return {"load_held": "the written graph", "max_rel_vs_fp64": rel64}
+
+        res1, runs1, w1 = _submit_counted(held_written)(g, "workers=1", "cold")
+        rank1 = res1.states["rank"]
+        del res1
 
         # (4) a LOCK-consistency label against a default one, 1,000 edges a
         # transaction, then the warm submit that reads both
@@ -2187,8 +2262,8 @@ def stored_local_phase(stored, csr, args, emit, remote=None) -> dict:
         rng = np.random.default_rng(args.seed)
         commits = {}
         for label in ("locked_link", "plain_link"):
-            a = vids[rng.integers(0, n, 1000)]
-            b = vids[rng.integers(0, n, 1000)]
+            a = vids[rng.integers(0, sn, 1000)]
+            b = vids[rng.integers(0, sn, 1000)]
             tx = g.new_transaction()
             for x, y in zip(a.tolist(), b.tolist()):
                 tx.add_edge(tx.get_vertex(x), label, tx.get_vertex(y))
@@ -2206,7 +2281,9 @@ def stored_local_phase(stored, csr, args, emit, remote=None) -> dict:
         torch.cuda.synchronize()
         warm_wall = time.perf_counter() - t0
         warm_runs = kernels.device_launches("cuda") - before
-        if warm.run_info["snapshot"] != {"path": "fused", "overlay": 2000} or warm_runs < 20:
+        # (on a graph this small the overlay may compact after the run)
+        warm_path = {k: warm.run_info["snapshot"].get(k) for k in ("path", "overlay")}
+        if warm_path != {"path": "fused", "overlay": 2000} or warm_runs < 20:
             raise RuntimeError(f"the warm submit after the commits: {warm.run_info['snapshot']}, "
                                f"{warm_runs} kernel runs")
         wrank = warm.states["rank"]
@@ -2222,7 +2299,7 @@ def stored_local_phase(stored, csr, args, emit, remote=None) -> dict:
         t0 = time.perf_counter()
         kv.compact()
         compact_s = time.perf_counter() - t0
-        snapshot_bytes = os.path.getsize(os.path.join(directory, "store.snapshot"))
+        snapshot_bytes = os.path.getsize(os.path.join(small_dir, "store.snapshot"))
         g.close()
         t0 = time.perf_counter()
         g = open_graph(cfg)
@@ -2231,20 +2308,23 @@ def stored_local_phase(stored, csr, args, emit, remote=None) -> dict:
         if {k: v for k, v in again.items() if v} != {k: v for k, v in cells.items() if v}:
             raise RuntimeError(f"the reopen from the snapshot holds {again}, not {cells}")
         drop_graph(g)
-        left = sorted(f for f in os.listdir(directory) if f.startswith("store."))
+        left = sorted(f for f in os.listdir(small_dir) if f.startswith("store."))
         if left:
             raise RuntimeError(f"drop_graph left {left}")
     finally:
         shutil.rmtree(td, ignore_errors=True)
 
-    emit("stored_local", vertices=n, edges=cap, fsync=True,
-         bulk_vertices_s=bulk_v_s, bulk_edges_s=bulk_e_s, close_s=close_s,
-         wal_bytes=wal_bytes, replay_s=replay_s, cells=cells,
-         workers_1=w1, workers=per_w,
-         locked_commit_s=commits["locked_link"], plain_commit_s=commits["plain_link"],
-         warm_after_commits_wall_s=warm_wall, warm_after_commits_kernel_runs=warm_runs,
-         compact_s=compact_s, snapshot_bytes=snapshot_bytes,
-         snapshot_reopen_s=snapshot_reopen_s,
+    emit("stored_local", vertices=n, edges=cap, fsync=True, **stored_load, workers=per_w,
+         small={"vertices": sn, "edges": scap, **small_load, "replay_s": replay_s,
+                "cells": cells, "workers_1": w1,
+                "locked_commit_s": commits["locked_link"],
+                "plain_commit_s": commits["plain_link"],
+                "warm_after_commits_wall_s": warm_wall,
+                "warm_after_commits_kernel_runs": warm_runs, "compact_s": compact_s,
+                "snapshot_bytes": snapshot_bytes, "snapshot_reopen_s": snapshot_reopen_s},
+         cut=f"the directory's in-process reopen and submit, LOCK commits, compact(), "
+             f"snapshot reopen and drop on a 2^{LOCAL_SCALE}-vertex directory (the smoke's "
+             "time limit; the 8-loader submit and the remote phase keep the stored size)",
          seconds=time.perf_counter() - phase_t0 - remote_s)
     return {"launches": runs1, "launches_by_workers": {w: r["kernel_runs"] for w, r in per_w.items()},
             "launches_locked_warm": warm_runs, "remote": remote_out}
@@ -2301,13 +2381,54 @@ def stop_storage_server(proc) -> dict:
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.wait(30)
-        raise RuntimeError("the storage server outlived SIGTERM")
+        raise RuntimeError("the server outlived SIGTERM")
     if early is not None:
-        raise RuntimeError(f"the storage server exited early with {early}")
+        raise RuntimeError(f"the server exited early with {early}")
     return {"exit": proc.returncode}
 
 
-def remote_phase(directory, held, submit, local_walls, args, emit) -> dict:
+#: a remote index server over memindex in its own process: it prints its
+#: address and whether torch was imported, then serves until terminated
+INDEX_SERVER = (
+    "import sys, time\n"
+    "from janusgraph_tpu_torch.indexing import InMemoryIndexProvider, RemoteIndexServer\n"
+    "srv = RemoteIndexServer(InMemoryIndexProvider()).start()\n"
+    "print('index server listening on %s:%d torch=%s' % (*srv.address, 'torch' in sys.modules),"
+    " flush=True)\n"
+    "while True:\n"
+    "    time.sleep(3600)\n"
+)
+
+
+def start_index_server():
+    """INDEX_SERVER in its own process (no CUDA context); returns (the
+    process, host, port, seconds to its address line, whether it imported
+    torch). Fails, with the process killed, if the line does not come
+    within SERVER_START_S."""
+    import os
+    import re
+    import threading
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", INDEX_SERVER], stdout=subprocess.PIPE,
+                            text=True, cwd=root, env=env)
+    line = []
+    reader = threading.Thread(target=lambda: line.append(proc.stdout.readline()), daemon=True)
+    reader.start()
+    reader.join(SERVER_START_S)
+    m = re.search(r"listening on ([\d.]+):(\d+) torch=(\w+)", line[0]) if line else None
+    if m is None:
+        proc.kill()
+        proc.wait(30)
+        raise RuntimeError(f"the index server printed no address within {SERVER_START_S} s "
+                           f"(exit {proc.returncode}): {line}")
+    return proc, m.group(1), int(m.group(2)), time.perf_counter() - t0, m.group(3) == "True"
+
+
+def remote_phase(directory, held, submit, args, emit) -> dict:
     """The remote store at the stored size, over the directory the
     stored_local phase wrote (the stored phase's graph): a storage server
     in its own process, then through storage.backend "remote" a cold
@@ -2476,9 +2597,6 @@ def remote_phase(directory, held, submit, local_walls, args, emit) -> dict:
     seconds = time.perf_counter() - phase_t0
     emit("remote", vertices=int(base.num_vertices), edges=int(base.num_edges),
          server_open_s=server_open_s, server=stopped, workers_1=w1, workers=w8,
-         local_workers_1_submit_wall_s=local_walls["workers_1"]["submit_wall_s"],
-         local_workers_8_submit_wall_s=local_walls["workers"][8]["submit_wall_s"],
-         local_workers_8_load=local_walls["workers"][8]["load"],
          commit_1000_edges_s=commit_s, warm_fused_wall_s=warm_wall,
          warm_fused_kernel_runs=warm_runs, fresh_scan_s=fresh_scan_s,
          max_rel_warm_vs_fresh=rel_fresh,
@@ -2488,6 +2606,205 @@ def remote_phase(directory, held, submit, local_walls, args, emit) -> dict:
         raise RuntimeError(f"the remote phase took {seconds:.1f} s, past its {REMOTE_BUDGET_S} s")
     return {"launches": runs1, "launches_w8": runs8, "launches_warm": warm_runs,
             "max_abs_err": in_err}
+
+
+#: the sharded phase's deployment: three storage nodes, the fault injector
+#: on with 1% read and write faults and one superstep preemption, and
+#: checkpoints every 2 supersteps for the executor's auto-resume (no scan
+#: kill: over an unordered store the scan has no retry, in both packages)
+SHARDED_NODES = 3
+SHARDED_FAULTS = {
+    "storage.faults.enabled": True,
+    "storage.faults.read-error-rate": 0.01,
+    "storage.faults.write-error-rate": 0.01,
+    "storage.faults.preempt-superstep": 3,
+    "computer.checkpoint-every": 2,
+    "storage.backoff-base-ms": 1.0,
+    "storage.backoff-max-ms": 4.0,
+}
+#: the node outage of the sharded phase's reads: node 1 is healed this long
+#: after it failed, while the retry guard replays the read
+SHARDED_OUTAGE_S = 0.25
+
+
+def sharded_phase(stored, csr, args, emit) -> dict:
+    """The sharded store at the stored size under seeded faults: the
+    stored phase's draw (its vertices and first 2,000,000 "link" out-edges)
+    bulk-loaded into storage.backend "sharded" (SHARDED_NODES in-memory
+    nodes) with the fault injector on (SHARDED_FAULTS, seeded with
+    --seed); a cold graph.compute().program(PageRank(20, tol=0)).submit()
+    on the card, whose unordered scan loads the CSR and whose run the
+    plan preempts once at a checkpoint boundary and the executor resumes
+    once; its ranks bitwise equal to a fault-free run_on over the submit's
+    own CSR, and held to the stored phase's (bitwise where the CSR arrays
+    are equal, else within RANK_REL of its ranks and of float64); the
+    kernel's device
+    count; the kernel against its plain version on this in-plan, timed with
+    the L2 flushed; a batch of rows read while node 1 is down (healed
+    SHARDED_OUTAGE_S later, the retry guard replaying the read) and again
+    after, equal; the journal's counts by kind."""
+    import collections
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from janusgraph_tpu_torch.core.bulk import bulk_add_edges, bulk_add_vertices
+    from janusgraph_tpu_torch.core.graph import open_graph
+    from janusgraph_tpu_torch.exceptions import TemporaryBackendError
+    from janusgraph_tpu_torch.observability import registry
+    from janusgraph_tpu_torch.olap import GPUExecutor, kernels, run_on
+    from janusgraph_tpu_torch.olap.programs import PageRankProgram
+    from janusgraph_tpu_torch.storage.kcvs import SliceQuery
+    from janusgraph_tpu_torch.storage.sharded_store import _shard_of
+
+    phase_t0 = time.perf_counter()
+    n = csr.num_vertices
+    cap = min(2_000_000, csr.num_edges)
+    src = np.repeat(np.arange(n), np.diff(csr.out_indptr))[:cap]
+    dst = np.asarray(csr.out_dst[:cap], dtype=np.int64)
+    td = tempfile.mkdtemp(prefix="sharded_")
+    cfg = {"storage.backend": "sharded", "storage.sharded-nodes": SHARDED_NODES,
+           "storage.faults.seed": args.seed,
+           "computer.checkpoint-path": os.path.join(td, "pagerank.npz"), **SHARDED_FAULTS}
+
+    def pagerank():
+        return PageRankProgram(max_iterations=20, tol=0.0)
+
+    def retries():
+        return registry.snapshot().get("storage.backend_op.retries", {}).get("count", 0)
+
+    g = None
+    try:
+        # (1)-(2) open over three nodes, the faults on; the columnar bulk load
+        t0 = time.perf_counter()
+        g = open_graph(cfg)
+        open_s = time.perf_counter() - t0
+        plan, mgr = g.fault_plan, g.backend.manager.wrapped
+        if type(mgr).__name__ != "ShardedStoreManager" or len(mgr.nodes) != SHARDED_NODES:
+            raise RuntimeError(f"the graph opened {g.backend.manager.name}")
+        retries0 = retries()
+        t0 = time.perf_counter()
+        vids = bulk_add_vertices(g, n)
+        bulk_v_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bulk_add_edges(g, "link", vids[src], vids[dst])
+        bulk_e_s = time.perf_counter() - t0
+        load_retries = retries() - retries0
+        node_rows = [m.open_database("edgestore").row_count() for m in mgr.nodes]
+
+        # (3) the cold submit: the unordered scan, the run preempted at a
+        # checkpoint boundary and resumed from it
+        kernels.reset_launch_counts()
+        before = kernels.device_launches("cuda")
+        t0 = time.perf_counter()
+        res = g.compute().program(pagerank()).submit()
+        torch.cuda.synchronize()
+        submit_wall = time.perf_counter() - t0
+        runs = kernels.device_launches("cuda") - before
+        info = res.run_info
+        resumed = info.get("resume_steps", [])
+        if (info["snapshot"]["path"] != "cold" or info["routing"]["device"] != "cuda"
+                or info["supersteps"] != 20 or info.get("resumes") != 1 or len(resumed) != 1):
+            raise RuntimeError(f"the faulted submit: {info['snapshot']}, "
+                               f"{info.get('resumes')} resumes, {info['supersteps']} supersteps")
+        supersteps = [e for e in plan.journal if e["kind"] == "superstep"]
+        if len(supersteps) != 1 or supersteps[0]["step"] != resumed[0]["preempted_at"]:
+            raise RuntimeError(f"the preemptions journaled: {supersteps}, resumed {resumed}")
+        # (6) the device count: 20 supersteps, plus any the resume recomputed
+        recomputed = resumed[0]["preempted_at"] - resumed[0]["from_step"]
+        if runs != 20 + recomputed or kernels.launch_counts()["sorted_segment_sum"] < 1:
+            raise RuntimeError(f"the faulted submit ran the kernel {runs} times "
+                               f"({recomputed} supersteps recomputed)")
+        rank = res.states["rank"]
+        loaded = res.csr
+
+        # (4) a fault-free run over the same snapshot: bitwise
+        clean = run_on(loaded, pagerank())["rank"]
+        if not np.isfinite(rank).all() or not bits_equal(rank, clean):
+            raise RuntimeError("the resumed submit's ranks differ from a fault-free run_on")
+
+        # (5) against the stored phase: the same vertices and edges; the
+        # unordered scan orders a row's in-edges by node, so the arrays may
+        # differ, and then the ranks are held within RANK_REL of that
+        # phase's and of float64, as that phase holds its own
+        vs_stored = _held_to(stored["loaded"], stored["rank"], stored["rank64"], "sharded",
+                             rel=RANK_REL)(res)
+
+        # (7) the kernel against its plain version on this in-plan
+        ex = GPUExecutor(loaded, strategy="segsum")
+        in_plan = ex._segsum_plan("in")
+        outdeg = torch.as_tensor(loaded.out_degree, device="cuda").clamp_min(1).float()
+        msg = torch.as_tensor(rank, device="cuda") / outdeg
+        data = torch.index_select(msg, 0, torch.as_tensor(loaded.in_src.astype(np.int64),
+                                                          device="cuda"))
+        _p, _g, in_err = check_plan("sharded_in", in_plan, data, kernels)
+        nbytes = in_plan.function_bytes()
+        plan_check = {
+            "edges": in_plan.num_edges, "num_ctas": in_plan.num_ctas, "max_abs_err": in_err,
+            "kernel_ms": flushed_ms(lambda: kernels.sorted_segment_sum(data, in_plan), iters=10),
+            "plain_ms": flushed_ms(lambda: kernels.sorted_segment_sum_plain(data, in_plan),
+                                   iters=5),
+            "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
+        del ex, msg, data, res, clean
+        torch.cuda.synchronize()
+
+        # (8) rows read while node 1 is down and again after it heals: the
+        # retry guard replays the read through the outage
+        rng = np.random.default_rng(args.seed + 17)
+        keys = [g.idm.get_key(int(v)) for v in loaded.vertex_ids[rng.choice(n, 2000, replace=False)]]
+        on_node1 = sum(1 for k in keys if _shard_of(k, SHARDED_NODES) == 1)
+        row_q = SliceQuery(bytes([0]), bytes([4]))
+        store = g.backend.manager.open_database("edgestore")
+        tx = g.backend.manager.begin_transaction()
+        mgr.fail_node(1)
+        try:
+            mgr.open_database("edgestore").get_slice_multi(keys, row_q, tx)
+            raise RuntimeError("a read of node 1's rows passed while it was down")
+        except TemporaryBackendError as e:
+            if "node 1 unavailable" not in str(e):
+                raise
+        healer = threading.Timer(SHARDED_OUTAGE_S, mgr.heal_node, args=(1,))
+        r0 = retries()
+        t0 = time.perf_counter()
+        healer.start()
+        try:
+            during = g.backend.guard(lambda: store.get_slice_multi(keys, row_q, tx))
+        finally:
+            healer.join()
+            mgr.heal_node(1)
+        outage_read_s = time.perf_counter() - t0
+        outage_retries = retries() - r0
+        r0 = retries()
+        t0 = time.perf_counter()
+        after = g.backend.guard(lambda: store.get_slice_multi(keys, row_q, tx))
+        healed_read_s = time.perf_counter() - t0
+        healed_retries = retries() - r0
+        if during != after or len(after) != len(keys) or not all(after.values()):
+            raise RuntimeError("the rows read through the outage differ from those after it")
+        if outage_retries < 1:
+            raise RuntimeError("the read through the outage was not retried")
+        journal = dict(collections.Counter(e["kind"] for e in plan.journal))
+        counters = plan.counters()
+    finally:
+        if g is not None and g._open:
+            g.close()
+        shutil.rmtree(td, ignore_errors=True)
+    emit("sharded", vertices=n, edges=cap, nodes=SHARDED_NODES, node_rows=node_rows,
+         faults={k: v for k, v in cfg.items() if k.startswith("storage.faults")},
+         open_s=open_s, bulk_vertices_s=bulk_v_s, bulk_edges_s=bulk_e_s,
+         load_retries=load_retries, submit_wall_s=submit_wall,
+         run_wall_s=info["run_wall_s"], resume_steps=resumed, kernel_runs=runs,
+         supersteps_recomputed=recomputed, vs_stored=vs_stored, plan_check=plan_check,
+         node_outage={"node": 1, "heal_after_s": SHARDED_OUTAGE_S, "keys": len(keys),
+                      "keys_on_node": on_node1, "read_s": outage_read_s,
+                      "guard_retries": outage_retries, "healed_read_s": healed_read_s,
+                      "healed_retries": healed_retries},
+         journal_by_kind=journal, plan_counters=counters,
+         seconds=time.perf_counter() - phase_t0)
+    return {"launches": runs, "max_abs_err": in_err, "plan_check": plan_check}
 
 
 def stored_delta_phase(stored, args, emit) -> dict:
@@ -2517,8 +2834,8 @@ def stored_delta_phase(stored, args, emit) -> dict:
     cap = g.change_capture
     if snap is None or snap.csr is None:
         raise RuntimeError("the stored phase left no warm snapshot")
-    # the writes since the cold scan were property cells only (write_back),
-    # so ``base`` is still the structure at this epoch
+    # nothing was written to this graph since the cold scan (the stored
+    # phase only reads after it), so ``base`` is the structure at this epoch
     cold_epoch, refresh_epoch = snap.epoch, g.backend.mutation_epoch()
     vids = base.vertex_ids
     n = base.num_vertices
@@ -3216,17 +3533,21 @@ def indexed_phase(stored, args, emit) -> dict:
     transaction of 1,000 timed edges, the warm submit through the change
     capture and a cold submit through a fresh scan, each over the written
     edges and not the index's copies, then the relation index's reindex
-    and a sort-range read from the vertex with the most timed edges; (2) a
-    mixed index over every vertex's rank (memindex), built through the
-    scan framework, a range query that plans "mixed-index" and finds the
-    snapshot's top 1,000, a write_back of the indexed rank through the
-    transactional path, which the index follows, beside the columnar one,
-    then the mixed index's reindex. Step (2) runs on a 2^17-vertex graph
-    of the same R-MAT draw (``WRITE_BACK_SCALE``): at the stored size the
-    build takes 77-85 s, the write-back ~250 s and the reindex 65-77 s of
-    host time on the H100's machine (PERF.md §5-6), which with the phases
-    before would pass the smoke's time limit (the build moved there to
-    make room for the remote phase)."""
+    and a sort-range read from the vertex with the most timed edges; (2)
+    the ranks written back columnar and reloaded bit for bit, a mixed index
+    over every vertex's rank on a RemoteIndexServer over memindex in its
+    own process (index.search.backend "remote"; the server must not import
+    torch), built through the scan framework over the wire, a range query
+    that plans "mixed-index" and finds the snapshot's top 1,000, a
+    write_back of the indexed rank through the transactional path, which
+    the index follows, then the mixed index's reindex. Step (2) runs on a
+    2^17-vertex graph of the same R-MAT draw (``WRITE_BACK_SCALE``): at the
+    stored size the build takes 77-85 s, the write-back ~250 s and the
+    reindex 65-77 s of host time on the H100's machine (PERF.md §5-6),
+    which with the phases before would pass the smoke's time limit (the
+    build moved there for the remote phase, the columnar write-back and
+    reload and the remote index in place of the in-process one for the
+    sharded phase)."""
     import torch
 
     from janusgraph_tpu_torch.core.bulk import bulk_add_edges, bulk_add_vertices
@@ -3236,6 +3557,7 @@ def indexed_phase(stored, args, emit) -> dict:
     from janusgraph_tpu_torch.olap import GPUExecutor, kernels, rmat_csr, run_on
     from janusgraph_tpu_torch.olap import computer as computer_mod
     from janusgraph_tpu_torch.olap import delta as D
+    from janusgraph_tpu_torch.olap.csr import load_csr
     from janusgraph_tpu_torch.olap.programs import PageRankProgram
 
     phase_t0 = time.perf_counter()
@@ -3378,76 +3700,98 @@ def indexed_phase(stored, args, emit) -> dict:
          hub_timed_edges=len(times), range_hits=len(ranged), sort_range_s=range_s,
          has_between_s=has_s, seconds=time.perf_counter() - phase_t0)
 
-    # -- (2) the mixed index and the indexed write-back on the 2^17-vertex
-    # graph, loaded as the stored phase loads its own: the first out-edges
-    # in source order at the stored size's edges per vertex, label "link"
+    # -- (2) the mixed index and the write-backs on the 2^17-vertex graph,
+    # loaded as the stored phase loads its own: the first out-edges in
+    # source order at the stored size's edges per vertex, label "link";
+    # the index lives on a RemoteIndexServer over memindex in its own
+    # process (index.search.backend "remote")
     g.close()
     small = rmat_csr(WRITE_BACK_SCALE, 16, seed=args.seed)
     sn = small.num_vertices
     scap = min(2_000_000 >> (20 - WRITE_BACK_SCALE), small.num_edges)
     ssrc = np.repeat(np.arange(sn), np.diff(small.out_indptr))[:scap]
-    gw = open_graph(cfg)
-    svids = bulk_add_vertices(gw, sn)
-    bulk_add_edges(gw, "link", svids[ssrc], svids[np.asarray(small.out_dst[:scap])])
-    del small, ssrc
-    first, first_runs = counted(lambda: gw.compute().program(pagerank()).submit(), 20)
-    t0 = time.perf_counter()
-    first.write_back(["rank"])  # the key has no index yet: the columnar path
-    columnar_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    gw.management().build_mixed_index("rankIdx", ["rank"])  # backfills through the repair job
-    small_build_s = time.perf_counter() - t0
-    if gw.indexes["rankIdx"].status != "ENABLED":
-        raise RuntimeError(f"rankIdx is {gw.indexes['rankIdx'].status}")
-    t1, want1 = top_query(first.csr.vertex_ids, first.states["rank"].astype(np.float64))
-    got1, index_wall, plan1 = rank_query(P.gte(t1), gw)
-    if plan1.get("access") != "mixed-index" or plan1.get("index") != "rankIdx":
-        raise RuntimeError(f"the range query planned {plan1}")
-    if got1 != want1:
-        raise RuntimeError(f"rank >= t: the index found {len(got1)}, the snapshot {len(want1)}")
-    emit("indexed_mixed", vertices=sn, ranks=sn, build_s=small_build_s, hits=len(got1),
-         index_query_s=index_wall, plan=plan1, seconds=time.perf_counter() - phase_t0)
-    # new ranks to write: PageRank at damping 0.5 over the same snapshot
-    second, second_runs = counted(lambda: gw.compute().program(
-        PageRankProgram(damping=0.5, max_iterations=20, tol=0.0)).submit(), 20)
-    tx_calls, columnar_calls = [], []
-    wb_tx, wb_col = computer_mod._write_back_tx, computer_mod._write_back_columnar
-    computer_mod._write_back_tx = lambda *a, **k: (tx_calls.append(1), wb_tx(*a, **k))[1]
-    computer_mod._write_back_columnar = lambda *a, **k: (columnar_calls.append(1),
-                                                         wb_col(*a, **k))[1]
+    proc, host, port, index_open_s, index_torch = start_index_server()
     try:
+        if index_torch:
+            raise RuntimeError("the remote index server imported torch")
+        gw = open_graph(dict(cfg, **{"index.search.backend": "remote",
+                                      "index.search.hostname": host,
+                                      "index.search.port": port}))
+        svids = bulk_add_vertices(gw, sn)
+        bulk_add_edges(gw, "link", svids[ssrc], svids[np.asarray(small.out_dst[:scap])])
+        del small, ssrc
+        first, first_runs = counted(lambda: gw.compute().program(pagerank()).submit(), 20)
         t0 = time.perf_counter()
-        second.write_back(["rank"])
-        write_back_s = time.perf_counter() - t0
+        first.write_back(["rank"])  # the key has no index yet: the columnar path
+        columnar_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = load_csr(gw, property_keys=("rank",))
+        reload_s = time.perf_counter() - t0
+        got = back.properties["rank"]
+        if got.dtype != np.float64 or not np.array_equal(
+                got, first.states["rank"].astype(np.float64)):
+            raise RuntimeError("the reloaded ranks are not the written ones")
+        del back, got
+        t0 = time.perf_counter()
+        gw.management().build_mixed_index("rankIdx", ["rank"])  # backfills over the wire
+        small_build_s = time.perf_counter() - t0
+        if gw.indexes["rankIdx"].status != "ENABLED":
+            raise RuntimeError(f"rankIdx is {gw.indexes['rankIdx'].status}")
+        t1, want1 = top_query(first.csr.vertex_ids, first.states["rank"].astype(np.float64))
+        got1, index_wall, plan1 = rank_query(P.gte(t1), gw)
+        if plan1.get("access") != "mixed-index" or plan1.get("index") != "rankIdx":
+            raise RuntimeError(f"the range query planned {plan1}")
+        if got1 != want1:
+            raise RuntimeError(f"rank >= t: the index found {len(got1)}, the snapshot "
+                               f"{len(want1)}")
+        emit("indexed_mixed", vertices=sn, ranks=sn, backend="remote",
+             server_open_s=index_open_s, server_imported_torch=index_torch,
+             build_s=small_build_s, hits=len(got1), index_query_s=index_wall, plan=plan1,
+             seconds=time.perf_counter() - phase_t0)
+        # new ranks to write: PageRank at damping 0.5 over the same snapshot
+        second, second_runs = counted(lambda: gw.compute().program(
+            PageRankProgram(damping=0.5, max_iterations=20, tol=0.0)).submit(), 20)
+        tx_calls, columnar_calls = [], []
+        wb_tx, wb_col = computer_mod._write_back_tx, computer_mod._write_back_columnar
+        computer_mod._write_back_tx = lambda *a, **k: (tx_calls.append(1), wb_tx(*a, **k))[1]
+        computer_mod._write_back_columnar = lambda *a, **k: (columnar_calls.append(1),
+                                                             wb_col(*a, **k))[1]
+        try:
+            t0 = time.perf_counter()
+            second.write_back(["rank"])
+            write_back_s = time.perf_counter() - t0
+        finally:
+            computer_mod._write_back_tx, computer_mod._write_back_columnar = wb_tx, wb_col
+        if tx_calls != [1] or columnar_calls:
+            raise RuntimeError(f"write_back of the indexed key: {len(tx_calls)} transactional, "
+                               f"{len(columnar_calls)} columnar")
+        # the mixed index's reindex through the scan framework, on this
+        # graph: at the stored size it repeats the build's full scan
+        # (64.9-77.4 s)
+        t0 = time.perf_counter()
+        reindexed = gw.management().reindex("rankIdx")
+        reindex_s = time.perf_counter() - t0
+        if reindexed < sn:
+            raise RuntimeError(f"reindex processed {reindexed} rows for {sn} ranks")
+        t2, want2 = top_query(second.csr.vertex_ids, second.states["rank"].astype(np.float64))
+        got2, index_wall2, plan2 = rank_query(P.gte(t2), gw)
+        if got2 != want2 or plan2.get("access") != "mixed-index":
+            raise RuntimeError(f"after write_back the index found {len(got2)} of the top "
+                               f"{len(want2)} ({plan2})")
+        gw.close()
     finally:
-        computer_mod._write_back_tx, computer_mod._write_back_columnar = wb_tx, wb_col
-    if tx_calls != [1] or columnar_calls:
-        raise RuntimeError(f"write_back of the indexed key: {len(tx_calls)} transactional, "
-                           f"{len(columnar_calls)} columnar")
-    # the mixed index's reindex through the scan framework, on this graph:
-    # at the stored size it repeats the build's full scan (64.9-77.4 s)
-    t0 = time.perf_counter()
-    reindexed = gw.management().reindex("rankIdx")
-    reindex_s = time.perf_counter() - t0
-    if reindexed < sn:
-        raise RuntimeError(f"reindex processed {reindexed} rows for {sn} ranks")
-    t2, want2 = top_query(second.csr.vertex_ids, second.states["rank"].astype(np.float64))
-    got2, index_wall2, plan2 = rank_query(P.gte(t2), gw)
-    if got2 != want2 or plan2.get("access") != "mixed-index":
-        raise RuntimeError(f"after write_back the index found {len(got2)} of the top "
-                           f"{len(want2)} ({plan2})")
-    gw.close()
+        server = stop_storage_server(proc)
     emit("indexed", vertices=n, edges=m + 1000, mixed_build_s=small_build_s,
-         index_query_s=index_wall, relindex_reindex_s=relindex_s,
+         index_query_s=index_wall, relindex_reindex_s=relindex_s, index_server=server,
          write_back={"vertices": sn, "edges": scap, "indexed_s": write_back_s,
-                     "columnar_s": columnar_s, "build_s": small_build_s,
-                     "reindex_s": reindex_s, "reindex_rows": reindexed,
-                     "kernel_runs": [first_runs, second_runs],
+                     "columnar_s": columnar_s, "reload_s": reload_s,
+                     "build_s": small_build_s, "reindex_s": reindex_s,
+                     "reindex_rows": reindexed, "kernel_runs": [first_runs, second_runs],
                      "index_query_after_s": index_wall2, "hits_after": len(got2)},
-         write_back_columnar_stored_s=stored["write_back_s"],
-         cut=f"the mixed index's build, range query and reindex and the write_back on a "
-             f"2^{WRITE_BACK_SCALE}-vertex graph of the same R-MAT draw, the row walk gone "
-             "(the smoke's time limit)",
+         cut=f"the mixed index (on a remote index server), its build, range query and "
+             f"reindex, and the columnar and indexed write-backs with the reload, on a "
+             f"2^{WRITE_BACK_SCALE}-vertex graph of the same R-MAT draw (the smoke's time "
+             "limit)",
          seconds=time.perf_counter() - phase_t0)
     return {"launches": warm_runs, "launches_cold": cold_runs, "launches_snapshot": base_runs,
             "max_abs_err": in_err}
@@ -4216,6 +4560,8 @@ def main() -> int:
         remote=lambda *a: remote_phase(*a, args=args, emit=emit))
     remote = stored_local["remote"]
     kernels.reset_launch_counts()
+    sharded = sharded_phase(stored, csr, args, emit)
+    kernels.reset_launch_counts()
     stored_delta = stored_delta_phase(stored, args, emit)
     kernels.reset_launch_counts()
     oltp = oltp_phase(stored, args, emit)
@@ -4267,6 +4613,11 @@ def main() -> int:
         "launches_remote_w8": remote["launches_w8"],
         "launches_remote_warm": remote["launches_warm"],
         "max_abs_err_remote": remote["max_abs_err"],
+        # over the sharded store (three nodes) with the fault injector on:
+        # the cold submit, preempted once and resumed from its checkpoint
+        # (20 supersteps plus any the resume recomputed)
+        "launches_sharded": sharded["launches"],
+        "max_abs_err_sharded": sharded["max_abs_err"],
         # after an OLTP transaction, PageRank through submit() on the
         # "fused" path (base, adds and tombstones each superstep), and
         # after a bulk burst on the "refresh" path (the compacted base)

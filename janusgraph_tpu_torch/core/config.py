@@ -30,11 +30,20 @@ The remote store's options are the reference's: ``storage.hostname``,
 (``ids.placement``, ``ids.placement-key``) and conflict avoidance
 (``ids.authority.conflict-avoidance-*``).
 
+The sharded store's node count (``storage.sharded-nodes``), the remote
+index provider's (``index.search.hostname``, ``-port``, ``-pool-size``,
+``-retry-time-ms``, ``-pipeline``) and the chaos engine's
+``storage.faults.*`` (``enabled``, ``seed``, the read and write error
+rates, latency and overload, ``torn-mutation-at``, ``lock-expiry-at``,
+``scan-kill-at``/``-after-rows``, ``preempt-superstep``, ``cdc-torn-at``,
+``stores``) are the reference's.
+
 Every other option of the reference raises ``ConfigurationError`` naming
-the ROADMAP item that brings it, as do ``computer.executor`` =
-"sharded", ``storage.backend`` = "sharded" with ``storage.sharded-nodes``
-and ``storage.faults.*``, and ``index.search.backend`` = "remote" with the
-remote index provider's options (#5.5b). Nothing is ignored.
+the ROADMAP item that brings it, as do ``computer.executor`` = "sharded"
+(#4) and the fault kinds whose consumers are not ported:
+``storage.faults.shard-*`` (the sharded executor, #4), ``replica-*``,
+``follower-lag-*``, ``stall-lock-*`` and ``wedge-thread-at`` (the fleet,
+the CDC follower and the stall watchdog, #5.6). Nothing is ignored.
 
 The durable logs' options (``log.*``, ``tx.log-tx``,
 ``tx.max-commit-time-ms``, ``tx.recover-on-open``, ``storage.cdc.*``,
@@ -116,15 +125,11 @@ def _option(path, datatype, description, default,
 
 _ROADMAP_MULTI = "ROADMAP.md Queue A #4 (multi-GPU)"
 _ROADMAP_HOST = "ROADMAP.md Queue A #5 (the host system beyond OLAP)"
-_ROADMAP_SHARDED = (
-    "ROADMAP.md Queue A #5.5b (faults, the sharded store and the remote index)"
-)
+_ROADMAP_SERVER = "ROADMAP.md Queue A #5.6 (the server, the driver and the tools)"
 
 #: honoured options whose value the port refuses: path -> (refuses, item)
 _REFUSED_VALUES: Dict[str, tuple] = {
-    "storage.backend": (lambda v: v == "sharded", _ROADMAP_SHARDED),
     "computer.executor": (lambda v: v == "sharded", _ROADMAP_MULTI),
-    "index.search.backend": (lambda v: v == "remote", _ROADMAP_SHARDED),
 }
 
 #: options of the reference the port does not honour yet, by path or by
@@ -140,19 +145,19 @@ _NOT_PORTED: Dict[str, str] = {
     "computer.": _ROADMAP_HOST,
     "metrics.": _ROADMAP_HOST,
     "cluster.": _ROADMAP_MULTI,
-    "storage.sharded-nodes": _ROADMAP_SHARDED,
-    "storage.faults.": _ROADMAP_SHARDED,
+    # fault kinds whose consumers are not ported: the sharded executor's
+    # (shard preemption, collective timeout, halo drop, straggler skew),
+    # the fleet's replicas, the CDC follower's lag, the stall watchdog's
+    "storage.faults.shard-": _ROADMAP_MULTI,
+    "storage.faults.replica-": _ROADMAP_SERVER,
+    "storage.faults.follower-lag-": _ROADMAP_SERVER,
+    "storage.faults.stall-lock-": _ROADMAP_SERVER,
+    "storage.faults.wedge-thread-at": _ROADMAP_SERVER,
     "storage.": _ROADMAP_HOST,
     "ids.": _ROADMAP_HOST,
     "cache.": _ROADMAP_HOST,
     "schema.": _ROADMAP_HOST,
     "graph.": _ROADMAP_HOST,
-    # the remote index provider's options (index.search.backend = "remote")
-    "index.search.hostname": _ROADMAP_SHARDED,
-    "index.search.port": _ROADMAP_SHARDED,
-    "index.search.pool-size": _ROADMAP_SHARDED,
-    "index.search.retry-time-ms": _ROADMAP_SHARDED,
-    "index.search.pipeline": _ROADMAP_SHARDED,
     "index.": _ROADMAP_HOST,
     "locks.": _ROADMAP_HOST,
     "server.": _ROADMAP_HOST,
@@ -169,6 +174,96 @@ _option(
     "fsync WAL appends on the persistent local backend (localstore). "
     "Default True: matches the backend's own durable default", True,
     Mutability.LOCAL,
+)
+_option(
+    "storage.sharded-nodes", int, "node count for the sharded backend", 3,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+# ---- the chaos engine (storage/faults.py): every decision is a pure
+# function of (seed, kind, op index), so one seed gives one fault sequence
+_option(
+    "storage.faults.enabled", bool,
+    "wrap the data-plane stores in the seeded deterministic fault injector "
+    "(storage/faults.py FaultInjectingStoreManager); the plan is exposed as "
+    "graph.fault_plan", False, Mutability.LOCAL,
+)
+_option(
+    "storage.faults.seed", int,
+    "chaos seed: every fault decision is a pure function of (seed, kind, op "
+    "index)", 0, Mutability.LOCAL, lambda v: v >= 0,
+)
+_option(
+    "storage.faults.read-error-rate", float,
+    "probability of an injected TemporaryBackendError per data-plane read "
+    "(absorbed by the retry guard)", 0.0, Mutability.LOCAL, lambda v: 0.0 <= v <= 1.0,
+)
+_option(
+    "storage.faults.write-error-rate", float,
+    "probability of an injected TemporaryBackendError per data-plane "
+    "mutation (raised before anything applies, so retries are safe)", 0.0,
+    Mutability.LOCAL, lambda v: 0.0 <= v <= 1.0,
+)
+_option(
+    "storage.faults.latency-ms", float,
+    "injected latency spike length for reads the latency-rate selects", 0.0,
+    Mutability.LOCAL, lambda v: v >= 0,
+)
+_option(
+    "storage.faults.latency-rate", float,
+    "probability of a latency spike per data-plane read", 0.0,
+    Mutability.LOCAL, lambda v: 0.0 <= v <= 1.0,
+)
+_option(
+    "storage.faults.overload-at", int,
+    "data-plane read index at which an injected latency storm begins (-1 = "
+    "off)", -1, Mutability.LOCAL, lambda v: v >= -1,
+)
+_option(
+    "storage.faults.overload-ops", int,
+    "reads the overload storm covers once it begins", 0, Mutability.LOCAL,
+    lambda v: v >= 0,
+)
+_option(
+    "storage.faults.overload-latency-ms", float,
+    "per-read stall length inside the overload storm", 0.0, Mutability.LOCAL,
+    lambda v: v >= 0,
+)
+_option(
+    "storage.faults.torn-mutation-at", int,
+    "mutate_many call index at which to crash after applying a prefix of the "
+    "batch (-1 = off): the torn commit TornCommitRecovery heals on reopen",
+    -1, Mutability.LOCAL, lambda v: v >= -1,
+)
+_option(
+    "storage.faults.lock-expiry-at", int,
+    "lock-check index at which the locker's clock is skewed so the holder's "
+    "lease reads as expired (-1 = off)", -1, Mutability.LOCAL, lambda v: v >= -1,
+)
+_option(
+    "storage.faults.scan-kill-at", int,
+    "row-scan index at which the stream is killed mid-flight (-1 = off)", -1,
+    Mutability.LOCAL, lambda v: v >= -1,
+)
+_option(
+    "storage.faults.scan-kill-after-rows", int,
+    "rows the killed scan yields before dying", 8, Mutability.LOCAL,
+    lambda v: v >= 0,
+)
+_option(
+    "storage.faults.preempt-superstep", int,
+    "OLAP superstep at which SuperstepPreempted is raised once (-1 = off), "
+    "absorbed by the executor's checkpoint auto-resume", -1,
+    Mutability.LOCAL, lambda v: v >= -1,
+)
+_option(
+    "storage.faults.cdc-torn-at", int,
+    "CDC tail-append index at which a torn partial frame hits disk and the "
+    "writer dies (CDCTornWrite; -1 = off)", -1, Mutability.LOCAL, lambda v: v >= -1,
+)
+_option(
+    "storage.faults.stores", str,
+    "comma-separated store names the injector targets (empty = the data "
+    "plane: edgestore,graphindex)", "edgestore,graphindex", Mutability.LOCAL,
 )
 _option(
     "storage.read-only", bool,
@@ -616,6 +711,30 @@ _option(
 _option("index.search.backend", str, "mixed index provider shorthand", "memindex",
         Mutability.LOCAL)
 _option("index.search.directory", str, "index data directory", "", Mutability.LOCAL)
+_option(
+    "index.search.hostname", str,
+    "remote index server host (backend=remote)", "127.0.0.1", Mutability.LOCAL,
+)
+_option(
+    "index.search.port", int, "remote index server port (backend=remote)", 0,
+    Mutability.LOCAL,
+)
+_option(
+    "index.search.pool-size", int, "client connections to the remote index server",
+    4, Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "index.search.retry-time-ms", float,
+    "retry budget for temporary remote-index failures", 10_000.0,
+    Mutability.MASKABLE, lambda v: v > 0,
+)
+_option(
+    "index.search.pipeline", bool,
+    "pipelined framing against the remote index server for idempotent ops "
+    "(query, rawQuery, totals, supports, exists, register), negotiated by "
+    "the fourth capability byte; mutate and restore stay synchronous", True,
+    Mutability.MASKABLE,
+)
 _option(
     "index.search.fsync", bool, "fsync the persistent local index provider", False,
     Mutability.LOCAL,

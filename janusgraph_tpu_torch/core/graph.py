@@ -4,8 +4,8 @@ that the stored-graph OLAP path, the transaction and the traversal run.
 
 ``open_graph(config, store_manager=None)`` opens a ``JanusGraphTPU`` over
 the store manager that ``storage.backend`` names in the store-manager
-table (``register_store_manager`` adds to it): "inmemory", "remote" (see
-below) or "local", a persistent directory (``storage.directory``, ``storage.fsync``;
+table (``register_store_manager`` adds to it): "inmemory", "remote" and
+"sharded" (see below) or "local", a persistent directory (``storage.directory``, ``storage.fsync``;
 ``storage/localstore.py``), whose files the JAX package reads and writes
 too. ``store_manager`` overrides the table (e.g.
 ``InMemoryStoreManager.from_rows`` of a graph the JAX package wrote).
@@ -80,8 +80,17 @@ authority claims under the ``ids.authority.conflict-avoidance-*`` mode and
 tag, and new vertices take their partition from the ``ids.placement``
 strategy (``core/placement.py``).
 
-Left out (ROADMAP Queue A #5.5b): fault injection, the remote index
-provider and the "sharded" store (its factory raises).
+"sharded" opens a ``ShardedStoreManager`` (``storage/sharded_store.py``)
+of ``storage.sharded-nodes`` in-memory nodes; it scans unordered, so
+``load_csr`` and the input format take their unordered branch. With
+``storage.faults.enabled`` the graph wraps whichever manager it opened
+(any backend, "remote" and "sharded" included) in the seeded fault
+injector (``storage/faults.py``) and holds its plan as ``fault_plan``:
+the lockers read the plan's clock (the lease-expiry fault), the CDC log
+its torn-write decision, and ``compute()`` passes its superstep hook to
+the executor. ``index.search.backend = "remote"`` opens the remote index
+provider (``indexing/remote.py``) on ``index.search.hostname`` and
+``index.search.port``.
 """
 
 from __future__ import annotations
@@ -148,10 +157,9 @@ def _open_local(cfg):
 
 
 def _open_sharded(cfg):
-    raise ConfigurationError(
-        "storage.backend='sharded' is not ported yet: ROADMAP.md Queue A "
-        "#5.5b (faults, the sharded store and the remote index)"
-    )
+    from janusgraph_tpu_torch.storage.sharded_store import ShardedStoreManager
+
+    return ShardedStoreManager(num_nodes=cfg.get("storage.sharded-nodes"))
 
 
 def _open_remote(cfg):
@@ -347,6 +355,19 @@ class JanusGraphTPU:
             if factory is None:
                 raise ConfigurationError(f"unknown storage backend {backend_name!r}")
             store_manager = factory(cfg)
+        # the chaos engine (storage.faults.*): the seeded fault injector
+        # wraps the data-plane stores of whatever manager the graph opened;
+        # the plan rides on the graph so the OLAP computer, the lockers and
+        # the CDC log consult it too
+        self.fault_plan = None
+        if cfg.get("storage.faults.enabled"):
+            from janusgraph_tpu_torch.storage.faults import (
+                FaultInjectingStoreManager,
+                FaultPlan,
+            )
+
+            self.fault_plan = FaultPlan.from_config(cfg)
+            store_manager = FaultInjectingStoreManager(store_manager, self.fault_plan)
         pickle_mode = cfg.get("attributes.allow-pickle")
         if pickle_mode == "auto":
             # a network-attached KCVS store is a trust boundary: any
@@ -396,6 +417,11 @@ class JanusGraphTPU:
             retries=cfg.get("locks.retries"),
             clean_expired=cfg.get("locks.clean-expired"),
         )
+        if self.fault_plan is not None:
+            # lease-expiry fault: the scheduled lock check reads a skewed
+            # clock, so the holder's claim looks expired
+            for locker in (self.backend.edge_locker, self.backend.index_locker):
+                locker.clock_ns = self.fault_plan.lock_clock_ns
         from janusgraph_tpu_torch.core.placement import make_placement_strategy
 
         self.id_assigner = VertexIDAssigner(
@@ -419,8 +445,20 @@ class JanusGraphTPU:
             shared["search"] = open_index_provider(
                 cfg.get("index.search.backend"),
                 directory=cfg.get("index.search.directory"),
+                hostname=cfg.get("index.search.hostname"),
+                port=cfg.get("index.search.port"),
                 fsync=cfg.get("index.search.fsync"),
+                pool_size=cfg.get("index.search.pool-size"),
+                retry_time_s=cfg.get("index.search.retry-time-ms") / 1000.0,
                 scroll_page_size=cfg.get("index.search.scroll-page-size"),
+                breaker_enabled=cfg.get("storage.breaker.enabled"),
+                breaker_failure_threshold=cfg.get("storage.breaker.failure-threshold"),
+                breaker_reset_ms=cfg.get("storage.breaker.reset-ms"),
+                breaker_half_open_probes=cfg.get("storage.breaker.half-open-probes"),
+                trace_propagation=cfg.get("metrics.trace-propagation"),
+                resource_ledger=cfg.get("metrics.resource-ledger"),
+                deadline_propagation=cfg.get("server.deadline.propagation"),
+                pipeline=cfg.get("index.search.pipeline"),
             )
         self.index_providers: Dict[str, object] = shared
         # {index_name: {field: KeyInformation}} for provider.mutate calls
@@ -468,6 +506,7 @@ class JanusGraphTPU:
                 cfg.get("storage.cdc.dir"),
                 segment_records=cfg.get("storage.cdc.segment-records"),
                 retention_segments=cfg.get("storage.cdc.retention-segments"),
+                fault_plan=self.fault_plan,
             )
             self.change_capture.add_sink(self.cdc_log.append)
         # resolved ONCE at open: these sit on the traversal's hottest paths

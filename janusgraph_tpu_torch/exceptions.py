@@ -5,7 +5,8 @@ Backend errors split into *temporary* ones, which the retry guard
 (``storage/backend_op.py``) replays with backoff, and *permanent* ones,
 which it lets through at once. The locking errors sit in that taxonomy:
 lock contention and an expired lease are temporary, a changed expected
-value is permanent."""
+value is permanent. The chaos engine's faults (``storage/faults.py``) sit
+in it too: an injected fault is temporary, an injected crash permanent."""
 
 
 class JanusGraphTorchError(Exception):
@@ -15,6 +16,23 @@ class JanusGraphTorchError(Exception):
 class SuperstepPreempted(JanusGraphTorchError):
     """An OLAP superstep was preempted (injected or real). An executor with
     checkpointing on resumes from its last checkpoint."""
+
+
+class ShardPreempted(SuperstepPreempted):
+    """One shard of a multi-device run was preempted mid-superstep. Every
+    shard rolls back to the last complete checkpoint manifest and replays
+    (raised by ``FaultPlan.sharded_hook``; the sharded executor that
+    absorbs it is ROADMAP Queue A #4)."""
+
+
+class CollectiveTimeout(SuperstepPreempted):
+    """A cross-shard collective timed out or failed; recovered like a shard
+    preemption."""
+
+
+class HaloDropped(SuperstepPreempted):
+    """A destination-binned halo batch was dropped in flight; recovered like
+    a failed collective."""
 
 
 class BackendError(JanusGraphTorchError):
@@ -38,6 +56,17 @@ class TemporaryLockingError(TemporaryBackendError):
 class PermanentLockingError(PermanentBackendError):
     """The lock protocol failed for good (an expected value changed under
     the lock)."""
+
+
+class InjectedFaultError(TemporaryBackendError):
+    """A fault the chaos engine injected (``storage/faults.py``). Temporary:
+    the retry and recovery paths are expected to absorb it."""
+
+
+class InjectedCrashError(PermanentBackendError):
+    """A chaos-engine crash point: a batch torn mid-flight (some rows
+    applied, some not). Permanent, so no retry guard papers over it;
+    torn-commit recovery on reopen is the path under test."""
 
 
 class IDPoolExhaustedError(JanusGraphTorchError):

@@ -8,9 +8,9 @@ isDeleted; IndexTransaction.java:1 — transaction-scoped mutation buffer
 flushed at commit; IndexQuery condition tree And/Or/Not/PredicateCondition
 with orders and limits; RawQuery for provider-syntax string queries).
 
-The port's copy of ``janusgraph_tpu/indexing/provider.py``. The shorthand
-"remote" is registered as a factory that raises: the remote index provider
-waits for ROADMAP Queue A #5.5b.
+The port's copy of ``janusgraph_tpu/indexing/provider.py``. The shorthands
+"memindex", "localindex" and "remote" register when their modules load
+(``indexing/__init__.py`` loads all three).
 
 Design divergence from the reference: conditions are tiny frozen dataclasses
 evaluated by each provider directly (no TinkerPop Condition hierarchy), and
@@ -299,13 +299,3 @@ def open_index_provider(
     if scroll_page_size:
         provider.scroll_page_size = scroll_page_size
     return provider
-
-
-def _remote_not_ported(**_kwargs):
-    raise ConfigurationError(
-        "index backend 'remote' is not ported yet: ROADMAP.md Queue A #5.5b "
-        "(the remote index provider)"
-    )
-
-
-register_index_provider("remote", _remote_not_ported)

@@ -27,7 +27,12 @@ snapshot, as in the reference; a failed load raises.
 Executors: "tpu" (the default; the reference's name for its one
 accelerator) runs on the CUDA card and raises where there is none; "cpu"
 runs the same executor's plain PyTorch versions on the CPU. "sharded"
-raises (ROADMAP Queue A #4).
+raises (ROADMAP Queue A #4). Over a graph opened with
+``storage.faults.enabled`` the run's ``fault_hook`` is the plan's
+``olap_hook``: the scheduled superstep is preempted once and the run
+resumes from its last checkpoint (``computer.checkpoint-every``,
+``-path``, ``-resume-attempts``); without checkpoints the preemption
+reaches the caller.
 
 ``write_back`` takes the columnar float path of the reference
 (``tpu_executor.py`` ``_write_back_columnar``) for SINGLE float keys and
@@ -252,6 +257,13 @@ class GraphComputer:
             "checkpoint_path": cfg.get("computer.checkpoint-path") or None,
             "resume_attempts": cfg.get("computer.resume-attempts"),
         }
+        # chaos wiring: a graph opened with storage.faults.enabled carries a
+        # FaultPlan; its superstep preemption rides into the executor, whose
+        # checkpoint auto-resume absorbs it ("sharded" never gets here: its
+        # executor is ROADMAP Queue A #4)
+        plan = getattr(self.graph, "fault_plan", None)
+        if plan is not None:
+            run_kw["fault_hook"] = plan.olap_hook
         return ex_kw, run_kw
 
     def submit(self) -> ComputerResult:

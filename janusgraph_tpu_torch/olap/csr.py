@@ -21,8 +21,11 @@ graph state. ``channel_edges`` flattens a typed edge view
 ``build_csr_from_raw`` merges one or more raw scans: the distributed
 loader (``olap/distributed_load.py``) hands it one per worker process.
 
-Left out: the unordered-scan branch of ``_scan_raw`` (both ported stores
-scan in key order).
+A store that scans only unordered (the sharded store,
+``features.ordered_scan`` false) is read in one full scan whose rows are
+kept when their key falls in one of the partitions' ranges, as the
+reference does; that branch has no per-range retry, so a scan killed
+mid-stream raises to the caller in both packages.
 """
 
 from __future__ import annotations
@@ -189,6 +192,13 @@ def _scan_raw(
     canonicalize = idm.get_canonical_vertex_id
 
     def _scan_rows():
+        if not graph.backend.manager.features.ordered_scan:
+            # unordered backends (the sharded store): one full scan, the
+            # key ranges filtered here (the reference's token-range scan)
+            for key, entries in store.get_keys(full_q, store_tx):
+                if any(s <= key < e for s, e in ranges):
+                    yield key, entries
+            return
         # per-range retry + resume: a TemporaryBackendError mid-stream
         # re-issues the range from just past the last yielded key
         retries = 3

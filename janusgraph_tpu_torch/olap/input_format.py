@@ -86,44 +86,57 @@ class GraphInputFormat:
         label_q = self.es.get_type_slice(self.st.VERTEX_LABEL_EDGE, True, Direction.OUT)
         prop_q, edge_q = self.es.user_relations_bounds()
         relidx_ids = getattr(g, "relation_index_ids", frozenset())
-        for start, end in (self.idm.partition_key_range(p) for p in split.partitions):
-            for key, _exist in store.get_keys(KeyRangeQuery(start, end, exists_q), store_tx):
-                vid = self.idm.get_vertex_id(key)
-                if not self.idm.is_user_vertex_id(vid):
+        ordered = g.backend.manager.features.ordered_scan
+        ranges = [self.idm.partition_key_range(p) for p in split.partitions]
+
+        def rows():
+            if ordered:
+                for start, end in ranges:
+                    yield from store.get_keys(KeyRangeQuery(start, end, exists_q), store_tx)
+            else:
+                # unordered backends (the sharded store): one full scan,
+                # filtered to the split's ranges here
+                for key, entries in store.get_keys(exists_q, store_tx):
+                    if any(s <= key < e for s, e in ranges):
+                        yield key, entries
+
+        for key, _exist in rows():
+            vid = self.idm.get_vertex_id(key)
+            if not self.idm.is_user_vertex_id(vid):
+                continue
+            sv = StarVertex(vertex_id=self.idm.get_canonical_vertex_id(vid))
+            for e in store.get_slice(KeySliceQuery(key, label_q), store_tx):
+                rc = self.es.parse_relation(e, self.st.type_info)
+                el = g.schema_cache.get_by_id(rc.other_vertex_id)
+                if el is not None:
+                    sv.label = el.name
+            for e in store.get_slice(KeySliceQuery(key, prop_q), store_tx):
+                try:
+                    rc = self.es.parse_relation(e, schema)
+                except KeyError:
                     continue
-                sv = StarVertex(vertex_id=self.idm.get_canonical_vertex_id(vid))
-                for e in store.get_slice(KeySliceQuery(key, label_q), store_tx):
-                    rc = self.es.parse_relation(e, self.st.type_info)
-                    el = g.schema_cache.get_by_id(rc.other_vertex_id)
-                    if el is not None:
-                        sv.label = el.name
-                for e in store.get_slice(KeySliceQuery(key, prop_q), store_tx):
-                    try:
-                        rc = self.es.parse_relation(e, schema)
-                    except KeyError:
-                        continue
-                    pk = g.schema_cache.get_by_id(rc.type_id)
+                pk = g.schema_cache.get_by_id(rc.type_id)
+                if pk is not None:
+                    sv.properties.setdefault(pk.name, []).append(rc.value)
+            for e in store.get_slice(KeySliceQuery(key, edge_q), store_tx):
+                try:
+                    rc = self.es.parse_relation(e, schema)
+                except KeyError:
+                    continue
+                if not rc.is_edge or rc.direction != Direction.OUT:
+                    continue
+                if rc.type_id in relidx_ids:
+                    continue  # relation-index copies are not edges
+                el = g.schema_cache.get_by_id(rc.type_id)
+                props = {}
+                for tid, val in (rc.properties or {}).items():
+                    pk = g.schema_cache.get_by_id(tid)
                     if pk is not None:
-                        sv.properties.setdefault(pk.name, []).append(rc.value)
-                for e in store.get_slice(KeySliceQuery(key, edge_q), store_tx):
-                    try:
-                        rc = self.es.parse_relation(e, schema)
-                    except KeyError:
-                        continue
-                    if not rc.is_edge or rc.direction != Direction.OUT:
-                        continue
-                    if rc.type_id in relidx_ids:
-                        continue  # relation-index copies are not edges
-                    el = g.schema_cache.get_by_id(rc.type_id)
-                    props = {}
-                    for tid, val in (rc.properties or {}).items():
-                        pk = g.schema_cache.get_by_id(tid)
-                        if pk is not None:
-                            props[pk.name] = val
-                    sv.edges.append(
-                        (el.name if el else str(rc.type_id), rc.other_vertex_id, props)
-                    )
-                yield sv
+                        props[pk.name] = val
+                sv.edges.append(
+                    (el.name if el else str(rc.type_id), rc.other_vertex_id, props)
+                )
+            yield sv
 
     def read_all(self, num_splits: Optional[int] = None) -> Iterator[StarVertex]:
         for split in self.splits(num_splits):

@@ -2,7 +2,8 @@
 KCVS interface, the in-memory store with cell TTL, the ordered-KV adapter
 and the persistent local store, the remote store over TCP (``remote.py``
 with its pipelined framing in ``pipeline.py`` and the client's circuit
-breaker in ``circuit.py``), the ID authority, the slice cache, the
+breaker in ``circuit.py``), the sharded store (``sharded_store.py``), the
+seeded fault injector (``faults.py``), the ID authority, the slice cache, the
 consistent-key locker, the TTL wrapper, the retry guard and the
 backend. The package exports what the reference's does: the KCVS
 interface and the in-memory store."""

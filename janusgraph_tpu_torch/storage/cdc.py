@@ -43,9 +43,11 @@ missing sealed segment. ``None`` means the consumer must re-bootstrap from
 a snapshot whose epoch clears the gap. Seals and replays record
 ``cdc_seal`` / ``cdc_replay`` flight events.
 
-Left out: the seeded torn-write fault (``CDCLog(fault_plan=)``,
-``storage.faults.cdc-torn-at``), which comes with the fault injector
-(ROADMAP Queue A #5.5b). A closed log refuses appends with ``CDCTornWrite``.
+``CDCLog(fault_plan=)`` takes a ``FaultPlan`` (``storage/faults.py``;
+``storage.faults.cdc-torn-at`` on a graph): at the scheduled append half
+the frame hits the tail file and the append raises ``CDCTornWrite``; the
+log then refuses appends until a reopen drops exactly the torn suffix. A
+closed log refuses appends with ``CDCTornWrite`` too.
 """
 
 from __future__ import annotations
@@ -245,12 +247,14 @@ class CDCLog:
         dir_path: str,
         segment_records: int = 1024,
         retention_segments: int = 64,
+        fault_plan=None,
     ):
         if segment_records <= 0 or segment_records & (segment_records - 1):
             raise ValueError("segment_records must be a power of two")
         self.dir = str(dir_path)
         self.segment_records = int(segment_records)
         self.retention_segments = max(1, int(retention_segments))
+        self.fault_plan = fault_plan
         self._lock = threading.Lock()
         os.makedirs(self.dir, exist_ok=True)
 
@@ -386,6 +390,14 @@ class CDCLog:
         with self._lock:
             if self._crashed:
                 raise CDCTornWrite("cdc log closed; reopen to recover")
+            plan = self.fault_plan
+            if plan is not None and plan.cdc_torn_write():
+                # seeded torn write: a partial frame hits the disk and the
+                # writer dies; recovery must drop exactly this frame
+                self._tail_file.write(frame[: max(1, len(frame) // 2)])
+                self._tail_file.flush()
+                self._crashed = True
+                raise CDCTornWrite("injected torn cdc tail write")
             cur = self._sealed_through + len(self._tail)
             self._tail_file.write(frame)
             self._tail_file.flush()

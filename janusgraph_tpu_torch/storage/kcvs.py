@@ -1,8 +1,7 @@
 """Key-Column-Value store SPI — the layer-1 storage contract: the port's
-copy of ``janusgraph_tpu/storage/kcvs.py``. Left out: native per-cell
-locking (``acquire_lock``; the consistent-key locker in ``locking.py``
-serves every store), ``get_local_key_partition`` and ``SliceQuery``'s
-``with_limit``/``subsumes``, which nothing on the port's path calls.
+copy of ``janusgraph_tpu/storage/kcvs.py``. A store's native per-cell
+``acquire_lock`` refuses (no ported store has one: the consistent-key
+locker in ``locking.py`` serves every store).
 
 The whole graph (vertices, edges, properties, schema, indexes, ID counters,
 logs, config) lives in a handful of named stores of *sorted wide rows*:
@@ -22,8 +21,10 @@ from __future__ import annotations
 
 import abc
 import bisect
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+from janusgraph_tpu_torch.exceptions import PermanentBackendError
 
 
 # A column-value entry. Kept as a plain tuple (column, value) for speed;
@@ -45,8 +46,20 @@ class SliceQuery:
     end: Optional[bytes] = None
     limit: Optional[int] = None
 
+    def with_limit(self, limit: int) -> "SliceQuery":
+        return replace(self, limit=limit)
+
     def contains(self, column: bytes) -> bool:
         return self.start <= column and (self.end is None or column < self.end)
+
+    def subsumes(self, other: "SliceQuery") -> bool:
+        if self.start > other.start:
+            return False
+        if self.end is not None and (other.end is None or self.end < other.end):
+            return False
+        return self.limit is None or (
+            other.limit is not None and self.limit >= other.limit
+        )
 
 
 @dataclass(frozen=True)
@@ -190,6 +203,14 @@ class KeyColumnValueStore(abc.ABC):
         """Atomically apply additions and deletions to one row. Additions win
         over deletions of the same column within one call."""
 
+    def acquire_lock(
+        self, key: bytes, column: bytes, expected_value: Optional[bytes],
+        txh: StoreTransaction,
+    ) -> None:
+        """Claim a lock hint for (key, column); only for stores with native
+        locking. Others are wrapped by the consistent-key locker."""
+        raise PermanentBackendError(f"store {self.name} does not support native locking")
+
     @abc.abstractmethod
     def get_keys(
         self, query, txh: StoreTransaction
@@ -237,6 +258,10 @@ class KeyColumnValueStoreManager(abc.ABC):
         per-row application is atomic, the batch is not (matching reference
         semantics where only `transactional` backends give batch atomicity).
         """
+
+    def get_local_key_partition(self):
+        """Key ranges held locally (region-aware backends); None otherwise."""
+        return None
 
     @abc.abstractmethod
     def close(self) -> None:

@@ -28,9 +28,8 @@ connection. Client: `RemoteStoreManager` implements the full manager SPI;
 every request is wrapped in the retrying backend-operation guard
 (backend_op.execute), so transient connection failures replay with backoff
 (reference: BackendOperation.java). Combine with ShardedStoreManager for a
-multi-node remote cluster in tests (the "multi-node without a cluster"
-technique over real sockets; the sharded store waits for ROADMAP Queue A
-#5.5b).
+multi-node remote cluster (the "multi-node without a cluster" technique
+over real sockets: ``storage-server --sharded-nodes N``).
 
 Wire format (big-endian):
   request:  [u32 body_len][u8 op][body]

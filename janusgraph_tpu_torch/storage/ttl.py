@@ -163,6 +163,9 @@ class TTLStoreManager(KeyColumnValueStoreManager):
             }
         self.wrapped.mutate_many(framed, txh)
 
+    def get_local_key_partition(self):
+        return self.wrapped.get_local_key_partition()
+
     def close(self) -> None:
         self.wrapped.close()
 

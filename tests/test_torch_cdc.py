@@ -1,7 +1,10 @@
 """The port's durable CDC log held to the JAX package's.
 
 The batch codec writes the reference's bytes. The reference's CDC cases
-that need no fault plan run on the port: append, replay and reopen,
+run on the port: the seeded torn write of a ``FaultPlan`` (the same tail
+bytes and journal as the reference's, exactly the torn frame lost on
+reopen, and through a graph's ``storage.faults.cdc-torn-at``), the fault
+journal's determinism, append, replay and reopen,
 idempotent replay, a torn tail, sealed segments surviving the tail's loss,
 the retention gap, poison refusing, ``cursor_for_epoch`` brackets, the
 reader against the writer, the power-of-two segment size, and a graph's
@@ -312,3 +315,69 @@ def test_a_cdc_directory_replays_the_same_in_both(tmp_path, writer):
     finally:
         opened[0].close()
         opened[1].close()
+
+
+def _torn_write(mod, plan_mod, d):
+    plan = plan_mod.FaultPlan(seed=7, cdc_torn_at=2)
+    log = mod.CDCLog(str(d), segment_records=64, fault_plan=plan)
+    log.append(1, _batch(adds=[(1, 2, 1)]))
+    log.append(2, _batch(adds=[(2, 3, 1)]))
+    with pytest.raises(mod.CDCTornWrite, match="injected torn cdc tail write"):
+        log.append(3, _batch(adds=[(3, 4, 1)]))
+    with pytest.raises(mod.CDCTornWrite):
+        log.append(4, _batch(adds=[(4, 5, 1)]))  # the crashed writer refuses
+    log.close()
+    with open(os.path.join(str(d), TAIL_NAME), "rb") as f:
+        tail = f.read()
+    log2 = mod.CDCLog(str(d), segment_records=64)
+    records, nxt = log2.replay_from(0)
+    log2.close()
+    return tail, nxt, [e for e, _ in records], plan.journal
+
+
+def test_injected_torn_write_recovers_deterministically(tmp_path):
+    from janusgraph_tpu.storage import faults as ref_faults
+    from janusgraph_tpu_torch.storage import faults
+
+    port = _torn_write(cdc, faults, tmp_path / "port")
+    tail, nxt, epochs, journal = port
+    assert nxt == 2, "exactly the torn frame is gone"
+    assert epochs == [1, 2]
+    assert journal == [{"kind": "cdc_torn_segment", "n": 2}]
+    assert port == _torn_write(ref_cdc, ref_faults, tmp_path / "ref")
+
+
+def test_a_graph_tears_its_cdc_log_at_the_configured_append(tmp_path):
+    g = open_graph(dict(BASE_CFG, **{"storage.cdc.dir": str(tmp_path),
+                                      "storage.faults.enabled": True,
+                                      "storage.faults.cdc-torn-at": 1}))
+    assert g.cdc_log.fault_plan is g.fault_plan
+    tx = g.new_transaction()
+    a, b = tx.add_vertex(), tx.add_vertex()
+    tx.add_edge(a, "knows", b)
+    tx.commit()
+    appended = g.cdc_log.replay_from(0)[1]
+    with pytest.raises(CDCTornWrite):
+        g.cdc_log.append(99, _batch(adds=[(1, 2, 3)]))
+    assert [e["kind"] for e in g.fault_plan.journal] == ["cdc_torn_segment"]
+    g.close()
+    log = CDCLog(str(tmp_path))
+    assert log.replay_from(0)[1] == appended
+    log.close()
+
+
+def test_fault_journal_is_seed_deterministic():
+    import json
+
+    from janusgraph_tpu.storage import faults as ref_faults
+    from janusgraph_tpu_torch.storage import faults
+
+    def _run(mod):
+        plan = mod.FaultPlan(seed=77, cdc_torn_at=1, follower_lag_at=1, follower_lag_pulls=2)
+        for _ in range(4):
+            plan.cdc_torn_write()
+        for _ in range(5):
+            plan.follower_lag()
+        return json.dumps(plan.journal, sort_keys=True)
+
+    assert _run(faults) == _run(faults) == _run(ref_faults)

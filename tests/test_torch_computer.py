@@ -368,8 +368,8 @@ def test_compute_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("config", [
     {"computer.executor": "sharded"},
-    {"storage.faults.cdc-torn-at": 3},
-    {"storage.sharded-nodes": 3},
+    {"storage.faults.follower-lag-at": 3},
+    {"storage.faults.shard-halo-drop-at": 3},
     {"computer.price-book-path": "book.json"},
     {"no.such-option": 1},
 ])

@@ -1,16 +1,21 @@
 """The port's mixed-index providers and their graph integration held to
 the JAX package's (after ``tests/test_mixed_index.py``).
 
-The provider contract runs on each package's ``memindex`` and
-``localindex`` over the same documents: every query, ordered page, raw
-query, total and ``supports`` answer is equal in both packages, and the
-two ``localindex`` stores hold the same bytes. The graph scenarios run on
-both packages' graphs, with the mixed index on "memindex" or on
-"localindex", and give the same hits and plans ("mixed-index" with the
-number of conditions pushed). The result-set cap
-(``index.search.max-result-set-size``, ``query.hard-max-limit``) clips a
-query as the reference's does, and ``index.search.backend = "remote"``
-raises naming ROADMAP Queue A #5.5b. Exact equality throughout.
+The provider contract runs on each package's ``memindex``,
+``localindex`` and "remote" (a ``localindex`` served by each package's
+``RemoteIndexServer`` and read through its ``RemoteIndexProvider``) over
+the same documents: every query, ordered page, raw query, total and
+``supports`` answer is equal in both packages, and the two ``localindex``
+stores hold the same bytes. The graph scenarios run on both packages'
+graphs, with the mixed index on "memindex", "localindex" or "remote", and
+give the same hits and plans ("mixed-index" with the number of conditions
+pushed). The result-set cap (``index.search.max-result-set-size``,
+``query.hard-max-limit``) clips a query as the reference's does. The
+remote tier: ``restore`` and ``features`` cross the wire, server-side
+failures come back as ``PermanentBackendError`` on a connection that
+still serves, a graph runs over a remote store and a remote index, and
+each package's client talks to the other's server. Exact equality
+throughout.
 """
 
 from types import SimpleNamespace
@@ -22,6 +27,9 @@ from janusgraph_tpu.core import predicates as ref_predicates
 from janusgraph_tpu_torch import indexing
 from janusgraph_tpu_torch.core import predicates
 from janusgraph_tpu_torch.exceptions import BackendError, ConfigurationError
+from janusgraph_tpu.core import traversal as ref_traversal
+from janusgraph_tpu.core.graph import open_graph as ref_open_graph
+from janusgraph_tpu_torch.core import traversal
 from janusgraph_tpu_torch.core.graph import open_graph
 from tests.test_torch_index_lifecycle import assert_twins, plan
 
@@ -38,9 +46,16 @@ DOCS = {
 }
 
 
-def _provider(ns, kind, directory):
+def _provider(ns, kind, directory, servers=None):
     if kind == "memindex":
         p = ns.ix.InMemoryIndexProvider()
+    elif kind == "remote":
+        # the networked tier: a localindex served over TCP, queried through
+        # the wire client
+        server = ns.ix.RemoteIndexServer(ns.ix.LocalIndexProvider(directory=directory)).start()
+        servers.append(server)
+        host, port = server.address
+        p = ns.ix.RemoteIndexProvider(hostname=host, port=port)
     else:
         p = ns.ix.LocalIndexProvider(directory=directory)
     KI, M = ns.ix.KeyInformation, ns.ix.Mapping
@@ -58,13 +73,16 @@ def _provider(ns, kind, directory):
     return p
 
 
-@pytest.fixture(params=["memindex", "localindex"])
+@pytest.fixture(params=["memindex", "localindex", "remote"])
 def providers(request, tmp_path):
-    pair = (_provider(R, request.param, str(tmp_path / "ref")),
-            _provider(T, request.param, str(tmp_path / "port")))
+    servers = []
+    pair = (_provider(R, request.param, str(tmp_path / "ref"), servers),
+            _provider(T, request.param, str(tmp_path / "port"), servers))
     yield request.param, pair
     for p in pair:
         p.close()
+    for server in servers:
+        server.stop()
 
 
 def _both(providers, fn):
@@ -234,15 +252,25 @@ def test_localindex_rejects_a_foreign_format(tmp_path):
 
 
 # ------------------------------------------------------------ graph integration
-@pytest.fixture(params=["memindex", "localindex"])
+@pytest.fixture(params=["memindex", "localindex", "remote"])
 def backend(request, tmp_path):
-    def cfg(name):
+    servers = []
+
+    def cfg(name, ns):
         if request.param == "memindex":
             return {}
+        if request.param == "remote":
+            server = ns.ix.RemoteIndexServer(ns.ix.InMemoryIndexProvider()).start()
+            servers.append(server)
+            host, port = server.address
+            return {"index.search.backend": "remote", "index.search.hostname": host,
+                    "index.search.port": port}
         return {"index.search.backend": "localindex",
                 "index.search.directory": str(tmp_path / name)}
 
-    return {"ref": cfg("ref"), "port": cfg("port")}
+    yield {"ref": cfg("ref", R), "port": cfg("port", T)}
+    for server in servers:
+        server.stop()
 
 
 def _load_people(g):
@@ -428,10 +456,146 @@ def test_the_result_set_cap_clips_a_query(option):
 
 
 def test_the_remote_provider_names_its_item():
-    with pytest.raises(ConfigurationError, match=r"#5\.5b"):
-        open_graph({"index.search.backend": "remote"})
-    for option, value in (("index.search.hostname", "h"), ("index.search.port", 1)):
-        with pytest.raises(ConfigurationError, match=r"#5\.5b"):
-            open_graph({option: value})
-    with pytest.raises(ConfigurationError, match=r"#5\.5b"):
+    """"remote" without a port raises naming the options, as the
+    reference's provider does."""
+    with pytest.raises(ConfigurationError, match="index.search.port"):
+        open_graph({"index.search.backend": "remote", "computer.executor": "cpu"})
+    with pytest.raises(ConfigurationError, match="index.search.hostname"):
+        indexing.open_index_provider("remote", hostname="", port=1)
+    from janusgraph_tpu.exceptions import ConfigurationError as RefConfigurationError
+
+    with pytest.raises(ConfigurationError, match="index.search.port") as port_err:
         indexing.open_index_provider("remote")
+    with pytest.raises(RefConfigurationError) as ref_err:
+        ref_indexing.open_index_provider("remote")
+    assert str(port_err.value) == str(ref_err.value)
+
+
+# ---------------------------------------------------------------- remote tier
+@pytest.mark.parametrize("client_ns,server_ns", [(T, T), (T, R), (R, T)],
+                         ids=["port", "port-client-ref-server", "ref-client-port-server"])
+def test_remote_index_restore_and_features(tmp_path, client_ns, server_ns):
+    """restore() and features() cross the wire intact, with either
+    package's client against either package's server."""
+    backend = server_ns.ix.LocalIndexProvider(directory=str(tmp_path / "idx"))
+    server = server_ns.ix.RemoteIndexServer(backend).start()
+    host, port = server.address
+    ix, pr = client_ns.ix, client_ns.pr
+    p = ix.RemoteIndexProvider(hostname=host, port=port)
+    try:
+        assert p.features().supports_geo == backend.features().supports_geo
+        assert p._remote_pipeline is True and p._remote_trace is True
+        p.register("s", "name", ix.KeyInformation(str, ix.Mapping.TEXT))
+        p.restore(
+            {"s": {"d9": [ix.IndexEntry("name", "restored hydra document")]}},
+            {"s": {"name": ix.KeyInformation(str, ix.Mapping.TEXT)}},
+        )
+        assert p.query("s", ix.IndexQuery(ix.PredicateCondition(
+            "name", pr.Text.CONTAINS, "hydra"))) == ["d9"]
+        assert p.exists()
+        # supports() memoizes: a second identical ask makes no call
+        info = ix.KeyInformation(str, ix.Mapping.TEXT)
+        assert p.supports(info, pr.Text.CONTAINS)
+        n_before = p._pool_idx
+        assert p.supports(info, pr.Text.CONTAINS)
+        assert p._pool_idx == n_before
+    finally:
+        p.close()
+        server.stop()
+
+
+def test_remote_index_error_mapping():
+    """Server-side failures come back as PermanentBackendError with the
+    original type name, and the connection keeps serving."""
+    from janusgraph_tpu_torch.exceptions import PermanentBackendError
+
+    server = indexing.RemoteIndexServer(indexing.InMemoryIndexProvider()).start()
+    host, port = server.address
+    p = indexing.RemoteIndexProvider(hostname=host, port=port, retry_time_s=0.5)
+    try:
+        with pytest.raises(PermanentBackendError):
+            p._call(99, b"")  # op 3 under the ledger and deadline bits, no body
+        with pytest.raises(PermanentBackendError):
+            p._call(4, b"\xff\xff")  # a malformed body fails server-side
+        p.register("s", "w", indexing.KeyInformation(float))
+        m = indexing.IndexMutation(is_new=True)
+        m.add("w", 1.5)
+        p.mutate({"s": {"d1": m}}, {"s": {"w": indexing.KeyInformation(float)}})
+        assert p.query("s", indexing.IndexQuery(indexing.PredicateCondition(
+            "w", predicates.Cmp.GREATER_THAN, 1.0))) == ["d1"]
+    finally:
+        p.close()
+        server.stop()
+
+
+def test_graph_with_remote_storage_and_remote_index(tmp_path):
+    """The networked deployment: a graph over a storage server and an
+    index server, in both packages, with the same hits."""
+    from janusgraph_tpu.storage import remote as ref_remote
+    from janusgraph_tpu.storage.inmemory import InMemoryStoreManager as RefInMemory
+    from janusgraph_tpu_torch.storage.inmemory import InMemoryStoreManager
+    from janusgraph_tpu_torch.storage import remote
+
+    seen = {}
+    for name, ns, rem, mem, opener, extra in (
+        ("ref", R, ref_remote, RefInMemory, ref_open_graph, {"computer.sharded-auto": False}),
+        ("port", T, remote, InMemoryStoreManager, open_graph, {"computer.executor": "cpu"}),
+    ):
+        store_srv = rem.RemoteStoreServer(mem()).start()
+        idx_srv = ns.ix.RemoteIndexServer(
+            ns.ix.LocalIndexProvider(directory=str(tmp_path / name))).start()
+        sm = rem.RemoteStoreManager(*store_srv.address)
+        g = opener(dict({
+            "schema.default": "auto",
+            "index.search.backend": "remote",
+            "index.search.hostname": idx_srv.address[0],
+            "index.search.port": idx_srv.address[1],
+        }, **extra), store_manager=sm)
+        try:
+            P = (ref_traversal if name == "ref" else traversal).P
+            mgmt = g.management()
+            mgmt.make_property_key("bio", str)
+            mgmt.make_property_key("age", int)
+            mgmt.build_mixed_index("people", ["bio", "age"], backing="search")
+            tx = g.new_transaction()
+            a = tx.add_vertex(bio="fought the nemean lion", age=30)
+            b = tx.add_vertex(bio="god of thunder and sky", age=5000)
+            tx.commit()
+            t = g.traversal()
+            out = [[v.id for v in t.V().has("bio", P.text_contains("thunder")).to_list()],
+                   [v.id for v in t.V().has("age", P.lt(500)).to_list()], [a.id, b.id]]
+            tx = g.new_transaction()
+            tx.get_vertex(b.id).remove()
+            tx.commit()
+            out.append(g.traversal().V().has("bio", P.text_contains("thunder")).to_list())
+            seen[name] = out
+        finally:
+            g.close()
+            store_srv.stop()
+            idx_srv.stop()
+    a, b = seen["port"][2]
+    assert seen["port"] == seen["ref"]
+    assert seen["port"][:2] == [[b], [a]] and seen["port"][3] == []
+
+
+def test_the_index_server_imports_no_torch(tmp_path):
+    """A remote index server in its own process starts without torch."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import sys\n"
+        "from janusgraph_tpu_torch.indexing import InMemoryIndexProvider, RemoteIndexServer\n"
+        "from janusgraph_tpu_torch.indexing import RemoteIndexProvider\n"
+        "srv = RemoteIndexServer(InMemoryIndexProvider()).start()\n"
+        "p = RemoteIndexProvider(*srv.address)\n"
+        "assert p.exists() in (True, False)\n"
+        "p.close(); srv.stop()\n"
+        "print('torch' in sys.modules)\n"
+    )
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(root), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"

@@ -7,6 +7,7 @@ chip_smoke.py for such imports. The module name
 the exact module name or its dotted prefix, never the bare prefix."""
 
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -325,6 +326,54 @@ print("OK", round(float(res.states["rank"].sum()), 4), alive, loaded)
 """
 
 
+FAULT_RUN = r"""
+import re, subprocess, sys
+BLOCK = 'import sys; sys.modules["jax"] = None; sys.modules["janusgraph_tpu"] = None; '
+sys.modules["jax"] = None
+sys.modules["janusgraph_tpu"] = None
+index = subprocess.Popen(
+    [sys.executable, "-c", BLOCK + "import time; from janusgraph_tpu_torch.indexing import "
+     "InMemoryIndexProvider, RemoteIndexServer; s = RemoteIndexServer(InMemoryIndexProvider())"
+     ".start(); print('index on %s:%d' % s.address, flush=True); time.sleep(600)"],
+    stdout=subprocess.PIPE, text=True)
+try:
+    m = re.search(r"index on ([\d.]+):(\d+)", index.stdout.readline())
+    from janusgraph_tpu_torch.core.graph import open_graph
+    from janusgraph_tpu_torch.core.traversal import P
+    from janusgraph_tpu_torch.olap.programs import PageRankProgram
+    g = open_graph({"storage.backend": "sharded", "computer.executor": "cpu",
+                    "storage.faults.enabled": True, "storage.faults.seed": 3,
+                    "storage.faults.read-error-rate": 0.05,
+                    "storage.faults.preempt-superstep": 2,
+                    "computer.checkpoint-every": 2,
+                    "computer.checkpoint-path": sys.argv[1],
+                    "storage.backoff-base-ms": 1.0, "storage.backoff-max-ms": 2.0,
+                    "index.search.backend": "remote", "index.search.hostname": m.group(1),
+                    "index.search.port": int(m.group(2))})
+    mgmt = g.management()
+    mgmt.make_property_key("w", int)
+    mgmt.build_mixed_index("byW", ["w"], backing="search")
+    tx = g.new_transaction()
+    vs = [tx.add_vertex("node", w=i) for i in range(6)]
+    for i in range(6):
+        tx.add_edge(vs[i], "link", vs[(i + 1) % 6])
+        tx.add_edge(vs[i], "link", vs[(i * i) % 6])
+    tx.commit()
+    hits = len(g.traversal().V().has("w", P.gt(2)).to_list())
+    res = g.compute().program(PageRankProgram(max_iterations=6)).submit()
+    assert res.run_info["resumes"] == 1 and res.states["rank"].shape == (6,)
+    kinds = sorted({e["kind"] for e in g.fault_plan.journal})
+    g.close()
+finally:
+    index.terminate()
+    index.wait(timeout=10)
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+    m == "jax" or m.startswith("jax.")
+    or m == "janusgraph_tpu" or m.startswith("janusgraph_tpu.")))
+print("OK", hits, "superstep" in kinds, loaded)
+"""
+
+
 def _forbidden(name):
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
@@ -439,8 +488,25 @@ def test_remote_store_runs_with_jax_blocked():
     assert proc.stdout.strip() == "OK 1.0 True []", proc.stdout
 
 
+def test_faults_sharded_store_and_remote_index_run_with_jax_blocked(tmp_path):
+    """A faulted graph over the sharded store with its mixed index on a
+    port index server in another process: writes, an index query and a
+    CPU submit preempted and resumed, with both blocked in both
+    processes."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", FAULT_RUN, str(tmp_path / "ck.npz")], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "OK 3 True []", proc.stdout
+
+
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py")]
+    # the scripts that drive the port on the card
+    files += sorted(glob.glob(os.path.join(ROOT, "bin", "torch_*.py")))
     for dirpath, dirs, names in os.walk(os.path.join(ROOT, "janusgraph_tpu_torch")):
         dirs[:] = [d for d in dirs if d != "_build"]  # build output, not source
         files +=[os.path.join(dirpath, n) for n in names if n.endswith(".py")]
@@ -491,6 +557,9 @@ IO_PATH_MODULES = ("core/io.py", "driver/__init__.py", "driver/graphson.py",
 #: framing and breaker, placement, the command line)
 REMOTE_PATH_MODULES = ("storage/remote.py", "storage/pipeline.py", "storage/circuit.py",
                        "core/placement.py", "cli.py", "__main__.py")
+#: modules of the fault injector, the sharded store and the remote index
+FAULT_PATH_MODULES = ("storage/faults.py", "storage/sharded_store.py", "indexing/remote.py",
+                      "indexing/__init__.py")
 
 
 def test_no_port_file_imports_jax_or_reference():
@@ -498,7 +567,7 @@ def test_no_port_file_imports_jax_or_reference():
     assert len(files) > 10 and os.path.exists(files[0])
     pkg = os.path.join(ROOT, "janusgraph_tpu_torch")
     for rel in (STORED_PATH_MODULES + TRAVERSAL_PATH_MODULES + IO_PATH_MODULES
-                + REMOTE_PATH_MODULES):
+                + REMOTE_PATH_MODULES + FAULT_PATH_MODULES):
         assert os.path.join(pkg, rel) in files, rel
     assert os.path.exists(os.path.join(pkg, "csrc", "graphcsr.cpp"))
     bad = []

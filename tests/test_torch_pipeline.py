@@ -16,9 +16,14 @@ carrier) are byte-equal to the reference's for the same queued ops, a port
 client pipelines against the reference's server, and the health block is
 the reference's function of the same snapshot.
 
-Not twinned: the remote index provider's cases (``indexing/remote.py``,
-ROADMAP Queue A #5.5b), the health endpoint and the driver's multiplexed
-web socket (the server and the driver, #5.6), and the two load-sensitive
+The remote index provider's cases are twinned too: its pipelined
+queries and fourth capability byte, and an old-featured index server
+that negotiates the pipeline off. The serving-node fault runs a second
+time with the fault injector (``storage/faults.py``) in place of the hook
+store.
+
+Not twinned: the health endpoint and the driver's multiplexed web socket
+(the server and the driver, ROADMAP Queue A #5.6), and the two load-sensitive
 timing cases (the gate engaging under simulated storage latency and the
 pipelined-beats-sync wall ratio), whose reference versions fail under the
 test runner's parallel workers (ROADMAP Queue C #3): the tests here hold
@@ -506,6 +511,101 @@ def test_fault_mid_pipeline_fails_only_its_op_and_breaker_counts_one(servers):
             store.get_slice(KeySliceQuery(b"good", SliceQuery(b"", None)), None)
     finally:
         mgr.close()
+
+
+def test_injected_fault_mid_pipeline_fails_only_its_op_and_breaker_counts_one(servers):
+    """The serving-node fault above, injected by a ``FaultInjectingStoreManager``
+    at the server: every read of the faulted store fails, the sibling reads
+    of a clean store complete, and the breaker counts the failed op once."""
+    from janusgraph_tpu_torch.storage.circuit import CLOSED, OPEN
+    from janusgraph_tpu_torch.storage.faults import FaultInjectingStoreManager, FaultPlan
+
+    plan = FaultPlan(seed=5, read_error_rate=1.0, stores=("faulted",))
+    server = servers(RemoteStoreServer, FaultInjectingStoreManager(InMemoryStoreManager(), plan))
+    mgr = _force_pipeline(RemoteStoreManager(
+        *server.address, max_attempts=1, retry_time_s=0.2, breaker_enabled=True,
+        breaker_failure_threshold=2, breaker_reset_ms=10_000.0,
+    ))
+    try:
+        good, bad = mgr.open_database("edgestore"), mgr.open_database("faulted")
+        good.mutate(b"k", [(b"a", b"1")], [], None)
+        results = {}
+
+        def read(name, store):
+            try:
+                results[name] = store.get_slice(KeySliceQuery(b"k", SliceQuery(b"", None)), None)
+            except Exception as e:  # noqa: BLE001 - asserted below
+                results[name] = e
+
+        threads = [threading.Thread(target=read, args=a)
+                   for a in (("good1", good), ("bad", bad), ("good2", good))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(30.0)
+        assert results["good1"] == results["good2"] == [(b"a", b"1")]
+        assert isinstance(results["bad"], TemporaryBackendError)
+        assert "injected read fault" in str(results["bad"])
+        assert mgr.breaker.state == CLOSED
+        for _ in range(2):
+            with pytest.raises((TemporaryBackendError, CircuitOpenError, PermanentBackendError)):
+                bad.get_slice(KeySliceQuery(b"k", SliceQuery(b"", None)), None)
+        assert mgr.breaker.state == OPEN
+        assert {e["kind"] for e in plan.journal} == {"read"}
+        assert all(e["store"] == "faulted" for e in plan.journal)
+    finally:
+        mgr.close()
+
+
+@pytest.mark.parametrize("server_pkg", ["port", "ref"])
+def test_index_pipelined_queries_and_capability_byte(server_pkg):
+    """The index tier's pipelined idempotent ops: the fourth capability
+    byte engages the mux, a query rides it, the ops counter moves. The
+    port's client against either package's server."""
+    from janusgraph_tpu import indexing as ref_indexing
+    from janusgraph_tpu_torch import indexing
+    from janusgraph_tpu_torch.core.predicates import predicate_by_name
+
+    server = (indexing if server_pkg == "port" else ref_indexing).RemoteIndexServer(
+        (indexing if server_pkg == "port" else ref_indexing).InMemoryIndexProvider()
+    ).start()
+    host, port = server.address
+    client = indexing.RemoteIndexProvider(hostname=host, port=port)
+    client._should_pipeline = lambda: True
+    try:
+        info = indexing.KeyInformation(str, indexing.Mapping.STRING, "SINGLE")
+        client.register("vidx", "name", info)
+        m = indexing.IndexMutation(is_new=True)
+        m.additions.append(indexing.IndexEntry("name", "hercules"))
+        client.mutate({"vidx": {"d1": m}}, {"vidx": {"name": info}})
+        assert client._remote_pipeline is True
+        q = indexing.IndexQuery(
+            indexing.PredicateCondition("name", predicate_by_name("eq"), "hercules"))
+        assert client.query("vidx", q) == ["d1"]
+        client._mux.flush_stats()
+        assert registry.snapshot().get("index.remote.pipeline.ops", {}).get("count", 0) >= 1
+    finally:
+        client.close()
+        server.stop()
+
+
+@pytest.mark.parametrize("server_pkg", ["port", "ref"])
+def test_index_old_featured_server_negotiates_pipeline_off(server_pkg):
+    from janusgraph_tpu import indexing as ref_indexing
+    from janusgraph_tpu_torch import indexing
+
+    ns = indexing if server_pkg == "port" else ref_indexing
+    server = ns.RemoteIndexServer(ns.InMemoryIndexProvider(), pipeline=False).start()
+    host, port = server.address
+    client = indexing.RemoteIndexProvider(hostname=host, port=port)
+    try:
+        client.features()
+        assert client._remote_pipeline is False
+        assert client._remote_trace is True
+        assert client.exists() in (True, False)  # a plain op is unaffected
+    finally:
+        client.close()
+        server.stop()
 
 
 def test_connection_loss_fails_inflight_and_recovers(servers):

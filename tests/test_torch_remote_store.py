@@ -1,6 +1,6 @@
 """The port's remote store held to the JAX package's (after the reference's
-``tests/test_remote_store.py``; its ``test_multi_node_remote_cluster`` needs
-the sharded store and waits for ROADMAP Queue A #5.5b).
+``tests/test_remote_store.py``, its multi-node cluster included: the
+sharded store behind a server, a node failed and healed over the wire).
 
 The reference's cases run against the port's server and client. Beside
 them:
@@ -249,10 +249,67 @@ def test_cli_storage_server_cross_process(tmp_path):
         proc.wait(timeout=10)
 
 
+def test_multi_node_remote_cluster(servers):
+    """The sharded composite behind the server is an N-node remote
+    cluster; a failed node surfaces as a temporary error over the wire,
+    and the rows sit on the nodes the reference's placement picks."""
+    from janusgraph_tpu.storage.sharded_store import _shard_of as ref_shard_of
+    from janusgraph_tpu_torch.storage.sharded_store import ShardedStoreManager
+
+    server = servers(RemoteStoreServer, ShardedStoreManager(num_nodes=3))
+    client = RemoteStoreManager(*server.address, retry_time_s=0.3)
+    try:
+        assert not client.features.ordered_scan
+        store = client.open_database("edgestore")
+        tx = client.begin_transaction()
+        for i in range(64):
+            store.mutate(f"key{i}".encode(), [(b"c", b"v")], [], tx)
+        rows = list(store.get_keys(SliceQuery(b"", None), tx))
+        assert len(rows) == 64
+        for node, mgr in enumerate(server.manager.nodes):
+            for key, _ in mgr.open_database("edgestore").get_keys(SliceQuery(), None):
+                assert ref_shard_of(key, 3) == node
+        server.manager.fail_node(1)
+        with pytest.raises(TemporaryBackendError):
+            for i in range(64):
+                store.get_slice(KeySliceQuery(f"key{i}".encode(), SliceQuery(b"", None)), tx)
+        server.manager.heal_node(1)
+        got = [store.get_slice(KeySliceQuery(f"key{i}".encode(), SliceQuery(b"", None)), tx)
+               for i in range(64)]
+        assert got == [[(b"c", b"v")]] * 64
+    finally:
+        client.close()
+
+
+def test_cli_storage_server_sharded_cross_process():
+    """``storage-server --sharded-nodes 3`` in its own process: a graph over
+    the wire scans it through the unordered branch."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "janusgraph_tpu_torch", "storage-server",
+         "--port", "0", "--sharded-nodes", "3"],
+        stdout=subprocess.PIPE, text=True, cwd=str(ROOT),
+    )
+    try:
+        line = proc.stdout.readline()
+        m = re.search(r"storage server \(sharded\(3\)\) listening on ([\d.]+):(\d+)", line)
+        assert m, line
+        g = open_graph({"storage.backend": "remote", "storage.hostname": m.group(1),
+                        "storage.port": int(m.group(2)), "computer.executor": "cpu"})
+        try:
+            gods.load(g)
+            csr = load_csr(g)
+            assert (csr.num_vertices, csr.num_edges) == (12, 17)
+        finally:
+            g.close()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=10)
+
+
 def test_cli_refuses_what_is_not_ported():
     from janusgraph_tpu_torch import cli
 
-    assert cli.main(["storage-server", "--sharded-nodes", "3"]) == 2
+    assert cli.main(["storage-server", "--sharded-nodes", "0"]) == 2
     assert cli.main(["server", "--config", "graph.json"]) == 2
     assert cli.main(["export", "--config", "g.json", "out.json"]) == 2
 

@@ -309,8 +309,8 @@ def test_id_authority_refuses_another_block_size():
 @pytest.mark.parametrize("path,value,item", [
     ("graph.graphname", "g2", "Queue A #5"),
     ("computer.executor", "sharded", "Queue A #4"),
-    ("storage.sharded-nodes", 3, "Queue A #5.5b"),
-    ("storage.backend", "sharded", "Queue A #5.5b"),
+    ("storage.faults.shard-preempt-superstep", 3, "Queue A #4"),
+    ("storage.faults.replica-kill-at", 3, "Queue A #5.6"),
     ("computer.price-book-path", "book.json", "Queue A #5"),
     ("metrics.slo-enabled", True, "Queue A #5"),
     ("computer.sharded-auto", False, "Queue A #4"),
