@@ -36,14 +36,22 @@ index provider's (``index.search.hostname``, ``-port``, ``-pool-size``,
 ``storage.faults.*`` (``enabled``, ``seed``, the read and write error
 rates, latency and overload, ``torn-mutation-at``, ``lock-expiry-at``,
 ``scan-kill-at``/``-after-rows``, ``preempt-superstep``, ``cdc-torn-at``,
-``stores``) are the reference's.
+``stall-lock-at``/``-ms``, ``wedge-thread-at``, ``stores``) are the
+reference's.
+
+The query server's and its driver's options are the reference's:
+``server.*`` but ``server.fleet.*`` (the endpoint, auth, limits, the stall
+watchdog, admission and brownout, deadlines), ``metrics.history-*``,
+``slo-*``, ``profile-*``, ``bundle-*`` and ``stream-*`` (the metric
+history, SLOs, continuous profiling, bundles and the telemetry stream),
+``computer.price-book-path`` and ``driver.*``.
 
 Every other option of the reference raises ``ConfigurationError`` naming
 the ROADMAP item that brings it, as do ``computer.executor`` = "sharded"
 (#4) and the fault kinds whose consumers are not ported:
-``storage.faults.shard-*`` (the sharded executor, #4), ``replica-*``,
-``follower-lag-*``, ``stall-lock-*`` and ``wedge-thread-at`` (the fleet,
-the CDC follower and the stall watchdog, #5.6). Nothing is ignored.
+``storage.faults.shard-*`` (the sharded executor, #4), ``replica-*`` and
+``follower-lag-*`` (the fleet and the CDC follower, #5.6b), as do
+``server.fleet.*`` and ``metrics.fleet-*`` (#5.6b). Nothing is ignored.
 
 The durable logs' options (``log.*``, ``tx.log-tx``,
 ``tx.max-commit-time-ms``, ``tx.recover-on-open``, ``storage.cdc.*``,
@@ -125,7 +133,7 @@ def _option(path, datatype, description, default,
 
 _ROADMAP_MULTI = "ROADMAP.md Queue A #4 (multi-GPU)"
 _ROADMAP_HOST = "ROADMAP.md Queue A #5 (the host system beyond OLAP)"
-_ROADMAP_SERVER = "ROADMAP.md Queue A #5.6 (the server, the driver and the tools)"
+_ROADMAP_FLEET = "ROADMAP.md Queue A #5.6b (the fleet, federation and the tools)"
 
 #: honoured options whose value the port refuses: path -> (refuses, item)
 _REFUSED_VALUES: Dict[str, tuple] = {
@@ -139,20 +147,18 @@ _NOT_PORTED: Dict[str, str] = {
     "computer.shard-": _ROADMAP_MULTI,
     "computer.exchange": _ROADMAP_MULTI,
     "computer.agg": _ROADMAP_MULTI,
-    # the rest of computer.* (the price book, result mode) and of
-    # metrics.* (history, profiling, SLOs, streams, fleet outliers) serve
-    # the server; the rest of query.* serves the indexes
+    # the rest of computer.* (the result mode); the rest of query.* serves
+    # the indexes
     "computer.": _ROADMAP_HOST,
+    "metrics.fleet-": _ROADMAP_FLEET,
     "metrics.": _ROADMAP_HOST,
     "cluster.": _ROADMAP_MULTI,
     # fault kinds whose consumers are not ported: the sharded executor's
     # (shard preemption, collective timeout, halo drop, straggler skew),
-    # the fleet's replicas, the CDC follower's lag, the stall watchdog's
+    # the fleet's replicas, the CDC follower's lag
     "storage.faults.shard-": _ROADMAP_MULTI,
-    "storage.faults.replica-": _ROADMAP_SERVER,
-    "storage.faults.follower-lag-": _ROADMAP_SERVER,
-    "storage.faults.stall-lock-": _ROADMAP_SERVER,
-    "storage.faults.wedge-thread-at": _ROADMAP_SERVER,
+    "storage.faults.replica-": _ROADMAP_FLEET,
+    "storage.faults.follower-lag-": _ROADMAP_FLEET,
     "storage.": _ROADMAP_HOST,
     "ids.": _ROADMAP_HOST,
     "cache.": _ROADMAP_HOST,
@@ -160,7 +166,7 @@ _NOT_PORTED: Dict[str, str] = {
     "graph.": _ROADMAP_HOST,
     "index.": _ROADMAP_HOST,
     "locks.": _ROADMAP_HOST,
-    "server.": _ROADMAP_HOST,
+    "server.fleet.": _ROADMAP_FLEET,
     "query.": _ROADMAP_HOST,
 }
 
@@ -965,6 +971,375 @@ _option(
     "...)); custom ids bypass the id authority", False, Mutability.FIXED,
 )
 
+
+# ---- the query server, its driver and the observability plane they
+# ---- read (server/, driver/client.py, observability/timeseries.py,
+# ---- slo.py, continuous.py, stream.py): the reference's options
+_option(
+    "computer.price-book-path", str,
+    "file for persisting the digest-table price books (tmp+rename JSON, "
+    "same discipline as the autotune record) so spillover promotion and "
+    "admission pricing warm-start across restarts; empty = derive "
+    "<computer.checkpoint-path>.pricebook.json when a checkpoint path is "
+    "set, else no persistence (observability/profiler.save_price_book, "
+    "loaded at graph open)", "", Mutability.LOCAL,
+)
+_option("server.host", str, "bind address", "127.0.0.1", Mutability.LOCAL)
+_option("server.port", int, "bind port", 8182, Mutability.LOCAL)
+_option("server.auth.enabled", bool, "require HMAC token auth", False, Mutability.LOCAL)
+_option("server.auth.secret", str, "HMAC token signing secret", "", Mutability.LOCAL)
+_option(
+    "server.max-query-length", int,
+    "refuse submitted queries longer than this many characters (bounds "
+    "AST parse cost; read in the server eval path)", 65536,
+    Mutability.MASKABLE, lambda v: v > 0,
+)
+_option(
+    "server.request-timeout-s", float,
+    "per-connection socket timeout of the HTTP/WS handlers AND the "
+    "default wall-clock deadline on query evaluation when the client "
+    "sends no X-Deadline-Ms (overridable via server.deadline.default-ms; "
+    "0 = neither: idle WebSocket sessions live indefinitely)", 120.0,
+    Mutability.MASKABLE, lambda v: v >= 0,
+)
+_option(
+    "server.auto-commit", bool,
+    "commit each successful request's transaction (the reference Gremlin "
+    "Server's sessionless semantics — mutating queries like mergeV/addV "
+    "persist); false rolls every request back, making the endpoint "
+    "read-only (read in JanusGraphServer.execute)", True,
+    Mutability.MASKABLE,
+)
+_option(
+    "server.max-request-bytes", int,
+    "reject HTTP bodies/WS frames larger than this (server/server.py)",
+    1 << 20, Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.auth.token-ttl-ms", float,
+    "HMAC token lifetime (server/auth.py TokenAuthenticator)", 3_600_000.0,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.auth.credentials-db", str,
+    "name of the credentials graph/store for SASL-style user auth",
+    "credentials", Mutability.LOCAL,
+)
+_option(
+    "metrics.history-enabled", bool,
+    "retain a bounded in-process ring of periodic registry snapshots "
+    "(counter/timer deltas per window, window percentiles; "
+    "observability/timeseries.py — served at GET /timeseries and "
+    "`janusgraph_tpu timeseries`; the query server owns the sampling "
+    "thread)", True, Mutability.LOCAL,
+)
+_option(
+    "metrics.history-interval-s", float,
+    "seconds between history samples (one ring window per sample)",
+    5.0, Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "metrics.history-retention", int,
+    "history windows retained (retention wall = this x "
+    "history-interval-s; default 360 x 5 s = 30 min)",
+    360, Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "metrics.slo-enabled", bool,
+    "evaluate the declarative SLO specs with multi-window burn-rate "
+    "alerting over the metrics history (observability/slo.py; alerts "
+    "become flight slo_burn events, observability.slo.* gauges, and the "
+    "/healthz slo block — a page-severity burn reports degraded)",
+    True, Mutability.LOCAL,
+)
+_option(
+    "metrics.slo-availability-objective", float,
+    "availability SLO: target non-shed fraction of arriving requests "
+    "(good/bad from the admission counters)", 0.999,
+    Mutability.LOCAL, lambda v: 0 < v < 1,
+)
+_option(
+    "metrics.slo-latency-objective", float,
+    "latency SLO: target fraction of requests under their class "
+    "threshold", 0.99, Mutability.LOCAL, lambda v: 0 < v < 1,
+)
+_option(
+    "metrics.slo-latency-threshold-ms", float,
+    "latency SLO floor threshold; per-digest classes are additionally "
+    "priced at 4x their measured mean cost from the admission price "
+    "book, never below this floor", 250.0,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "metrics.slo-freshness-max-staleness", float,
+    "OLAP freshness SLO: committed writes the spillover CSR snapshot "
+    "may trail before freshness burns at page rate "
+    "(olap.spillover.staleness gauge)", 10_000.0,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "metrics.slo-fast-windows", int,
+    "history windows in the fast burn-rate window (reaction time)",
+    3, Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "metrics.slo-slow-windows", int,
+    "history windows in the slow burn-rate window (blip veto); alerts "
+    "require BOTH windows past the threshold", 36,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "metrics.slo-page-burn", float,
+    "burn rate at which an SLO pages (error budget spent at this "
+    "multiple of the sustainable rate; 14.4 = a 30-day budget in 2 "
+    "days)", 14.4, Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "metrics.slo-ticket-burn", float,
+    "burn rate at which an SLO opens a ticket-severity alert", 6.0,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "metrics.profile-enabled", bool,
+    "run the always-on sampling profiler (observability/continuous.py "
+    "SamplingProfiler): a daemon thread folds sys._current_frames() "
+    "stacks into collapsed-stack flame windows sealed in lockstep with "
+    "the metrics-history interval; self-measured overhead (wall AND "
+    "CPU) is exported and gated <1% CPU in the saturation bench",
+    True, Mutability.LOCAL,
+)
+_option(
+    "metrics.profile-hz", float,
+    "sampling-profiler rate in passes per second (each pass costs one "
+    "sys._current_frames() walk; 20 Hz keeps the self-measured CPU "
+    "overhead well under the 1% gate)", 20.0,
+    Mutability.LOCAL, lambda v: 0 < v <= 1000,
+)
+_option(
+    "metrics.profile-windows", int,
+    "flame windows retained in the profiler ring (retention wall = "
+    "this x history-interval-s when history drives the sealing)", 60,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "metrics.bundle-dir", str,
+    "directory for anomaly forensics bundles (flame windows + flight "
+    "ring + timeseries tail + all-thread stacks + active requests), "
+    "written tmp+rename atomic on SLO page / watchdog stall / "
+    "unhandled server error; empty = bundles off", "",
+    Mutability.LOCAL,
+)
+_option(
+    "metrics.bundle-retention", int,
+    "forensics bundles kept on disk (oldest pruned first)", 8,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "metrics.bundle-min-interval-s", float,
+    "rate limit between bundle captures (an anomaly storm must not "
+    "turn the forensics plane into its own I/O incident)", 30.0,
+    Mutability.LOCAL, lambda v: v >= 0,
+)
+_option(
+    "metrics.stream-depth", int,
+    "per-subscriber queue depth on the telemetry bus "
+    "(observability/stream.py): events past it DROP-OLDEST into the "
+    "subscriber's dropped counter — a slow /watch client or push peer "
+    "costs itself data, never stalls a producer (graphlint JG113)",
+    256, Mutability.LOCAL, lambda v: v >= 1,
+)
+_option(
+    "metrics.stream-heartbeat-s", float,
+    "default idle-gap heartbeat cadence on /watch sessions (the client "
+    "may request its own, clamped to [0.2, 30]); heartbeats carry the "
+    "subscriber's drop counter so a quiet stream and a dead peer are "
+    "distinguishable", 5.0,
+    Mutability.LOCAL, lambda v: 0.2 <= v <= 30.0,
+)
+_option(
+    "server.watchdog-enabled", bool,
+    "run the runtime stall watchdog (observability/continuous.py "
+    "StallWatchdog): scans instrumented-lock wait tables and "
+    "registered progress sources (active requests, supersteps, CDC "
+    "pulls) and flights stall/lock_convoy events carrying the owner's "
+    "sampled stack — the runtime twin of graphlint's static lock "
+    "rules", True, Mutability.LOCAL,
+)
+_option(
+    "server.watchdog-interval-s", float,
+    "seconds between watchdog scan passes", 1.0,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.watchdog-stall-s", float,
+    "waiting/no-progress threshold past which the watchdog flights a "
+    "stall or lock_convoy event (edge-triggered per episode) and "
+    "captures a forensics bundle", 5.0,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.admission.enabled", bool,
+    "cost-aware admission control in front of every query request "
+    "(server/admission.py AdmissionController: adaptive AIMD concurrency "
+    "limit, bounded cost-priority wait queue, load shedding with "
+    "Retry-After, brownout ladder); observability endpoints always "
+    "bypass it", True, Mutability.LOCAL,
+)
+_option(
+    "server.admission.initial-limit", int,
+    "starting concurrent-request limit of the AIMD controller", 8,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.admission.min-limit", int,
+    "floor the multiplicative decrease never drops the limit below", 1,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.admission.max-limit", int,
+    "ceiling the additive increase never raises the limit above", 64,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.admission.queue-bound", int,
+    "bounded wait-queue depth; arrivals past it are shed with "
+    "429/503 + Retry-After (decorrelated jitter)", 32,
+    Mutability.LOCAL, lambda v: v >= 0,
+)
+_option(
+    "server.admission.window", int,
+    "completed requests per AIMD decision window (the window's median "
+    "latency is compared against the baseline)", 32,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.admission.latency-threshold", float,
+    "multiplicative-decrease trigger: window median latency above "
+    "threshold x baseline shrinks the limit; below it the limit grows "
+    "by one", 2.0, Mutability.LOCAL, lambda v: v > 1.0,
+)
+_option(
+    "server.admission.default-cost-ms", float,
+    "wait-queue price of a query shape the digest price book has not "
+    "measured yet (unknown shapes are assumed mid-priced, not free)",
+    25.0, Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.admission.cheap-cost-ms", float,
+    "known-cheap threshold: under brownout rung 3 only digests with a "
+    "measured mean cost at or below this are admitted", 5.0,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.admission.brownout-window-s", float,
+    "sliding window over shed events that drives brownout escalation",
+    5.0, Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.admission.brownout-enter-sheds", int,
+    "sheds within the brownout window that escalate the ladder one rung "
+    "(1: shed span retention, 2: refuse OLAP submits, 3: admit only "
+    "known-cheap digests)", 8, Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.admission.brownout-exit-s", float,
+    "shed-free time that de-escalates the ladder one rung (hysteresis: "
+    "exiting is deliberately slower than entering)", 10.0,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.admission.brownout-dwell-s", float,
+    "minimum time between rung transitions in either direction (keeps "
+    "the ladder from flapping)", 2.0, Mutability.LOCAL, lambda v: v >= 0,
+)
+_option(
+    "server.admission.retry-after-base-s", float,
+    "base of the decorrelated-jitter Retry-After hint on shed "
+    "responses", 0.25, Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.admission.retry-after-max-s", float,
+    "ceiling of the decorrelated-jitter Retry-After hint", 8.0,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.deadline.default-ms", float,
+    "deadline applied to a request whose client sent no X-Deadline-Ms "
+    "header / WS deadline field (0 = derive from server.request-"
+    "timeout-s; read in server/server.py)", 0.0,
+    Mutability.LOCAL, lambda v: v >= 0,
+)
+_option(
+    "server.deadline.max-ms", float,
+    "clamp on client-supplied deadlines — a client cannot buy more "
+    "server time than the operator allows (0 = no clamp)", 600_000.0,
+    Mutability.LOCAL, lambda v: v >= 0,
+)
+_option(
+    "driver.retry-budget-capacity", float,
+    "token-bucket capacity of the driver's per-connection retry budget: "
+    "each retry of a shed (429/503) response spends one token, so "
+    "client retries cannot stampede a recovering server (0 = never "
+    "retry; read in driver/client.py)", 8.0,
+    Mutability.LOCAL, lambda v: v >= 0,
+)
+_option(
+    "driver.retry-budget-refill-per-s", float,
+    "token refill rate of the driver retry budget", 0.5,
+    Mutability.LOCAL, lambda v: v >= 0,
+)
+_option(
+    "driver.failover-retry-budget-capacity", float,
+    "token-bucket capacity of the fleet router's retry-elsewhere budget "
+    "(server/fleet.FleetRouter): each re-route of a shed/draining/dead "
+    "replica spends one token, so a fleet-wide incident cannot multiply "
+    "into a retry stampede against the survivors (0 = never re-route)",
+    16.0, Mutability.LOCAL, lambda v: v >= 0,
+)
+_option(
+    "driver.failover-retry-budget-refill-per-s", float,
+    "token refill rate of the fleet failover budget", 2.0,
+    Mutability.LOCAL, lambda v: v >= 0,
+)
+_option(
+    "driver.failover-backoff-base-s", float,
+    "base of the jittered backoff slept before retrying a request on "
+    "another replica (decorrelated like the shed Retry-After)", 0.02,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "driver.failover-backoff-max-s", float,
+    "ceiling of the fleet failover backoff", 0.5,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "driver.ws-multiplex", bool,
+    "multiplex concurrent submits over one WebSocket connection: each "
+    "request carries a client-assigned id echoed in its response, so "
+    "many in-flight queries share the socket and complete out of order "
+    "(JanusGraphClient.ws; degrades to serial round-trips against an "
+    "old server that does not echo ids)", True, Mutability.LOCAL,
+)
+_option(
+    "storage.faults.stall-lock-at", int,
+    "instrumented-lock acquisition index at which the holder stalls "
+    "for faults.stall-lock-ms (-1 = off) — the stall-watchdog "
+    "certification fault: the watchdog must flight a lock_convoy "
+    "carrying the holder's sampled stack and capture a forensics "
+    "bundle (observability/continuous.py)", -1,
+    Mutability.LOCAL, lambda v: v >= -1,
+)
+_option(
+    "storage.faults.stall-lock-ms", float,
+    "how long the chosen holder keeps the instrumented lock", 0.0,
+    Mutability.LOCAL, lambda v: v >= 0,
+)
+_option(
+    "storage.faults.wedge-thread-at", int,
+    "worker-op index at which the worker thread wedges (-1 = off); "
+    "the watchdog's progress checker must flight a stall", -1,
+    Mutability.LOCAL, lambda v: v >= -1,
+)
 
 def _lookup(path: str) -> ConfigOption:
     opt = REGISTRY.get(path)

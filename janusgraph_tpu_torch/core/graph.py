@@ -581,8 +581,10 @@ class JanusGraphTPU:
 
     def _configure_telemetry(self) -> None:
         """Apply the metrics.* options to the process-wide tracer, flight
-        recorder, roofline peaks and logger; with metrics.enabled, start the
-        periodic reporters (last: an open that fails leaks no thread)."""
+        recorder, roofline peaks, digest table (with its price book), the
+        server's history, profiler, watchdog, bundles and telemetry bus, and
+        the logger; with metrics.enabled, start the periodic reporters
+        (last: an open that fails leaks no thread)."""
         from janusgraph_tpu_torch.observability import flight_recorder, profiler, tracer
 
         cfg = self.config
@@ -601,6 +603,49 @@ class JanusGraphTPU:
             peak_mxu_flops=cfg.get("metrics.roofline-peak-mxu-flops"),
         )
         profiler.digest_table.configure(capacity=cfg.get("metrics.digest-top-k"))
+        # the plane the query server reads is only sized here: the history
+        # sampler, the profiler and the watchdog threads are the server's
+        # (JanusGraphServer.start), and the telemetry bus taps its sources
+        # on the first subscribe
+        from janusgraph_tpu_torch.observability import (
+            bundle_writer,
+            history,
+            sampling_profiler,
+            telemetry_bus,
+            watchdog,
+        )
+
+        history.configure(
+            capacity=cfg.get("metrics.history-retention"),
+            interval_s=cfg.get("metrics.history-interval-s"),
+        )
+        sampling_profiler.configure(
+            hz=cfg.get("metrics.profile-hz"),
+            max_windows=cfg.get("metrics.profile-windows"),
+        )
+        watchdog.configure(
+            interval_s=cfg.get("server.watchdog-interval-s"),
+            stall_s=cfg.get("server.watchdog-stall-s"),
+        )
+        bundle_writer.configure(
+            directory=cfg.get("metrics.bundle-dir"),
+            retention=cfg.get("metrics.bundle-retention"),
+            min_interval_s=cfg.get("metrics.bundle-min-interval-s"),
+        )
+        telemetry_bus.configure(depth=cfg.get("metrics.stream-depth"))
+        # the price book (computer.price-book-path, else next to the
+        # checkpoints): warm-start the traversal's shape table so the
+        # spillover's promotion and the server's pricing survive restarts
+        self._price_book_path = cfg.get("computer.price-book-path") or (
+            cfg.get("computer.checkpoint-path") + ".pricebook.json"
+            if cfg.get("computer.checkpoint-path")
+            else ""
+        )
+        if self._price_book_path:
+            profiler.restore_digest_records(
+                profiler.digest_table,
+                profiler.load_price_book(self._price_book_path).get("oltp"),
+            )
         if cfg.get("metrics.structured-logging"):
             import sys
 
@@ -759,6 +804,12 @@ class JanusGraphTPU:
                     r.stop(final_flush=r.mode == "csv")
                 except OSError:
                     pass  # reporting must never block close
+            if getattr(self, "_price_book_path", ""):
+                from janusgraph_tpu_torch.observability import profiler
+
+                profiler.save_price_book(
+                    self._price_book_path, {"oltp": profiler.digest_table},
+                )
             if self._delta_snapshot is not None:
                 self._delta_snapshot.close()
                 self._delta_snapshot = None

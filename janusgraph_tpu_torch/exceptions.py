@@ -1,5 +1,6 @@
 """Exceptions of the port (the part of ``janusgraph_tpu/exceptions.py`` the
-OLAP path, the storage layer, the transaction and the traversal raise).
+OLAP path, the storage layer, the transaction, the traversal and the
+query server raise).
 
 Backend errors split into *temporary* ones, which the retry guard
 (``storage/backend_op.py``) replays with backoff, and *permanent* ones,
@@ -114,3 +115,13 @@ class DeadlineExceededError(PermanentBackendError):
 
 class QueryError(JanusGraphTorchError):
     """A malformed or unsupported query."""
+
+
+class ServerOverloadedError(JanusGraphTorchError):
+    """The serving path refused work under overload (admission shed, or a
+    brownout rung refusing OLAP submits). Carries ``retry_after_s`` when
+    the refuser computed a backoff hint."""
+
+    def __init__(self, msg, retry_after_s=None):
+        super().__init__(msg)
+        self.retry_after_s = retry_after_s

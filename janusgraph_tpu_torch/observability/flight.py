@@ -26,12 +26,35 @@ Event categories the port records (the ``category`` field):
                     ``first_cursor``, ``first_epoch``, ``last_epoch``)
 ``cdc_replay``      a CDC replay was served or refused (``action``:
                     ``serve``, ``gap``, ``poison``, ``corrupt``)
-``thread_error``    a log's send or pull loop caught an exception and
-                    went on (storage/log.py; ``thread``, ``error``)
+``thread_error``    a background loop (a log's send or pull loop, the
+                    history sampler, the profiler, the watchdog) caught an
+                    exception and went on (``thread``, ``error``)
+``server_error``    the query server hit an unhandled evaluation error
+``health``          the /healthz status flipped ok -> degraded
+``brownout``        the admission controller's ladder changed rungs
+                    (server/admission.py; ``rung``, ``direction``,
+                    ``reason``)
+``spillover``       the spillover planner promoted a digest or spilled a
+                    traversal (olap/spillover.py)
+``spillover_fallback``  a promoted shape fell back to the row walk
+                    (``digest``, ``reason``)
+``slo_burn``        the SLO engine's alert ladder moved (observability/
+                    slo.py; ``slo``, ``kind``, ``severity``, ``direction``,
+                    ``fast_burn``, ``slow_burn``, ``objective``)
+``lock_convoy``     the stall watchdog caught a thread blocked on an
+                    instrumented lock (observability/continuous.py;
+                    ``lock``, ``waiter``, ``wait_s``, ``owner``,
+                    ``owner_stack``, ``wait_for``)
+``stall``           a progress source reported active work whose progress
+                    did not move for the stall window (``source``,
+                    ``active``, ``stuck_s``, ``progress``)
+``bundle``          a forensics bundle was written (``reason``, ``path``)
 ==================  =======================================================
 
-Dumps (``dump()``) are JSON files under ``metrics.flight-dump-dir``
-(default: the system temp dir) named ``flight-<pid>-<n>.json``.
+Dump triggers: an unhandled server error, the /healthz ok->degraded flip,
+``GET /flight?dump=1`` and ``dump()``. Dumps are JSON files under
+``metrics.flight-dump-dir`` (default: the system temp dir) named
+``flight-<pid>-<n>.json``.
 
 Every event carries a monotonic ``seq``, a wall-clock ``ts`` and a
 monotonic-clock ``mono`` stamp: ``ts`` is what humans read, ``mono`` is
@@ -62,6 +85,19 @@ class FlightRecorder:
         self.last_dump_path: Optional[str] = None
         self.last_dump_ts: Optional[float] = None
         self._lock = threading.Lock()
+        #: per-event hooks (the telemetry bus); called after the ring lock
+        #: is released, exceptions swallowed
+        self._listeners: List = []
+
+    def add_listener(self, fn) -> None:
+        """Register a per-event hook (the streaming telemetry bus); runs
+        on the recording thread after the event lands."""
+        if fn not in self._listeners:
+            self._listeners.append(fn)
+
+    def remove_listener(self, fn) -> None:
+        if fn in self._listeners:
+            self._listeners.remove(fn)
 
     def configure(
         self,
@@ -96,7 +132,20 @@ class FlightRecorder:
             }
             self._ring.append(event)
             self._counts[category] = self._counts.get(category, 0) + 1
+            listeners = list(self._listeners)
+        for fn in listeners:
+            try:
+                fn(event)
+            except Exception:  # noqa: BLE001 - a listener must not kill recording
+                pass
         return event
+
+    @property
+    def last_seq(self) -> int:
+        """Sequence of the newest recorded event: the ``flight`` stream's
+        cursor position (``/watch/info``)."""
+        with self._lock:
+            return self._seq
 
     # -------------------------------------------------------------- querying
     def events(self, category: Optional[str] = None) -> List[dict]:
@@ -118,6 +167,29 @@ class FlightRecorder:
     @property
     def capacity(self) -> int:
         return self._ring.maxlen or 0
+
+    def health_block(self) -> dict:
+        """The compact summary /healthz embeds under ``flight``."""
+        with self._lock:
+            return {
+                "occupancy": len(self._ring),
+                "capacity": self._ring.maxlen or 0,
+                "last_dump": self.last_dump_path,
+                "counts": dict(self._counts),
+            }
+
+    def snapshot(self) -> dict:
+        """The full ``GET /flight`` payload."""
+        with self._lock:
+            return {
+                "occupancy": len(self._ring),
+                "capacity": self._ring.maxlen or 0,
+                "total_recorded": self._seq,
+                "last_dump": self.last_dump_path,
+                "last_dump_ts": self.last_dump_ts,
+                "counts": dict(self._counts),
+                "events": [dict(e) for e in self._ring],
+            }
 
     # ---------------------------------------------------------------- dumping
     def dump(self, reason: str = "manual", path: Optional[str] = None) -> Optional[str]:
@@ -162,7 +234,9 @@ class FlightRecorder:
             self._dumps = 0
             self.last_dump_path = None
             self.last_dump_ts = None
+            self._listeners.clear()
 
 
-#: process-wide recorder; every producer site appends here
+#: process-wide recorder; every producer site appends here and
+#: ``GET /flight`` reads it back
 recorder = FlightRecorder()

@@ -25,8 +25,9 @@ the port of the main-path half of ``janusgraph_tpu/observability/profiler.py``.
   ``digest_records``): every traversal execution is normalized to its
   shape (step vocabulary and access path, literals stripped) and feeds a
   bounded top-K table of measured walls, which the spillover planner's
-  promotion reads. The price book that persists the table stays with the
-  server (ROADMAP Queue A #5).
+  promotion and the admission controller's pricing read. The price book
+  (``save_price_book``, ``load_price_book``, ``restore_digest_records``)
+  persists it across processes.
 - **Flame export** (``flame_lines``, ``flame_text``): a trace's span trees
   as collapsed stacks (``frame;frame;frame weight_us``).
 
@@ -436,7 +437,7 @@ class DigestTable:
 
 
 #: process-wide digest table: the traversal feeds it, the spillover planner
-#: reads it
+#: and GET /profile read it
 digest_table = DigestTable()
 
 
@@ -463,6 +464,106 @@ def digest_records(table: DigestTable) -> List[dict]:
             },
         })
     return out
+
+
+# ------------------------------------------------------------- price book
+# Persistence of DigestTable contents (the "price book"): the traversal's
+# shape table and the admission controller's server-side table serialize
+# to ONE JSON file (computer.price-book-path, default
+# <computer.checkpoint-path>.pricebook.json), written tmp+rename and
+# loaded at graph open and server start, so spillover promotion and
+# admission pricing warm-start. The file format is the reference's: a
+# book one package saves, the other restores.
+
+_PRICE_BOOK_VERSION = 1
+
+
+def restore_digest_records(table: DigestTable, records) -> int:
+    """Merge persisted records into a live table (existing entries win —
+    fresh in-process measurements outrank a stale file). Malformed
+    records are skipped; returns how many were loaded."""
+    from janusgraph_tpu_torch.observability.metrics_core import Histogram
+
+    loaded = 0
+    for r in records or ():
+        try:
+            digest = str(r["digest"])
+            hist = Histogram()
+            hd = r.get("hist") or {}
+            counts = list(hd.get("counts") or ())
+            if len(counts) == len(hist._counts):
+                hist._counts = [int(c) for c in counts]
+            hist.count = int(hd.get("count", r["count"]))
+            hist.total = float(hd.get("total", r["total_ms"]))
+            hist.max = float(hd.get("max", 0.0))
+            entry = {
+                "digest": digest,
+                "shape": str(r.get("shape", "")),
+                "count": int(r["count"]),
+                "total_ms": float(r["total_ms"]),
+                "total_cells": int(r.get("total_cells", 0)),
+                "hist": hist,
+            }
+        except (KeyError, TypeError, ValueError):
+            continue
+        with table._lock:
+            if digest in table._entries:
+                continue
+            table._entries[digest] = entry
+            loaded += 1
+            if len(table._entries) > table.capacity:
+                victim = min(
+                    table._entries,
+                    key=lambda d: table._entries[d]["total_ms"],
+                )
+                del table._entries[victim]
+    return loaded
+
+
+def save_price_book(path: str, tables: Dict[str, DigestTable]) -> None:
+    """Atomically persist the named tables (tmp + rename, the autotune
+    record's discipline), preserving any OTHER table already in the file.
+    Persistence must never fail the caller: I/O errors are swallowed."""
+    import json
+    import os
+    import tempfile
+
+    try:
+        payload_tables = dict(load_price_book(path))
+        for name, table in tables.items():
+            payload_tables[name] = digest_records(table)
+        payload = {"version": _PRICE_BOOK_VERSION, "tables": payload_tables}
+        d = os.path.dirname(os.path.abspath(path)) or "."
+        os.makedirs(d, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=d, suffix=".json.tmp")
+        try:
+            with os.fdopen(fd, "w") as f:
+                json.dump(payload, f)
+            os.replace(tmp, path)
+        except BaseException:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise
+    except OSError:
+        return
+
+
+def load_price_book(path: str) -> Dict[str, List[dict]]:
+    """{table name: [records]} from a persisted price book; {} when the
+    file is missing, unreadable, or from an unknown version."""
+    import json
+
+    try:
+        with open(path, encoding="utf-8") as f:
+            payload = json.load(f)
+    except (OSError, ValueError):
+        return {}
+    if not isinstance(payload, dict) or payload.get(
+        "version"
+    ) != _PRICE_BOOK_VERSION:
+        return {}
+    tables = payload.get("tables")
+    return tables if isinstance(tables, dict) else {}
 
 
 # --------------------------------------------------------------------------

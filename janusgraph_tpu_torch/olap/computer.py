@@ -47,8 +47,11 @@ children; it records its routing (``registry.record_run("olap.routing",
 ...)``) and takes ``run_info`` from ``registry.last_run("olap")`` plus
 ``routing`` (and the port's ``snapshot``).
 
-Left out: OLAP admission (the server's, ROADMAP Queue A #5) and sharded
-routing (#4).
+Admission, as the reference's: ``submit()`` first asks the query
+server's brownout ladder (``server/admission.py`` ``check_olap_admission``)
+and raises ``ServerOverloadedError`` at rung 2 or above, before the span,
+the snapshot and any launch; without a server in the process every run is
+admitted. Left out: sharded routing (ROADMAP Queue A #4).
 ``run_on`` is the array-level entry point beside it.
 """
 
@@ -269,6 +272,13 @@ class GraphComputer:
     def submit(self) -> ComputerResult:
         """Take the CSR snapshot, run the program, wrap the result — the
         whole pipeline under an ``olap.submit`` span."""
+        from janusgraph_tpu_torch.server import admission as _admission
+
+        # brownout rung 2 (server/admission.py): when the serving path is
+        # under sustained overload, analytical jobs are refused before any
+        # scan or launch so OLTP goodput survives; a no-op whenever no
+        # server runs in this process
+        _admission.check_olap_admission()
         with tracer.span("olap.submit", executor=self.executor_kind) as sp:
             return self._submit(sp)
 

@@ -39,7 +39,8 @@ the planner that routes recurring expensive shapes onto the OLAP executor:
   Overlays beyond ``computer.spillover-max-overlay`` fall back.
 
 - **Fallback**: an unsupported step, overlay overflow, staleness breach,
-  count overflow past float32 exactness, or an error while recognizing,
+  a rung-2 brownout (``check_olap_admission``), count overflow past
+  float32 exactness, or an error while recognizing,
   compiling, patching or reducing returns ``None`` to the caller — the
   row-by-row walk continues unchanged — with a ``spillover_fallback``
   flight event and a per-reason counter. Unlike the reference, an error
@@ -49,10 +50,12 @@ the planner that routes recurring expensive shapes onto the OLAP executor:
 
 Hooked from ``GraphTraversal._execute`` (and the ``count()`` terminal) via
 :func:`try_spill`; built per graph at open when ``computer.spillover`` is
-set (``core/graph.py``). Left out: the server's brownout refusal (no server
-runs in the port's process, so :func:`check_olap_admission` admits every
-run) and the process-wide promoted-digest set the server's ``/profile``
-reads (ROADMAP.md Queue A #5).
+set (``core/graph.py``). Under a query server whose brownout ladder stands
+at rung 2 or above (``server/admission.py`` ``check_olap_admission``) a
+promoted shape falls back with reason "brownout" before any snapshot or
+launch; every promoted digest joins the process-wide set
+(``promoted_digests``) that the server's ``/profile`` and ``/healthz``
+read.
 """
 
 from __future__ import annotations
@@ -85,11 +88,16 @@ from janusgraph_tpu_torch.olap.programs.olap_traversal import (
     steps_from_spec,
 )
 
-def check_olap_admission() -> None:
-    """The server's rung-2 brownout check before an OLAP run
-    (``server/admission.py`` in the reference), which admits every run
-    when no server runs in the process. The port has no server (ROADMAP.md
-    Queue A #5), so it admits every run."""
+#: process-wide promoted-digest set: GET /profile marks table rows whose
+#: digest any live planner has promoted, and /healthz lists them
+_PROMOTED_LOCK = threading.Lock()
+_PROMOTED_GLOBAL: set = set()
+
+
+def promoted_digests() -> set:
+    with _PROMOTED_LOCK:
+        return set(_PROMOTED_GLOBAL)
+
 
 class _SpillRefused(Exception):
     """Internal control flow: this attempt falls back (reason carried)."""
@@ -389,6 +397,8 @@ class SpilloverPlanner:
             "shape": shape, "mean_ms_at_promotion": round(mean, 3),
             "seen_at_promotion": seen, "spilled": 0, "fallbacks": 0,
         }
+        with _PROMOTED_LOCK:
+            _PROMOTED_GLOBAL.add(digest)
         registry.counter("olap.spillover.promotions").inc()
         registry.set_gauge(f"olap.spillover.promoted.{digest}", 1.0)
         registry.set_gauge(
@@ -501,7 +511,13 @@ class SpilloverPlanner:
         with self._lock:
             if not self._check_promotion(plan.digest, plan.shape):
                 return None
-        check_olap_admission()
+        from janusgraph_tpu_torch.exceptions import ServerOverloadedError
+        from janusgraph_tpu_torch.server.admission import check_olap_admission
+
+        try:
+            check_olap_admission()
+        except ServerOverloadedError:
+            return self._fallback(plan.digest, "brownout")
         with self._lock:
             t0 = time.perf_counter()
             prep, reason = self._guarded(

@@ -309,26 +309,44 @@ class BackendTransaction:
         self._mutations: Dict[str, Dict[bytes, KCVMutation]] = {}
         self._lock = threading.Lock()
         self._open = True
+        # the request's resource ledger counts cells here for a manager
+        # that does not count its own (the remote store's client counts at
+        # the wire, and counting again here would double every cell)
+        self._ledger_local = not getattr(backend.manager, "ledger_self_accounting", False)
+
+    def _accrue_read(self, *entry_lists: EntryList) -> None:
+        if self._ledger_local:
+            from janusgraph_tpu_torch.observability.profiler import accrue, current_ledger
+
+            if current_ledger() is not None:
+                accrue(cells_read=sum(map(len, entry_lists)),
+                       bytes_read=sum(len(c) + len(v) for es in entry_lists for c, v in es))
 
     # ----------------------------------------------------------------- reads
     # each read rides Backend.guard: temporary failures replay with
     # jittered backoff instead of surfacing into the transaction layer
     def edge_store_query(self, query: KeySliceQuery) -> EntryList:
-        return self.backend.guard(
+        entries = self.backend.guard(
             lambda: self.backend.edgestore.get_slice(query, self.store_tx)
         )
+        self._accrue_read(entries)
+        return entries
 
     def edge_store_multi_query(
         self, keys: Sequence[bytes], slice_query: SliceQuery
     ) -> Dict[bytes, EntryList]:
-        return self.backend.guard(
+        res = self.backend.guard(
             lambda: self.backend.edgestore.get_slice_multi(keys, slice_query, self.store_tx)
         )
+        self._accrue_read(*res.values())
+        return res
 
     def index_query(self, query: KeySliceQuery) -> EntryList:
-        return self.backend.guard(
+        entries = self.backend.guard(
             lambda: self.backend.indexstore.get_slice(query, self.store_tx)
         )
+        self._accrue_read(entries)
+        return entries
 
     def index_query_uncached(self, query: KeySliceQuery) -> EntryList:
         """Past the slice cache: claim-time reads that back lock
@@ -336,7 +354,9 @@ class BackendTransaction:
         store = self.backend.indexstore
         if isinstance(store, ExpirationCacheStore):
             store = store.wrapped
-        return self.backend.guard(lambda: store.get_slice(query, self.store_tx))
+        entries = self.backend.guard(lambda: store.get_slice(query, self.store_tx))
+        self._accrue_read(entries)
+        return entries
 
     # ---------------------------------------------------------------- writes
     def _buffer(self, store: str, key: bytes, additions: EntryList, deletions: Sequence[bytes]):
@@ -416,6 +436,15 @@ class BackendTransaction:
             self._check_and_release_locks(commit=True)
             if preflush is not None and self.has_mutations():
                 preflush()
+            if self._mutations and self._ledger_local:
+                from janusgraph_tpu_torch.observability.profiler import accrue, current_ledger
+
+                if current_ledger() is not None:
+                    muts = [m for rows in self._mutations.values() for m in rows.values()]
+                    accrue(
+                        cells_written=sum(len(m.additions) + len(m.deletions) for m in muts),
+                        bytes_written=sum(len(e[0]) + len(e[1]) for m in muts for e in m.additions),
+                    )
             if self._mutations:
                 flush = lambda: self.backend.manager.mutate_many(  # noqa: E731
                     self._mutations, self.store_tx

@@ -42,10 +42,14 @@ The plan's other decisions are ported with it, pure and journaled as the
 reference's: the multi-device kinds (``sharded_hook``: shard preemption,
 collective timeout, halo drop, straggler skew), the fleet's
 (``fleet_hook``, ``replica_target``, ``arm_replica``, the partition
-window), the follower lag and the watchdog's stalled lock and wedged
-thread. Their consumers (the sharded executor, ROADMAP Queue A #4; the
-fleet, the CDC follower and the stall watchdog, #5.6) are not ported, and
-their ``storage.faults.*`` options refuse naming those items.
+window) and the follower lag. Their consumers (the sharded executor,
+ROADMAP Queue A #4; the fleet and the CDC follower, #5.6b) are not
+ported, and their ``storage.faults.*`` options refuse naming those items.
+The watchdog's stalled lock (``stalled_lock``) and wedged thread
+(``wedge_thread``) are decisions for the holder of an
+``observability/continuous.py`` ``InstrumentedLock`` and for a worker
+that reports its progress to the ``StallWatchdog``, as in the reference,
+and their options are honoured.
 
 Wiring: ``storage.faults.enabled`` makes ``open_graph`` wrap its store
 manager (any backend) and expose the plan as ``graph.fault_plan``; the
@@ -194,9 +198,8 @@ class FaultPlan:
     @classmethod
     def from_config(cls, cfg) -> "FaultPlan":
         """Build from the ``storage.faults.*`` options the port honours; the
-        kinds whose consumers are not ported (shard, replica, follower lag,
-        stalled lock, wedged thread) refuse their options at open and stay
-        off here."""
+        kinds whose consumers are not ported (shard, replica, follower lag)
+        refuse their options at open and stay off here."""
         stores = [
             s.strip()
             for s in cfg.get("storage.faults.stores").split(",")
@@ -217,6 +220,9 @@ class FaultPlan:
             scan_kill_after_rows=cfg.get("storage.faults.scan-kill-after-rows"),
             preempt_superstep=cfg.get("storage.faults.preempt-superstep"),
             cdc_torn_at=cfg.get("storage.faults.cdc-torn-at"),
+            stall_lock_at=cfg.get("storage.faults.stall-lock-at"),
+            stall_lock_ms=cfg.get("storage.faults.stall-lock-ms"),
+            wedge_thread_at=cfg.get("storage.faults.wedge-thread-at"),
             stores=stores,
         )
 

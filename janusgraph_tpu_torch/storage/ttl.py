@@ -130,6 +130,12 @@ class TTLStoreManager(KeyColumnValueStoreManager):
         return StoreFeatures(**{**f.__dict__, "cell_ttl": True})
 
     @property
+    def ledger_self_accounting(self) -> bool:
+        """Pass-through: a wrapped remote client counts its own cells, so
+        the backend transaction must not count them a second time."""
+        return getattr(self.wrapped, "ledger_self_accounting", False)
+
+    @property
     def name(self) -> str:
         return f"ttl({self.wrapped.name})"
 

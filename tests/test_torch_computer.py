@@ -370,7 +370,7 @@ def test_compute_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
     {"computer.executor": "sharded"},
     {"storage.faults.follower-lag-at": 3},
     {"storage.faults.shard-halo-drop-at": 3},
-    {"computer.price-book-path": "book.json"},
+    {"computer.result-mode": "persist"},
     {"no.such-option": 1},
 ])
 def test_options_the_port_does_not_honour_raise(config):

@@ -374,6 +374,41 @@ print("OK", hits, "superstep" in kinds, loaded)
 """
 
 
+SERVER_RUN = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["janusgraph_tpu"] = None
+import janusgraph_tpu_torch.server
+from janusgraph_tpu_torch.core import gods
+from janusgraph_tpu_torch.core.graph import open_graph
+from janusgraph_tpu_torch.driver.client import JanusGraphClient
+from janusgraph_tpu_torch.driver import binary_dumps, binary_loads
+from janusgraph_tpu_torch.server import JanusGraphManager, JanusGraphServer
+g = open_graph({"computer.executor": "cpu"})
+gods.load(g)
+m = JanusGraphManager()
+m.put_graph("graph", g)
+s = JanusGraphServer(manager=m).start()
+try:
+    c = JanusGraphClient(port=s.port, http_timeout_s=60)
+    top = c.submit("g.V().pageRank().order().by('pagerank', reverse=True).limit(3).values('name')")
+    ws = c.ws(session=True)
+    ws.sock.settimeout(60)
+    ws.submit("g.addV('person').property('name','x').iterate()")
+    ws.submit("g.commit()")
+    ws.close()
+    n = c.submit("g.V().has('name','x').count()")
+    assert binary_loads(binary_dumps({"k": [1, 2.5]})) == {"k": [1, 2.5]}
+finally:
+    s.stop()
+    g.close()
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+    m == "jax" or m.startswith("jax.")
+    or m == "janusgraph_tpu" or m.startswith("janusgraph_tpu.")))
+print("OK", top[0], n, loaded)
+"""
+
+
 def _forbidden(name):
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
@@ -503,6 +538,20 @@ def test_faults_sharded_store_and_remote_index_run_with_jax_blocked(tmp_path):
     assert proc.stdout.strip() == "OK 3 True []", proc.stdout
 
 
+def test_query_server_and_driver_run_with_jax_blocked():
+    """The query server over the Gods on the CPU: a pageRank() request
+    through the driver, a WebSocket session's commit read back, and a
+    GraphBinary round trip, with both blocked."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVER_RUN], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "OK tartarus 1 []", proc.stdout
+
+
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     # the scripts that drive the port on the card
@@ -560,6 +609,14 @@ REMOTE_PATH_MODULES = ("storage/remote.py", "storage/pipeline.py", "storage/circ
 #: modules of the fault injector, the sharded store and the remote index
 FAULT_PATH_MODULES = ("storage/faults.py", "storage/sharded_store.py", "indexing/remote.py",
                       "indexing/__init__.py")
+#: modules of the query server, its driver and the observability plane
+#: they read
+SERVER_PATH_MODULES = (
+    "server/__init__.py", "server/server.py", "server/admission.py", "server/auth.py",
+    "server/manager.py", "server/gremlin_compat.py", "driver/client.py",
+    "driver/graphbinary.py", "observability/timeseries.py", "observability/slo.py",
+    "observability/continuous.py", "observability/stream.py",
+)
 
 
 def test_no_port_file_imports_jax_or_reference():
@@ -567,7 +624,7 @@ def test_no_port_file_imports_jax_or_reference():
     assert len(files) > 10 and os.path.exists(files[0])
     pkg = os.path.join(ROOT, "janusgraph_tpu_torch")
     for rel in (STORED_PATH_MODULES + TRAVERSAL_PATH_MODULES + IO_PATH_MODULES
-                + REMOTE_PATH_MODULES + FAULT_PATH_MODULES):
+                + REMOTE_PATH_MODULES + FAULT_PATH_MODULES + SERVER_PATH_MODULES):
         assert os.path.join(pkg, rel) in files, rel
     assert os.path.exists(os.path.join(pkg, "csrc", "graphcsr.cpp"))
     bad = []

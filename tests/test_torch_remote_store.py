@@ -310,7 +310,7 @@ def test_cli_refuses_what_is_not_ported():
     from janusgraph_tpu_torch import cli
 
     assert cli.main(["storage-server", "--sharded-nodes", "0"]) == 2
-    assert cli.main(["server", "--config", "graph.json"]) == 2
+    assert cli.main(["fleet", "--config", "graph.json"]) == 2
     assert cli.main(["export", "--config", "g.json", "out.json"]) == 2
 
 

@@ -311,10 +311,10 @@ def test_id_authority_refuses_another_block_size():
     ("computer.executor", "sharded", "Queue A #4"),
     ("storage.faults.shard-preempt-superstep", 3, "Queue A #4"),
     ("storage.faults.replica-kill-at", 3, "Queue A #5.6"),
-    ("computer.price-book-path", "book.json", "Queue A #5"),
-    ("metrics.slo-enabled", True, "Queue A #5"),
+    ("computer.result-mode", "persist", "Queue A #5"),
+    ("metrics.fleet-retention", 10, "Queue A #5.6b"),
     ("computer.sharded-auto", False, "Queue A #4"),
-    ("metrics.history-enabled", True, "Queue A #5"),
+    ("server.fleet.replicas", 2, "Queue A #5.6b"),
     ("cache.tx-cache-size", 100, "Queue A #5"),
 ])
 def test_options_not_ported_raise_naming_the_roadmap_item(path, value, item):
