@@ -170,16 +170,30 @@ Phases, each printing one JSON line:
            bitwise equal to run_on over it; (e) refresh_csr against the
            same scan; the walls of every submit and write
   oltp     the Gremlin entry point on the same store, reopened with
-           computer.spillover and served by the port's query server
-           (JanusGraphServer with its defaults: admission, the metric
-           history, SLOs, the sampling profiler and the watchdog, and a
-           900 s deadline): g.V().pageRank().order().by('pagerank',
+           computer.spillover as two replicas of a serving fleet
+           (server/fleet.py, as the ``fleet`` subcommand builds one): r0's
+           snapshot exported at 4 shards (export_snapshot; its acquire is
+           r0's cold scan) and r1 warmed from the files (warm_replica, zero
+           edgestore reads); each a JanusGraphServer (r0 with admission,
+           the metric history, SLOs, the sampling profiler and the
+           watchdog, r1 with admission only; a 900 s deadline) with a
+           gossip agent, behind a FleetRouter with its probe loop and a
+           FleetFrontend: g.V().pageRank().order().by('pagerank',
            reverse=True).limit(10).project('id', 'pagerank') sent through
-           the driver's JanusGraphClient over HTTP (its cold submit counted
-           at one kernel run a superstep: 20 iterations at most, fewer
-           where tol=1e-9 stops it; the ids and the ranks, after the
-           GraphSON double, bitwise equal a direct submit's, within 1e-4 of
-           float64; /healthz "ok" with nothing shed), the brownout gate (the
+           the driver's JanusGraphClient to the frontend with the deadline
+           (one fleet.route attempt; the replica that served it; its
+           submit counted at one kernel run a superstep: 20 iterations at
+           most, fewer where tol=1e-9 stops it; the ids and the ranks,
+           after the GraphSON double, bitwise equal a direct submit's,
+           within 1e-4 of float64; the replica's /healthz "ok" with
+           nothing shed, the frontend's "ok" with both serving); r1's
+           direct submit after the warm-up (20 kernel runs, the "warm"
+           path, zero edgestore reads) bitwise equal to r0's, with the
+           export's and warm-up's times and bytes; one FleetFederation
+           tick over both replicas and its incident timeline (both lanes,
+           r1's warm-up event; the Chrome trace validates); then the
+           frontend, the probe loop, the gossip agents and r1 stop (their
+           threads checked), and on r0 alone: the brownout gate (the
            ladder at rung 2 refuses a submit with no kernel run),
            connected_component() on 16 seeds against scipy,
            shortest_path(max_hops=4) from the out-degree hub (one path per
@@ -193,19 +207,22 @@ Phases, each printing one JSON line:
            snapshot) equal to that transaction's walk, and a spill after the
            commit through a delta refresh equal to a fresh walk; every
            olap.spillover.fallback counter 0; last, a WebSocket session of
-           the driver adds one "link" edge between two stored vertices,
-           invisible to a sessionless read until its g.commit(), and the
-           server stops with its sampler, history and watchdog threads
+           the driver on r0 adds one "link" edge between two stored
+           vertices, invisible to a sessionless read until its g.commit(),
+           and r0 stops with its sampler, history and watchdog threads
   logs     the durable logs on the same store: two instances (one with the
            durable CDC log, storage.cdc.dir), tx.log-tx on through
            management().set_config, open_instances(); 1,000-edge commits
            with the WAL off (2) and on (10, with a user log whose processor
            must see all 10,000 edge additions; the txlog's four markers for
-           each); the CDC log replayed from the snapshot's cursor and folded
-           into it (DeltaOverlay.from_batches + materialize), array-equal to
-           a fresh load_csr, PageRank over it (20 kernel runs) bitwise equal
-           to PageRank over the scan, the kernel against its plain version
-           on its in-plan; a torn commit of 1,000 edges (half its rows
+           each); a CDC follower bootstrapped from the snapshot's 4-shard
+           CSR checkpoint pulls the CDC log from the snapshot's cursor and
+           folds it (DeltaOverlay.from_batches + materialize), array-equal
+           to a fresh load_csr, PageRank over it (20 kernel runs) bitwise
+           equal to PageRank over the scan, the instance it serves
+           submitting over its adopted snapshot (20 kernel runs, zero
+           edgestore reads, bitwise equal), promote() and its flight
+           events, the kernel against its plain version on its in-plan; a torn commit of 1,000 edges (half its rows
            flushed), rolled forward by a third instance's open, every edge
            read back, a second recovery that finds nothing, that instance's
            submit (20 kernel runs, a fresh scan) bitwise equal to run_on
@@ -3131,10 +3148,13 @@ TOP10_QUERY = ("g.V().pageRank().order().by('pagerank', reverse=True).limit(10)"
                ".project('id', 'pagerank').by(id()).by('pagerank')")
 
 
-def server_top10(g, server, client, emit, phase_t0) -> dict:
+def server_top10(g, server, client, emit, phase_t0, fleet=None) -> dict:
     """The page_rank() top 10 sent through the query server: its kernel
     runs, ids and ranks held to a direct submit as the in-process step was,
-    and the server's own view (its span, /healthz)."""
+    and the server's own view (its span, /healthz). With ``fleet`` (from
+    ``start_fleet``) ``client`` talks to the fleet's frontend: the request
+    must be one route attempt, the replica that served it reads as
+    ``server``, and the frontend's /healthz must be "ok" too."""
     import torch
 
     from janusgraph_tpu_torch.observability import registry, tracer
@@ -3153,6 +3173,19 @@ def server_top10(g, server, client, emit, phase_t0) -> dict:
     torch.cuda.synchronize()
     pr_runs = kernels.device_launches("cuda") - before
     request = tracer.recent("server.request")[-1]
+    routed = None
+    if fleet is not None:
+        route = tracer.recent("fleet.route")[-1]
+        routed = {k: route.attrs.get(k) for k in ("verdict", "attempts", "replica")}
+        routed["route_ms"] = route.duration_ms
+        if routed["verdict"] != "ok" or routed["attempts"] != 1:
+            raise RuntimeError(f"the top 10 through the fleet frontend: {routed}")
+        server = fleet["servers"][routed["replica"]]
+        front = get_healthz(fleet["frontend"])
+        routed["frontend_healthz"] = {"status": front["status"], "serving": front["serving"],
+                                      "total": front["total"], "quorum_bad": front["quorum_bad"]}
+        if front["status"] != "ok" or front["serving"] != len(fleet["servers"]):
+            raise RuntimeError(f"the frontend's /healthz after the top 10: {routed}")
     step_run = registry.last_run("olap")
     step_run_wall, pr_steps = step_run["wall_s"], step_run["supersteps"]
     discarded = step_run.get("predicated_steps", 0)
@@ -3199,8 +3232,8 @@ def server_top10(g, server, client, emit, phase_t0) -> dict:
                   "profiler_samples": prof.get("samples"),
                   "slo": {a["name"]: a["severity"] for a in health["slo"]["alerts"]},
                   "slo_worst": health["slo"]["worst"]},
-         seconds=time.perf_counter() - phase_t0)
-    return {"launches": pr_runs, "csr": csr}
+         fleet=routed, seconds=time.perf_counter() - phase_t0)
+    return {"launches": pr_runs, "csr": csr, "replica": routed and routed["replica"]}
 
 
 def server_brownout(g, server, emit) -> None:
@@ -3281,43 +3314,263 @@ def server_session(server, client, csr, rng, emit) -> None:
          commit_ms=commit_ms, counts=[before, in_session, unseen, seen])
 
 
-def open_oltp_graph(stored):
-    """The stored graph reopened over its store with computer.spillover."""
+def open_oltp_graph(stored, **options):
+    """The stored graph reopened over its store with computer.spillover
+    (and ``options``)."""
     from janusgraph_tpu_torch.core.graph import open_graph
 
     # a V() traversal holds every vertex: 2^20 and more here, past the
     # default query.max-traversers budget of a million
-    return open_graph({"computer.spillover": True, "query.max-traversers": 1 << 22},
+    return open_graph({"computer.spillover": True, "query.max-traversers": 1 << 22, **options},
                       store_manager=stored["graph"].backend.manager)
 
 
-def oltp_phase(stored, args, emit) -> dict:
+#: the shard count of the oltp phase's snapshot export (the warm-up's files)
+FLEET_SHARDS = 4
+#: the fleet router's probe and the gossip agents' socket timeout here: a
+#: replica busy in the top 10's host walk may answer /healthz late, and two
+#: missed probes mark it dead (server.fleet.probe-timeout-s is 2 s)
+FLEET_PROBE_TIMEOUT_S = 30.0
+
+
+def edgestore_reads() -> int:
+    """Every edgestore call the registry has counted: a graph opened with
+    metrics.enabled counts its own (the oltp phase's r1)."""
+    from janusgraph_tpu_torch.observability import registry
+
+    return sum(int(v.get("count", 0)) for k, v in registry.snapshot().items()
+               if k.startswith("storage.edgestore."))
+
+
+def start_fleet(g0, g1, card: str) -> dict:
+    """A two-replica fleet in process, as the ``fleet`` subcommand builds
+    one: r0 serves ``g0``; r1 serves ``g1`` (the same store, metrics.enabled
+    on so its store reads are counted), warmed with ``warm_replica`` from
+    r0's ``export_snapshot`` written at FLEET_SHARDS shards to a temporary
+    directory, with zero edgestore reads. Each replica runs a
+    JanusGraphServer with the fleet runner's settings: replica 0 owns the
+    process-wide planes (the metric history, the SLO engine, the sampling
+    profiler, the watchdog, the bundle directory), r1 runs none; r1 starts
+    first, so r0's admission controller is the process's active one. A
+    gossip agent on each, a FleetRouter with its probe loop, a
+    FleetFrontend, and a driver client on the frontend with the smoke's
+    deadline. Returns the fleet's parts and the warm-up's record."""
+    import os
+    import shutil
+    import tempfile
+
+    from janusgraph_tpu_torch.driver import JanusGraphClient
+    from janusgraph_tpu_torch.observability import set_replica
+    from janusgraph_tpu_torch.server import (FleetFrontend, FleetRouter, JanusGraphManager,
+                                             JanusGraphServer, StateGossip, export_snapshot,
+                                             warm_replica)
+
+    cfg = g0.config
+    set_replica("fleet-frontend")
+    warm_dir = tempfile.mkdtemp(prefix="jg_fleet_")
+    try:
+        # the export's acquire is r0's cold scan: the one the top 10 paid
+        t0 = time.perf_counter()
+        exported = export_snapshot(g0, warm_dir, num_shards=FLEET_SHARDS)
+        export_s = time.perf_counter() - t0
+        written = sum(os.path.getsize(os.path.join(warm_dir, f)) for f in os.listdir(warm_dir))
+        files = sorted(os.listdir(warm_dir))
+        reads0 = edgestore_reads()
+        t0 = time.perf_counter()
+        warmed = warm_replica(g1, warm_dir, replica="r1")
+        warm_s = time.perf_counter() - t0
+        warm_reads = edgestore_reads() - reads0
+    finally:
+        shutil.rmtree(warm_dir, ignore_errors=True)
+    if not warmed or warm_reads or exported["source"] != "cold":
+        raise RuntimeError(f"the warm-up: warmed {warmed}, {warm_reads} edgestore reads, "
+                           f"export {exported}")
+    router = FleetRouter(vnodes=cfg.get("server.fleet.vnodes"),
+                         candidates=cfg.get("server.fleet.candidates"),
+                         probe_timeout_s=FLEET_PROBE_TIMEOUT_S,
+                         trend_windows=cfg.get("server.fleet.trend-windows"))
+    servers, gossips = {}, {}
+    for name, g in (("r1", g1), ("r0", g0)):
+        manager = JanusGraphManager()
+        manager.put_graph("graph", g)
+        owner = name == "r0"
+        servers[name] = JanusGraphServer(
+            manager=manager, replica_name=name, max_deadline_ms=SERVER_DEADLINE_MS,
+            history_enabled=owner and g.config.get("metrics.history-enabled"),
+            slo_enabled=owner and g.config.get("metrics.slo-enabled"),
+            profiler_enabled=owner and g.config.get("metrics.profile-enabled"),
+            watchdog_enabled=owner and g.config.get("server.watchdog-enabled"),
+            bundle_dir=g.config.get("metrics.bundle-dir") if owner else "",
+        ).start()
+        gossips[name] = StateGossip(name, servers[name].admission,
+                                    fanout=cfg.get("server.fleet.gossip-fanout"),
+                                    timeout_s=FLEET_PROBE_TIMEOUT_S)
+        servers[name].gossip = gossips[name]
+    for name in ("r0", "r1"):
+        router.add_replica(name, "127.0.0.1", servers[name].port)
+        gossips[name].set_peers([f"http://127.0.0.1:{servers[o].port}"
+                                 for o in ("r0", "r1") if o != name])
+        gossips[name].start(interval_s=cfg.get("server.fleet.gossip-interval-s"))
+    router.probe()
+    router.start_probes(interval_s=cfg.get("server.fleet.probe-interval-s"))
+    frontend = FleetFrontend(router).start()
+    client = JanusGraphClient(port=frontend.port, deadline_ms=SERVER_DEADLINE_MS,
+                              http_timeout_s=SERVER_DEADLINE_MS / 1e3 + 60.0)
+    warmup = {"card": card, "shards": FLEET_SHARDS, "files": files, "bytes_written": written,
+              "export_s": export_s, "warm_s": warm_s, "rows": exported["rows"],
+              "edges": exported["edges"], "warm_edgestore_reads": warm_reads}
+    return {"servers": servers, "gossips": gossips, "router": router, "frontend": frontend,
+            "client": client, "warmup": warmup}
+
+
+def stop_fleet(fleet, keep: str = "") -> None:
+    """Stop the frontend, the probe loop, the gossip agents and every
+    replica but ``keep`` (whose server and planes go on, to be stopped by
+    ``stop_query_server``); fail unless every one of their threads has
+    ended."""
+    from janusgraph_tpu_torch.observability import set_replica
+
+    threads = {"frontend": fleet["frontend"]._thread, "probes": fleet["router"]._probe_thread}
+    threads.update({f"gossip_{n}": a._thread for n, a in fleet["gossips"].items()})
+    threads.update({f"http_{n}": s._thread for n, s in fleet["servers"].items() if n != keep})
+    try:
+        fleet["frontend"].stop()
+        fleet["router"].stop()
+        for agent in fleet["gossips"].values():
+            agent.stop()
+        for name, server in fleet["servers"].items():
+            if name != keep:
+                server.stop()
+            server.gossip = None
+    finally:
+        set_replica("")
+    for t in threads.values():
+        if t is not None:
+            t.join(timeout=FLEET_PROBE_TIMEOUT_S + 5.0)
+    alive = [k for k, t in threads.items() if t is not None and t.is_alive()]
+    if alive:
+        raise RuntimeError(f"threads still running after the fleet stopped: {alive}")
+
+
+def fleet_warm(g0, g1, fleet, emit) -> dict:
+    """r1's direct submit over its warmed snapshot against r0's direct
+    submit: PageRank(20, tol=0) on each, 20 kernel runs each on the card,
+    r1's on the "warm" path with zero edgestore reads, the ranks bit for
+    bit and the same vertex ids."""
+    from janusgraph_tpu_torch.olap.programs import PageRankProgram
+
+    def pagerank():
+        return PageRankProgram(max_iterations=20, tol=0.0)
+
+    t0 = time.perf_counter()
+    res0, runs0 = counted(lambda: g0.compute().program(pagerank()).submit(), 20)
+    r0_s = time.perf_counter() - t0
+    reads0 = edgestore_reads()
+    t0 = time.perf_counter()
+    res1, runs1 = counted(lambda: g1.compute().program(pagerank()).submit(), 20)
+    r1_s = time.perf_counter() - t0
+    reads = edgestore_reads() - reads0
+    path = res1.run_info["snapshot"]["path"]
+    if path != "warm" or reads or not np.array_equal(res1.csr.vertex_ids, res0.csr.vertex_ids):
+        raise RuntimeError(f"r1's submit after the warm-up: path {path}, {reads} edgestore reads")
+    if not bits_equal(res1.states["rank"], res0.states["rank"]):
+        raise RuntimeError("r1's ranks after the warm-up differ from r0's")
+    emit("fleet_warm", **fleet["warmup"], r0_submit_s=r0_s, r1_submit_s=r1_s,
+         r1_run_wall_s=res1.run_info["run_wall_s"], r1_path=path, kernel_runs=runs1,
+         r1_edgestore_reads=reads, ranks="r1 bitwise equal to r0")
+    return {"launches": runs1}
+
+
+def fleet_federation(fleet, emit) -> None:
+    """One FleetFederation tick over the two replicas (their history
+    windows merged, none missing) and the incident timeline: both
+    replicas' lanes, r1's warm-up event among them, a Chrome trace that
+    validates."""
+    from janusgraph_tpu_torch.observability import timeline
+    from janusgraph_tpu_torch.observability.federation import FleetFederation
+
+    fed = FleetFederation(fleet["router"], timeout_s=FLEET_PROBE_TIMEOUT_S)
+    t0 = time.perf_counter()
+    window = fed.tick()
+    tick_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report = fed.incident(window_s=0)
+    incident_s = time.perf_counter() - t0
+    lanes = sorted({e["lane"] for e in report["events"]})
+    warmups = [e for e in report["events"]
+               if e.get("category") == "fleet" and e.get("action") == "warmup"]
+    if window["partial"] or window["replicas"] != ["r0", "r1"] or not window["counters"]:
+        raise RuntimeError(f"the federation's window: partial {window['partial']}, "
+                           f"replicas {window['replicas']}, {len(window['counters'])} counters")
+    if report["partial"] or not {"r0", "r1"} <= set(lanes) or [
+            e["lane"] for e in warmups[-1:]] != ["r1"]:
+        raise RuntimeError(f"the incident: partial {report['partial']}, lanes {lanes}, "
+                           f"warm-ups {warmups[-1:]}")
+    timeline.validate_chrome_trace(report["trace"])
+    fed.stop()
+    emit("fleet_federation", tick_s=tick_s, incident_s=incident_s,
+         window={"replicas": window["replicas"], "counters": len(window["counters"]),
+                 "series": len(window["series"]),
+                 "admitted": window["counters"].get("server.admission.admitted", 0),
+                 "routed": window["counters"].get("fleet.router.routed", 0)},
+         incident={"events": len(report["events"]), "lanes": lanes,
+                   "phases": [p["phase"] for p in report["phases"]],
+                   "warmup": {k: warmups[-1].get(k) for k in ("lane", "rows", "edges")}},
+         offsets={n: o["offset_s"] for n, o in report["offsets"].items()})
+
+
+def oltp_phase(stored, args, emit, card: str) -> dict:
     """The Gremlin entry point on the stored graph the phases before wrote
     (the bulk-loaded graph500 graph, its written-back ranks and the delta
     phase's writes), reopened over the same store with computer.spillover
-    and served by the port's query server: the pageRank() top 10 through
-    the driver against a direct submit, the brownout gate, then in process
-    the connected_component() and shortest_path() steps against scipy and
-    the OLTP->OLAP spillover of a 3-hop count (walked, spilled, spilled
-    inside a transaction, spilled after its commit through a delta
-    refresh), and last a WebSocket session's edge."""
+    twice and served by a two-replica fleet (``start_fleet``: r1 warmed
+    from r0's snapshot export): the pageRank() top 10 through the fleet's
+    frontend and the driver against a direct submit, r1's warm submit
+    against r0's (``fleet_warm``), one federation tick and the incident
+    timeline (``fleet_federation``); then the frontend, the probe loop,
+    the gossip agents and r1 stop, and against r0 alone: the brownout
+    gate, in process the connected_component() and shortest_path() steps
+    against scipy and the OLTP->OLAP spillover of a 3-hop count (walked,
+    spilled, spilled inside a transaction, spilled after its commit
+    through a delta refresh), and last a WebSocket session's edge; r0
+    stops with its planes. Every time is printed with the card's name and
+    power limit (``card``)."""
     phase_t0 = time.perf_counter()
     g = open_oltp_graph(stored)
+    g1 = open_oltp_graph(stored, **{"metrics.enabled": True})
     planner = g.spillover_planner
-    # -- the top 10 by rank through the query server, then its brownout
-    # gate; the server stays up for the rest of the phase
-    server, client = start_query_server({"graph": g})
+    # -- a two-replica fleet (r1 warmed from r0's export); the top 10 by
+    # rank through its frontend, r1's warm submit against r0's, one
+    # federation tick; then r0's brownout gate; the fleet stays up for the
+    # rest of the phase
+    fleet = start_fleet(g, g1, card)
+    server = fleet["servers"]["r0"]
     try:
-        top10 = server_top10(g, server, client, emit, phase_t0)
+        try:
+            top10 = server_top10(g, server, fleet["client"], emit, phase_t0, fleet=fleet)
+            warm = fleet_warm(g, g1, fleet, emit)
+            fleet_federation(fleet, emit)
+        finally:
+            # the rest goes on against r0 alone: the fleet's probes and
+            # gossip would take the interpreter from the steps' row walks
+            stop_fleet(fleet, keep="r0")
         server_brownout(g, server, emit)
         csr = top10["csr"]
         pr_runs = top10["launches"]
         out = oltp_steps(g, csr, planner, args, emit, phase_t0)
+        # the session talks to r0 itself, as a WebSocket client of a fleet
+        # does (the frontend routes HTTP requests only)
+        from janusgraph_tpu_torch.driver import JanusGraphClient
+
+        client = JanusGraphClient(port=server.port, deadline_ms=SERVER_DEADLINE_MS,
+                                  http_timeout_s=SERVER_DEADLINE_MS / 1e3 + 60.0)
         server_session(server, client, csr, np.random.default_rng(args.seed + 11), emit)
     finally:
         stop_query_server(server)
+    g1.close()
     g.close()
-    return {"launches": pr_runs, "launches_spill": out["launches_spill"]}
+    return {"launches": pr_runs, "launches_spill": out["launches_spill"],
+            "launches_warm": warm["launches"], "replica": top10["replica"]}
 
 
 def oltp_steps(g, csr, planner, args, emit, phase_t0) -> dict:
@@ -3493,11 +3746,15 @@ def logs_phase(stored, args, emit, card: str) -> dict:
     open_instances() listing both; (2) a snapshot, two 1,000-edge commits
     with the WAL off and ten with it on and a user log, a log processor
     that must see all 10,000 edge additions, the txlog's four markers for
-    each; (3) the CDC log replayed from the snapshot's cursor, folded into
-    the snapshot (DeltaOverlay.from_batches + materialize), array-equal to
-    a fresh load_csr, PageRank over it on the card (20 kernel runs) bitwise
-    equal to PageRank over the scan, and the kernel against its plain
-    version on the folded in-plan; (4) a torn commit of 1,000 edges (half
+    each; (3) a CDC follower (server/fleet.py CDCFollower) bootstrapped
+    from the snapshot saved as a 4-shard CSR checkpoint, pulling the 12
+    records from the snapshot's cursor and folding them (DeltaOverlay
+    .from_batches + materialize): its CSR array-equal to a fresh load_csr,
+    PageRank over it on the card (20 kernel runs) bitwise equal to PageRank
+    over the scan, the instance it serves (g1, its adopted snapshot)
+    submitting on the card with zero edgestore reads (20 kernel runs,
+    bitwise equal), promote() with its flight events, and the kernel
+    against its plain version on the folded in-plan; (4) a torn commit of 1,000 edges (half
     its rows flushed, PRECOMMIT and PREFLUSH in the txlog), a third
     instance whose open rolls it forward, every edge readable, a second
     recovery that finds nothing, and that instance's submit on the card
@@ -3513,10 +3770,12 @@ def logs_phase(stored, args, emit, card: str) -> dict:
     from janusgraph_tpu_torch.core.codecs import Direction
     from janusgraph_tpu_torch.core.graph import open_graph
     from janusgraph_tpu_torch.core.txlog import LogTxStatus, TornCommitRecovery, decode_tx_entry
+    from janusgraph_tpu_torch.observability import flight_recorder
     from janusgraph_tpu_torch.olap import GPUExecutor, kernels, run_on
-    from janusgraph_tpu_torch.olap import delta as D
     from janusgraph_tpu_torch.olap.csr import load_csr, load_csr_snapshot
     from janusgraph_tpu_torch.olap.programs import PageRankProgram
+    from janusgraph_tpu_torch.olap.sharded_checkpoint import save_csr_checkpoint
+    from janusgraph_tpu_torch.server.fleet import CDCFollower
 
     phase_t0 = time.perf_counter()
     mgr = stored["graph"].backend.manager
@@ -3527,7 +3786,9 @@ def logs_phase(stored, args, emit, card: str) -> dict:
         return PageRankProgram(max_iterations=20, tol=0.0)
 
     # -- (1) two instances; the WAL on through the management API
-    g1 = open_graph({}, store_manager=mgr)
+    # g1 counts its store reads (metrics.enabled): it serves the follower's
+    # state in (3)
+    g1 = open_graph({"metrics.enabled": True}, store_manager=mgr)
     g2 = open_graph({"storage.cdc.dir": cdc_dir}, store_manager=mgr)
     m2 = g2.management()
     instances = sorted(m2.open_instances())
@@ -3585,23 +3846,36 @@ def logs_phase(stored, args, emit, card: str) -> dict:
     if len(by_tx) != 10 or any(v != full for v in by_tx.values()):
         raise RuntimeError(f"the txlog holds {by_tx}")
 
-    # -- (3) the CDC log replayed onto the card
+    # -- (3) a CDC follower over the durable log: bootstrapped from the
+    # snapshot's shard checkpoint, it pulls the 12 records, folds them
+    # (DeltaOverlay.from_batches + materialize) and adopts the result into
+    # g1's snapshot; then promote()
+    ckpt_dir = tempfile.mkdtemp(prefix="jg_follow_")
     t0 = time.perf_counter()
-    cursor = g2.cdc_log.cursor_for_epoch(epoch0)
-    replayed = g2.cdc_log.replay_from(cursor)
-    replay_s = time.perf_counter() - t0
-    if replayed is None or len(replayed[0]) != 12:
-        raise RuntimeError(f"the CDC replay from cursor {cursor}: {replayed and len(replayed[0])}")
+    save_csr_checkpoint(ckpt_dir, csr0, epoch0, num_shards=FLEET_SHARDS)
+    checkpoint_s = time.perf_counter() - t0
+    checkpoint_bytes = sum(os.path.getsize(os.path.join(ckpt_dir, f)) for f in os.listdir(ckpt_dir))
+    follower = CDCFollower(g2.cdc_log, ckpt_dir, graph=g1, idm=g2.idm, name="follower",
+                           max_staleness_ms=g1.config.get("server.fleet.follower-max-staleness-ms"))
     t0 = time.perf_counter()
-    overlay = D.DeltaOverlay.from_batches([b for _e, b in replayed[0]])
-    folded = D.materialize(csr0, overlay, idm=g2.idm)
-    materialize_s = time.perf_counter() - t0
+    booted = follower.bootstrap()
+    bootstrap_s = time.perf_counter() - t0
+    cursor = follower.cursor
+    if not booted or cursor != g2.cdc_log.cursor_for_epoch(epoch0):
+        raise RuntimeError(f"the follower's bootstrap: {booted}, cursor {cursor}")
+    t0 = time.perf_counter()
+    pulled = follower.pull()
+    pull_s = time.perf_counter() - t0
+    staleness_s = follower.staleness_s()
+    if not pulled["ok"] or pulled["applied"] != 12 or follower.lag_records():
+        raise RuntimeError(f"the follower's pull: {pulled}, lag {follower.lag_records()}")
+    folded = follower.csr
     t0 = time.perf_counter()
     fresh = load_csr(g2)
     fresh_s = time.perf_counter() - t0
     for k in ("vertex_ids", "out_indptr", "in_indptr", "out_dst", "in_src", "out_edge_type"):
         if not np.array_equal(getattr(folded, k), getattr(fresh, k)):
-            raise RuntimeError(f"the CDC-folded CSR's {k} differs from a fresh load_csr")
+            raise RuntimeError(f"the follower's CSR's {k} differs from a fresh load_csr")
     if fresh.num_edges != csr0.num_edges + 12_000:
         raise RuntimeError(f"{fresh.num_edges} edges after 12,000 on {csr0.num_edges}")
     kernels.reset_launch_counts()
@@ -3610,7 +3884,30 @@ def logs_phase(stored, args, emit, card: str) -> dict:
     folded_run_s = time.perf_counter() - t0
     fresh_rank, _r = counted(lambda: run_on(fresh, pagerank())["rank"], 20)
     if not np.isfinite(folded_rank).all() or not bits_equal(folded_rank, fresh_rank):
-        raise RuntimeError("PageRank over the CDC-folded CSR differs from the fresh scan's")
+        raise RuntimeError("PageRank over the follower's CSR differs from the fresh scan's")
+    # g1 serves the follower's state: its submit reads no edgestore row
+    reads0 = edgestore_reads()
+    t0 = time.perf_counter()
+    served, follower_runs = counted(lambda: g1.compute().program(pagerank()).submit(), 20)
+    follower_submit_s = time.perf_counter() - t0
+    follower_reads = edgestore_reads() - reads0
+    if served.run_info["snapshot"]["path"] != "warm" or follower_reads or not bits_equal(
+            served.states["rank"], fresh_rank):
+        raise RuntimeError(f"g1's submit over the follower's state: "
+                           f"{served.run_info['snapshot']}, {follower_reads} edgestore reads")
+    seq0 = flight_recorder.last_seq
+    t0 = time.perf_counter()
+    promoted = follower.promote()
+    promote_s = time.perf_counter() - t0
+    promote_events = [(e["category"], e.get("action")) for e in flight_recorder.events()
+                      if e["seq"] > seq0]
+    if not promoted["ok"] or follower.role != "leader" or not {
+            ("follower_promote", None), ("cdc_replay", "caught_up")} <= set(promote_events):
+        raise RuntimeError(f"promote(): {promoted}, role {follower.role}, "
+                           f"events {promote_events}")
+    follower_block = follower.healthz_block()
+    follower.unregister_watchdog()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
     ex = GPUExecutor(folded, strategy="segsum")
     in_plan = ex._segsum_plan("in")
     data = torch.rand(in_plan.num_edges, generator=torch.Generator(device="cuda").manual_seed(
@@ -3706,9 +4003,17 @@ def logs_phase(stored, args, emit, card: str) -> dict:
                         commit_ends[0] - wal_on_s[0]),
                     "drain_after_last_commit_s": seen["last"] - commit_ends[-1]},
          txlog_markers=[s.name for s in full],
-         cdc={"records": len(replayed[0]), "cursor": cursor, "segments": cdc_stats[
+         cdc={"records": pulled["applied"], "cursor": cursor, "segments": cdc_stats[
              "sealed_segments"], "tail_records": cdc_stats["tail_records"], "bytes": cdc_bytes,
-              "replay_s": replay_s, "materialize_s": materialize_s, "fresh_load_csr_s": fresh_s},
+              "fresh_load_csr_s": fresh_s},
+         follower={"checkpoint_shards": FLEET_SHARDS, "checkpoint_s": checkpoint_s,
+                   "checkpoint_bytes": checkpoint_bytes, "bootstrap_s": bootstrap_s,
+                   "pull_s": pull_s, "applied": pulled["applied"],
+                   "staleness_s_after_pull": staleness_s, "promote_s": promote_s,
+                   "promote_ms": promoted["promote_ms"], "promote_events": promote_events,
+                   "healthz": follower_block, "submit_s": follower_submit_s,
+                   "submit_kernel_runs": follower_runs, "submit_edgestore_reads": follower_reads,
+                   "submit_ranks": "bitwise equal to run_on over a fresh scan"},
          folded={"kernel_runs": folded_runs, "run_on_wall_s": folded_run_s,
                  "ranks": "bitwise equal to the fresh scan's", "in_plan_max_abs_err": plan_err},
          torn={"tx_id": torn_tx_id, "rows": tear.rows, "rows_flushed": tear.rows // 2,
@@ -3719,7 +4024,7 @@ def logs_phase(stored, args, emit, card: str) -> dict:
          eviction={"acks": acks, "ack_s": ack_s, "timeout_s": timeout_s},
          seconds=time.perf_counter() - phase_t0)
     return {"launches": folded_runs, "launches_recovered": recovered_runs,
-            "max_abs_err": plan_err}
+            "launches_follower": follower_runs, "max_abs_err": plan_err}
 
 
 def indexed_phase(stored, args, emit) -> dict:
@@ -4779,7 +5084,7 @@ def main() -> int:
     kernels.reset_launch_counts()
     stored_delta = stored_delta_phase(stored, args, emit)
     kernels.reset_launch_counts()
-    oltp = oltp_phase(stored, args, emit)
+    oltp = oltp_phase(stored, args, emit, smi)
     kernels.reset_launch_counts()
     logs = logs_phase(stored, args, emit, smi)
     kernels.reset_launch_counts()
@@ -4839,18 +5144,26 @@ def main() -> int:
         "launches_stored_delta": stored_delta["launches"],
         "launches_stored_refresh": stored_delta["launches_refresh"],
         # g.V().page_rank()...limit(10) over the reopened stored graph (its
-        # cold submit), and a spilled 3-hop count (one run a hop on the
-        # "link" channel's plan)
+        # first submit, over the snapshot the fleet's export scanned), and a
+        # spilled 3-hop count (one run a hop on the "link" channel's plan)
         "launches_oltp_page_rank": oltp["launches"],
         "launches_oltp_spill": oltp["launches_spill"],
+        # the same top 10 as served through the two-replica fleet's
+        # frontend (the runs above), and the warmed replica r1's direct
+        # submit over the snapshot warm_replica installed from r0's export
+        "launches_fleet_top10": oltp["launches"],
+        "launches_fleet_warm": oltp["launches_warm"],
         # over the stored graph with a mixed index on its ranks and a
         # vertex-centric index on "link": the submit that built the warm
         # snapshot, the warm submit after 1,000 timed edges (the "refresh"
         # path, from the change capture) and a cold submit (a fresh scan);
         # and the Graph of the Gods' PageRank
-        # the durable logs: PageRank over the CDC-folded CSR (run_on) and
-        # the submit of the instance that rolled the torn commit forward
+        # the durable logs: PageRank over the CSR the CDC follower folded
+        # (run_on), the submit of the instance the follower serves (its
+        # adopted snapshot) and of the instance that rolled the torn
+        # commit forward
         "launches_logs_folded": logs["launches"],
+        "launches_follower": logs["launches_follower"],
         "launches_logs_recovered": logs["launches_recovered"],
         "launches_indexed": indexed["launches"],
         "launches_indexed_cold": indexed["launches_cold"],

@@ -40,18 +40,22 @@ rates, latency and overload, ``torn-mutation-at``, ``lock-expiry-at``,
 reference's.
 
 The query server's and its driver's options are the reference's:
-``server.*`` but ``server.fleet.*`` (the endpoint, auth, limits, the stall
-watchdog, admission and brownout, deadlines), ``metrics.history-*``,
-``slo-*``, ``profile-*``, ``bundle-*`` and ``stream-*`` (the metric
-history, SLOs, continuous profiling, bundles and the telemetry stream),
-``computer.price-book-path`` and ``driver.*``.
+``server.*`` (the endpoint, auth, limits, the stall watchdog, admission
+and brownout, deadlines), ``metrics.history-*``, ``slo-*``,
+``profile-*``, ``bundle-*`` and ``stream-*`` (the metric history, SLOs,
+continuous profiling, bundles and the telemetry stream),
+``computer.price-book-path`` and ``driver.*``. So are the serving
+fleet's: ``server.fleet.*`` (the router, probes, gossip, drain, warm-up,
+the CDC follower, the federation and its push mode), ``metrics.fleet-*``
+(the federation's retention and outlier detector) and the fault kinds
+the fleet and its follower consume, ``storage.faults.replica-*`` and
+``follower-lag-*``.
 
 Every other option of the reference raises ``ConfigurationError`` naming
 the ROADMAP item that brings it, as do ``computer.executor`` = "sharded"
-(#4) and the fault kinds whose consumers are not ported:
-``storage.faults.shard-*`` (the sharded executor, #4), ``replica-*`` and
-``follower-lag-*`` (the fleet and the CDC follower, #5.6b), as do
-``server.fleet.*`` and ``metrics.fleet-*`` (#5.6b). Nothing is ignored.
+and ``storage.faults.shard-*`` (the sharded executor, #4). Nothing is
+ignored. :func:`describe_options` renders the registry as the
+reference's config table (the ``config-docs`` subcommand).
 
 The durable logs' options (``log.*``, ``tx.log-tx``,
 ``tx.max-commit-time-ms``, ``tx.recover-on-open``, ``storage.cdc.*``,
@@ -133,7 +137,6 @@ def _option(path, datatype, description, default,
 
 _ROADMAP_MULTI = "ROADMAP.md Queue A #4 (multi-GPU)"
 _ROADMAP_HOST = "ROADMAP.md Queue A #5 (the host system beyond OLAP)"
-_ROADMAP_FLEET = "ROADMAP.md Queue A #5.6b (the fleet, federation and the tools)"
 
 #: honoured options whose value the port refuses: path -> (refuses, item)
 _REFUSED_VALUES: Dict[str, tuple] = {
@@ -150,15 +153,11 @@ _NOT_PORTED: Dict[str, str] = {
     # the rest of computer.* (the result mode); the rest of query.* serves
     # the indexes
     "computer.": _ROADMAP_HOST,
-    "metrics.fleet-": _ROADMAP_FLEET,
     "metrics.": _ROADMAP_HOST,
     "cluster.": _ROADMAP_MULTI,
-    # fault kinds whose consumers are not ported: the sharded executor's
-    # (shard preemption, collective timeout, halo drop, straggler skew),
-    # the fleet's replicas, the CDC follower's lag
+    # the fault kinds whose consumer, the sharded executor, is not ported
+    # (shard preemption, collective timeout, halo drop, straggler skew)
     "storage.faults.shard-": _ROADMAP_MULTI,
-    "storage.faults.replica-": _ROADMAP_FLEET,
-    "storage.faults.follower-lag-": _ROADMAP_FLEET,
     "storage.": _ROADMAP_HOST,
     "ids.": _ROADMAP_HOST,
     "cache.": _ROADMAP_HOST,
@@ -166,7 +165,6 @@ _NOT_PORTED: Dict[str, str] = {
     "graph.": _ROADMAP_HOST,
     "index.": _ROADMAP_HOST,
     "locks.": _ROADMAP_HOST,
-    "server.fleet.": _ROADMAP_FLEET,
     "query.": _ROADMAP_HOST,
 }
 
@@ -1340,6 +1338,230 @@ _option(
     "the watchdog's progress checker must flight a stall", -1,
     Mutability.LOCAL, lambda v: v >= -1,
 )
+
+# ---- the serving fleet, its CDC follower and the fleet federation
+# (server/fleet.py, observability/federation.py), and the fault kinds
+# they consume (storage/faults.py): the reference's options
+_option(
+    "storage.faults.replica-kill-at", int,
+    "fleet tick index at which the seeded-chosen serving replica is "
+    "killed mid-traffic (-1 = off; the fleet chaos driver consults "
+    "FaultPlan.fleet_hook and executes the decision — server/fleet.py)",
+    -1, Mutability.LOCAL, lambda v: v >= -1,
+)
+_option(
+    "storage.faults.replica-restart-at", int,
+    "fleet tick index at which the killed replica rejoins the fleet "
+    "(-1 = never; rejoin exercises the shard-checkpoint warm-up path)",
+    -1, Mutability.LOCAL, lambda v: v >= -1,
+)
+_option(
+    "storage.faults.replica-partition-at", int,
+    "data-plane op index at which the target replica's storage "
+    "partition window begins (-1 = off): the router still sees the "
+    "replica, the replica cannot reach storage — breaker trips, "
+    "/healthz degrades, the router must route around it",
+    -1, Mutability.LOCAL, lambda v: v >= -1,
+)
+_option(
+    "storage.faults.replica-partition-ops", int,
+    "data-plane ops the partition window covers once it begins", 0,
+    Mutability.LOCAL, lambda v: v >= 0,
+)
+_option(
+    "storage.faults.replica-target", int,
+    "explicit victim replica index for the replica fault kinds "
+    "(-1 = seed-hashed, the shard-preemption discipline)", -1,
+    Mutability.LOCAL, lambda v: v >= -1,
+)
+_option(
+    "storage.faults.follower-lag-at", int,
+    "follower pull index at which the lag window begins (-1 = off): "
+    "the follower stops applying for faults.follower-lag-pulls pulls, "
+    "so staleness grows past the priced bound and the router must "
+    "route freshness-hinted traffic back to the leader", -1,
+    Mutability.LOCAL, lambda v: v >= -1,
+)
+_option(
+    "storage.faults.follower-lag-pulls", int,
+    "pulls the injected follower lag window covers once it begins", 0,
+    Mutability.LOCAL, lambda v: v >= 0,
+)
+_option(
+    "metrics.fleet-retention", int,
+    "merged fleet windows the federation retains (one window per "
+    "federation-interval-s tick; observability/federation.py)", 360,
+    Mutability.LOCAL, lambda v: v >= 1,
+)
+_option(
+    "metrics.fleet-outlier-metric", str,
+    "timer whose per-replica windowed p99 the cross-replica outlier "
+    "detector compares against the fleet median",
+    "server.request.wall", Mutability.LOCAL,
+)
+_option(
+    "metrics.fleet-outlier-factor", float,
+    "outlier threshold: a replica whose windowed p99 exceeds this "
+    "multiple of the fleet median raises a replica_outlier flight "
+    "event and burns the fleet_latency_outlier ticket budget", 3.0,
+    Mutability.LOCAL, lambda v: v > 1.0,
+)
+_option(
+    "metrics.fleet-outlier-min-count", int,
+    "minimum per-replica observations in a window before it joins the "
+    "outlier comparison (small windows make noisy percentiles)", 20,
+    Mutability.LOCAL, lambda v: v >= 1,
+)
+_option(
+    "server.fleet.replica-name", str,
+    "this replica's fleet identity: rides /healthz, flight events, "
+    "structured logs, and /metrics (janusgraph_replica_info) so "
+    "cross-replica incident timelines merge by replica "
+    "(observability/identity.py; '' = untagged single process)", "",
+    Mutability.LOCAL,
+)
+_option(
+    "server.fleet.replicas", int,
+    "replica count the `janusgraph_tpu_torch fleet` runner starts over ONE "
+    "shared storage backend (server/fleet.py)", 3,
+    Mutability.LOCAL, lambda v: v >= 1,
+)
+_option(
+    "server.fleet.vnodes", int,
+    "virtual nodes per replica on the router's consistent-hash ring — "
+    "more vnodes = smoother key spread, slightly larger ring", 16,
+    Mutability.LOCAL, lambda v: v >= 1,
+)
+_option(
+    "server.fleet.candidates", int,
+    "ring candidates the router least-loaded-tie-breaks between "
+    "(power-of-two-choices over the consistent hash; 1 = pure hash)",
+    2, Mutability.LOCAL, lambda v: v >= 1,
+)
+_option(
+    "server.fleet.probe-interval-s", float,
+    "per-replica /healthz probe cadence of the fleet router", 1.0,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.fleet.probe-timeout-s", float,
+    "socket timeout on every router probe / gossip hop (a dead "
+    "replica costs one bounded wait, never a hung prober)", 2.0,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.fleet.gossip-interval-s", float,
+    "push-pull state-gossip cadence (price-book records + brownout "
+    "rung to fanout peers per round; server/fleet.StateGossip)", 2.0,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.fleet.gossip-fanout", int,
+    "peers contacted per gossip round — on a full mesh of N a new fact "
+    "reaches everyone within ceil((N-1)/fanout) push rounds", 2,
+    Mutability.LOCAL, lambda v: v >= 1,
+)
+_option(
+    "server.fleet.drain-timeout-s", float,
+    "graceful-drain wait for in-flight sessions to finish before the "
+    "replica retires anyway (sessions still open after it are handed "
+    "off as failed-over, not lost silently)", 10.0,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.fleet.warmup-dir", str,
+    "shard-checkpoint directory a joining replica hydrates its "
+    "snapshot-CSR cache from (server/fleet.warm_replica; '' = cold "
+    "start, or the computer.delta-snapshot-path pack as fallback)", "",
+    Mutability.LOCAL,
+)
+_option(
+    "server.fleet.follower-pull-interval-s", float,
+    "cadence at which a follower replica pulls delta records from the "
+    "leader's durable CDC log (server/fleet.CDCFollower); each pull "
+    "folds the netted batches through materialize, O(delta)", 0.5,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.fleet.follower-max-staleness-ms", float,
+    "priced staleness bound for follower reads (the SLO "
+    "freshness spec's ceiling): past it the follower's /healthz "
+    "reports degraded and the router stops preferring it for "
+    "staleness-hinted requests", 10_000.0,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.fleet.trend-windows", int,
+    "per-replica goodput windows the router fetches from /timeseries "
+    "to slope-sharpen its least-loaded tie-break (0 = off: plain "
+    "occupancy ordering)", 8,
+    Mutability.LOCAL, lambda v: v >= 0,
+)
+_option(
+    "server.fleet.federation-enabled", bool,
+    "run the fleet observability federation on the frontend: scrape "
+    "every replica's /timeseries?raw=1 each interval, serve merged "
+    "/fleet/timeseries + /fleet/metrics + /fleet/incident, evaluate "
+    "fleet-level SLOs (observability/federation.py)", True,
+    Mutability.LOCAL,
+)
+_option(
+    "server.fleet.federation-interval-s", float,
+    "federation scrape cadence — each tick merges one fleet window "
+    "(counters sum, gauges keyed per replica, histogram buckets add) "
+    "and doubles as the clock-offset probe", 2.0,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.fleet.federation-timeout-s", float,
+    "socket timeout per federation scrape target (a dead "
+    "replica costs one bounded wait and a partial:true window, never "
+    "a hung scraper)", 2.0,
+    Mutability.LOCAL, lambda v: v > 0,
+)
+_option(
+    "server.fleet.push-enabled", bool,
+    "negotiate the push-mode federation transport: replicas whose "
+    "/watch/info advertises the capability stream sealed windows and "
+    "flight events over a /watch subscription instead of being "
+    "scraped each tick; peers without it keep the exact poll-mode "
+    "scrape path byte-compatibly (observability/federation.py)",
+    True, Mutability.LOCAL,
+)
+_option(
+    "server.fleet.push-ship-bundles", bool,
+    "fetch forensics bundles announced on a pushed replica's bundle "
+    "stream into the frontend's fleet store, so a replica's evidence "
+    "survives its death (served at /fleet/bundles)", True,
+    Mutability.LOCAL,
+)
+_option(
+    "server.fleet.push-bundle-retention", int,
+    "shipped bundles the frontend's fleet store retains fleet-wide "
+    "(oldest dropped first)", 16,
+    Mutability.LOCAL, lambda v: v >= 1,
+)
+_option(
+    "server.fleet.push-bundle-min-interval-s", float,
+    "per-replica rate bound between off-host bundle fetches (a bundle "
+    "storm on one replica must not monopolize the frontend)", 5.0,
+    Mutability.LOCAL, lambda v: v >= 0,
+)
+
+
+
+def describe_options() -> str:
+    """Render the registry as a config-reference table, the reference's
+    rows for every option the port registers."""
+    lines = ["| option | type | mutability | default | description |", "|---|---|---|---|---|"]
+    for path in sorted(REGISTRY):
+        o = REGISTRY[path]
+        lines.append(
+            f"| {o.path} | {o.datatype.__name__} | {o.mutability.value} "
+            f"| {o.default!r} | {o.description} |"
+        )
+    return "\n".join(lines)
+
 
 def _lookup(path: str) -> ConfigOption:
     opt = REGISTRY.get(path)

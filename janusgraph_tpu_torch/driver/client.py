@@ -529,11 +529,11 @@ class WatchSession:
     Speaks the telemetry bus's wire protocol (server/server.py
     ``_watch_stream``): connect, upgrade, send ONE masked subscribe
     frame, then :meth:`recv` parsed ``hello`` / ``event`` /
-    ``heartbeat`` frames until the peer closes.  The reference's
-    ``watch`` tool and the fleet federation's push-mode transport ride
-    it (ROADMAP Queue A #5.6b), which is why the constructor takes a URL
-    rather than a JanusGraphClient: the federation addresses replicas by
-    their registered base URLs.
+    ``heartbeat`` frames until the peer closes.  The ``watch`` tool
+    (``cli.py``) and the fleet federation's push-mode transport
+    (``observability/federation.py``) ride it, which is why the
+    constructor takes a URL rather than a JanusGraphClient: the
+    federation addresses replicas by their registered base URLs.
 
     ``recv(timeout)`` returns the next frame dict, or None when the
     timeout elapses with nothing queued (callers poll their stop flags

@@ -1,7 +1,7 @@
 """Telemetry of the port: histogram metrics, structured spans, the flight
 recorder, roofline run records and their renderings, and the plane the
-query server reads — the port's copy of ``janusgraph_tpu/observability/``
-but its fleet half.
+query server and the fleet read — the port's copy of
+``janusgraph_tpu/observability/`` but its bench diff.
 
 Layout:
 
@@ -22,14 +22,18 @@ Layout:
   sizes them.
 - ``exposition``: Prometheus text and the JSON snapshot; ``timeline``:
   Chrome-trace rendering of a run record.
+- ``federation``: the fleet frontend's view over its replicas: merged
+  history windows (exact merged percentiles), clock offsets, the fleet
+  SLOs, the push-mode transport, shipped bundles and the cross-replica
+  incident timeline.
 
 Recording is host-only: no metric, span, flight or ledger call may run
 while a CUDA graph is being captured (it would run once, at capture, and
 never on replay). The executor builds its run record on the host after
 the run's final fetch.
 
-Fleet federation and bench diffs (``federation.py``, ``benchdiff.py``)
-are ROADMAP Queue A #5.6b.
+The bench diff (``benchdiff.py``) waits for the port's own benchmark
+artifacts: ROADMAP Queue A #5.6c.
 """
 
 from janusgraph_tpu_torch.observability.continuous import (
@@ -46,6 +50,16 @@ from janusgraph_tpu_torch.observability.continuous import (
 from janusgraph_tpu_torch.observability.exposition import (
     json_snapshot,
     prometheus_text,
+)
+from janusgraph_tpu_torch.observability.federation import (
+    ClockOffsets,
+    FleetBundleStore,
+    FleetFederation,
+    FleetHistory,
+    fleet_default_specs,
+    merge_incident_events,
+    merge_series,
+    merge_windows,
 )
 from janusgraph_tpu_torch.observability.flight import FlightRecorder
 from janusgraph_tpu_torch.observability.flight import recorder as flight_recorder
@@ -127,8 +141,12 @@ tracer.on_slow = _slow_span_to_flight
 __all__ = [
     "BUCKET_BOUNDS",
     "BundleWriter",
+    "ClockOffsets",
     "Counter",
     "DigestTable",
+    "FleetBundleStore",
+    "FleetFederation",
+    "FleetHistory",
     "FlightRecorder",
     "Gauge",
     "Histogram",
@@ -159,10 +177,14 @@ __all__ = [
     "flame_lines",
     "flamediff",
     "flight_recorder",
+    "fleet_default_specs",
     "get_logger",
     "history",
     "json_snapshot",
     "ledger_scope",
+    "merge_incident_events",
+    "merge_series",
+    "merge_windows",
     "prometheus_text",
     "registry",
     "render_run",

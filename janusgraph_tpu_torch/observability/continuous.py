@@ -50,7 +50,8 @@ is stuck on. This module answers both at runtime:
     artifacts): per-frame aggregated weight deltas ranked by |delta|
     (deterministic name tie-break), served at ``GET
     /debug/profile/diff``; the reference's bench diff attaches the top
-    frame deltas to a regressed cell (ROADMAP Queue A #5.6b).
+    frame deltas to a regressed cell, which waits for the port's own
+    benchmark artifacts (ROADMAP Queue A #5.6c).
 """
 
 from __future__ import annotations

@@ -65,8 +65,8 @@ fan-out wall and CPU seconds accumulate into
 ``observability.stream.overhead_wall_ms`` / ``overhead_cpu_ms`` gauges,
 and a publish with zero subscribers costs one lock acquire and nothing
 else.  Consumers: the server's ``/watch`` WebSocket endpoint and the
-driver's ``WatchSession``; the reference's ``watch`` tool and the
-fleet's push-mode scraper are ROADMAP Queue A #5.6b.
+driver's ``WatchSession``, which the ``watch`` tool (``cli.py``) and the
+fleet federation's push-mode transport (``federation.py``) ride.
 """
 
 from __future__ import annotations

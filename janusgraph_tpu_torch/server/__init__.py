@@ -1,5 +1,5 @@
-"""The query server: the port's copy of ``janusgraph_tpu/server/`` but its
-fleet (ROADMAP Queue A #5.6b).
+"""The query server and its fleet: the port's copy of
+``janusgraph_tpu/server/``.
 
 - ``server.py``: :class:`JanusGraphServer`, the HTTP and WebSocket
   endpoint that evaluates the traversal DSL (and, through
@@ -11,10 +11,18 @@ fleet (ROADMAP Queue A #5.6b).
 - ``admission.py``: the cost-aware front door (AIMD limit, shedding,
   the brownout ladder) and ``check_olap_admission``, which the graph
   computer and the spillover consult before an OLAP run.
+- ``fleet.py``: N replicas over one shared store behind
+  :class:`FleetRouter` (consistent hash, least-loaded tie-break,
+  retry-elsewhere, sticky sessions, drain) and :class:`FleetFrontend`;
+  :class:`StateGossip` between replicas; :func:`export_snapshot` and
+  :func:`warm_replica` (a joining replica's snapshot from the shard
+  checkpoint, no store scan); ``CDCFollower``, a read replica over the
+  durable CDC log.
 
-The server itself never touches the card: a computer step it evaluates
-(``pageRank()``, ``connectedComponent()``) submits to the device the
-graph's ``computer.executor`` names, the card by default.
+The server and the fleet never touch the card themselves: a computer
+step a replica evaluates (``pageRank()``, ``connectedComponent()``), and
+a warmed replica's or a follower's submit, go to the device the graph's
+``computer.executor`` names, the card by default.
 """
 
 from janusgraph_tpu_torch.server.manager import (  # noqa: F401
@@ -29,4 +37,11 @@ from janusgraph_tpu_torch.server.auth import (  # noqa: F401
 from janusgraph_tpu_torch.server.server import JanusGraphServer  # noqa: F401
 from janusgraph_tpu_torch.server.admission import (  # noqa: F401
     AdmissionController,
+)
+from janusgraph_tpu_torch.server.fleet import (  # noqa: F401
+    FleetFrontend,
+    FleetRouter,
+    StateGossip,
+    export_snapshot,
+    warm_replica,
 )

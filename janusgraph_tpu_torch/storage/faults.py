@@ -38,13 +38,21 @@ Fault kinds (all off by default):
                      crashes (``storage/cdc.py``)
 ===================  =====================================================
 
-The plan's other decisions are ported with it, pure and journaled as the
-reference's: the multi-device kinds (``sharded_hook``: shard preemption,
-collective timeout, halo drop, straggler skew), the fleet's
-(``fleet_hook``, ``replica_target``, ``arm_replica``, the partition
-window) and the follower lag. Their consumers (the sharded executor,
-ROADMAP Queue A #4; the fleet and the CDC follower, #5.6b) are not
-ported, and their ``storage.faults.*`` options refuse naming those items.
+The fleet's kinds are the reference's and live: ``replica_kill`` and
+``replica_restart`` (``fleet_hook``: the chaos harness kills the chosen
+replica at its fleet tick and restarts it, the restart warming from the
+shard-checkpoint pack; ``replica_target`` picks the victim),
+``replica_partition`` (``arm_replica`` tells the victim's own plan to
+fail its storage reads and writes for the window, so the router must
+route around a replica that looks alive) and ``cdc_lagging_follower``
+(``follower_lag``: ``server/fleet.py``'s ``CDCFollower`` skips applying
+for the window; ``promote()`` forces through it). Their
+``storage.faults.replica-*`` and ``follower-lag-*`` options are honoured.
+The multi-device kinds (``sharded_hook``: shard preemption, collective
+timeout, halo drop, straggler skew) are ported with the plan, pure and
+journaled as the reference's, but their consumer, the sharded executor,
+is ROADMAP Queue A #4, and their ``storage.faults.shard-*`` options
+refuse naming it.
 The watchdog's stalled lock (``stalled_lock``) and wedged thread
 (``wedge_thread``) are decisions for the holder of an
 ``observability/continuous.py`` ``InstrumentedLock`` and for a worker
@@ -198,7 +206,7 @@ class FaultPlan:
     @classmethod
     def from_config(cls, cfg) -> "FaultPlan":
         """Build from the ``storage.faults.*`` options the port honours; the
-        kinds whose consumers are not ported (shard, replica, follower lag)
+        shard kinds, whose consumer (the sharded executor) is not ported,
         refuse their options at open and stay off here."""
         stores = [
             s.strip()
@@ -219,7 +227,14 @@ class FaultPlan:
             scan_kill_at=cfg.get("storage.faults.scan-kill-at"),
             scan_kill_after_rows=cfg.get("storage.faults.scan-kill-after-rows"),
             preempt_superstep=cfg.get("storage.faults.preempt-superstep"),
+            replica_kill_at=cfg.get("storage.faults.replica-kill-at"),
+            replica_restart_at=cfg.get("storage.faults.replica-restart-at"),
+            replica_partition_at=cfg.get("storage.faults.replica-partition-at"),
+            replica_partition_ops=cfg.get("storage.faults.replica-partition-ops"),
+            replica_target=cfg.get("storage.faults.replica-target"),
             cdc_torn_at=cfg.get("storage.faults.cdc-torn-at"),
+            follower_lag_at=cfg.get("storage.faults.follower-lag-at"),
+            follower_lag_pulls=cfg.get("storage.faults.follower-lag-pulls"),
             stall_lock_at=cfg.get("storage.faults.stall-lock-at"),
             stall_lock_ms=cfg.get("storage.faults.stall-lock-ms"),
             wedge_thread_at=cfg.get("storage.faults.wedge-thread-at"),

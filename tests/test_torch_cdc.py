@@ -381,3 +381,371 @@ def test_fault_journal_is_seed_deterministic():
         return json.dumps(plan.journal, sort_keys=True)
 
     assert _run(faults) == _run(faults) == _run(ref_faults)
+
+
+# ---------------------------------------------------------------- follower
+# Twins of the reference's TestFollower and TestStalenessRouting: the port's
+# CDCFollower (server/fleet.py) over the port's log, beside the reference's
+# follower over the reference's log fed the same transactions.
+
+def _ref_chain(cdc_dir, n=24, extra=None):
+    from janusgraph_tpu.core.graph import JanusGraphTPU
+    from janusgraph_tpu.storage.inmemory import InMemoryStoreManager as RefMgr
+
+    cfg = {"ids.authority-wait-ms": 0.0, "locks.wait-ms": 0.0, "computer.delta": True,
+           "storage.cdc.dir": str(cdc_dir), "storage.cdc.segment-records": 4, **(extra or {})}
+    g = JanusGraphTPU(cfg, store_manager=RefMgr())
+    g.management().make_edge_label("link")
+    tx = g.new_transaction()
+    ids = [tx.add_vertex().id for _ in range(n)]
+    for i in range(n - 1):
+        tx.add_edge(tx.get_vertex(ids[i]), "link", tx.get_vertex(ids[i + 1]))
+    tx.commit()
+    return g, ids
+
+
+def _ref_burst(g, ids, seed=7, adds=10, dels=2):
+    from janusgraph_tpu.core.codecs import Direction as RefDirection
+
+    rng = np.random.default_rng(seed)
+    tx = g.new_transaction()
+    for _ in range(adds):
+        a, b = rng.integers(0, len(ids), 2)
+        tx.add_edge(tx.get_vertex(ids[int(a)]), "link", tx.get_vertex(ids[int(b)]))
+    removed = 0
+    for i in rng.permutation(len(ids)):
+        if removed >= dels:
+            break
+        es = tx.get_edges(tx.get_vertex(ids[int(i)]), RefDirection.OUT, ("link",))
+        if es:
+            tx.remove_edge(es[0])
+            removed += 1
+    tx.commit()
+
+
+def _leader_with_checkpoint(tmp_path, pkg="port", shards=2, extra=None):
+    if pkg == "port":
+        from janusgraph_tpu_torch.olap.sharded_checkpoint import save_csr_checkpoint
+
+        g, ids = _graph_chain(tmp_path / "cdc", extra=extra)
+        csr, epoch = load_csr_snapshot(g)
+    else:
+        from janusgraph_tpu.olap.csr import load_csr_snapshot as ref_snapshot
+        from janusgraph_tpu.olap.sharded_checkpoint import save_csr_checkpoint
+
+        g, ids = _ref_chain(tmp_path / "cdc", extra=extra)
+        csr, epoch = ref_snapshot(g)
+    ckpt = str(tmp_path / "ckpt")
+    save_csr_checkpoint(ckpt, csr, epoch, num_shards=shards)
+    return g, ids, ckpt
+
+
+def _csr_arrays(c):
+    return {k: np.asarray(getattr(c, k)).tolist()
+            for k in ("vertex_ids", "out_indptr", "in_indptr", "out_dst", "in_src")}
+
+
+def test_follower_read_bitwise_equivalence(tmp_path):
+    from janusgraph_tpu.olap.csr import load_csr as ref_load_csr
+    from janusgraph_tpu.server.fleet import CDCFollower as RefFollower
+    from janusgraph_tpu_torch.server.fleet import CDCFollower
+
+    got = {}
+    for pkg, Follower, burst, load in (("port", CDCFollower, _burst, load_csr),
+                                       ("ref", RefFollower, _ref_burst, ref_load_csr)):
+        g, ids, ckpt = _leader_with_checkpoint(tmp_path / pkg, pkg)
+        try:
+            f = Follower(g.cdc_log, ckpt, idm=g.idm, name="f0")
+            assert f.bootstrap()
+            burst(g, ids, seed=11)
+            rep = f.pull()
+            assert rep["ok"] and rep["applied"] >= 1 and f.lag_records() == 0
+            fresh = load(g)
+            assert _csr_arrays(f.csr) == _csr_arrays(fresh)
+            got[pkg] = (rep, _csr_arrays(f.csr), f.healthz_block()["role"])
+        finally:
+            g.close()
+    assert got["port"][0]["applied"] == got["ref"][0]["applied"]
+    assert got["port"][1:] == got["ref"][1:]
+
+
+def test_a_follower_bootstraps_from_the_other_packages_checkpoint(tmp_path):
+    """The port's follower over the port's log, bootstrapped from a
+    checkpoint the reference wrote of the same CSR."""
+    from janusgraph_tpu.olap.sharded_checkpoint import save_csr_checkpoint as ref_save
+    from janusgraph_tpu_torch.server.fleet import CDCFollower
+
+    g, ids = _graph_chain(tmp_path / "cdc")
+    try:
+        csr, epoch = load_csr_snapshot(g)
+        ref_save(str(tmp_path / "ckpt"), csr, epoch, num_shards=4)
+        f = CDCFollower(g.cdc_log, str(tmp_path / "ckpt"), idm=g.idm)
+        assert f.bootstrap()
+        _burst(g, ids, seed=12)
+        _burst(g, ids, seed=13)
+        assert f.pull()["applied"] == 2
+        _assert_csr_equal(f.csr, load_csr(g))
+    finally:
+        g.close()
+
+
+def test_apply_twice_equals_apply_once(tmp_path):
+    from janusgraph_tpu_torch.server.fleet import CDCFollower
+
+    g, ids, ckpt = _leader_with_checkpoint(tmp_path)
+    try:
+        _burst(g, ids, seed=13)
+        f1 = CDCFollower(g.cdc_log, ckpt, idm=g.idm)
+        assert f1.bootstrap()
+        f1.pull()
+        f2 = CDCFollower(g.cdc_log, ckpt, idm=g.idm)
+        assert f2.bootstrap()
+        f2.pull()
+        f2.cursor = 0
+        rep = f2.pull()
+        assert rep["ok"] and rep["applied"] == 0
+        _assert_csr_equal(f1.csr, f2.csr)
+    finally:
+        g.close()
+
+
+def test_cursor_gap_rebootstraps_honestly(tmp_path):
+    from janusgraph_tpu_torch.olap.sharded_checkpoint import save_csr_checkpoint
+    from janusgraph_tpu_torch.server.fleet import CDCFollower
+
+    g, ids = _graph_chain(tmp_path / "cdc", extra={"storage.cdc.retention-segments": 1})
+    try:
+        csr, epoch = load_csr_snapshot(g)
+        ckpt = str(tmp_path / "ckpt")
+        save_csr_checkpoint(ckpt, csr, epoch, num_shards=1)
+        f = CDCFollower(g.cdc_log, ckpt, idm=g.idm)
+        assert f.bootstrap()
+        for s in range(12):
+            _burst(g, ids, seed=20 + s, adds=12, dels=0)
+        assert g.cdc_log.base_cursor > 0, "prune must have happened"
+        f.cursor = 0
+        before = _counter("fleet.follower.cursor_gaps")
+        rep = f.pull()
+        assert _counter("fleet.follower.cursor_gaps") == before + 1
+        assert rep.get("rebootstrap") and not rep["ok"]
+        assert f.rebootstraps == 1
+        csr2, epoch2 = load_csr_snapshot(g)
+        save_csr_checkpoint(ckpt, csr2, epoch2, num_shards=1)
+        assert f.bootstrap()
+        _burst(g, ids, seed=30)
+        assert f.pull()["ok"]
+        _assert_csr_equal(f.csr, load_csr(g))
+    finally:
+        g.close()
+
+
+def _lag_then_promote(Follower, Plan, flight, g, ckpt, burst, ids):
+    fake = {"t": 100.0}
+    plan = Plan(seed=3, follower_lag_at=0, follower_lag_pulls=2)
+    f = Follower(g.cdc_log, ckpt, idm=g.idm, name="f1", max_staleness_ms=500.0,
+                 fault_plan=plan, clock=lambda: fake["t"])
+    assert f.bootstrap()
+    burst(g, ids, seed=41)
+    lagging = f.pull().get("lagging")
+    fake["t"] += 1.0
+    block = f.healthz_block()
+    before = len(flight.events())
+    rep = f.promote()
+    events = [(e["category"], e.get("action")) for e in flight.events()[before:]]
+    return (lagging, block["role"], block["degraded"], block["lag_records"] > 0,
+            rep["ok"], rep["applied"], f.role, events, f.healthz_block()["degraded"],
+            plan.journal, _csr_arrays(f.csr))
+
+
+def test_lagging_follower_fault_then_promote(tmp_path):
+    from janusgraph_tpu.observability import flight_recorder as ref_flight
+    from janusgraph_tpu.server.fleet import CDCFollower as RefFollower
+    from janusgraph_tpu.storage.faults import FaultPlan as RefPlan
+    from janusgraph_tpu_torch.observability import flight_recorder
+    from janusgraph_tpu_torch.server.fleet import CDCFollower
+    from janusgraph_tpu_torch.storage.faults import FaultPlan
+
+    got = {}
+    for pkg, args in (("port", (CDCFollower, FaultPlan, flight_recorder)),
+                      ("ref", (RefFollower, RefPlan, ref_flight))):
+        g, ids, ckpt = _leader_with_checkpoint(tmp_path / pkg, pkg)
+        try:
+            got[pkg] = _lag_then_promote(*args, g, ckpt, _burst if pkg == "port" else _ref_burst, ids)
+            fresh = load_csr(g) if pkg == "port" else None
+        finally:
+            g.close()
+        if fresh is not None:
+            assert got[pkg][-1] == _csr_arrays(fresh)
+    lagging, role, degraded, lag, ok, _applied, role_after, events, degraded_after, journal, _ = got["port"]
+    assert lagging and role == "follower" and degraded and lag
+    assert ok and role_after == "leader" and not degraded_after
+    assert ("follower_promote", None) in events and ("cdc_replay", "caught_up") in events
+    assert journal[0]["kind"] == "cdc_lagging_follower"
+    assert got["port"] == got["ref"]
+
+
+def test_a_follower_adopts_into_its_serving_graph(tmp_path):
+    """A follower attached to a second graph over the same store installs
+    each pulled CSR into that graph's snapshot: the graph's submit reads it
+    warm, with zero edgestore reads, and its PageRank is bitwise PageRank
+    over a fresh scan."""
+    from janusgraph_tpu_torch.server.fleet import CDCFollower
+
+    g, ids, ckpt = _leader_with_checkpoint(tmp_path)
+    # metrics.enabled counts the reader's store reads into the registry
+    reader = open_graph(dict(BASE_CFG, **{"metrics.enabled": True}), store_manager=g.backend.manager)
+    try:
+        f = CDCFollower(g.cdc_log, ckpt, graph=reader, name="f2")
+        assert f.bootstrap()
+        assert D.get_snapshot(reader).csr is f.csr
+        _burst(g, ids, seed=17)
+        _burst(g, ids, seed=18)
+        assert f.pull()["applied"] == 2
+        assert D.get_snapshot(reader).csr is f.csr
+        registry.reset()
+        program = lambda: PageRankProgram(max_iterations=20, tol=0.0)  # noqa: E731
+        res = reader.compute().program(program()).submit()
+        snap = registry.snapshot()
+        assert [k for k in snap if "edgestore" in k and snap[k].get("count")] == []
+        assert res.run_info["snapshot"]["path"] == "warm"
+        # the same graph's cold scan does count its reads
+        load_csr(reader)
+        assert registry.snapshot()["storage.edgestore.getKeys"]["count"] > 0
+        fresh = load_csr(g)
+        _assert_csr_equal(res.csr, fresh)
+        want = run_on(fresh, program(), device="cpu")["rank"]
+        assert np.array_equal(res.states["rank"].view(np.int32), want.view(np.int32))
+    finally:
+        f.unregister_watchdog()
+        reader.close()
+        g.close()
+
+
+def test_cdc_follower_auto_registers_pull_progress(tmp_path, monkeypatch):
+    from janusgraph_tpu_torch.observability.continuous import watchdog_singleton
+    from janusgraph_tpu_torch.olap import sharded_checkpoint
+    from janusgraph_tpu_torch.server.fleet import CDCFollower
+
+    class _CSR:
+        num_vertices = 3
+        num_edges = 2
+
+    class _Src:
+        def cursor_for_epoch(self, epoch):
+            return 0
+
+        def replay_from(self, cursor):
+            return [], cursor
+
+    monkeypatch.setattr(sharded_checkpoint, "load_csr_checkpoint", lambda d: (_CSR(), 0))
+    wd = watchdog_singleton()
+    f = CDCFollower(_Src(), str(tmp_path), name="wd-probe")
+    try:
+        assert f.bootstrap()
+        assert "fleet.cdc.wd-probe" in wd._progress
+        p = f._progress()
+        assert p["active"] == 1
+        f.pull()
+        assert f._progress()["progress"] == p["progress"] + 1
+        f.role = "leader"
+        assert f._progress()["active"] == 0
+    finally:
+        f.unregister_watchdog()
+    assert "fleet.cdc.wd-probe" not in wd._progress
+
+
+def _router_with_roles(mod):
+    r = mod.FleetRouter(fetch=lambda url, t: {})
+    for i in range(3):
+        r.add_replica(f"r{i}", "127.0.0.1", 9000 + i)
+    reps = r.replicas()
+    reps["r1"].role, reps["r1"].staleness_ms = "follower", 50.0
+    reps["r2"].role, reps["r2"].staleness_ms = "follower", 5000.0
+    return r, reps
+
+
+def _fleet_mods():
+    from janusgraph_tpu.server import fleet as ref_fleet
+    from janusgraph_tpu_torch.server import fleet
+
+    return fleet, ref_fleet
+
+
+def test_unhinted_requests_never_see_followers():
+    got = [[h.name for h in _router_with_roles(m)[0].candidates_for(k)]
+           for m in _fleet_mods() for k in ("k", "a", "z")]
+    assert got[:3] == got[3:] == [["r0"]] * 3
+
+
+def test_hinted_requests_prefer_fresh_followers():
+    out = []
+    for m in _fleet_mods():
+        r, _ = _router_with_roles(m)
+        names = [h.name for h in r.candidates_for("k", max_staleness_ms=100.0)]
+        assert names[0] == "r1" and "r2" not in names and names[-1] == "r0"
+        loose = [h.name for h in r.candidates_for("k", max_staleness_ms=10_000)]
+        assert set(loose) == {"r0", "r1", "r2"}
+        out.append((names, loose))
+    assert out[0] == out[1]
+
+
+def test_unknown_staleness_is_never_fresh():
+    for m in _fleet_mods():
+        r, reps = _router_with_roles(m)
+        reps["r1"].staleness_ms = None
+        assert "r1" not in [h.name for h in r.candidates_for("k", max_staleness_ms=100.0)]
+
+
+def test_probe_trend_sharpens_tie_break():
+    def fetch(url, timeout):
+        if "/timeseries" not in url:
+            return {"status": "ok", "cdc": {"role": "leader", "staleness_s": 0.25}}
+        d = [1, 2, 3, 4] if "9001" in url else [4, 3, 2, 1]
+        return {"series": {"server.admission.admitted": [{"delta": x} for x in d]}}
+
+    out = []
+    for m in _fleet_mods():
+        r = m.FleetRouter(fetch=fetch, trend_windows=4, candidates=2)
+        r.add_replica("up", "127.0.0.1", 9001)
+        r.add_replica("down", "127.0.0.1", 9002)
+        r.probe()
+        reps = r.replicas()
+        assert reps["up"].goodput_trend > 0 > reps["down"].goodput_trend
+        assert reps["up"].load_score() < reps["down"].load_score()
+        assert r.candidates_for("k")[0].name == "up"
+        out.append([(h.name, h.goodput_trend, h.load_score(), h.staleness_ms, h.role)
+                    for h in reps.values()])
+    assert out[0] == out[1]
+
+
+def test_healthz_cdc_blocks(tmp_path):
+    import json
+    import urllib.error
+    import urllib.request
+
+    from janusgraph_tpu_torch.server import JanusGraphManager, JanusGraphServer
+    from janusgraph_tpu_torch.server.fleet import CDCFollower
+    from janusgraph_tpu_torch.storage.cdc import LeaderCDCState
+
+    g, _ids = _graph_chain(tmp_path / "cdc")
+    m = JanusGraphManager()
+    m.put_graph("graph", g)
+    server = JanusGraphServer(manager=m, history_enabled=False, slo_enabled=False,
+                              replica_name="leader0").start()
+    url = f"http://127.0.0.1:{server.port}/healthz"
+    try:
+        server.cdc_state = LeaderCDCState(g.cdc_log)
+        payload = json.loads(urllib.request.urlopen(url, timeout=10).read())
+        assert payload["cdc"]["role"] == "leader"
+        assert payload["cdc"]["cursor"] == g.cdc_log.head_cursor()
+        assert payload["cdc"]["staleness_s"] == 0.0
+        server.cdc_state = CDCFollower(g.cdc_log, str(tmp_path / "none"), idm=g.idm,
+                                       max_staleness_ms=100.0)
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            urllib.request.urlopen(url, timeout=10)
+        body = json.loads(ei.value.read())
+        assert ei.value.code == 503 and body["status"] == "degraded"
+        assert body["cdc"]["role"] == "follower" and body["cdc"]["degraded"] is True
+    finally:
+        server.stop()
+        g.close()

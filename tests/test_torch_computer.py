@@ -368,7 +368,7 @@ def test_compute_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("config", [
     {"computer.executor": "sharded"},
-    {"storage.faults.follower-lag-at": 3},
+    {"query.fast-property": False},
     {"storage.faults.shard-halo-drop-at": 3},
     {"computer.result-mode": "persist"},
     {"no.such-option": 1},

@@ -28,8 +28,9 @@ REFUSED = [
     ("computer.executor", "sharded", "Queue A #4"),
 ]
 
-#: options the port accepts since the fault injector, the sharded store
-#: and the remote index were ported, with a value each
+#: options the port accepts since the fault injector, the sharded store,
+#: the remote index and the fleet (whose replica and follower-lag faults
+#: it consumes) were ported, with a value each
 ACCEPTED = [
     ("storage.backend", "sharded"),
     ("storage.sharded-nodes", 5),
@@ -58,6 +59,13 @@ ACCEPTED = [
     ("storage.faults.stall-lock-ms", 1.0),
     ("storage.faults.wedge-thread-at", 1),
     ("storage.faults.stores", "edgestore"),
+    ("storage.faults.replica-kill-at", 1),
+    ("storage.faults.replica-restart-at", 1),
+    ("storage.faults.replica-partition-at", 1),
+    ("storage.faults.replica-partition-ops", 1),
+    ("storage.faults.replica-target", 1),
+    ("storage.faults.follower-lag-at", 1),
+    ("storage.faults.follower-lag-pulls", 1),
 ]
 
 #: fault options whose consumer is not ported, with the item that brings it
@@ -68,13 +76,6 @@ STILL_REFUSED = [
     ("storage.faults.shard-halo-drop-at", 1, "Queue A #4"),
     ("storage.faults.shard-straggler-ms", 1.0, "Queue A #4"),
     ("storage.faults.shard-straggler-rate", 0.5, "Queue A #4"),
-    ("storage.faults.replica-kill-at", 1, "Queue A #5.6b"),
-    ("storage.faults.replica-restart-at", 1, "Queue A #5.6b"),
-    ("storage.faults.replica-partition-at", 1, "Queue A #5.6b"),
-    ("storage.faults.replica-partition-ops", 1, "Queue A #5.6b"),
-    ("storage.faults.replica-target", 1, "Queue A #5.6b"),
-    ("storage.faults.follower-lag-at", 1, "Queue A #5.6b"),
-    ("storage.faults.follower-lag-pulls", 1, "Queue A #5.6b"),
 ]
 
 #: the options the port once took with the wrong mutability
@@ -220,8 +221,8 @@ SERVER_ACCEPTED = [
     ("driver.ws-multiplex", False),
 ]
 
-#: the fleet's options, which wait for the fleet
-FLEET_REFUSED = [
+#: the fleet's options, accepted since the fleet was ported
+FLEET_OPTIONS = [
     ("server.fleet.replicas", 2),
     ("server.fleet.replica-name", "r1"),
     ("metrics.fleet-retention", 10),
@@ -235,14 +236,17 @@ def test_server_options_are_accepted_as_the_reference_takes_them(path, value):
     assert config.GraphConfiguration({path: value}).get(path) == value
 
 
-@pytest.mark.parametrize("path,value", FLEET_REFUSED)
+@pytest.mark.parametrize("path,value", FLEET_OPTIONS)
 def test_fleet_options_name_their_item(path, value):
+    """The fleet's options are honoured now: accepted as the reference
+    takes them, and no refusal names the fleet's item."""
     ref_config.REGISTRY[path].check(value)
-    with pytest.raises(ConfigurationError, match=r"Queue A #5\.6b"):
-        config.GraphConfiguration({path: value})
+    assert config.GraphConfiguration({path: value}).get(path) == value
+    texts = list(config._NOT_PORTED.values()) + [v[1] for v in config._REFUSED_VALUES.values()]
+    assert not [t for t in texts if "#5.6b" in t]
 
 
 def test_no_refusal_cites_the_server_slice():
-    """Everything item #5.6 of the queue still refuses names #5.6b."""
+    """No refusal names item #5.6 of the queue or its fleet half #5.6b."""
     texts = list(config._NOT_PORTED.values()) + [v[1] for v in config._REFUSED_VALUES.values()]
-    assert not [t for t in texts if "#5.6 " in t or t.endswith("#5.6")]
+    assert not [t for t in texts if "#5.6 " in t or t.endswith("#5.6") or "#5.6b" in t]

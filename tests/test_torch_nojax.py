@@ -409,6 +409,73 @@ print("OK", top[0], n, loaded)
 """
 
 
+FLEET_RUN = r"""
+import json, os, re, subprocess, sys
+BLOCK = 'import sys; sys.modules["jax"] = None; sys.modules["janusgraph_tpu"] = None; '
+sys.modules["jax"] = None
+sys.modules["janusgraph_tpu"] = None
+d = sys.argv[1]
+cfg = os.path.join(d, "fleet.json")
+with open(cfg, "w") as f:
+    json.dump({"computer.executor": "cpu", "server.fleet.federation-interval-s": 0.5}, f)
+fleet = subprocess.Popen(
+    [sys.executable, "-c", BLOCK + "from janusgraph_tpu_torch.cli import main; "
+     f"sys.exit(main(['fleet', '--port', '0', '--replicas', '2', '--config', {cfg!r}]))"],
+    stdout=subprocess.PIPE, text=True)
+try:
+    lines = [fleet.stdout.readline() for _ in range(3)]
+    m = re.search(r"fleet frontend listening on ([\d.]+):(\d+) \((\d+) replicas\)", lines[-1])
+    from janusgraph_tpu_torch.driver.client import JanusGraphClient
+    c = JanusGraphClient(port=int(m.group(2)), http_timeout_s=60)
+    c.submit("g.addV('person').property('name','a').iterate()")
+    ranks = c.submit("g.V().pageRank().values('pagerank')")
+    alive = fleet.poll() is None
+finally:
+    fleet.terminate()
+    fleet.wait(timeout=20)
+# in process: export and warm-up, a follower over the CDC log, a federation tick
+from janusgraph_tpu_torch.core.graph import open_graph
+from janusgraph_tpu_torch.observability.federation import FleetFederation
+from janusgraph_tpu_torch.olap.csr import load_csr, load_csr_snapshot
+from janusgraph_tpu_torch.olap.programs import PageRankProgram
+from janusgraph_tpu_torch.olap.sharded_checkpoint import save_csr_checkpoint
+from janusgraph_tpu_torch.server import FleetRouter, export_snapshot, warm_replica
+from janusgraph_tpu_torch.server.fleet import CDCFollower
+from janusgraph_tpu_torch.storage.inmemory import InMemoryStoreManager
+mgr = InMemoryStoreManager()
+g = open_graph({"computer.executor": "cpu", "storage.cdc.dir": os.path.join(d, "cdc")},
+               store_manager=mgr)
+tx = g.new_transaction()
+vs = [tx.add_vertex("node") for _ in range(8)]
+for i in range(8):
+    tx.add_edge(vs[i], "link", vs[(i + 3) % 8])
+tx.commit()
+export_snapshot(g, os.path.join(d, "pack"), num_shards=3)
+h = open_graph({"computer.executor": "cpu"}, store_manager=mgr)
+assert warm_replica(h, os.path.join(d, "pack"))
+res = h.compute().program(PageRankProgram(max_iterations=5)).submit()
+assert res.run_info["snapshot"]["path"] == "warm"
+csr0, epoch0 = load_csr_snapshot(g)
+save_csr_checkpoint(os.path.join(d, "ckpt"), csr0, epoch0, num_shards=2)
+f = CDCFollower(g.cdc_log, os.path.join(d, "ckpt"), idm=g.idm, name="f")
+assert f.bootstrap()
+tx = g.new_transaction()
+tx.add_edge(tx.get_vertex(vs[0].id), "link", tx.get_vertex(vs[5].id))
+tx.commit()
+applied = f.pull()["applied"]
+assert (f.csr.out_dst == load_csr(g).out_dst).all()
+f.unregister_watchdog()
+fed = FleetFederation(FleetRouter(fetch=lambda u, t: {}), fetch=lambda u, t: {})
+window = fed.tick()
+h.close()
+g.close()
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+    m == "jax" or m.startswith("jax.")
+    or m == "janusgraph_tpu" or m.startswith("janusgraph_tpu.")))
+print("OK", m and m.group(3), ranks, alive, applied, window["partial"], loaded)
+"""
+
+
 def _forbidden(name):
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
@@ -552,6 +619,22 @@ def test_query_server_and_driver_run_with_jax_blocked():
     assert proc.stdout.strip() == "OK tartarus 1 []", proc.stdout
 
 
+def test_fleet_follower_and_federation_run_with_jax_blocked(tmp_path):
+    """The ``fleet`` subcommand in its own process (two replicas behind
+    the frontend, a write and a pageRank() request through it), then in
+    process an export and a warm replica's submit, a CDC follower's
+    bootstrap and pull, and a federation tick, with both blocked in both
+    processes."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", FLEET_RUN, str(tmp_path)], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "OK 2 [1.0] True 1 False []", proc.stdout
+
+
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     # the scripts that drive the port on the card
@@ -617,6 +700,10 @@ SERVER_PATH_MODULES = (
     "driver/graphbinary.py", "observability/timeseries.py", "observability/slo.py",
     "observability/continuous.py", "observability/stream.py",
 )
+#: modules of the serving fleet, its follower, the shard checkpoint and the
+#: federation
+FLEET_PATH_MODULES = ("server/fleet.py", "olap/sharded_checkpoint.py",
+                      "observability/federation.py")
 
 
 def test_no_port_file_imports_jax_or_reference():
@@ -624,7 +711,8 @@ def test_no_port_file_imports_jax_or_reference():
     assert len(files) > 10 and os.path.exists(files[0])
     pkg = os.path.join(ROOT, "janusgraph_tpu_torch")
     for rel in (STORED_PATH_MODULES + TRAVERSAL_PATH_MODULES + IO_PATH_MODULES
-                + REMOTE_PATH_MODULES + FAULT_PATH_MODULES + SERVER_PATH_MODULES):
+                + REMOTE_PATH_MODULES + FAULT_PATH_MODULES + SERVER_PATH_MODULES
+                + FLEET_PATH_MODULES):
         assert os.path.join(pkg, rel) in files, rel
     assert os.path.exists(os.path.join(pkg, "csrc", "graphcsr.cpp"))
     bad = []

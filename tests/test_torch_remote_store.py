@@ -310,8 +310,8 @@ def test_cli_refuses_what_is_not_ported():
     from janusgraph_tpu_torch import cli
 
     assert cli.main(["storage-server", "--sharded-nodes", "0"]) == 2
-    assert cli.main(["fleet", "--config", "graph.json"]) == 2
-    assert cli.main(["export", "--config", "g.json", "out.json"]) == 2
+    assert cli.main(["bench", "--scale", "3"]) == 2
+    assert cli.main(["benchdiff", "old.json", "new.json"]) == 2
 
 
 def test_parallel_multi_slice_fanout(servers):

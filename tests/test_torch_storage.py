@@ -310,11 +310,11 @@ def test_id_authority_refuses_another_block_size():
     ("graph.graphname", "g2", "Queue A #5"),
     ("computer.executor", "sharded", "Queue A #4"),
     ("storage.faults.shard-preempt-superstep", 3, "Queue A #4"),
-    ("storage.faults.replica-kill-at", 3, "Queue A #5.6"),
+    ("storage.faults.shard-straggler-ms", 1.0, "Queue A #4"),
     ("computer.result-mode", "persist", "Queue A #5"),
-    ("metrics.fleet-retention", 10, "Queue A #5.6b"),
+    ("cluster.max-partitions", 4, "Queue A #4"),
     ("computer.sharded-auto", False, "Queue A #4"),
-    ("server.fleet.replicas", 2, "Queue A #5.6b"),
+    ("query.fast-property", False, "Queue A #5"),
     ("cache.tx-cache-size", 100, "Queue A #5"),
 ])
 def test_options_not_ported_raise_naming_the_roadmap_item(path, value, item):
