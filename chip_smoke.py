@@ -106,19 +106,17 @@ Phases, each printing one JSON line:
            2^17-vertex step since the sharded phase came)
   stored_local  the same graph in a persistent local directory
            (storage.backend "local", fsync on): the bulk load and close (the
-           WAL's bytes); a cold submit through 8 loader processes
-           (storage.distributed-load-workers; the graph's open replays the
-           WAL; no probe open: submit() passes the open graph's partition
-           count; each worker's replay and scan, the merge) with its CSR
-           equal to the stored phase's as sets of vertex ids and edges, its
-           ranks bitwise equal to that phase's where the arrays are (else
-           within 1e-6 relative) and within 1e-6 relative of float64, 20
-           kernel runs; the directory is served by the remote phase below;
+           WAL's bytes); the directory is served by the remote phase below
+           (whose 8-loader submit holds the stored size's distributed load);
            then on a 2^LOCAL_SCALE-vertex directory of the same draw (cut
-           from the stored size for the time limit): a reopen (the replay)
-           and a cold submit through the in-process scan, its CSR the
-           written graph edge for edge and its ranks within 1e-6 relative
-           of float64, 20 kernel runs; one transaction of 1,000 edges of a
+           from the stored size for the time limit): a cold submit through
+           8 loader processes (storage.distributed-load-workers; each
+           replays the WAL; no probe open: submit() passes the open graph's
+           partition count; each worker's replay and scan, the merge), a
+           reopen (the replay) and a cold submit through the in-process
+           scan, each with its CSR the written graph edge for edge and its
+           ranks within 1e-6 relative of float64, 20 kernel runs; one
+           transaction of 1,000 edges of a
            LOCK-consistency label against the same on a default label, no
            lock claim left, and the warm submit that reads both (fused,
            overlay 2,000); compact(), the reopen from the snapshot (the
@@ -156,6 +154,26 @@ Phases, each printing one JSON line:
            batch of 2,000 rows read through a SHARDED_OUTAGE_S outage of
            node 1 (the retry guard replays it) and again after, equal; the
            journal by kind
+  sharded_olap  the sharded BSP executor (parallel/sharded.py) on 8 slots
+           of the one card (Mesh([cuda:0] * 8): every exchange runs there
+           as copies, transposes and rolls; nothing crosses between
+           cards): (a) at scale 14, PageRank (10 supersteps) under every
+           exchange x aggregation pair within RANK_REL of the single-device
+           segsum run and of float64, with its superstep ms and exchange
+           elements, bytes and batches, and one blocked superstep of SUM
+           and MIN against halo.replay_superstep (bitwise but the segment
+           form's SUM, float atomics, within RANK_REL); (b) at the main
+           scale under exchange "auto" and "blocked": each host plan's
+           seconds and the shard-measure probe's, PageRank (20) fused
+           bitwise equal to the host loop and within RANK_REL of the main
+           run, CC (its undirected plans timed apart) equal to scipy's,
+           the hub's 4-hop BFS through the sharded frontier equal to
+           scipy's, the skew report; (c) a shard preemption at superstep
+           4, resumed from the shard checkpoint, bitwise; (d)
+           graph.compute(executor="sharded") on the stored graph (one slot)
+           within RANK_REL of its single-device submit. The sharded path
+           runs no hand kernel: the segment-sum kernel's device counter
+           must not move across it
   stored_delta  the same graph, written on: (a) one OLTP transaction of
            ~2,000 edge adds, ~500 edge removals, a new vertex with an edge
            and a removed vertex, then PageRank and CC through submit() on
@@ -2193,16 +2211,16 @@ def _write_local(directory, csr, scale_edges):
 def stored_local_phase(stored, csr, args, emit, remote=None) -> dict:
     """The stored phase's graph in a persistent local directory
     (storage.backend "local", storage.fsync on): the columnar bulk load and
-    close (the WAL's bytes); a cold submit through 8 loader processes
-    (storage.distributed-load-workers; the graph's open replays the WAL)
-    held to the stored phase's CSR and ranks; then ``remote(directory,
-    held, submit)`` (the remote phase: a storage server in its own process
-    over this directory, its loads held the same way). The rest runs on a
-    2^LOCAL_SCALE-vertex directory of the same draw (the first out-edges
-    in source order at the stored size's edges per vertex), written the
-    same way: a reopen (the WAL replay) and a cold submit through the
-    in-process scan, its load the written graph and its ranks within 1e-6
-    relative of float64; a transaction of 1,000 edges of a LOCK-consistency
+    close (the WAL's bytes); then ``remote(directory, held, submit)`` (the
+    remote phase: a storage server in its own process over this directory,
+    its loads, 8 loader processes among them, held to the stored phase's
+    CSR and ranks). The rest runs on a 2^LOCAL_SCALE-vertex directory of
+    the same draw (the first out-edges in source order at the stored
+    size's edges per vertex), written the same way: a reopen (the WAL
+    replay) and a cold submit through the in-process scan, its load the
+    written graph and its ranks within 1e-6 relative of float64; a cold
+    submit through 8 loader processes (storage.distributed-load-workers;
+    each replays the WAL) held the same way; a transaction of 1,000 edges of a LOCK-consistency
     label against the same on a default label and the warm submit that
     reads both; compact(), the reopen from the snapshot, drop_graph. Its
     ``seconds`` leave the remote phase out."""
@@ -2230,25 +2248,12 @@ def stored_local_phase(stored, csr, args, emit, remote=None) -> dict:
         return PageRankProgram(max_iterations=20, tol=0.0)
 
     try:
-        # (1) the stored size: load and persist; a cold submit through 8
-        # loader processes (the card's machine has 8 cores), each of which
-        # replays the store, held to the stored phase's load
+        # (1) the stored size: load and persist (the 8-loader submit runs
+        # on the 2^LOCAL_SCALE directory below and over the wire in the
+        # remote phase, for the smoke's time limit)
         _vids, _src, _dst, stored_load = _write_local(directory, csr, cap)
         held = _held_to(stored["loaded"], stored["rank"], stored["rank64"], "stored")
         submit = _submit_counted(held)
-        per_w = {}
-        for w in (8,):
-            t0 = time.perf_counter()
-            gw = open_graph({"storage.backend": "local", "storage.directory": directory,
-                             "storage.distributed-load-workers": w})
-            open_s = time.perf_counter() - t0
-            res, _runs, rec = submit(gw, f"workers={w}", "distributed")
-            rec.update(open_s=open_s, load=registry.last_run("olap.distributed_load"))
-            if rec["load"]["workers"] != w or rec["load"]["probed"]:
-                raise RuntimeError(f"workers={w}: the load ran {rec['load']}")
-            per_w[w] = rec
-            del res
-            gw.close()
 
         # (2) the remote phase over the same directory
         remote_out, remote_s = None, 0.0
@@ -2265,9 +2270,6 @@ def stored_local_phase(stored, csr, args, emit, remote=None) -> dict:
         scap = min(2_000_000 >> (20 - LOCAL_SCALE), small.num_edges)
         vids, ssrc, sdst, small_load = _write_local(small_dir, small, scap)
         del small
-        t0 = time.perf_counter()
-        g = open_graph(cfg)
-        replay_s = time.perf_counter() - t0
 
         def held_written(res, label):
             _check_written(res.csr, vids, ssrc, sdst, label)
@@ -2277,6 +2279,24 @@ def stored_local_phase(stored, csr, args, emit, remote=None) -> dict:
             if not np.isfinite(rank).all() or rel64 > 1e-6:
                 raise RuntimeError(f"{label}: ranks rel {rel64} of float64")
             return {"load_held": "the written graph", "max_rel_vs_fp64": rel64}
+
+        # a cold submit through 8 loader processes (the card's machine has
+        # 8 cores), each of which replays the store
+        per_w = {}
+        for w in (8,):
+            t0 = time.perf_counter()
+            gw = open_graph(dict(cfg, **{"storage.distributed-load-workers": w}))
+            open_s = time.perf_counter() - t0
+            res, _runs, rec = _submit_counted(held_written)(gw, f"workers={w}", "distributed")
+            rec.update(open_s=open_s, load=registry.last_run("olap.distributed_load"))
+            if rec["load"]["workers"] != w or rec["load"]["probed"]:
+                raise RuntimeError(f"workers={w}: the load ran {rec['load']}")
+            per_w[w] = rec
+            del res
+            gw.close()
+        t0 = time.perf_counter()
+        g = open_graph(cfg)
+        replay_s = time.perf_counter() - t0
 
         res1, runs1, w1 = _submit_counted(held_written)(g, "workers=1", "cold")
         rank1 = res1.states["rank"]
@@ -2834,6 +2854,290 @@ def sharded_phase(stored, csr, args, emit) -> dict:
          journal_by_kind=journal, plan_counters=counters,
          seconds=time.perf_counter() - phase_t0)
     return {"launches": runs, "max_abs_err": in_err, "plan_check": plan_check}
+
+
+SHARDED_SLOTS = 8
+#: the scale of part (a), every exchange x aggregation pair (the
+#: reference's multichip dryrun ran its pairs at scale 14)
+SHARDED_PAIR_SCALE = 14
+SHARDED_PAIRS = (
+    ("a2a", "ell"), ("a2a", "segment"), ("gather", "segment"), ("ring", "segment"),
+    ("blocked", "ell"), ("blocked", "segment"),
+)
+
+
+def passthrough_program(op):
+    """A one-superstep program whose state after it is the aggregate of
+    its setup values (apply returns the aggregate): pins a sharded
+    superstep to the blocked plan's numpy replay."""
+    import torch
+
+    from janusgraph_tpu_torch.olap.vertex_program import VertexProgram
+
+    class Passthrough(VertexProgram):
+        compute_keys = ("x",)
+        max_iterations = 1
+        combiner = op
+
+        @staticmethod
+        def values(n, active):
+            return ((np.arange(n) % 89 + 1.0) / 7.0 * active).astype(np.float32)
+
+        def setup(self, graph):
+            x = self.values(graph.local_num_vertices, graph.active.cpu().numpy())
+            return {"x": torch.as_tensor(x, device=graph.device)}, {}
+
+        def message(self, state, step, graph):
+            return state["x"]
+
+        def apply(self, state, agg, step, mem, graph):
+            return {"x": agg}, {}
+
+        def terminate(self, memory):
+            return False
+
+    return Passthrough()
+
+
+def sharded_olap_phase(stored, csr, rank, cc_want, bfs_seed, bfs_want, args, emit,
+                       card: str) -> dict:
+    """The sharded BSP executor (parallel/sharded.py) on one card: S =
+    SHARDED_SLOTS slots of Mesh([cuda:0] * S), so every exchange runs on
+    the card as copies, transposes and rolls between the slots' stacked
+    blocks (nothing here crosses between cards). (a) at scale
+    SHARDED_PAIR_SCALE, PageRank for 10 supersteps under every exchange x
+    aggregation pair, each within RANK_REL of the single-device segsum run
+    and of float64, with its superstep ms and exchange volume, and one
+    blocked superstep of SUM and of MIN against the plan's numpy replay
+    (bitwise but for the segment form's SUM, whose float atomics meet it
+    within RANK_REL); (b) at the main run's scale under exchange "auto"
+    and "blocked": each host plan's build seconds and the shard-measure
+    probe's, PageRank for 20 supersteps fused bitwise equal to the host
+    loop and within RANK_REL of the main run's ranks, CC equal to scipy's,
+    the hub's 4-hop BFS through the sharded frontier equal to scipy's, the
+    skew report; (c) a shard preemption at superstep 4 of (b)'s PageRank
+    resumed from the shard checkpoint, bitwise equal to the uninterrupted
+    run; (d) graph.compute(executor="sharded") on the stored graph (the
+    default mesh: one slot on the card) within RANK_REL of the stored
+    phase's single-device submit. The sharded path launches no hand
+    kernel: the segment-sum kernel's device counter must not move across
+    the sharded runs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from janusgraph_tpu_torch.olap import GPUExecutor, kernels, rmat_csr
+    from janusgraph_tpu_torch.olap.programs import (
+        ConnectedComponentsProgram,
+        PageRankProgram,
+        ShortestPathProgram,
+    )
+    from janusgraph_tpu_torch.olap.vertex_program import INF, Combiner
+    from janusgraph_tpu_torch.parallel import Mesh, ShardedExecutor, halo
+    from janusgraph_tpu_torch.storage.faults import FaultPlan
+
+    phase_t0 = time.perf_counter()
+    mesh = Mesh([torch.device("cuda", 0)] * SHARDED_SLOTS)
+    kernel_runs = 0
+
+    def sharded_run(ex, program, **kw):
+        """One sharded run; the segment-sum kernel must not run in it."""
+        nonlocal kernel_runs
+        before = kernels.device_launches("cuda")
+        out = ex.run(program, **kw)
+        torch.cuda.synchronize()
+        ran = kernels.device_launches("cuda") - before
+        kernel_runs += ran
+        if ran:
+            raise RuntimeError(f"the sharded path ran the segment-sum kernel {ran} times")
+        return out
+
+    def walls(info):
+        recs = [r["wall_ms"] for r in info["superstep_records"][1:]] or [0.0]
+        return float(np.mean(recs))
+
+    # ---------------------------------------------- (a) every pair, s14
+    small = rmat_csr(SHARDED_PAIR_SCALE, 16, seed=args.seed)
+    single = GPUExecutor(small, strategy="segsum").run(PageRankProgram(max_iterations=10, tol=0.0))
+    small64 = pagerank_fp64(small, 10)
+    pairs = {}
+    for exchange, agg in SHARDED_PAIRS:
+        ex = ShardedExecutor(small, mesh=mesh, exchange=exchange, agg=agg)
+        t0 = time.perf_counter()
+        got = sharded_run(ex, PageRankProgram(max_iterations=10, tol=0.0), fused=False)["rank"]
+        first_s = time.perf_counter() - t0
+        got = sharded_run(ex, PageRankProgram(max_iterations=10, tol=0.0), fused=False)["rank"]
+        info = ex.last_run_info
+        rel, rel64 = max_rel(got, single["rank"]), max_rel(got, small64)
+        if not np.isfinite(got).all() or rel > RANK_REL or rel64 > RANK_REL:
+            raise RuntimeError(f"sharded {exchange}/{agg}: rel {rel} vs segsum, {rel64} vs fp64")
+        row = {"superstep_ms": walls(info), "first_run_s": first_s, "rel_vs_segsum": rel,
+               "rel_vs_fp64": rel64, "path": info["path"], **info["exchange"]}
+        if exchange == "blocked":
+            sc = ex._sharded(False)
+            for op in (Combiner.SUM, Combiner.MIN):
+                prog = passthrough_program(op)
+                out = sharded_run(ex, prog, fused=False, frontier="off")["x"]
+                want = halo.replay_superstep(
+                    sc.blocked_plan, prog.values(sc.padded_n, sc.active), op,
+                    has_weight=sc.has_weight, agg=agg)[: sc.real_n]
+                exact = bits_equal(out, want)
+                # equal entries (the MIN identity included) count 0
+                with np.errstate(invalid="ignore"):
+                    err = float(np.max(np.where(
+                        out == want, 0.0, np.abs(out.astype(np.float64) - want))))
+                # the packed form and every MIN are bitwise; the segment
+                # form's SUM adds through float atomics on the card
+                if not exact and (agg == "ell" or op == Combiner.MIN
+                                  or max_rel(out[want > 0], want[want > 0]) > RANK_REL):
+                    raise RuntimeError(f"blocked/{agg} {op} superstep vs replay: max abs {err}")
+                row[f"replay_{op}"] = {"bitwise": exact, "max_abs_err": err}
+        pairs[f"{exchange}/{agg}"] = row
+        del ex
+    emit("sharded_olap_pairs", scale=SHARDED_PAIR_SCALE, slots=SHARDED_SLOTS,
+         vertices=small.num_vertices, edges=small.num_edges, pairs=pairs, card=card)
+
+    # ------------------------------------------ (b) the main run's scale
+    n = csr.num_vertices
+    big = {}
+    bfs_expect = np.where(bfs_want <= 4, bfs_want, INF).astype(np.float32)
+    kept = None
+    for exchange in ("auto", "blocked"):
+        if exchange == "blocked" and (big["auto"]["exchange"], big["auto"]["agg"]) == (
+                "blocked", "ell"):
+            # "auto" took this layout on this card: the same run
+            big["blocked"] = {"same_as": "auto"}
+            continue
+        ex = ShardedExecutor(csr, mesh=mesh, exchange=exchange, agg="ell")
+        if kept is not None:
+            # the host plans are per edge view and layout: the second
+            # executor reuses the first one's views and builds its own
+            # layout's plans on them
+            ex._sharded_cache = kept._sharded_cache
+        plans = {}
+        t0 = time.perf_counter()
+        sc = ex._sharded(False)
+        plans["shard_csr_s"] = time.perf_counter() - t0  # 0 where reused
+        if exchange == "auto":
+            t0 = time.perf_counter()
+            ex._resolve_exchange(False)
+            plans["decide_sharded_s"] = time.perf_counter() - t0
+        steps = (("exchange_plan_s", sc.ensure_exchange_plan), ("ell_s", sc.ensure_ell)) \
+            if ex.exchange == "a2a" else (("blocked_plan_s", sc.ensure_blocked_plan),
+                                          ("blocked_ell_s", sc.ensure_blocked_ell))
+        for key, fn in steps:
+            t0 = time.perf_counter()
+            fn()
+            plans[key] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ex._measured_walls(sc)
+        plans["shard_measure_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = sharded_run(ex, PageRankProgram(max_iterations=20, tol=0.0), fused=False)["rank"]
+        host_s = time.perf_counter() - t0
+        host_info = dict(ex.last_run_info)
+        t0 = time.perf_counter()
+        fused = sharded_run(ex, PageRankProgram(max_iterations=20, tol=0.0))["rank"]
+        fused_first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fused = sharded_run(ex, PageRankProgram(max_iterations=20, tol=0.0))["rank"]
+        fused_s = time.perf_counter() - t0
+        fused_info = dict(ex.last_run_info)
+        if fused_info["path"] != "fused" or not bits_equal(fused, host):
+            raise RuntimeError(f"sharded {exchange}: the fused PageRank differs from the host loop")
+        rel = max_rel(fused, rank)
+        if not np.isfinite(fused).all() or rel > RANK_REL:
+            raise RuntimeError(f"sharded {exchange}: PageRank rel {rel} vs the single-device run")
+        # CC aggregates over both orientations: its own edge view, plans
+        # and probe, built here and timed apart from its run
+        t0 = time.perf_counter()
+        und = ex._sharded(True)
+        ex._graph_args(und, True)
+        ex._measured_walls(und)
+        cc_plans_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        comp = sharded_run(ex, ConnectedComponentsProgram())["component"]
+        cc_s = time.perf_counter() - t0
+        cc_info = dict(ex.last_run_info)
+        if not np.array_equal(comp.astype(np.int64), cc_want):
+            raise RuntimeError(f"sharded {exchange}: CC labels differ from scipy's components")
+        bfs = ShortestPathProgram(seed_index=bfs_seed, max_iterations=4)
+        sharded_run(ex, bfs)  # the frontier plan's build and placement
+        t0 = time.perf_counter()
+        dist = sharded_run(ex, bfs)["distance"]
+        bfs_s = time.perf_counter() - t0
+        bfs_info = dict(ex.last_run_info)
+        if bfs_info["path"] != "frontier" or not np.array_equal(dist, bfs_expect):
+            raise RuntimeError(f"sharded {exchange}: the 4-hop BFS differs from scipy's")
+        shards = host_info["shards"]
+        big[exchange] = {
+            "exchange": ex.exchange, "agg": ex.agg, "autotune": host_info.get("autotune"),
+            "plans": plans, "pagerank_host_s": host_s,
+            "pagerank_host_superstep_ms": walls(host_info),
+            "pagerank_fused_first_s": fused_first_s, "pagerank_fused_s": fused_s,
+            "pagerank_fused_superstep_ms": fused_s / 20 * 1e3,
+            "fused_chunks": fused_info["chunks"], "fused_host_syncs": fused_info["host_syncs"],
+            "rel_vs_single_device": rel, "exchange_info": host_info["exchange"],
+            "h2d_arg_bytes": host_info["h2d_arg_bytes"],
+            "device_memory": host_info["device_memory"],
+            "cc_plans_s": cc_plans_s, "cc_s": cc_s, "cc_supersteps": cc_info["supersteps"],
+            "cc_path": cc_info["path"],
+            "bfs_s": bfs_s, "bfs_tiers": bfs_info["tiers"],
+            "reached": int(np.sum(dist < INF)),
+            "skew": {k: shards[k] for k in ("skew", "cost_source", "slowest_shard")},
+            "measured_ms": [p["measured_ms"] for p in shards["per_shard"]],
+            "edges_by_shard": [p["edges"] for p in shards["per_shard"]],
+        }
+        kept = ex  # (c) preempts the last layout run here
+        del ex
+    emit("sharded_olap", scale=args.scale, slots=SHARDED_SLOTS, vertices=n,
+         edges=csr.num_edges, runs=big, card=card)
+
+    # ------------------------------- (c) a shard preemption, resumed
+    td = tempfile.mkdtemp(prefix="sharded_olap_")
+    try:
+        clean = sharded_run(kept, PageRankProgram(max_iterations=20, tol=0.0))["rank"]
+        plan = FaultPlan(seed=args.seed, shard_preempt_superstep=4)
+        t0 = time.perf_counter()
+        resumed = sharded_run(kept, PageRankProgram(max_iterations=20, tol=0.0),
+                              checkpoint_every=2, shard_checkpoint_dir=td,
+                              fault_hook=plan.sharded_hook)["rank"]
+        resume_s = time.perf_counter() - t0
+        info = dict(kept.last_run_info)
+        if [e["kind"] for e in plan.journal] != ["shard_preempt"] or info.get("resumes") != 1:
+            raise RuntimeError(f"the shard preemption was not resumed once: {plan.journal}")
+        if not bits_equal(resumed, clean):
+            raise RuntimeError("the resumed sharded PageRank differs from the uninterrupted run")
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+    preempt = {"preempted_shard": plan.journal[0]["shard"], "resumes": info["resumes"],
+               "resume_ms": info["resume_ms"], "checkpoint": info["checkpoint"],
+               "wall_s": resume_s, "path": info["path"]}
+    del kept
+    torch.cuda.empty_cache()
+
+    # ------------------------- (d) the stored graph, the default mesh
+    g = stored["graph"]
+    t0 = time.perf_counter()
+    res = g.compute(executor="sharded").program(PageRankProgram(max_iterations=20, tol=0.0))
+    before = kernels.device_launches("cuda")
+    res = res.submit()
+    torch.cuda.synchronize()
+    stored_runs = kernels.device_launches("cuda") - before
+    stored_s = time.perf_counter() - t0
+    routing = res.run_info["routing"]
+    srel = max_rel(res.states["rank"], stored["rank"])
+    if (routing["executor"] != "sharded" or res.run_info["mesh"]["slots"] != 1
+            or stored_runs or srel > RANK_REL):
+        raise RuntimeError(f"the sharded submit: {routing}, {stored_runs} kernel runs, rel {srel}")
+    emit("sharded_olap_faults", preempt=preempt,
+         stored_submit={"wall_s": stored_s, "rel_vs_single_device": srel, "routing": routing,
+                        "mesh": res.run_info["mesh"], "exchange": res.run_info["exchange"],
+                        "snapshot": res.run_info["snapshot"]},
+         segsum_kernel_runs=kernel_runs + stored_runs, card=card,
+         seconds=time.perf_counter() - phase_t0)
+    return {"seconds": time.perf_counter() - phase_t0, "kernel_runs": kernel_runs + stored_runs}
 
 
 def stored_delta_phase(stored, args, emit) -> dict:
@@ -5081,6 +5385,8 @@ def main() -> int:
     remote = stored_local["remote"]
     kernels.reset_launch_counts()
     sharded = sharded_phase(stored, csr, args, emit)
+    kernels.reset_launch_counts()
+    sharded_olap_phase(stored, csr, rank, first[labels], seed, want, args, emit, smi)
     kernels.reset_launch_counts()
     stored_delta = stored_delta_phase(stored, args, emit)
     kernels.reset_launch_counts()

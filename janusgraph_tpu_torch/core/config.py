@@ -51,10 +51,16 @@ the CDC follower, the federation and its push mode), ``metrics.fleet-*``
 the fleet and its follower consume, ``storage.faults.replica-*`` and
 ``follower-lag-*``.
 
+The sharded executor's options are the reference's: ``computer.executor``
+= "sharded", ``computer.exchange``, ``-agg``, ``-sharded-auto``,
+``-shard-measure``, ``-shard-checkpoint-path``/``-every``/``-shards``, the
+fault kinds it consumes (``storage.faults.shard-*``) and ``cluster.*``
+(``max-partitions``, ``coordinator-address``, ``num-processes``,
+``process-id``); ``cluster.num-processes`` above 1 refuses, naming ROADMAP
+Queue A #4b (the multi-process transport).
+
 Every other option of the reference raises ``ConfigurationError`` naming
-the ROADMAP item that brings it, as do ``computer.executor`` = "sharded"
-and ``storage.faults.shard-*`` (the sharded executor, #4). Nothing is
-ignored. :func:`describe_options` renders the registry as the
+the ROADMAP item that brings it. Nothing is ignored. :func:`describe_options` renders the registry as the
 reference's config table (the ``config-docs`` subcommand).
 
 The durable logs' options (``log.*``, ``tx.log-tx``,
@@ -135,29 +141,21 @@ def _option(path, datatype, description, default,
     REGISTRY[path] = ConfigOption(path, datatype, description, default, mutability, verifier)
 
 
-_ROADMAP_MULTI = "ROADMAP.md Queue A #4 (multi-GPU)"
+_ROADMAP_MULTI_PROCESS = "ROADMAP.md Queue A #4b (the multi-process transport)"
 _ROADMAP_HOST = "ROADMAP.md Queue A #5 (the host system beyond OLAP)"
 
 #: honoured options whose value the port refuses: path -> (refuses, item)
 _REFUSED_VALUES: Dict[str, tuple] = {
-    "computer.executor": (lambda v: v == "sharded", _ROADMAP_MULTI),
+    "cluster.num-processes": (lambda v: v > 1, _ROADMAP_MULTI_PROCESS),
 }
 
 #: options of the reference the port does not honour yet, by path or by
 #: path prefix (the longest match names the item)
 _NOT_PORTED: Dict[str, str] = {
-    "computer.sharded-auto": _ROADMAP_MULTI,
-    "computer.shard-": _ROADMAP_MULTI,
-    "computer.exchange": _ROADMAP_MULTI,
-    "computer.agg": _ROADMAP_MULTI,
     # the rest of computer.* (the result mode); the rest of query.* serves
     # the indexes
     "computer.": _ROADMAP_HOST,
     "metrics.": _ROADMAP_HOST,
-    "cluster.": _ROADMAP_MULTI,
-    # the fault kinds whose consumer, the sharded executor, is not ported
-    # (shard preemption, collective timeout, halo drop, straggler skew)
-    "storage.faults.shard-": _ROADMAP_MULTI,
     "storage.": _ROADMAP_HOST,
     "ids.": _ROADMAP_HOST,
     "cache.": _ROADMAP_HOST,
@@ -258,6 +256,45 @@ _option(
     "OLAP superstep at which SuperstepPreempted is raised once (-1 = off), "
     "absorbed by the executor's checkpoint auto-resume", -1,
     Mutability.LOCAL, lambda v: v >= -1,
+)
+_option(
+    "storage.faults.shard-preempt-superstep", int,
+    "sharded-executor superstep at which ONE shard is preempted "
+    "mid-superstep (ShardPreempted; -1 = off) — absorbed by the "
+    "cross-shard auto-resume rolling every shard back to the last "
+    "complete manifest (the consistency cut)", -1,
+    Mutability.LOCAL, lambda v: v >= -1,
+)
+_option(
+    "storage.faults.shard-preempt-shard", int,
+    "which shard the scheduled shard preemption hits (-1 = pick "
+    "deterministically from the seed)", -1,
+    Mutability.LOCAL, lambda v: v >= -1,
+)
+_option(
+    "storage.faults.shard-collective-timeout-at", int,
+    "cross-shard collective index (one per superstep barrier) at which "
+    "CollectiveTimeout is raised once (-1 = off)", -1,
+    Mutability.LOCAL, lambda v: v >= -1,
+)
+_option(
+    "storage.faults.shard-halo-drop-at", int,
+    "halo-exchange index at which a destination-binned halo batch is "
+    "dropped (HaloDropped; -1 = off)", -1,
+    Mutability.LOCAL, lambda v: v >= -1,
+)
+_option(
+    "storage.faults.shard-straggler-ms", float,
+    "injected per-shard latency skew length (straggler simulation; "
+    "pairs with shard-straggler-rate)", 0.0,
+    Mutability.LOCAL, lambda v: v >= 0,
+)
+_option(
+    "storage.faults.shard-straggler-rate", float,
+    "probability a given (superstep, shard) pair runs shard-straggler-ms "
+    "late — decisions are pure in the absolute pair, so auto-resume "
+    "replays see identical skew", 0.0,
+    Mutability.LOCAL, lambda v: 0.0 <= v <= 1.0,
 )
 _option(
     "storage.faults.cdc-torn-at", int,
@@ -509,7 +546,7 @@ _option(
 _option(
     "computer.executor", str,
     "default executor for graph.compute(): 'tpu' (the card), 'cpu' (the "
-    "plain versions on the CPU), 'sharded' (not ported)",
+    "plain versions on the CPU), 'sharded' (the mesh over every visible card)",
     "tpu", verifier=lambda v: v in ("tpu", "cpu", "sharded"),
 )
 _option(
@@ -656,6 +693,74 @@ _option(
     "computer.features-native-matmul", bool,
     "dense programs' transforms through torch.matmul (TF32 off) instead of "
     "the fixed-order tree contraction", False,
+)
+_option(
+    "computer.exchange", str,
+    "sharded-executor message exchange: 'blocked' (propagation-blocked "
+    "halo exchange: destination-binned combiner-merged bins in one "
+    "all-to-all, parallel/halo.py), 'a2a' (boundary-bucket all-to-all of "
+    "raw source values), 'ring' (one shard block rolled per hop), "
+    "'gather' (the whole vector, debug), or 'auto' (olap/autotune."
+    "decide_sharded picks per shard count from boundary/halo widths)",
+    "auto", verifier=lambda v: v in ("a2a", "ring", "gather", "blocked", "auto"),
+)
+_option(
+    "computer.agg", str,
+    "sharded-executor local aggregation: uniform degree-bucketed ELL or "
+    "flat segment reduction (ring/gather require 'segment'; "
+    "exchange='blocked' fuses binning into either form)", "ell",
+    verifier=lambda v: v in ("ell", "segment"),
+)
+_option(
+    "computer.sharded-auto", bool,
+    "route graph.compute() submits from the default 'tpu' executor to "
+    "the sharded executor whenever more than one card is visible; a "
+    "routed run that fails falls back to the single-device executor and "
+    "records the reason in run_info['routing']", True,
+)
+_option(
+    "computer.shard-measure", bool,
+    "measure per-shard superstep walls with the host probe (each "
+    "shard's real aggregation workload timed shard-by-shard) and feed "
+    "them into the skew report and per-shard roofline as cost_source="
+    "'measured'; off = plan-derived estimates only", True,
+)
+_option(
+    "computer.shard-checkpoint-path", str,
+    "directory for SHARDED checkpoints (per-shard state slices + an "
+    "atomically committed manifest; olap/sharded_checkpoint.py), the "
+    "multi-device auto-resume consistency cut. Empty = the single-file "
+    "computer.checkpoint-path format", "", Mutability.LOCAL,
+)
+_option(
+    "computer.shard-checkpoint-every", int,
+    "supersteps between sharded-checkpoint manifests (0 = use "
+    "computer.checkpoint-every)", 0, verifier=lambda v: v >= 0,
+)
+_option(
+    "computer.shard-checkpoint-shards", int,
+    "state-slice count when a single-device executor writes the sharded "
+    "checkpoint format (0 = the single-file format; the sharded executor "
+    "always slices by its mesh size)", 0, verifier=lambda v: v >= 0,
+)
+_option(
+    "cluster.max-partitions", int,
+    "virtual partitions for graph sharding (OLAP shard granularity)",
+    32, Mutability.FIXED, lambda v: v > 0,
+)
+_option(
+    "cluster.coordinator-address", str,
+    "coordinator host:port of a multi-process run (parallel/multihost."
+    "init_multihost; env JAX_COORDINATOR_ADDRESS wins)", "", Mutability.LOCAL,
+)
+_option(
+    "cluster.num-processes", int,
+    "process count of the multi-process run (0 = single-process; above 1 "
+    "is ROADMAP Queue A #4b)", 0, Mutability.LOCAL, lambda v: v >= 0,
+)
+_option(
+    "cluster.process-id", int, "this host's process index in the multi-process run", 0,
+    Mutability.LOCAL, lambda v: v >= 0,
 )
 _option(
     "computer.spillover", bool,

@@ -786,13 +786,14 @@ class JanusGraphTPU:
 
         return GraphTraversalSource(self)
 
-    def compute(self, executor: str = None):
+    def compute(self, executor: str = None, mesh=None):
         """OLAP entry point (reference: JanusGraph.compute()). Defaults the
         executor to the computer.executor config option: "tpu", the card;
-        "cpu", the plain versions on the CPU."""
+        "cpu", the plain versions on the CPU; "sharded", the sharded
+        executor over ``mesh`` (default: one slot per visible card)."""
         from janusgraph_tpu_torch.olap.computer import GraphComputer
 
-        return GraphComputer(self, executor=executor)
+        return GraphComputer(self, executor=executor, mesh=mesh)
 
     def close(self) -> None:
         """Deregister the instance, close the logs, the CDC log and the

@@ -22,8 +22,8 @@ class SuperstepPreempted(JanusGraphTorchError):
 class ShardPreempted(SuperstepPreempted):
     """One shard of a multi-device run was preempted mid-superstep. Every
     shard rolls back to the last complete checkpoint manifest and replays
-    (raised by ``FaultPlan.sharded_hook``; the sharded executor that
-    absorbs it is ROADMAP Queue A #4)."""
+    (raised by ``FaultPlan.sharded_hook``, absorbed by the sharded
+    executor's resume)."""
 
 
 class CollectiveTimeout(SuperstepPreempted):

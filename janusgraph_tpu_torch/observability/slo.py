@@ -20,8 +20,7 @@ the :mod:`~janusgraph_tpu_torch.observability.timeseries` window ring:
                     its measured cost, a point-read is not.
   ``freshness``     a staleness gauge vs a bound — by default the OLAP
                     spillover snapshot's write-staleness
-                    (``olap.spillover.staleness``, the delta-CSR signal
-                    ROADMAP #4 will inherit).
+                    (``olap.spillover.staleness``, the delta-CSR signal).
 
 - the **burn rate** is ``error_rate / error_budget`` with
   ``error_budget = 1 - objective``: burn 1.0 spends the budget exactly at

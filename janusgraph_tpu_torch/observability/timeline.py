@@ -16,9 +16,14 @@ catapult / Chrome-trace event format (``{"traceEvents": [...]}``, what
   stamps onto the saving record); resumes render at the front of the lane
   (``resume_ms`` total — the replay happened before the recorded steps).
 
+Sharded runs add one lane per shard: a ``compute`` slice scaled by the
+shard's measured/modeled share of the superstep wall, then an
+``exchange`` slice covering the remainder (collective + barrier wait),
+annotated with the run's exchange mode, bytes and batches — the
+straggler shard is the lane whose compute slice pushes everyone's
+exchange right.
+
 Timestamps are cumulative microseconds from run start (catapult's unit).
-The reference's per-shard lanes of a sharded run wait for the sharded
-executor (ROADMAP Queue A #4).
 """
 
 from __future__ import annotations
@@ -36,9 +41,9 @@ def _meta(name: str, tid: int, label: str) -> dict:
     }
 
 
-def _slice(name, ts_us, dur_us, tid, args=None) -> dict:
+def _slice(name, ts_us, dur_us, tid, args=None, cat="olap") -> dict:
     ev = {
-        "name": name, "ph": "X", "cat": "olap", "pid": PID, "tid": tid,
+        "name": name, "ph": "X", "cat": cat, "pid": PID, "tid": tid,
         "ts": round(ts_us, 3), "dur": round(max(dur_us, 0.0), 3),
     }
     if args:
@@ -52,9 +57,10 @@ _ARG_KEYS = (
     "operational_intensity", "roofline_utilization", "h2d_bytes",
 )
 
-#: lanes: 0 = host supersteps, 1 = checkpoint/resume control
+#: lanes: 0 = host supersteps, 1 = checkpoint/resume control, 2+ = shards
 TID_HOST = 0
 TID_CONTROL = 1
+TID_SHARD0 = 2
 
 
 def timeline_events(run: dict) -> List[dict]:
@@ -71,6 +77,10 @@ def timeline_events(run: dict) -> List[dict]:
               f"olap {executor} ({path})"),
         _meta("thread_name", TID_HOST, "supersteps"),
     ]
+    shards = (run.get("shards") or {}).get("per_shard") or []
+    exchange = run.get("exchange") or {}
+    for s, _row in enumerate(shards):
+        events.append(_meta("thread_name", TID_SHARD0 + s, f"shard {s}"))
     need_control = bool(
         run.get("resumes") or
         any("checkpoint_ms" in r for r in records)
@@ -91,6 +101,22 @@ def timeline_events(run: dict) -> List[dict]:
         ))
         ts = resume_ms * 1000.0
 
+    # shard compute shares: each shard's measured/modeled wall over the
+    # slowest shard's (the barrier pace-setter)
+    shard_share = []
+    if shards:
+        walls = [float(r.get("measured_ms") or r.get("modeled_ms") or 0.0) for r in shards]
+        top = max(walls) if max(walls) > 0 else 1.0
+        shard_share = [w / top for w in walls]
+    ex_args = {
+        "mode": exchange.get("mode"),
+        "agg": exchange.get("agg"),
+        "elems_per_superstep": exchange.get("elems_per_superstep"),
+        "bytes_per_superstep": exchange.get("bytes_per_superstep"),
+        "batches": exchange.get("batches_per_superstep"),
+    }
+    ex_args = {k: v for k, v in ex_args.items() if v is not None}
+
     for i, r in enumerate(records):
         dur_us = float(r.get("wall_ms", fallback_ms)) * 1000.0
         args = {k: r[k] for k in _ARG_KEYS if k in r}
@@ -98,6 +124,16 @@ def timeline_events(run: dict) -> List[dict]:
         events.append(_slice(
             f"superstep {step}", ts, dur_us, TID_HOST, args=args,
         ))
+        for s, share in enumerate(shard_share):
+            comp_us = dur_us * share
+            events.append(_slice(
+                "compute", ts, comp_us, TID_SHARD0 + s,
+                args={"share": round(share, 4), "cost_source": shards[s].get("cost_source")},
+            ))
+            events.append(_slice(
+                "exchange", ts + comp_us, dur_us - comp_us, TID_SHARD0 + s,
+                args=ex_args, cat="exchange",
+            ))
         ck_ms = r.get("checkpoint_ms")
         if ck_ms is not None:
             # the save ran at the END of this superstep's boundary; its

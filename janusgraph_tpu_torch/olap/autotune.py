@@ -2,15 +2,16 @@
 from a graph's degree statistics and the device's peaks — the port of
 ``janusgraph_tpu/olap/autotune.py`` (``GraphStats``, ``AutotuneDecision``,
 ``decide``, ``decide_tiers``, ``pick_tier``, ``save_measured``,
-``load_measured``, ``DeltaDecision``, ``decide_delta``).
+``load_measured``, ``DeltaDecision``, ``decide_delta``, ``ShardedDecision``,
+``decide_sharded``).
 
 ``decide()`` is a pure function of (GraphStats, device_kind, overrides,
 measured): the same inputs give the same decision. For the CPU and every
 TPU kind it returns the reference's decision field for field. The port adds
 a "gpu" device class (kinds that match a GPU row of the peak table, the
 H100), priced with constants measured on the card by ``chip_smoke.py``.
-
-Not ported yet (ROADMAP.md): ``decide_sharded`` (multi-GPU).
+``decide_sharded`` prices the sharded executor's layouts with the same
+per-class constants, its decisions keyed by shard count.
 """
 
 from __future__ import annotations
@@ -335,6 +336,166 @@ def decide(
         feature_dim=feature_dim,
         feature_tier=feature_tier,
         modeled_ms={k: v * 1e3 for k, v in modeled.items()},
+    )
+
+
+#: modeled launch latency per message-carrying collective (one batch) —
+#: the term that charges the ring its S-1 batches per superstep. cpu/tpu:
+#: the reference's; gpu: the tpu value (a collective over slots of one card
+#: is one transposed or rolled copy; not fitted on the card)
+_COLLECTIVE_LAUNCH_S = {"cpu": 2e-5, "tpu": 5e-6, "gpu": 5e-6}
+
+
+@dataclass(frozen=True)
+class ShardedDecision:
+    """One deterministic per-shard-layout decision (the mesh analogue of
+    AutotuneDecision), keyed by shard count. ``as_dict()`` is the record
+    stored in ``run_info["autotune"]`` on sharded runs."""
+
+    exchange: str                 # blocked | a2a | ring | gather
+    agg: str                      # ell | segment
+    halo_cap: int                 # pow2 bin tier (blocked exchange)
+    boundary_width: int           # eager a2a bucket width B
+    shard_count: int
+    device_kind: str
+    source: str                   # model | config | measured+model
+    modeled_ms: Dict[str, float] = field(default_factory=dict)
+    feature_tier: Optional[int] = None
+
+    def as_dict(self) -> dict:
+        return {
+            "exchange": self.exchange,
+            "agg": self.agg,
+            "halo_cap": self.halo_cap,
+            "boundary_width": self.boundary_width,
+            "shard_count": self.shard_count,
+            "device_kind": self.device_kind,
+            "source": self.source,
+            "feature_tier": self.feature_tier,
+            "modeled_ms": {k: round(v, 4) for k, v in sorted(self.modeled_ms.items())},
+        }
+
+
+def decide_sharded(
+    stats: GraphStats,
+    device_kind: str,
+    num_shards: int,
+    widths: dict,
+    overrides: Optional[dict] = None,
+    measured: Optional[dict] = None,
+    feature_dim: int = 0,
+) -> ShardedDecision:
+    """Pick the sharded executor's per-shard layout — exchange + local
+    aggregation + pow2 halo-bin tier — for one (graph, device, SHARD
+    COUNT). A pure function of its arguments.
+
+    ``widths`` is ``halo.pair_widths``' output: the eager boundary width B
+    (distinct cross-shard sources any pair ships) against the blocked halo
+    width (distinct cross-shard destinations any pair merges into) and its
+    pow2 ``halo_cap``.
+
+    The per-superstep model per shard: local aggregation work (slots
+    through the gather, ELL paying its pad ratio, blocked adding the S*Hc
+    receiver combine), the exchange payload at peak (or measured)
+    bandwidth, and a launch per message-carrying collective. ``measured``
+    (the shard-count-keyed record) calibrates the bandwidth as in
+    ``decide()``; ``overrides["exchange"]`` forces the layout
+    (source="config"). The card prices with the "gpu" class's constants,
+    as ``decide()`` does; any other kind without "tpu" is "cpu", as in the
+    reference."""
+    ov = dict(overrides or {})
+    peaks = profiler.device_peaks(device_kind)
+    kind = device_class(device_kind)
+    S = max(1, int(num_shards))
+    n, m = stats.num_vertices, stats.num_edges
+    Np = -(-max(n, 1) // S)
+    Em = max(1, m // S)
+    cols = 1
+    feature_tier = None
+    if feature_dim:
+        feature_tier = pick_feature_tier(int(feature_dim), 0)
+        cols = feature_tier
+    B = max(1, int(widths.get("boundary_width") or 1))
+    Hc = max(1, int(widths.get("halo_cap") or 1))
+
+    bw = peaks["peak_bytes_per_s"]
+    source = "model"
+    if measured and measured.get("superstep_ms"):
+        # achieved bytes/s of the prior run's layout at this shard count
+        meas_bytes = Em * (4.0 + 4.0 * cols) + 8.0 * Np * cols
+        eff = meas_bytes / (float(measured["superstep_ms"]) / 1e3)
+        bw = max(min(bw, eff), 1.0)
+        source = "measured+model"
+
+    gcost = _GATHER_COST_S[kind]
+    launch = _COLLECTIVE_LAUNCH_S[kind]
+    penalty = _SEGMENT_PENALTY[kind]
+    elem_bytes = 4.0 * cols
+
+    def t_exchange(elems: int, batches: int) -> float:
+        return elems * elem_bytes / max(bw, 1.0) + batches * launch
+
+    ell_slots_per_shard = max(1, stats.ell_slots // S)
+    modeled: Dict[str, float] = {
+        # eager a2a + uniform ELL: padded gather slots + table concat
+        "a2a-ell": (
+            ell_slots_per_shard * gcost * cols
+            + (Np + S * B) * elem_bytes / max(bw, 1.0)
+            + t_exchange(S * B, 1)
+        ),
+        # eager a2a + flat segment: exact slots, scatter derating
+        "a2a-segment": (
+            Em * gcost * cols * penalty / 2.0
+            + (Np + S * B) * elem_bytes / max(bw, 1.0)
+            + t_exchange(S * B, 1)
+        ),
+        # propagation-blocked + packed merge: ELL slots gathered from the
+        # shard's own Np-row block, S*Hc merged elements exchanged, one
+        # width-R receiver combine
+        "blocked-ell": (
+            ell_slots_per_shard * gcost * cols
+            + (S * Hc) * gcost * cols
+            + t_exchange(S * Hc, 1)
+        ),
+        # propagation-blocked + fused scatter merge
+        "blocked-segment": (
+            (Em + S * Hc) * gcost * cols * penalty / 2.0
+            + t_exchange(S * Hc, 1)
+        ),
+        # ring streaming: S-1 batches of one Np block each
+        "ring-segment": (
+            Em * gcost * cols * penalty / 2.0
+            + t_exchange((S - 1) * Np, S - 1)
+        ),
+        # debug reference: the full padded vector every superstep
+        "gather-segment": (
+            Em * gcost * cols * penalty / 2.0
+            + t_exchange(S * Np, 1)
+        ),
+    }
+
+    forced = ov.get("exchange")
+    if forced and forced not in ("auto",):
+        agg_for = {
+            "blocked": ov.get("agg") or "ell",
+            "a2a": ov.get("agg") or "ell",
+            "ring": "segment", "gather": "segment",
+        }
+        choice = f"{forced}-{agg_for.get(forced, 'segment')}"
+        source = "config"
+    else:
+        choice = min(modeled, key=lambda k: (modeled[k], k))
+    exchange, agg = choice.split("-", 1)
+    return ShardedDecision(
+        exchange=exchange,
+        agg=agg,
+        halo_cap=Hc,
+        boundary_width=B,
+        shard_count=S,
+        device_kind=device_kind or "cpu",
+        source=source,
+        modeled_ms={k: v * 1e3 for k, v in modeled.items()},
+        feature_tier=feature_tier,
     )
 
 

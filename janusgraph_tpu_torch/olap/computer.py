@@ -26,13 +26,23 @@ snapshot, as in the reference; a failed load raises.
 
 Executors: "tpu" (the default; the reference's name for its one
 accelerator) runs on the CUDA card and raises where there is none; "cpu"
-runs the same executor's plain PyTorch versions on the CPU. "sharded"
-raises (ROADMAP Queue A #4). Over a graph opened with
+runs the same executor's plain PyTorch versions on the CPU; "sharded" runs
+``parallel/sharded.ShardedExecutor`` over a mesh (default: one slot per
+visible card; ``graph.compute(executor="sharded", mesh=Mesh(...))`` picks
+the slots, a mesh of CPU slots included) with ``computer.exchange``,
+``-agg``, ``-shard-measure`` and the shard checkpoints
+(``computer.shard-checkpoint-path``, ``-every``). A sharded run consumes a
+pending delta overlay materialized. With ``computer.sharded-auto`` (on by
+default) a "tpu" submit routes to the sharded executor whenever more than
+one card is visible; with one card it stays on the single-device
+executor. A routed run that fails falls back to the single-device
+executor and records why in ``run_info["routing"]["fallback"]``; an
+explicit "sharded" never falls back. Over a graph opened with
 ``storage.faults.enabled`` the run's ``fault_hook`` is the plan's
-``olap_hook``: the scheduled superstep is preempted once and the run
-resumes from its last checkpoint (``computer.checkpoint-every``,
-``-path``, ``-resume-attempts``); without checkpoints the preemption
-reaches the caller.
+``olap_hook`` (``sharded_hook`` on the sharded executor): the scheduled
+superstep is preempted once and the run resumes from its last checkpoint
+(``computer.checkpoint-every``, ``-path``, ``-resume-attempts``); without
+checkpoints the preemption reaches the caller.
 
 ``write_back`` takes the columnar float path of the reference
 (``tpu_executor.py`` ``_write_back_columnar``) for SINGLE float keys and
@@ -51,8 +61,8 @@ Admission, as the reference's: ``submit()`` first asks the query
 server's brownout ladder (``server/admission.py`` ``check_olap_admission``)
 and raises ``ServerOverloadedError`` at rung 2 or above, before the span,
 the snapshot and any launch; without a server in the process every run is
-admitted. Left out: sharded routing (ROADMAP Queue A #4).
-``run_on`` is the array-level entry point beside it.
+admitted. ``run_on`` is the array-level entry point beside it
+(``executor="sharded"`` runs the sharded executor).
 """
 
 from __future__ import annotations
@@ -145,16 +155,27 @@ class ComputerResult:
                    batch=self.graph.config.get("computer.write-back-batch"))
 
 
-def executor_device(executor: str) -> torch.device:
+def visible_cards() -> int:
+    """CUDA cards this process sees (0 without CUDA): the device count the
+    reference's sharded-auto routing reads."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def default_mesh():
+    """The sharded executor's default mesh: one slot per visible card."""
+    from janusgraph_tpu_torch.parallel.compat import Mesh
+
+    return Mesh()
+
+
+def executor_device(executor: str, mesh=None) -> torch.device:
     """The device a ``computer.executor`` value names: "tpu" (the
     reference's name for its one accelerator) is the CUDA card and raises
     where there is none, before anything loads; "cpu" runs the plain
-    PyTorch versions on the CPU; "sharded" raises (ROADMAP Queue A #4)."""
+    PyTorch versions on the CPU; "sharded" is the mesh's home slot (the
+    default mesh raises without a card)."""
     if executor == "sharded":
-        raise ConfigurationError(
-            "the sharded executor is not ported yet: ROADMAP.md Queue A #4 "
-            "(multi-GPU)"
-        )
+        return (mesh if mesh is not None else default_mesh()).home
     if executor not in ("tpu", "cpu"):
         raise ConfigurationError(f"unknown executor {executor!r}")
     if executor == "tpu" and not torch.cuda.is_available():
@@ -170,11 +191,16 @@ class GraphComputer:
     kind, aggregation strategy, sync cadence and checkpointing default to
     the graph's config (computer.* options)."""
 
-    def __init__(self, graph, executor: str = None):
+    def __init__(self, graph, executor: str = None, mesh=None):
         self.graph = graph
         if executor is None:
             executor = graph.config.get("computer.executor")
-        self.device = executor_device(executor)
+        if executor == "sharded" and mesh is None:
+            mesh = default_mesh()
+        #: the sharded executor's mesh (None: the default mesh, built where
+        #: a submit routes to it)
+        self.mesh = mesh
+        self.device = executor_device(executor, mesh)
         self.executor_kind = executor
         self._edge_labels: Optional[Sequence[str]] = None
         self._vertex_labels: Optional[Sequence[str]] = None
@@ -262,12 +288,53 @@ class GraphComputer:
         }
         # chaos wiring: a graph opened with storage.faults.enabled carries a
         # FaultPlan; its superstep preemption rides into the executor, whose
-        # checkpoint auto-resume absorbs it ("sharded" never gets here: its
-        # executor is ROADMAP Queue A #4)
+        # checkpoint auto-resume absorbs it
         plan = getattr(self.graph, "fault_plan", None)
         if plan is not None:
             run_kw["fault_hook"] = plan.olap_hook
         return ex_kw, run_kw
+
+    def _sharded_kwargs(self):
+        """(ShardedExecutor kwargs, run kwargs) from the computer.* options;
+        the fault hook is the plan's mesh-aware ``sharded_hook``."""
+        cfg = self.graph.config
+        ex_kw = {
+            "exchange": cfg.get("computer.exchange"),
+            "agg": cfg.get("computer.agg"),
+            "frontier_tier_growth": cfg.get("computer.frontier-tier-growth"),
+            "shard_measure": cfg.get("computer.shard-measure"),
+        }
+        run_kw = {
+            "sync_every": cfg.get("computer.sync-every"),
+            "checkpoint_every": (
+                cfg.get("computer.shard-checkpoint-every") or cfg.get("computer.checkpoint-every")
+            ),
+            "checkpoint_path": cfg.get("computer.checkpoint-path") or None,
+            "shard_checkpoint_dir": cfg.get("computer.shard-checkpoint-path") or None,
+            "frontier": cfg.get("computer.frontier"),
+            "resume_attempts": cfg.get("computer.resume-attempts"),
+        }
+        plan = getattr(self.graph, "fault_plan", None)
+        if plan is not None:
+            run_kw["fault_hook"] = plan.sharded_hook
+        return ex_kw, run_kw
+
+    def _route(self):
+        """(executor kind, routing record): computer.sharded-auto sends a
+        "tpu" submit to the sharded executor whenever more than one card is
+        visible, as the reference does with more than one device."""
+        routing = {"requested": self.executor_kind, "routed": self.executor_kind,
+                   "reason": "explicit"}
+        if self.executor_kind != "tpu" or getattr(self, "_no_autoroute", False):
+            return self.executor_kind, routing
+        if not self.graph.config.get("computer.sharded-auto"):
+            return "tpu", routing
+        cards = visible_cards()
+        if cards > 1 and getattr(self._program, "sharded_compatible", True):
+            routing.update(routed="sharded", reason=f"sharded-auto: mesh of {cards} devices")
+            return "sharded", routing
+        routing["reason"] = "single device" if cards <= 1 else "sddmm program"
+        return "tpu", routing
 
     def submit(self) -> ComputerResult:
         """Take the CSR snapshot, run the program, wrap the result — the
@@ -339,14 +406,16 @@ class GraphComputer:
                 )
                 snapshot = {"path": "scan"}
             ls.annotate(num_vertices=csr.num_vertices, num_edges=csr.num_edges)
+        executor_kind, routing = self._route()
         if delta_view is not None:
             # a small overlay rides into the executor fused (base packs
-            # untouched, lanes merged each superstep); a traversal (typed
-            # channels), another program that cannot consume it, or lanes
-            # over the cap fold it into new arrays first (zero store reads
-            # either way)
+            # untouched, lanes merged each superstep); a sharded run, a
+            # traversal (typed channels), another program that cannot
+            # consume it, or lanes over the cap fold it into new arrays
+            # first (zero store reads either way)
             fuse = (
-                traverse_args is None
+                executor_kind != "sharded"
+                and traverse_args is None
                 and _delta.program_delta_compatible(self._program)
                 and delta_view.lanes(bool(self._program.undirected)) is not None
             )
@@ -371,11 +440,22 @@ class GraphComputer:
                 record_reach=want_paths, sack=sack, sack_init=sack_init,
             )
         sp.annotate(program=type(self._program).__name__)
-        ex_kw, run_kw = self._executor_kwargs()
-        # the executor is cached on the snapshot (over its current base):
-        # the next submit reuses its device packs and captured graphs
-        ex = _executor(csr, self.device, delta_view, delta_snap, ex_kw)
-        states = ex.run(self._program, **run_kw)
+        if executor_kind == "sharded":
+            mesh = self.mesh if self.mesh is not None else default_mesh()
+            ex_kw, run_kw = self._sharded_kwargs()
+            ex = _sharded_executor(csr, mesh, delta_snap, ex_kw)
+            try:
+                states = ex.run(self._program, **run_kw)
+            except Exception as e:  # noqa: BLE001 - the routed run's fallback
+                if routing["routed"] == "sharded" and self.executor_kind != "sharded":
+                    return self._fallback(sp, routing, e)
+                raise
+        else:
+            ex_kw, run_kw = self._executor_kwargs()
+            # the executor is cached on the snapshot (over its current
+            # base): the next submit reuses its device packs and graphs
+            ex = _executor(csr, self.device, delta_view, delta_snap, ex_kw)
+            states = ex.run(self._program, **run_kw)
         if delta_view is not None:
             # a fused run covers [base ++ new vertices] with removed slots
             # inert: compact to the live vertex set, so value()/by_vertex()/
@@ -385,13 +465,8 @@ class GraphComputer:
             # compaction is off the superstep path: after the run
             if delta_snap.maybe_compact():
                 snapshot["compacted"] = dict(delta_snap.last_compaction)
-        routing = {
-            "requested": self.executor_kind,
-            "routed": self.executor_kind,
-            "reason": "single device" if self.executor_kind == "tpu" else "explicit",
-            "executor": self.executor_kind,
-            "device": str(self.device),
-        }
+        routing["executor"] = executor_kind
+        routing["device"] = str(ex.mesh.home if executor_kind == "sharded" else self.device)
         registry.record_run("olap.routing", routing)
         run_info = dict(registry.last_run("olap") or {})
         run_info["routing"] = routing
@@ -408,6 +483,41 @@ class GraphComputer:
             run_info=run_info, program=self._program,
             source_as=traverse_args[3] if traverse_args is not None else None,
         )
+
+    def _fallback(self, sp, routing, error) -> ComputerResult:
+        """A routed sharded run failed: rerun on the single-device executor
+        and record why (auto-routing must never make a working submit
+        fail)."""
+        from janusgraph_tpu_torch.observability import flight_recorder
+
+        routing["routed"] = "tpu"
+        routing["fallback"] = f"{type(error).__name__}: {error}"[:200]
+        flight_recorder.record("sharded_auto_fallback", error=routing["fallback"])
+        self._no_autoroute = True
+        try:
+            result = self._submit(sp)
+        finally:
+            self._no_autoroute = False
+        routing["executor"] = "tpu"
+        routing["device"] = str(self.device)
+        result.run_info["routing"] = routing
+        registry.record_run("olap.routing", routing)
+        return result
+
+
+def _sharded_executor(csr, mesh, executor_cache, ctor_kwargs):
+    """A ``ShardedExecutor`` over ``csr`` on ``mesh``: the one the delta
+    snapshot holds for these arguments (its plans and device arrays kept
+    across warm submits), or a new one (stored there)."""
+    from janusgraph_tpu_torch.parallel.sharded import ShardedExecutor
+
+    key = ("sharded", tuple(map(str, mesh.devices))) + tuple(sorted(ctor_kwargs.items()))
+    ex = executor_cache.cached_executor(key) if executor_cache is not None else None
+    if ex is None:
+        ex = ShardedExecutor(csr, mesh=mesh, **ctor_kwargs)
+        if executor_cache is not None:
+            executor_cache.store_executor(key, ex, csr)
+    return ex
 
 
 def _executor(csr, device, delta, executor_cache, ctor_kwargs) -> GPUExecutor:
@@ -529,6 +639,12 @@ def run_on(
     autotune_max_tiers: int = None,
     features_dim_tier: int = None,
     features_native_matmul: bool = None,
+    executor: str = None,
+    mesh=None,
+    exchange: str = "auto",
+    agg: str = "ell",
+    shard_measure: bool = None,
+    shard_checkpoint_dir: str = None,
 ) -> Dict[str, np.ndarray]:
     """Run ``program`` over ``csr`` on ``device`` (the card by default) and
     return its final state as numpy arrays. ``frontier`` ("auto", "off",
@@ -544,7 +660,32 @@ def run_on(
     its overlay instead of building another. ``features_dim_tier`` and
     ``features_native_matmul`` set a dense program's lane tier and
     ``torch.matmul`` switch (as its own ``dim_tier=``/``native_matmul=``
-    do)."""
+    do).
+
+    ``executor="sharded"`` runs ``parallel/sharded.ShardedExecutor`` over
+    ``mesh`` (default: one slot per visible card) with ``exchange``,
+    ``agg``, ``shard_measure`` and ``shard_checkpoint_dir``; it consumes
+    materialized snapshots only (an overlay ``delta`` raises: fold it with
+    ``olap/delta.materialize`` first)."""
+    if executor == "sharded":
+        if delta is not None:
+            raise ValueError(
+                "the sharded executor consumes MATERIALIZED delta "
+                "snapshots — fold the overlay with olap/delta.materialize "
+                "first"
+            )
+        from janusgraph_tpu_torch.parallel.sharded import ShardedExecutor
+
+        return ShardedExecutor(
+            csr, mesh=mesh if mesh is not None else default_mesh(), exchange=exchange, agg=agg,
+            frontier_tier_growth=frontier_tier_growth, shard_measure=shard_measure,
+        ).run(
+            program, sync_every=sync_every, checkpoint_every=checkpoint_every,
+            checkpoint_path=checkpoint_path, frontier=frontier, fault_hook=fault_hook,
+            resume_attempts=resume_attempts, shard_checkpoint_dir=shard_checkpoint_dir,
+        )
+    if executor is not None:
+        raise ValueError(f"unknown executor {executor!r} (None: the single-device executor)")
     ctor_kwargs = dict(
         strategy=strategy, frontier=frontier, autotune=autotune,
         hub_cutoff=hub_cutoff, tail_chunk=tail_chunk,

@@ -62,7 +62,10 @@ snapshot files).
 The capture, the snapshot and the executor cache count into the
 telemetry registry under the reference's names (``olap.delta.*``,
 ``olap.executor.cache_*``) and a compaction records a ``delta_compact``
-flight event. Not ported yet (ROADMAP.md Queue A #4): the sharded routing.
+flight event. The sharded routing is the reference's: ``route_overlay`` /
+``route_for_host`` partition the overlay's records by the shard that owns
+their destination rows, and ``replay_fused_aggregate`` is the fused
+merge's numpy replay.
 """
 
 from __future__ import annotations
@@ -798,6 +801,105 @@ def fused_delta_aggregate(lanes: dict, outgoing: torch.Tensor, base_agg: torch.T
     if op == Combiner.MIN:
         return torch.minimum(merged, add)
     return torch.maximum(merged, add)
+
+
+def _np_segment_combine(op: str, values: np.ndarray, seg: np.ndarray, n: int) -> np.ndarray:
+    out = np.full((n,) + values.shape[1:], Combiner.IDENTITY[op], dtype=values.dtype)
+    if op == Combiner.SUM:
+        np.add.at(out, seg, values)
+    elif op == Combiner.MIN:
+        np.minimum.at(out, seg, values)
+    else:
+        np.maximum.at(out, seg, values)
+    return out
+
+
+def replay_fused_aggregate(lanes: dict, meta: Optional[dict], outgoing: np.ndarray,
+                           base_agg: np.ndarray, op: str) -> np.ndarray:
+    """The numpy replay of the fused merge over the padded lanes
+    (``OverlayView.lanes``' layout; ``meta`` defaults to their ``_meta``):
+    the reference's ``fused_delta_aggregate`` with numpy, every lane folded
+    by ``np.<ufunc>.at`` in lane order. ``fused_delta_aggregate`` on the
+    CPU meets it to float tolerance for SUM (its lanes sum through the
+    sorted segment sum) and exactly for MIN/MAX."""
+    meta = lanes["_meta"] if meta is None else meta
+    identity = Combiner.IDENTITY[op]
+    npad = meta["n_pad"]
+    tail = npad - base_agg.shape[0]
+    base = base_agg
+    if tail:
+        pad = np.full((tail,) + tuple(base_agg.shape[1:]), identity, dtype=base_agg.dtype)
+        base = np.concatenate([base_agg, pad], axis=0)
+    # sentinel slot: padded lane entries gather the identity and scatter
+    # into the dropped row npad
+    msgs_ext = np.concatenate(
+        [outgoing, np.full((1,) + tuple(outgoing.shape[1:]), identity, dtype=outgoing.dtype)]
+    )
+
+    def fold(lane):
+        return _np_segment_combine(
+            op, msgs_ext[lanes[f"{lane}_src"]], lanes[f"{lane}_dst"], npad + 1
+        )[:npad]
+
+    add = fold("add")
+    if op == Combiner.SUM:
+        return base + add - fold("tomb")
+    dirty = lanes["dirty"]
+    if base.ndim == 2:
+        dirty = dirty[:, None]
+    merged = np.where(dirty > 0, fold("live"), base)
+    if op == Combiner.MIN:
+        return np.minimum(merged, add)
+    return np.maximum(merged, add)
+
+
+# ---------------------------------------------------------------------------
+# Sharded routing (host_shard_range coupling)
+# ---------------------------------------------------------------------------
+
+def route_overlay(view: OverlayView, num_shards: int) -> List[dict]:
+    """Partition the overlay's index-space records by OWNER SHARD of the
+    aggregation-side (destination) row — the same contiguous ``dst // Np``
+    coupling the sharded executor's layout and
+    ``multihost.host_shard_range`` use, so a distributed refresh routes
+    each record to the host that owns its rows."""
+    Np = -(-max(view.n_pad, 1) // num_shards)
+    out = []
+    for s in range(num_shards):
+        lo, hi = s * Np, (s + 1) * Np
+        am = (view.add_dst >= lo) & (view.add_dst < hi)
+        tm = (view.tomb_dst >= lo) & (view.tomb_dst < hi)
+        out.append({
+            "shard": s,
+            "row_range": (lo, min(hi, view.n_pad)),
+            "add_src": view.add_src[am],
+            "add_dst": view.add_dst[am],
+            "tomb_src": view.tomb_src[tm],
+            "tomb_dst": view.tomb_dst[tm],
+        })
+    return out
+
+
+def route_for_host(view: OverlayView, num_shards: int, process_id: Optional[int] = None,
+                   num_processes: Optional[int] = None) -> dict:
+    """The concatenated routed records of THIS host's shard span
+    (``multihost.host_shard_range``): what a distributed snapshot refresh
+    applies to its local blocks."""
+    from janusgraph_tpu_torch.parallel.multihost import host_shard_range
+
+    lo_s, hi_s = host_shard_range(num_shards, process_id, num_processes)
+    routed = route_overlay(view, num_shards)[lo_s:hi_s]
+
+    def cat(key):
+        return np.concatenate([r[key] for r in routed]) if routed else np.empty(0, np.int64)
+
+    return {
+        "shards": (lo_s, hi_s),
+        "add_src": cat("add_src"),
+        "add_dst": cat("add_dst"),
+        "tomb_src": cat("tomb_src"),
+        "tomb_dst": cat("tomb_dst"),
+    }
 
 
 # ---------------------------------------------------------------------------

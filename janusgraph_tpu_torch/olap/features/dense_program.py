@@ -79,6 +79,14 @@ class DenseVertexProgram(VertexProgram):
         off) instead of the fixed-order tree contraction."""
         self.native_matmul = bool(native)
 
+    @property
+    def sharded_compatible(self) -> bool:
+        """Whether the sharded executor can run this program: its exchanges
+        ship source-side rows only, and sddmm needs both endpoints'
+        features inside one kernel, so attention programs stay on one
+        device (the routing and ``ShardedExecutor.run`` consult this)."""
+        return self.message_mode != MessageMode.SDDMM
+
     def cache_key(self) -> Tuple:
         digest = hashlib.sha1()
         for name in self.array_params:

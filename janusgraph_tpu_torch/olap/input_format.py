@@ -15,8 +15,8 @@ only its own key ranges.
 (``olap/jobs.py``) over the splits on worker threads, one scanner per
 split, and merges their metrics.
 
-Left out: ``load_shard_csrs`` (one CSR per shard for the sharded
-executor) raises, naming ROADMAP Queue A #4 (multi-GPU).
+``load_shard_csrs`` loads one CSR per split (a shard's partitions), the
+sharded executor's per-slot input.
 """
 
 from __future__ import annotations
@@ -144,12 +144,13 @@ class GraphInputFormat:
 
 
 def load_shard_csrs(graph, num_shards: int):
-    """One CSRGraph per shard of ID partitions, the sharded executor's
-    input: not ported yet."""
-    raise NotImplementedError(
-        "load_shard_csrs feeds the sharded executor, which is not ported "
-        "yet: ROADMAP.md Queue A #4 (multi-GPU)"
-    )
+    """One CSRGraph per shard of ID partitions — the bulk path feeding each
+    mesh slot or host its own slice (reference: backend-specific binary
+    input formats feeding SparkGraphComputer executors)."""
+    from janusgraph_tpu_torch.olap.csr import load_csr
+
+    fmt = GraphInputFormat(graph)
+    return [load_csr(graph, partitions=list(split.partitions)) for split in fmt.splits(num_shards)]
 
 
 def _codec_schema(graph):

@@ -80,7 +80,7 @@ from janusgraph_tpu_torch.observability.profiler import (
     traversal_shape,
 )
 from janusgraph_tpu_torch.olap import delta as _delta_mod
-from janusgraph_tpu_torch.olap.computer import executor_device
+from janusgraph_tpu_torch.olap.computer import executor_device, run_on, visible_cards
 from janusgraph_tpu_torch.olap.csr import csr_from_edges, load_csr_snapshot, refresh_csr
 from janusgraph_tpu_torch.olap.gpu_executor import GPUExecutor
 from janusgraph_tpu_torch.olap.programs.olap_traversal import (
@@ -706,11 +706,24 @@ class SpilloverPlanner:
         ``graph.compute()`` maps it (``executor_device``). The executor
         is CACHED per snapshot so its device packs and channel plans
         survive across spilled queries; a patched-snapshot run uses a
-        throwaway executor (the patch is per transaction). The reference
-        also routes a multi-device process to its sharded executor under
-        ``computer.sharded-auto``; the port runs on one card (ROADMAP.md
-        Queue A #4)."""
-        device = executor_device(self.graph.config.get("computer.executor"))
+        throwaway executor (the patch is per transaction). As in the
+        reference, "sharded" (named, or routed from "tpu" under
+        ``computer.sharded-auto`` when more than one card is visible) runs
+        the sharded executor over the default mesh."""
+        cfg = self.graph.config
+        executor = cfg.get("computer.executor")
+        if (
+            executor == "tpu" and cfg.get("computer.sharded-auto") and visible_cards() > 1
+            and getattr(program, "sharded_compatible", True)
+        ):
+            executor = "sharded"
+        if executor == "sharded":
+            return run_on(
+                csr, program, executor="sharded", exchange=cfg.get("computer.exchange"),
+                agg=cfg.get("computer.agg"),
+                frontier_tier_growth=cfg.get("computer.frontier-tier-growth"),
+            )
+        device = executor_device(executor)
         if patched:
             return GPUExecutor(csr, device=device).run(program)
         if self._ex is None or self._ex.csr is not csr or self._ex.device != device:

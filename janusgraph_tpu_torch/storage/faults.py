@@ -49,10 +49,10 @@ route around a replica that looks alive) and ``cdc_lagging_follower``
 for the window; ``promote()`` forces through it). Their
 ``storage.faults.replica-*`` and ``follower-lag-*`` options are honoured.
 The multi-device kinds (``sharded_hook``: shard preemption, collective
-timeout, halo drop, straggler skew) are ported with the plan, pure and
-journaled as the reference's, but their consumer, the sharded executor,
-is ROADMAP Queue A #4, and their ``storage.faults.shard-*`` options
-refuse naming it.
+timeout, halo drop, straggler skew) are the reference's, pure and
+journaled; the sharded executor (``parallel/sharded.py``) consults the
+hook at every superstep boundary, and their ``storage.faults.shard-*``
+options are honoured.
 The watchdog's stalled lock (``stalled_lock``) and wedged thread
 (``wedge_thread``) are decisions for the holder of an
 ``observability/continuous.py`` ``InstrumentedLock`` and for a worker
@@ -205,9 +205,7 @@ class FaultPlan:
 
     @classmethod
     def from_config(cls, cfg) -> "FaultPlan":
-        """Build from the ``storage.faults.*`` options the port honours; the
-        shard kinds, whose consumer (the sharded executor) is not ported,
-        refuse their options at open and stay off here."""
+        """Build from the ``storage.faults.*`` option family."""
         stores = [
             s.strip()
             for s in cfg.get("storage.faults.stores").split(",")
@@ -227,6 +225,12 @@ class FaultPlan:
             scan_kill_at=cfg.get("storage.faults.scan-kill-at"),
             scan_kill_after_rows=cfg.get("storage.faults.scan-kill-after-rows"),
             preempt_superstep=cfg.get("storage.faults.preempt-superstep"),
+            shard_preempt_superstep=cfg.get("storage.faults.shard-preempt-superstep"),
+            shard_preempt_shard=cfg.get("storage.faults.shard-preempt-shard"),
+            collective_timeout_at=cfg.get("storage.faults.shard-collective-timeout-at"),
+            halo_drop_at=cfg.get("storage.faults.shard-halo-drop-at"),
+            straggler_ms=cfg.get("storage.faults.shard-straggler-ms"),
+            straggler_rate=cfg.get("storage.faults.shard-straggler-rate"),
             replica_kill_at=cfg.get("storage.faults.replica-kill-at"),
             replica_restart_at=cfg.get("storage.faults.replica-restart-at"),
             replica_partition_at=cfg.get("storage.faults.replica-partition-at"),

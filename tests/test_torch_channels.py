@@ -409,3 +409,29 @@ def test_channel_program_refused_under_sddmm():
     h = GPUExecutor(pc, strategy="ell", device="cpu").run(
         GCNForwardProgram(feature_dim=8, attention=True))["h"]
     assert np.isfinite(h).all()
+
+
+def test_channels_on_the_sharded_executor():
+    """Typed channels through the sharded executor (one sharded edge view
+    per channel value, LRU-cached) on 8 CPU slots: the reference's sharded
+    run's distances and the port's single-device run's, bit for bit."""
+    import jax
+    from jax.sharding import Mesh as JaxMesh
+
+    from janusgraph_tpu.parallel import ShardedExecutor as RefShardedExecutor
+    from janusgraph_tpu_torch.parallel import Mesh, ShardedExecutor
+
+    pc, rc, _ = two_label()
+    ex = ShardedExecutor(pc, mesh=Mesh([torch.device("cpu")] * 8))
+    got = ex.run(Alternating(seed_index=3, max_iterations=6))
+    assert ex.last_run_info["path"] == "host-loop" and len(ex._channel_views) == 2
+    want = RefShardedExecutor(rc, mesh=JaxMesh(np.array(jax.devices()[:8]), ("p",))).run(
+        RefAlternating(seed_index=3, max_iterations=6))
+    np.testing.assert_array_equal(got["dist"], np.asarray(want["dist"]))
+    single = GPUExecutor(pc, device="cpu").run(Alternating(seed_index=3, max_iterations=6))
+    np.testing.assert_array_equal(got["dist"], single["dist"])
+    small = ShardedExecutor(pc, mesh=Mesh([torch.device("cpu")] * 8))
+    small.CHANNEL_CACHE_SIZE = 1
+    again = small.run(Alternating(seed_index=3, max_iterations=6))
+    assert len(small._channel_views) == 1
+    np.testing.assert_array_equal(again["dist"], got["dist"])

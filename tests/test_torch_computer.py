@@ -367,9 +367,9 @@ def test_compute_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("config", [
-    {"computer.executor": "sharded"},
+    {"cluster.num-processes": 2},
     {"query.fast-property": False},
-    {"storage.faults.shard-halo-drop-at": 3},
+    {"storage.batch-loading": True},
     {"computer.result-mode": "persist"},
     {"no.such-option": 1},
 ])
@@ -392,12 +392,22 @@ def test_sharded_executor_raises_and_config_reaches_the_executor(monkeypatch):
     monkeypatch.setattr(computer, "GPUExecutor", Recorded)
     g = open_graph({"computer.executor": "cpu", "computer.strategy": "pallas",
                     "computer.channel-cache-size": 1})
-    with pytest.raises(ConfigurationError, match="Queue A #4"):
+    # the sharded executor runs on the card by default (its default mesh
+    # raises without one) and on the CPU when a mesh of CPU slots is given
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         g.compute(executor="sharded")
     vids = bulk_add_vertices(g, 6)
     bulk_add_edges(g, "e", vids[:3], vids[3:])
     bulk_add_edges(g, "f", vids[3:], vids[:3])
+    from janusgraph_tpu_torch.parallel import Mesh
+
+    sharded = g.compute(executor="sharded", mesh=Mesh([torch.device("cpu")] * 4)).program(
+        programs.PageRankProgram(max_iterations=2)).submit()
+    assert sharded.run_info["routing"]["executor"] == "sharded"
+    assert sharded.run_info["executor"] == "sharded" and sharded.run_info["shards"]["count"] == 4
     res = g.compute().program(programs.PageRankProgram(max_iterations=2)).submit()
+    np.testing.assert_allclose(sharded.states["rank"], res.states["rank"], rtol=1e-5, atol=1e-7)
     assert res.run_info["routing"]["requested"] == "cpu"
     assert res.run_info["strategy_resolved"] == "segsum"
     # two channels through an executor that submit() built with the

@@ -25,7 +25,7 @@ DEFAULT_DIFFERENCES = {
 
 #: values the reference accepts and the port refuses, with the item named
 REFUSED = [
-    ("computer.executor", "sharded", "Queue A #4"),
+    ("cluster.num-processes", 2, "Queue A #4b"),
 ]
 
 #: options the port accepts since the fault injector, the sharded store,
@@ -66,16 +66,31 @@ ACCEPTED = [
     ("storage.faults.replica-target", 1),
     ("storage.faults.follower-lag-at", 1),
     ("storage.faults.follower-lag-pulls", 1),
+    # the sharded executor's and the kinds it consumes
+    ("storage.faults.shard-preempt-superstep", 3),
+    ("storage.faults.shard-preempt-shard", 1),
+    ("storage.faults.shard-collective-timeout-at", 1),
+    ("storage.faults.shard-halo-drop-at", 1),
+    ("storage.faults.shard-straggler-ms", 1.0),
+    ("storage.faults.shard-straggler-rate", 0.5),
+    ("computer.executor", "sharded"),
+    ("computer.exchange", "blocked"),
+    ("computer.agg", "segment"),
+    ("computer.sharded-auto", False),
+    ("computer.shard-measure", False),
+    ("computer.shard-checkpoint-path", "/tmp/shards"),
+    ("computer.shard-checkpoint-every", 2),
+    ("computer.shard-checkpoint-shards", 4),
+    ("cluster.max-partitions", 4),
+    ("cluster.coordinator-address", "localhost:1234"),
+    ("cluster.num-processes", 1),
+    ("cluster.process-id", 0),
 ]
 
-#: fault options whose consumer is not ported, with the item that brings it
+#: fault and cluster options whose consumer is not ported, with the item
+#: that brings it: a run of more than one process
 STILL_REFUSED = [
-    ("storage.faults.shard-preempt-superstep", 3, "Queue A #4"),
-    ("storage.faults.shard-preempt-shard", 1, "Queue A #4"),
-    ("storage.faults.shard-collective-timeout-at", 1, "Queue A #4"),
-    ("storage.faults.shard-halo-drop-at", 1, "Queue A #4"),
-    ("storage.faults.shard-straggler-ms", 1.0, "Queue A #4"),
-    ("storage.faults.shard-straggler-rate", 0.5, "Queue A #4"),
+    ("cluster.num-processes", 2, "Queue A #4b"),
 ]
 
 #: the options the port once took with the wrong mutability

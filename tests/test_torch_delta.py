@@ -476,3 +476,59 @@ def test_device_graph_has_the_reference_view_fields():
     for f in ("in_degree", "out_degree", "active"):
         np.testing.assert_array_equal(getattr(dg, f).numpy(), np.asarray(getattr(fused, f), np.float32))
     assert dg.in_src is g.in_src or np.array_equal(dg.in_src.numpy(), g.in_src.numpy())
+
+
+@pytest.mark.parametrize("num_shards", [1, 3, 8])
+def test_route_overlay_and_route_for_host_equal_reference(num_shards):
+    """The overlay's records partitioned by the shard owning their
+    destination rows, and a host's span of them, equal the reference's."""
+    rc, pc, rv, pv, _rm, _pm = world()
+    want, got = RD.route_overlay(rv, num_shards), D.route_overlay(pv, num_shards)
+    assert len(got) == len(want) == num_shards
+    for a, b in zip(got, want):
+        assert a["shard"] == b["shard"] and a["row_range"] == b["row_range"]
+        for k in ("add_src", "add_dst", "tomb_src", "tomb_dst"):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert sum(len(r["add_dst"]) for r in got) == len(pv.add_dst)
+    for pid, nproc in ((0, 1), (1, 2), (2, 3)):
+        a = D.route_for_host(pv, num_shards, pid, nproc)
+        b = RD.route_for_host(rv, num_shards, pid, nproc)
+        assert a["shards"] == b["shards"]
+        for k in ("add_src", "add_dst", "tomb_src", "tomb_dst"):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_replay_fused_aggregate_equals_reference(op):
+    """The fused merge's numpy replay equals the reference's bit for bit;
+    the port's torch merge meets it (SUM to 1e-6: its lanes sum through the
+    sorted segment sum)."""
+    rng = np.random.default_rng(2)
+    lanes, meta = _oracle_inputs(rng)
+    outgoing = rng.standard_normal(meta["n_pad"]).astype(np.float32)
+    base = rng.standard_normal(meta["n_base"]).astype(np.float32)
+    got = D.replay_fused_aggregate(lanes, meta, outgoing, base, op)
+    np.testing.assert_array_equal(got, RD.replay_fused_aggregate(lanes, meta, outgoing, base, op))
+    dev = D.fused_delta_aggregate(
+        D.device_lanes(lanes, meta["n_pad"], "cpu"), torch.as_tensor(outgoing),
+        torch.as_tensor(base), op,
+    ).numpy()
+    if op == "sum":
+        np.testing.assert_allclose(dev, got, rtol=1e-6, atol=1e-6)
+    else:
+        np.testing.assert_array_equal(dev, got)
+
+
+def test_sharded_run_over_a_materialized_overlay():
+    """The sharded executor consumes a materialized overlay: equal to the
+    single-device run over the same repack; an unmaterialized view is
+    refused."""
+    from janusgraph_tpu_torch.parallel import Mesh, ShardedExecutor
+
+    _rc, pc, _rv, pv, _rm, pm = world()
+    mesh = Mesh([torch.device("cpu")] * 8)
+    got = ShardedExecutor(pm, mesh=mesh).run(ConnectedComponentsProgram())
+    want = run_on(pm, ConnectedComponentsProgram(), device="cpu", frontier="off")
+    np.testing.assert_array_equal(got["component"], want["component"])
+    with pytest.raises(ValueError, match="MATERIALIZED"):
+        run_on(pc, PageRankProgram(max_iterations=2), executor="sharded", mesh=mesh, delta=pv)

@@ -87,5 +87,19 @@ def test_read_all_equals_the_reference(graphs):
 
 
 def test_load_shard_csrs_waits_for_multi_gpu(graphs):
-    with pytest.raises(NotImplementedError, match="Queue A #4"):
-        load_shard_csrs(graphs[1], 4)
+    """One CSR per split of ID partitions, equal to the reference's."""
+    from janusgraph_tpu.olap.input_format import load_shard_csrs as ref_load_shard_csrs
+
+    ref, port = graphs
+    got, want = load_shard_csrs(port, 4), ref_load_shard_csrs(ref, 4)
+    assert len(got) == len(want) == 4
+    for a, b in zip(got, want):
+        for name in ("vertex_ids", "in_indptr", "in_src", "out_indptr", "out_dst"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name), err_msg=name)
+    assert sum(c.num_vertices for c in got) == port_total(port)
+
+
+def port_total(graph) -> int:
+    from janusgraph_tpu_torch.olap.csr import load_csr
+
+    return load_csr(graph).num_vertices

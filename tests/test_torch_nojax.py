@@ -480,6 +480,69 @@ def _forbidden(name):
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
 
+SHARDED_RUN = r"""
+import sys, tempfile
+sys.modules["jax"] = None
+sys.modules["janusgraph_tpu"] = None
+import numpy as np
+import torch
+from janusgraph_tpu_torch.core.bulk import bulk_add_edges, bulk_add_vertices
+from janusgraph_tpu_torch.core.graph import open_graph
+from janusgraph_tpu_torch.olap import GPUExecutor, csr_from_edges
+from janusgraph_tpu_torch.olap.programs import (
+    ConnectedComponentsProgram, PageRankProgram, ShortestPathProgram,
+)
+from janusgraph_tpu_torch.parallel import Mesh, ShardedExecutor, halo
+from janusgraph_tpu_torch.parallel.multihost import init_multihost
+from janusgraph_tpu_torch.storage.faults import FaultPlan
+rng = np.random.default_rng(0)
+src = rng.integers(0, 60, 300).astype(np.int32)
+dst = rng.integers(0, 60, 300).astype(np.int32)
+csr = csr_from_edges(60, src, dst)
+mesh = Mesh([torch.device("cpu")] * 8)
+single = GPUExecutor(csr, device="cpu").run(PageRankProgram(max_iterations=10))["rank"]
+for exchange, agg in (("a2a", "ell"), ("blocked", "segment"), ("ring", "segment"), ("auto", "ell")):
+    ex = ShardedExecutor(csr, mesh=mesh, exchange=exchange, agg=agg)
+    rank = ex.run(PageRankProgram(max_iterations=10))["rank"]
+    assert np.allclose(rank, single, rtol=1e-5, atol=1e-7), exchange
+dist = ShardedExecutor(csr, mesh=mesh).run(ShortestPathProgram(seed_index=0))["distance"]
+assert dist[0] == 0.0
+plan = FaultPlan(seed=1, shard_preempt_superstep=3)
+d = tempfile.mkdtemp()
+resumed = ShardedExecutor(csr, mesh=mesh).run(
+    PageRankProgram(max_iterations=8, tol=0.0), fused=False, checkpoint_every=2,
+    shard_checkpoint_dir=d, fault_hook=plan.sharded_hook)["rank"]
+clean = ShardedExecutor(csr, mesh=mesh).run(PageRankProgram(max_iterations=8, tol=0.0),
+                                            fused=False)["rank"]
+assert np.array_equal(resumed, clean)
+assert init_multihost() == 0
+g = open_graph({"computer.executor": "cpu"})
+vids = bulk_add_vertices(g, 60)
+bulk_add_edges(g, "e", vids[src], vids[dst])
+res = g.compute(executor="sharded", mesh=mesh).program(ConnectedComponentsProgram()).submit()
+assert res.run_info["routing"]["executor"] == "sharded"
+g.close()
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+    m == "jax" or m.startswith("jax.")
+    or m == "janusgraph_tpu" or m.startswith("janusgraph_tpu.")))
+print("OK", round(float(clean.sum()), 4), loaded)
+"""
+
+
+def test_sharded_run_with_jax_blocked():
+    """The sharded executor on a mesh of 8 CPU slots (four exchanges, the
+    frontier, a shard preemption resumed bitwise, a graph.compute(executor=
+    "sharded") submit), with both blocked."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", SHARDED_RUN], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "OK 1.0 []", proc.stdout
+
+
 def test_forbidden_matches_exact_names_only():
     assert _forbidden("jax") and _forbidden("jax.numpy")
     assert _forbidden("janusgraph_tpu") and _forbidden("janusgraph_tpu.olap.csr")

@@ -546,3 +546,31 @@ def test_digest_table_equals_reference():
     assert profiler.digest_records(t) == ref_profiler.digest_records(ref_t)
     for e in t.top(10):
         assert t.mean_cost_ms(e["digest"]) == ref_t.mean_cost_ms(e["digest"])
+
+
+def test_spilled_run_on_the_sharded_executor(monkeypatch):
+    """computer.executor = "sharded": the spilled program runs on the
+    sharded executor over the default mesh (here 8 CPU slots) and the
+    results equal the row walk's."""
+    import torch
+
+    from janusgraph_tpu_torch.olap import computer
+    from janusgraph_tpu_torch.parallel import Mesh, sharded
+
+    monkeypatch.setattr(computer, "default_mesh", lambda: Mesh([torch.device("cpu")] * 8))
+    runs = []
+    real_run = sharded.ShardedExecutor.run
+
+    def counted(self, *a, **kw):
+        runs.append(self.num_shards)
+        return real_run(self, *a, **kw)
+
+    monkeypatch.setattr(sharded.ShardedExecutor, "run", counted)
+    g, _people, _places = _social_graph({"computer.executor": "sharded"})
+    try:
+        for name in ("out_3", "knows_lives"):
+            row, spilled, engaged = _ab(g, lambda: CHAINS[name](g.traversal()))
+            assert engaged and row == spilled, name
+        assert runs and set(runs) == {8}
+    finally:
+        g.close()

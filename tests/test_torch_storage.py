@@ -308,12 +308,12 @@ def test_id_authority_refuses_another_block_size():
 
 @pytest.mark.parametrize("path,value,item", [
     ("graph.graphname", "g2", "Queue A #5"),
-    ("computer.executor", "sharded", "Queue A #4"),
-    ("storage.faults.shard-preempt-superstep", 3, "Queue A #4"),
-    ("storage.faults.shard-straggler-ms", 1.0, "Queue A #4"),
+    ("cluster.num-processes", 2, "Queue A #4b"),
+    ("ids.authority.max-retries", 3, "Queue A #5"),
+    ("ids.renew-timeout-ms", 100.0, "Queue A #5"),
     ("computer.result-mode", "persist", "Queue A #5"),
-    ("cluster.max-partitions", 4, "Queue A #4"),
-    ("computer.sharded-auto", False, "Queue A #4"),
+    ("storage.batch-loading", True, "Queue A #5"),
+    ("storage.buffer-size", 512, "Queue A #5"),
     ("query.fast-property", False, "Queue A #5"),
     ("cache.tx-cache-size", 100, "Queue A #5"),
 ])
