@@ -174,6 +174,19 @@ Phases, each printing one JSON line:
            within RANK_REL of its single-device submit. The sharded path
            runs no hand kernel: the segment-sum kernel's device counter
            must not move across it
+  multiprocess_olap  two processes on the one card, each with 4 slots of
+           cuda:0, form one 8-slot mesh over torch.distributed (gloo; every
+           block between them staged through pinned host memory): each
+           draws the main run's graph, pins the layout sharded_olap (b)
+           chose under "auto" (agg "ell"), and runs PageRank (20) on the
+           host loop and fused (eager chunks: no collective between
+           processes is captured), CC and the hub's 4-hop BFS through the
+           sharded frontier; both processes' arrays bitwise equal to each
+           other and to sharded_olap's single-process 8-slot run of that
+           layout, the fused ranks to the host loop's, CC and the BFS to
+           scipy's; the segment-sum kernel's counter does not move in
+           either; init_process_group and plan seconds per process,
+           superstep ms, transport bytes and ms a superstep
   stored_delta  the same graph, written on: (a) one OLTP transaction of
            ~2,000 edge adds, ~500 edge removals, a new vertex with an edge
            and a removed vertex, then PageRank and CC through submit() on
@@ -254,7 +267,7 @@ Phases, each printing one JSON line:
            each other and of float64), the kernel against its plain
            version on their in-plan; the relation index's reindex and a
            sort range equal to has('time', between) and to a filter; then
-           on a 2^17-vertex load of the same draw: the ranks' columnar
+           on a 2^16-vertex load of the same draw: the ranks' columnar
            write_back and a reload bit for bit, a mixed index over every
            vertex's rank on a RemoteIndexServer over memindex in its own
            process (index.search.backend "remote"; the server must not
@@ -329,8 +342,8 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 RANK_REL = 1e-4
 #: the graph500 scale of the indexed phase's write-back graph (its own
 #: stored-size load of the R-MAT draw, cut from scale 20 to fit the time
-#: limit)
-WRITE_BACK_SCALE = 17
+#: limit, and from 17 to make room for the multiprocess_olap phase)
+WRITE_BACK_SCALE = 16
 #: the scale of stored_local's second directory (the replay, the
 #: in-process submit, the LOCK commits, compact() and the snapshot reopen),
 #: cut from scale 20 to make room for the sharded phase
@@ -3071,6 +3084,12 @@ def sharded_olap_phase(stored, csr, rank, cc_want, bfs_seed, bfs_want, args, emi
         if bfs_info["path"] != "frontier" or not np.array_equal(dist, bfs_expect):
             raise RuntimeError(f"sharded {exchange}: the 4-hop BFS differs from scipy's")
         shards = host_info["shards"]
+        if exchange == "auto":
+            # what multiprocess_olap holds its two-process run to
+            auto_run = {"exchange": ex.exchange, "agg": ex.agg, "host_rank": host,
+                        "rank": fused, "component": comp, "distance": dist,
+                        "host_superstep_ms": walls(host_info),
+                        "fused_superstep_ms": fused_s / 20 * 1e3}
         big[exchange] = {
             "exchange": ex.exchange, "agg": ex.agg, "autotune": host_info.get("autotune"),
             "plans": plans, "pagerank_host_s": host_s,
@@ -3137,7 +3156,229 @@ def sharded_olap_phase(stored, csr, rank, cc_want, bfs_seed, bfs_want, args, emi
                         "snapshot": res.run_info["snapshot"]},
          segsum_kernel_runs=kernel_runs + stored_runs, card=card,
          seconds=time.perf_counter() - phase_t0)
-    return {"seconds": time.perf_counter() - phase_t0, "kernel_runs": kernel_runs + stored_runs}
+    return {"seconds": time.perf_counter() - phase_t0, "kernel_runs": kernel_runs + stored_runs,
+            "auto": auto_run}
+
+
+#: slots of cuda:0 each multiprocess_olap process holds (two processes:
+#: SHARDED_SLOTS in all), and the seconds a process may take
+MULTIPROC_LOCAL_SLOTS = SHARDED_SLOTS // 2
+MULTIPROC_TIMEOUT_S = 120
+
+#: one process of multiprocess_olap: argv = rank, coordinator port, scale,
+#: seed, exchange, agg, hub, the graph's in_src crc32, output directory
+MULTIPROC_CHILD = r"""
+import json, os, sys, time, zlib
+sys.path.insert(0, os.getcwd())
+rank, port, scale, seed = (int(a) for a in sys.argv[1:5])
+exchange, agg, hub, crc, out_dir = sys.argv[5], sys.argv[6], int(sys.argv[7]), int(sys.argv[8]), sys.argv[9]
+import numpy as np
+import torch
+
+from janusgraph_tpu_torch import native
+from janusgraph_tpu_torch.olap import kernels, rmat_csr
+from janusgraph_tpu_torch.olap.programs import (
+    ConnectedComponentsProgram, PageRankProgram, ShortestPathProgram,
+)
+from janusgraph_tpu_torch.parallel import ShardedExecutor
+from janusgraph_tpu_torch.parallel.multihost import (
+    global_mesh, init_multihost, shutdown_multihost,
+)
+
+t0 = time.perf_counter()
+init_multihost(f"127.0.0.1:{port}", num_processes=2, process_id=rank, timeout_s=90)
+init_s = time.perf_counter() - t0
+if not native.available():
+    raise RuntimeError("the native host library is not built")
+t0 = time.perf_counter()
+csr = rmat_csr(scale, 16, seed=seed)
+graph_s = time.perf_counter() - t0
+if zlib.crc32(csr.in_src.tobytes()) != crc:
+    raise RuntimeError("this process drew another graph than the parent's")
+mesh = global_mesh(devices=[torch.device("cuda", 0)] * %(slots)d)
+ex = ShardedExecutor(csr, mesh=mesh, exchange=exchange, agg=agg)
+t0 = time.perf_counter()
+sc = ex._sharded(False)
+if exchange == "a2a":
+    sc.ensure_exchange_plan()
+    sc.ensure_ell()
+else:
+    sc.ensure_blocked_plan()
+    sc.ensure_blocked_ell()
+ex._measured_walls(sc)
+ex._graph_args(sc, False)
+plan_s = time.perf_counter() - t0
+torch.cuda.synchronize()
+eager0 = kernels.launch_counts()["sorted_segment_sum"]
+dev0 = kernels.device_launches("cuda")
+
+def run(program, **kw):
+    t = time.perf_counter()
+    res = ex.run(program, **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t, dict(ex.last_run_info)
+
+def per_step(info, key):
+    recs = [r[key] for r in info["superstep_records"][1:] if key in r] or [0.0]
+    return float(np.mean(recs))
+
+host, host_s, host_info = run(PageRankProgram(max_iterations=20, tol=0.0), fused=False)
+run(PageRankProgram(max_iterations=20, tol=0.0))
+fused, fused_s, fused_info = run(PageRankProgram(max_iterations=20, tol=0.0))
+if fused_info["path"] != "fused" or fused_info["fused_mode"] != "eager":
+    raise RuntimeError(f"the fused PageRank ran {fused_info['path']}/{fused_info['fused_mode']}")
+t0 = time.perf_counter()
+und = ex._sharded(True)
+ex._graph_args(und, True)
+ex._measured_walls(und)
+cc_plans_s = time.perf_counter() - t0
+comp, cc_s, cc_info = run(ConnectedComponentsProgram())
+bfs = ShortestPathProgram(seed_index=hub, max_iterations=4)
+run(bfs)  # the frontier plan's build and placement
+dist, bfs_s, bfs_info = run(bfs)
+if bfs_info["path"] != "frontier":
+    raise RuntimeError(f"the BFS ran {bfs_info['path']}")
+kernel_runs = kernels.device_launches("cuda") - dev0
+eager_runs = kernels.launch_counts()["sorted_segment_sum"] - eager0
+np.savez(os.path.join(out_dir, f"proc{rank}.npz"), host_rank=host["rank"], rank=fused["rank"],
+         component=comp["component"], distance=dist["distance"])
+print(json.dumps({
+    "process": rank, "init_process_group_s": init_s, "graph_s": graph_s, "plan_s": plan_s,
+    "cc_plans_s": cc_plans_s, "segsum_kernel_runs": kernel_runs + eager_runs,
+    "mesh": host_info["mesh"], "processes": host_info["processes"],
+    "transport": host_info["transport"], "staged_through_host": host_info["staged_through_host"],
+    "pagerank_host_s": host_s, "pagerank_host_superstep_ms": per_step(host_info, "wall_ms"),
+    "pagerank_host_transport_bytes_per_superstep": per_step(host_info, "transport_bytes"),
+    "pagerank_host_transport_ms_per_superstep": per_step(host_info, "transport_ms"),
+    "pagerank_host_transport_bytes": host_info["transport_bytes"],
+    "pagerank_host_transport_s": host_info["transport_s"],
+    "pagerank_fused_s": fused_s, "pagerank_fused_superstep_ms": fused_s / 20 * 1e3,
+    "fused_mode": fused_info["fused_mode"], "fused_chunks": fused_info["chunks"],
+    "pagerank_fused_transport_bytes": fused_info["transport_bytes"],
+    "pagerank_fused_transport_s": fused_info["transport_s"],
+    "cc_s": cc_s, "cc_supersteps": cc_info["supersteps"], "cc_path": cc_info["path"],
+    "cc_transport_bytes": cc_info["transport_bytes"], "cc_transport_s": cc_info["transport_s"],
+    "bfs_s": bfs_s, "bfs_hops": bfs_info["supersteps"],
+    "bfs_transport_bytes": bfs_info["transport_bytes"], "bfs_transport_s": bfs_info["transport_s"],
+    "skew": host_info["shards"]["skew"],
+}), flush=True)
+shutdown_multihost()
+""" % {"slots": MULTIPROC_LOCAL_SLOTS}
+
+
+def single_process_auto_run(csr, bfs_seed) -> dict:
+    """What sharded_olap (b) hands multiprocess_olap, for a run of that
+    phase alone: the layout "auto" picks on SHARDED_SLOTS slots of the
+    card (agg "ell") and that layout's PageRank (20, host loop and fused),
+    CC and 4-hop BFS from ``bfs_seed``."""
+    import torch
+
+    from janusgraph_tpu_torch.olap.programs import (
+        ConnectedComponentsProgram,
+        PageRankProgram,
+        ShortestPathProgram,
+    )
+    from janusgraph_tpu_torch.parallel import Mesh, ShardedExecutor
+
+    ex = ShardedExecutor(csr, mesh=Mesh([torch.device("cuda", 0)] * SHARDED_SLOTS),
+                         exchange="auto", agg="ell")
+    host = ex.run(PageRankProgram(max_iterations=20, tol=0.0), fused=False)["rank"]
+    host_ms = float(np.mean([r["wall_ms"] for r in ex.last_run_info["superstep_records"][1:]]))
+    ex.run(PageRankProgram(max_iterations=20, tol=0.0))
+    t0 = time.perf_counter()
+    fused = ex.run(PageRankProgram(max_iterations=20, tol=0.0))["rank"]
+    fused_s = time.perf_counter() - t0
+    comp = ex.run(ConnectedComponentsProgram())["component"]
+    dist = ex.run(ShortestPathProgram(seed_index=bfs_seed, max_iterations=4))["distance"]
+    out = {"exchange": ex.exchange, "agg": ex.agg, "host_rank": host, "rank": fused,
+           "component": comp, "distance": dist, "host_superstep_ms": host_ms,
+           "fused_superstep_ms": fused_s / 20 * 1e3}
+    del ex
+    torch.cuda.empty_cache()
+    return out
+
+
+def multiprocess_olap_phase(csr, single, bfs_seed, cc_want, bfs_want, args, emit,
+                            card: str) -> dict:
+    """Two processes on the one card form one mesh of SHARDED_SLOTS slots
+    (MULTIPROC_LOCAL_SLOTS of cuda:0 each) over torch.distributed's gloo
+    backend, every block between them staged through pinned host memory
+    (MULTIPROC_CHILD is one process). Each draws the main run's graph
+    (the same crc32 of its in-CSR as this process's), pins the layout
+    sharded_olap (b) chose under "auto" (``single``: that run's layout
+    and arrays), and runs PageRank (20) on the host loop and fused (its
+    chunks eager: no collective between processes is captured), CC and
+    the hub's 4-hop BFS. Both processes' arrays are held bitwise to each
+    other and to ``single``, the fused ranks to the host loop's, CC and
+    the BFS to scipy's; the segment-sum kernel's counter must not move in
+    either process. A process that fails, differs or outlives
+    MULTIPROC_TIMEOUT_S fails the phase."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+    import zlib
+
+    from janusgraph_tpu_torch.olap.vertex_program import INF
+
+    phase_t0 = time.perf_counter()
+    td = tempfile.mkdtemp(prefix="multiprocess_olap_")
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    script = os.path.join(td, "child.py")
+    with open(script, "w") as f:
+        f.write(MULTIPROC_CHILD)
+    argv = [str(port), str(args.scale), str(args.seed), single["exchange"], single["agg"],
+            str(bfs_seed), str(zlib.crc32(csr.in_src.tobytes())), td]
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    procs = []
+    try:
+        for rank in (0, 1):
+            procs.append(subprocess.Popen([sys.executable, script, str(rank), *argv],
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                          env=env, cwd=os.getcwd()))
+        deadline = time.monotonic() + MULTIPROC_TIMEOUT_S
+        outs = []
+        for p in procs:
+            out, err = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            outs.append((p.returncode, out.decode(), err.decode()))
+        for rank, (rc, out, err) in enumerate(outs):
+            if rc != 0:
+                raise RuntimeError(f"multiprocess_olap process {rank} exited {rc}:\n"
+                                   f"{out[-2000:]}\n{err[-4000:]}")
+        procs_out = [json.loads(out.strip().splitlines()[-1]) for _rc, out, _err in outs]
+        arrays = [dict(np.load(os.path.join(td, f"proc{r}.npz"))) for r in (0, 1)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(td, ignore_errors=True)
+    for key in ("host_rank", "rank", "component", "distance"):
+        if not (bits_equal(arrays[0][key], arrays[1][key])
+                and bits_equal(arrays[0][key], single[key])):
+            raise RuntimeError(f"multiprocess_olap: {key} differs between the processes or from "
+                               "the single-process 8-slot run")
+    got = arrays[0]
+    if not bits_equal(got["rank"], got["host_rank"]):
+        raise RuntimeError("multiprocess_olap: the fused PageRank differs from the host loop")
+    if not np.array_equal(got["component"].astype(np.int64), cc_want):
+        raise RuntimeError("multiprocess_olap: CC labels differ from scipy's components")
+    if not np.array_equal(got["distance"], np.where(bfs_want <= 4, bfs_want, INF).astype(np.float32)):
+        raise RuntimeError("multiprocess_olap: the 4-hop BFS differs from scipy's")
+    for p in procs_out:
+        if p["segsum_kernel_runs"] or p["processes"] != 2 or p["transport"] != "gloo":
+            raise RuntimeError(f"multiprocess_olap process {p['process']}: {p}")
+    seconds = time.perf_counter() - phase_t0
+    emit("multiprocess_olap", scale=args.scale, processes=2, slots=SHARDED_SLOTS,
+         local_slots=MULTIPROC_LOCAL_SLOTS, exchange=single["exchange"], agg=single["agg"],
+         vertices=csr.num_vertices, edges=csr.num_edges, per_process=procs_out,
+         single_process={"host_superstep_ms": single["host_superstep_ms"],
+                         "fused_superstep_ms": single["fused_superstep_ms"]},
+         bitwise_vs_single_process=True, card=card, seconds=seconds)
+    return {"seconds": seconds, "kernel_runs": sum(p["segsum_kernel_runs"] for p in procs_out)}
 
 
 def stored_delta_phase(stored, args, emit) -> dict:
@@ -4345,7 +4586,7 @@ def indexed_phase(stored, args, emit) -> dict:
     that plans "mixed-index" and finds the snapshot's top 1,000, a
     write_back of the indexed rank through the transactional path, which
     the index follows, then the mixed index's reindex. Step (2) runs on a
-    2^17-vertex graph of the same R-MAT draw (``WRITE_BACK_SCALE``): at the
+    2^16-vertex graph of the same R-MAT draw (``WRITE_BACK_SCALE``): at the
     stored size the build takes 77-85 s, the write-back ~250 s and the
     reindex 65-77 s of host time on the H100's machine (PERF.md §5-6),
     which with the phases before would pass the smoke's time limit (the
@@ -4504,7 +4745,7 @@ def indexed_phase(stored, args, emit) -> dict:
          hub_timed_edges=len(times), range_hits=len(ranged), sort_range_s=range_s,
          has_between_s=has_s, seconds=time.perf_counter() - phase_t0)
 
-    # -- (2) the mixed index and the write-backs on the 2^17-vertex graph,
+    # -- (2) the mixed index and the write-backs on the 2^16-vertex graph,
     # loaded as the stored phase loads its own: the first out-edges in
     # source order at the stored size's edges per vertex, label "link";
     # the index lives on a RemoteIndexServer over memindex in its own
@@ -5386,7 +5627,11 @@ def main() -> int:
     kernels.reset_launch_counts()
     sharded = sharded_phase(stored, csr, args, emit)
     kernels.reset_launch_counts()
-    sharded_olap_phase(stored, csr, rank, first[labels], seed, want, args, emit, smi)
+    sharded_olap = sharded_olap_phase(stored, csr, rank, first[labels], seed, want, args, emit,
+                                      smi)
+    kernels.reset_launch_counts()
+    multiproc = multiprocess_olap_phase(csr, sharded_olap["auto"], seed, first[labels], want,
+                                        args, emit, smi)
     kernels.reset_launch_counts()
     stored_delta = stored_delta_phase(stored, args, emit)
     kernels.reset_launch_counts()
@@ -5444,6 +5689,10 @@ def main() -> int:
         # (20 supersteps plus any the resume recomputed)
         "launches_sharded": sharded["launches"],
         "max_abs_err_sharded": sharded["max_abs_err"],
+        # the sharded executor on 8 slots of the card, in one process and
+        # over two processes (gloo): no hand kernel on either path
+        "launches_sharded_olap": sharded_olap["kernel_runs"],
+        "launches_multiprocess_olap": multiproc["kernel_runs"],
         # after an OLTP transaction, PageRank through submit() on the
         # "fused" path (base, adds and tombstones each superstep), and
         # after a bulk burst on the "refresh" path (the compacted base)

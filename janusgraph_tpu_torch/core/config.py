@@ -56,8 +56,8 @@ The sharded executor's options are the reference's: ``computer.executor``
 ``-shard-measure``, ``-shard-checkpoint-path``/``-every``/``-shards``, the
 fault kinds it consumes (``storage.faults.shard-*``) and ``cluster.*``
 (``max-partitions``, ``coordinator-address``, ``num-processes``,
-``process-id``); ``cluster.num-processes`` above 1 refuses, naming ROADMAP
-Queue A #4b (the multi-process transport).
+``process-id``); a graph opened with ``cluster.num-processes`` above 1
+forms the process group (``parallel/multihost.init_multihost``).
 
 Every other option of the reference raises ``ConfigurationError`` naming
 the ROADMAP item that brings it. Nothing is ignored. :func:`describe_options` renders the registry as the
@@ -141,13 +141,10 @@ def _option(path, datatype, description, default,
     REGISTRY[path] = ConfigOption(path, datatype, description, default, mutability, verifier)
 
 
-_ROADMAP_MULTI_PROCESS = "ROADMAP.md Queue A #4b (the multi-process transport)"
 _ROADMAP_HOST = "ROADMAP.md Queue A #5 (the host system beyond OLAP)"
 
 #: honoured options whose value the port refuses: path -> (refuses, item)
-_REFUSED_VALUES: Dict[str, tuple] = {
-    "cluster.num-processes": (lambda v: v > 1, _ROADMAP_MULTI_PROCESS),
-}
+_REFUSED_VALUES: Dict[str, tuple] = {}
 
 #: options of the reference the port does not honour yet, by path or by
 #: path prefix (the longest match names the item)
@@ -755,8 +752,8 @@ _option(
 )
 _option(
     "cluster.num-processes", int,
-    "process count of the multi-process run (0 = single-process; above 1 "
-    "is ROADMAP Queue A #4b)", 0, Mutability.LOCAL, lambda v: v >= 0,
+    "process count of the multi-process run (0 = single-process)", 0,
+    Mutability.LOCAL, lambda v: v >= 0,
 )
 _option(
     "cluster.process-id", int, "this host's process index in the multi-process run", 0,

@@ -575,6 +575,13 @@ class JanusGraphTPU:
                 from janusgraph_tpu_torch.core.txlog import TornCommitRecovery
 
                 self.last_torn_recovery = TornCommitRecovery(self).run()
+            # the multi-process run from the cluster.* options (the
+            # environment wins inside init_multihost); a single-process
+            # open never touches torch.distributed
+            if cfg.get("cluster.num-processes") > 1:
+                from janusgraph_tpu_torch.parallel.multihost import init_multihost
+
+                init_multihost(config=cfg)
         except BaseException:
             self.close()
             raise

@@ -2765,10 +2765,15 @@ class GraphTraversal:
             index_of = {
                 int(v): i for i, v in enumerate(csr.vertex_ids)
             }
-            # the reference passes computer.executor as run_on's third
-            # argument; the port's third is the strategy, so the executor
-            # becomes the device it names
-            device = executor_device(source.graph.config.get("computer.executor"))
+            # the reference passes computer.executor to run_on: "sharded"
+            # runs the sharded executor over the default mesh; the port's
+            # run_on takes the strategy third, so "tpu" and "cpu" become
+            # the device they name
+            executor = source.graph.config.get("computer.executor")
+            run_kw = (
+                {"executor": "sharded"} if executor == "sharded"
+                else {"device": executor_device(executor)}
+            )
             tx = self.tx
             # per-vertex caches shared across ALL (source, target) pairs:
             # the target verdict and the vid->Vertex fetch are per-vertex
@@ -2812,7 +2817,7 @@ class GraphTraversal:
                         weighted=weight_key is not None,
                         track_paths=weight_key is None,
                     ),
-                    device=device,
+                    **run_kw,
                 )
                 res = dict(res)
                 if weight_key is not None:

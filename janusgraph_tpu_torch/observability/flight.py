@@ -49,6 +49,9 @@ Event categories the port records (the ``category`` field):
                     did not move for the stall window (``source``,
                     ``active``, ``stuck_s``, ``progress``)
 ``bundle``          a forensics bundle was written (``reason``, ``path``)
+``multihost``       the process group's formation (``action``: ``init``,
+                    ``init_ok``, ``init_failed``; ``processes``,
+                    ``process_id``; parallel/multihost.py)
 ==================  =======================================================
 
 Dump triggers: an unhandled server error, the /healthz ok->degraded flip,

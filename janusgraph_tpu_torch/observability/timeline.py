@@ -21,7 +21,7 @@ shard's measured/modeled share of the superstep wall, then an
 ``exchange`` slice covering the remainder (collective + barrier wait),
 annotated with the run's exchange mode, bytes and batches — the
 straggler shard is the lane whose compute slice pushes everyone's
-exchange right.
+exchange right. A run over several processes names each lane's process.
 
 Timestamps are cumulative microseconds from run start (catapult's unit).
 """
@@ -79,8 +79,10 @@ def timeline_events(run: dict) -> List[dict]:
     ]
     shards = (run.get("shards") or {}).get("per_shard") or []
     exchange = run.get("exchange") or {}
-    for s, _row in enumerate(shards):
-        events.append(_meta("thread_name", TID_SHARD0 + s, f"shard {s}"))
+    for s, row in enumerate(shards):
+        # a run over several processes names each shard's process
+        where = f" (process {row['process']})" if "process" in row else ""
+        events.append(_meta("thread_name", TID_SHARD0 + s, f"shard {s}{where}"))
     need_control = bool(
         run.get("resumes") or
         any("checkpoint_ms" in r for r in records)

@@ -162,10 +162,14 @@ def visible_cards() -> int:
 
 
 def default_mesh():
-    """The sharded executor's default mesh: one slot per visible card."""
+    """The sharded executor's default mesh: one slot per visible card, of
+    every process once a process group is formed (``multihost.
+    global_mesh``, as the reference's default mesh spans ``jax.devices()``
+    after ``jax.distributed.initialize``; every process must ask)."""
     from janusgraph_tpu_torch.parallel.compat import Mesh
+    from janusgraph_tpu_torch.parallel.multihost import global_mesh, process_count
 
-    return Mesh()
+    return global_mesh() if process_count() > 1 else Mesh()
 
 
 def executor_device(executor: str, mesh=None) -> torch.device:

@@ -1,5 +1,5 @@
 """Sharded BSP executor over a device mesh — the port of
-``janusgraph_tpu/parallel/sharded.py`` (the single-process mesh).
+``janusgraph_tpu/parallel/sharded.py``.
 
 The reference runs one controller over a ``jax.sharding.Mesh`` through
 ``shard_map``. Here a ``parallel/compat.Mesh`` holds S slots, each a torch
@@ -25,15 +25,22 @@ the tests):
     pmax).
 
 The superstep body is written once per group of slots that share a device
-(``compat.lockstep``); the groups meet only in the collectives. A program's
+(``compat.lockstep``); the groups meet only in the collectives. On a mesh
+that spans processes (``multihost.global_mesh``) every process builds the
+same global plans, places and runs only its own groups, and meets the
+others in the mesh's collectives over the process group; every process
+returns the same global arrays (``_fetch``, the reference's
+``process_allgather``). A program's
 ``message`` runs once over a group's stacked rows (it is row-wise, so one
 call equals the per-shard calls); ``apply`` runs once per shard on its own
 rows and view, so every metric is a per-shard partial before the barrier,
 as in the reference.
 
-Paths: "host-loop"; "fused" (on one card: CUDA-graph replay of predicated
-chunks of the whole S-shard superstep, as ``GPUExecutor``'s fused loop;
-elsewhere the same chunks run eagerly); "frontier" (ShortestPath and CC
+Paths: "host-loop"; "fused" (on one card of one process: CUDA-graph
+replay of predicated chunks of the whole S-shard superstep, as
+``GPUExecutor``'s fused loop; elsewhere, and always on a mesh that spans
+processes, whose collectives go through the host, the same chunks run
+eagerly); "frontier" (ShortestPath and CC
 through ``parallel/sharded_frontier.py``). Checkpoints (single file or the
 per-shard format of ``olap/sharded_checkpoint.py``), the fault hook
 (``FaultPlan.sharded_hook``: shard preemption, collective timeout, halo
@@ -637,16 +644,26 @@ def _mask(valid: torch.Tensor, msgs: torch.Tensor) -> torch.Tensor:
     return valid.reshape((-1,) + (1,) * (msgs.ndim - 1)) > 0
 
 
+def captures_chunks(mesh: Mesh) -> bool:
+    """Whether the fused loop captures its chunks into CUDA graphs: only
+    on one card of one process. A mesh that spans processes exchanges
+    through the host (gloo), which no graph may hold."""
+    return (
+        len(mesh.local_groups) == 1 and mesh.home.type == "cuda" and not mesh.spans_processes
+    )
+
+
 class _ShardedFusedLoop:
     """Static buffers (per group: state, aggregators, step counter and its
     bound) and CUDA graphs of one fused program over the mesh — the
     counterpart of ``gpu_executor._FusedLoop``. ``step()`` is one
     predicated superstep of every shard (the reference's while_loop
     ``cond``/``body`` inside ``shard_map``); a chunk is ``length`` steps and
-    then ``finish()``. On one card each chunk length is captured once into a
-    CUDA graph (the exchanges are device copies, so the whole S-shard
-    superstep captures) and replayed; a mesh over several devices, or the
-    CPU, runs the chunks eagerly."""
+    then ``finish()``. On one card of one process each chunk length is
+    captured once into a CUDA graph (the exchanges are device copies, so
+    the whole S-shard superstep captures) and replayed; a mesh over
+    several devices or processes, or the CPU, runs the chunks eagerly: a
+    collective between processes is never captured."""
 
     def __init__(self, executor: "ShardedExecutor", program: VertexProgram, op: str,
                  sc: "ShardedCSR", states, mems):
@@ -659,14 +676,16 @@ class _ShardedFusedLoop:
         self.views = executor._views(sc, program.undirected)
         self.state = [{k: v.clone() for k, v in st.items()} for st in states]
         self.mem = [{k: v.clone() for k, v in m.items()} for m in mems]
-        self.steps = [torch.zeros((), dtype=torch.int64, device=g.device) for g in mesh.groups]
-        self.limit = [torch.zeros((), dtype=torch.int64, device=g.device) for g in mesh.groups]
+        self.steps = [torch.zeros((), dtype=torch.int64, device=g.device) for g in mesh.local_groups]
+        self.limit = [torch.zeros((), dtype=torch.int64, device=g.device) for g in mesh.local_groups]
         self.status = torch.zeros(2, dtype=torch.int64, device=mesh.home)
         self.mem_ops: Dict[str, str] = {}
         self.graphs: Dict[int, torch.cuda.CUDAGraph] = {}
         self.captured_with = []
-        one_card = len(mesh.groups) == 1 and mesh.home.type == "cuda"
+        one_card = captures_chunks(mesh)
         self.pool = torch.cuda.graph_pool_handle() if one_card else None
+        #: how the chunks run: "captured" (CUDA-graph replay) or "eager"
+        self.mode = "captured" if one_card else "eager"
 
     def set_bounds(self, steps_done: int = None, limit: int = None) -> None:
         for s, lim in zip(self.steps, self.limit):
@@ -853,6 +872,8 @@ class ShardedExecutor:
         self._captures = 0
         #: bytes moved to the devices this run
         self._h2d_bytes = 0
+        #: the mesh's transport counters at the run's start
+        self._transport0 = None
         self._sharded_cache: Dict[object, ShardedCSR] = {}
         self._channel_views: "OrderedDict" = OrderedDict()
         #: placed arrays and views per (kind, edge view, ...) key
@@ -1048,7 +1069,7 @@ class ShardedExecutor:
             return hit
         S, Np, Em = self.num_shards, sc.shard_size, sc.edges_per_shard
         out = []
-        for grp in self.mesh.groups:
+        for grp in self.mesh.local_groups:
             g: Dict[str, object] = {}
             if self.exchange == "blocked":
                 sc.ensure_blocked_plan()
@@ -1102,7 +1123,7 @@ class ShardedExecutor:
             return hit
         Np = sc.shard_size
         out = []
-        for grp in self.mesh.groups:
+        for grp in self.mesh.local_groups:
             arrs = [
                 self._put(a, grp, Np) for a in (sc.out_degree, sc.active, sc.in_degree)
             ]
@@ -1134,7 +1155,7 @@ class ShardedExecutor:
 
     def _split(self, t: torch.Tensor, sc: "ShardedCSR") -> List[torch.Tensor]:
         Np = sc.shard_size
-        return [t[g.lo * Np : g.hi * Np].to(g.device) for g in self.mesh.groups]
+        return [t[g.lo * Np : g.hi * Np].to(g.device) for g in self.mesh.local_groups]
 
     def _setup(self, program: VertexProgram, sc: "ShardedCSR"):
         """(per-group state, per-group aggregators) from program.setup over
@@ -1146,10 +1167,10 @@ class ShardedExecutor:
 
     def _split_state(self, state: Dict[str, torch.Tensor], sc) -> List[Dict[str, torch.Tensor]]:
         parts = {k: self._split(v, sc) for k, v in state.items()}
-        return [{k: parts[k][i] for k in parts} for i in range(len(self.mesh.groups))]
+        return [{k: parts[k][i] for k in parts} for i in range(len(self.mesh.local_groups))]
 
     def _mems(self, mem: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
-        return [{k: v.to(g.device) for k, v in mem.items()} for g in self.mesh.groups]
+        return [{k: v.to(g.device) for k, v in mem.items()} for g in self.mesh.local_groups]
 
     def _restore(self, program, sc, ck_state) -> List[Dict[str, torch.Tensor]]:
         """State from a checkpoint: its real rows over a fresh setup's
@@ -1164,10 +1185,12 @@ class ShardedExecutor:
         return self._split_state(state, sc)
 
     def _fetch(self, states, sc) -> Dict[str, np.ndarray]:
-        """Host copy of the per-group state, padding stripped."""
+        """Host copy of the whole state, padding stripped: on a mesh that
+        spans processes every process gathers every process's rows, so all
+        return the identical global arrays."""
         keys = list(states[0])
         return {
-            k: torch.cat([st[k].to("cpu", copy=True) for st in states]).numpy()[: sc.real_n]
+            k: self.mesh.gather_rows([st[k] for st in states]).numpy()[: sc.real_n]
             for k in keys
         }
 
@@ -1306,7 +1329,7 @@ class ShardedExecutor:
         reduced metrics, {metric: combiner})."""
         bodies = [
             self._body(program, op, sc, gargs[i], views[i], states[i], steps[i], mems[i])
-            for i in range(len(self.mesh.groups))
+            for i in range(len(self.mesh.local_groups))
         ]
         outs = lockstep(self.mesh, bodies)
         mops = outs[0][2]
@@ -1386,17 +1409,30 @@ class ShardedExecutor:
         if events:
             self._straggler_events.extend(events)
 
+    def _barrier(self) -> None:
+        """Wait for every process of a mesh that spans processes."""
+        if self.mesh.spans_processes:
+            import torch.distributed as dist
+
+            dist.barrier()
+
     def _save_ck(self, checkpoint_path, shard_dir, state_host, mem_values, steps,
                  records=None) -> None:
+        """Every process holds the same global state (``_fetch``), so on a
+        mesh that spans processes process 0 writes the files alone and the
+        others wait for it: no file is written by two processes at once,
+        and a resume on any process reads a whole checkpoint."""
         ck0 = time.perf_counter()
-        if shard_dir:
-            from janusgraph_tpu_torch.olap.sharded_checkpoint import save_sharded_checkpoint
+        if self.mesh.process_id == 0:
+            if shard_dir:
+                from janusgraph_tpu_torch.olap.sharded_checkpoint import save_sharded_checkpoint
 
-            save_sharded_checkpoint(shard_dir, state_host, mem_values, steps, self.num_shards)
-        else:
-            from janusgraph_tpu_torch.olap.checkpoint import save_checkpoint
+                save_sharded_checkpoint(shard_dir, state_host, mem_values, steps, self.num_shards)
+            else:
+                from janusgraph_tpu_torch.olap.checkpoint import save_checkpoint
 
-            save_checkpoint(checkpoint_path, state_host, mem_values, steps)
+                save_checkpoint(checkpoint_path, state_host, mem_values, steps)
+        self._barrier()
         self._ck_saves += 1
         if records:
             # the save's wall, stamped on the superstep that paid it
@@ -1465,6 +1501,13 @@ class ShardedExecutor:
                     np.add.at(acc, dst, msgs)
                     best = min(best, time.perf_counter() - t1)
                 walls.append(best * 1000.0)
+        if self.mesh.spans_processes:
+            # every process reports the same figures for every shard
+            import torch.distributed as dist
+
+            box = [walls]
+            dist.broadcast_object_list(box, src=0)
+            walls = box[0]
         sc.measured_walls[probe] = walls
         return walls
 
@@ -1504,6 +1547,7 @@ class ShardedExecutor:
             )
             per.append({
                 "shard": s,
+                **({"process": self.mesh.process_of[s]} if self.mesh.spans_processes else {}),
                 "vertices": verts,
                 "edges": edges[s],
                 "modeled_ms": round(modeled_ms, 4),
@@ -1576,19 +1620,22 @@ class ShardedExecutor:
 
         prior = autotune.load_measured(path, shard_count=self.num_shards)
         mean_wall = sum(r.get("wall_ms", 0.0) for r in records) / max(1, len(records))
-        autotune.save_measured(
-            path,
-            {
-                "strategy": f"sharded-{self.exchange}-{self.agg}",
-                "pad_ratio": round(sc.padded_n / max(1, sc.real_n), 4),
-                "superstep_ms": round(mean_wall, 3),
-                "roofline_by_tier": None,
-                "exchange": self.exchange,
-                "agg": self.agg,
-                "halo_cap": getattr(sc, "halo_cap", None),
-            },
-            shard_count=self.num_shards,
-        )
+        self._barrier()  # every process has read the prior
+        if self.mesh.process_id == 0:
+            autotune.save_measured(
+                path,
+                {
+                    "strategy": f"sharded-{self.exchange}-{self.agg}",
+                    "pad_ratio": round(sc.padded_n / max(1, sc.real_n), 4),
+                    "superstep_ms": round(mean_wall, 3),
+                    "roofline_by_tier": None,
+                    "exchange": self.exchange,
+                    "agg": self.agg,
+                    "halo_cap": getattr(sc, "halo_cap", None),
+                },
+                shard_count=self.num_shards,
+            )
+        self._barrier()  # the next run's prior is the file just written
         self.last_run_info["autotune_persist"] = {
             "path": path,
             "shard_count": self.num_shards,
@@ -1689,6 +1736,7 @@ class ShardedExecutor:
         self._resume_t_catch = None
         self._captures = 0
         self._h2d_bytes = 0
+        self._transport0 = dict(self.mesh.transport)
         t_run = time.perf_counter()
         with tracer.span(
             "olap.run", executor="sharded", shards=self.num_shards, exchange=self.exchange,
@@ -1755,11 +1803,22 @@ class ShardedExecutor:
         device memory, slowest superstep, the olap.* gauges)."""
         info = self.last_run_info
         info["executor"] = "sharded"
+        mesh = self.mesh
         info["mesh"] = {
             "slots": self.num_shards,
-            "devices": [str(d) for d in self.mesh.devices],
-            "groups": len(self.mesh.groups),
+            "devices": [str(d) for d in mesh.devices],
+            "groups": len(mesh.groups),
         }
+        # the processes the run spans, and what crossed between them
+        info["processes"] = mesh.processes
+        info["process_id"] = mesh.process_id
+        info["transport"] = "gloo" if mesh.spans_processes else None
+        info["staged_through_host"] = mesh.staged_through_host
+        if mesh.spans_processes:
+            since = self._transport0
+            info["transport_bytes"] = int(mesh.transport["bytes"] - since["bytes"])
+            info["transport_s"] = round(mesh.transport["seconds"] - since["seconds"], 6)
+            info["transport_calls"] = int(mesh.transport["calls"] - since["calls"])
         info["wall_s"] = round(wall_s, 4)
         info["retraces"] = self._captures
         info["h2d_arg_bytes"] = int(self._h2d_bytes)
@@ -1777,6 +1836,7 @@ class ShardedExecutor:
                     "frontier": int(t.get("frontier", 0)),
                     "edges": int(t.get("edges", 0)),
                     "e_cap": int(t.get("E_cap", 0)),
+                    **{k: t[k] for k in ("transport_bytes", "transport_ms") if k in t},
                 }
                 for i, t in enumerate(info.get("tiers", []))
             ]
@@ -1840,6 +1900,19 @@ class ShardedExecutor:
         registry.set_gauge("olap.transfer.d2h_bytes", float(info["d2h_bytes"]))
         registry.record_run("olap", info)
 
+    def _stamp_transport(self, recs, since: dict, steps: int) -> None:
+        """Per-superstep bytes and ms between processes since the mark
+        ``since``, shared over the ``steps`` supersteps that ran (those of
+        a fused chunk predicated out included: they exchanged too)."""
+        if not self.mesh.spans_processes:
+            return
+        tr = self.mesh.transport
+        per_b = (tr["bytes"] - since["bytes"]) / max(1, steps)
+        per_ms = (tr["seconds"] - since["seconds"]) * 1e3 / max(1, steps)
+        for r in recs:
+            r["transport_bytes"] = int(round(per_b))
+            r["transport_ms"] = round(per_ms, 4)
+
     def _host_memory(self, mems) -> Dict[str, float]:
         """One device->host transfer of every aggregator."""
         names = list(mems[0])
@@ -1885,11 +1958,13 @@ class ShardedExecutor:
             else:
                 sc_step, g_step, v_step = sc, gargs, views
             mark0 = self._mark()
+            tr0 = dict(self.mesh.transport)
             states, reduced, _mops = self._superstep(
                 program, op, sc_step, g_step, v_step, states, [step] * len(states), mems,
             )
             mems = [{**m, **r} for m, r in zip(mems, reduced)]
             records.append({"step": step, "combiner": op, "channel": ch})
+            self._stamp_transport([records[-1]], tr0, 1)
             timed.append((records[-1], (mark0, self._mark())))
             steps_done += 1
             if steps_done % sync_every and step != last_step:
@@ -1964,6 +2039,8 @@ class ShardedExecutor:
             "path": "fused", "supersteps": steps_done, "chunks": 0, "host_syncs": 0,
             "predicated_steps": 0, "capture_s": 0.0,
         }
+        tr0 = dict(self.mesh.transport)
+        first_step = steps_done
         top = 1 << (min(max(max_iter, 1), self.MAX_CHUNK).bit_length() - 1)
         loop = None
         cold = False
@@ -2029,8 +2106,11 @@ class ShardedExecutor:
                 r["wall_ms"] = per_ms
         info["supersteps"] = steps_done
         info["wall_s"] = time.perf_counter() - t0
+        self._stamp_transport(records, tr0, steps_done - first_step + info["predicated_steps"])
         info["superstep_records"] = records
         info["compile_in_first_dispatch"] = cold
+        #: "captured" (CUDA-graph replay) or "eager" chunks
+        info["fused_mode"] = loop.mode if loop is not None else None
         self.last_run_info = info
         self._shard_report(sc, records)
         self._persist_measured(sc, checkpoint_path, shard_dir, records)

@@ -15,6 +15,10 @@ A hop is two parts and one host round trip, as on one device:
         CSC (``ShardedCSR.ensure_frontier_plan*``) and scatter-min only
         the frontier's edges.
 
+On a mesh that spans processes each process runs its own groups' hops;
+the plan's exchange and counts cross processes through the mesh, and the
+result gathers every process's rows.
+
 The shards that share a device expand as one: their compacted slots are
 concatenated and expanded through their stacked CSCs in one
 ``capped_expand`` of Sg * E_cap slots. The tier covers the largest shard
@@ -93,7 +97,7 @@ class ShardedFrontierEngine:
             T, E = sc.msg_table_len, sc.edges_per_shard
             ip, dst, w, deg = sc.ftr_ip, sc.ftr_dst, sc.ftr_w, sc.ftr_deg
         out = []
-        for grp in self.mesh.groups:
+        for grp in self.mesh.local_groups:
             g = {
                 "ip": ex._put(ip, grp, T + 2, E, index=True),
                 "dst": ex._put(dst, grp, E, Np, index=True),
@@ -196,12 +200,14 @@ class ShardedFrontierEngine:
         T, E = gargs[0]["T"], gargs[0]["E"]
         exchange_elems = sc.num_shards * (sc.halo_cap if mode == "blocked" else sc.boundary_width)
         trace = []
+        groups = self.mesh.local_groups
         for t in range(max_iterations):
             if fault_hook is not None:
                 fault_hook(t)
+            tr0 = dict(self.mesh.transport)
             plans = lockstep(self.mesh, [
                 self._plan_body(sc, g, v, m, mode, has_w, grp.size)
-                for g, v, m, grp in zip(gargs, values, masks, self.mesh.groups)
+                for g, v, m, grp in zip(gargs, values, masks, groups)
             ])
             cmax, emax, csum, esum = (int(x) for x in plans[0][1].tolist())
             if csum == 0:
@@ -214,7 +220,8 @@ class ShardedFrontierEngine:
                 "F_cap": f_cap, "E_cap": e_cap,
                 "exchange": mode, "exchange_elems": exchange_elems,
             })
-            for i, grp in enumerate(self.mesh.groups):
+            self.ex._stamp_transport(trace[-1:], tr0, 1)
+            for i, grp in enumerate(groups):
                 values[i], preds[i], masks[i] = self._step(
                     sc, gargs[i], values[i], preds[i], plans[i][0], t, f_cap, e_cap,
                     weighted, track, has_w, grp.size,
@@ -225,12 +232,13 @@ class ShardedFrontierEngine:
     def _split(self, arr: np.ndarray, sc) -> list:
         Np = sc.shard_size
         return [
-            torch.as_tensor(arr[g.lo * Np : g.hi * Np], device=g.device) for g in self.mesh.groups
+            torch.as_tensor(arr[g.lo * Np : g.hi * Np], device=g.device)
+            for g in self.mesh.local_groups
         ]
 
-    @staticmethod
-    def _join(parts, sc) -> np.ndarray:
-        return torch.cat([p.to("cpu") for p in parts]).numpy()[: sc.real_n]
+    def _join(self, parts, sc) -> np.ndarray:
+        """The whole vector, every process's rows included."""
+        return self.mesh.gather_rows(parts).numpy()[: sc.real_n]
 
     # ---------------------------------------------------------------- entry
     def run(self, program, fault_hook=None) -> Dict[str, np.ndarray]:

@@ -367,7 +367,7 @@ def test_compute_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("config", [
-    {"cluster.num-processes": 2},
+    {"ids.renew-timeout-ms": 100.0},
     {"query.fast-property": False},
     {"storage.batch-loading": True},
     {"computer.result-mode": "persist"},

@@ -767,6 +767,9 @@ SERVER_PATH_MODULES = (
 #: federation
 FLEET_PATH_MODULES = ("server/fleet.py", "olap/sharded_checkpoint.py",
                       "observability/federation.py")
+#: modules of the sharded executor and its transport between processes
+MULTIHOST_PATH_MODULES = ("parallel/multihost.py", "parallel/compat.py", "parallel/sharded.py",
+                          "parallel/sharded_frontier.py", "parallel/halo.py")
 
 
 def test_no_port_file_imports_jax_or_reference():
@@ -775,8 +778,9 @@ def test_no_port_file_imports_jax_or_reference():
     pkg = os.path.join(ROOT, "janusgraph_tpu_torch")
     for rel in (STORED_PATH_MODULES + TRAVERSAL_PATH_MODULES + IO_PATH_MODULES
                 + REMOTE_PATH_MODULES + FAULT_PATH_MODULES + SERVER_PATH_MODULES
-                + FLEET_PATH_MODULES):
+                + FLEET_PATH_MODULES + MULTIHOST_PATH_MODULES):
         assert os.path.join(pkg, rel) in files, rel
+    assert os.path.join(ROOT, "bin", "torch_multiprocess_olap.py") in files
     assert os.path.exists(os.path.join(pkg, "csrc", "graphcsr.cpp"))
     bad = []
     for path in files:

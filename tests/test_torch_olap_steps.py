@@ -153,6 +153,31 @@ def test_shortest_path_target_filter_equals_reference(graphs):
     assert got == run(ref) and {p[-1] for p in got} <= targets and got
 
 
+@pytest.mark.parametrize("kw", [{"max_hops": 4}, {"weight_key": "w"}], ids=["hops4", "weighted"])
+def test_shortest_path_step_under_the_sharded_executor_equals_reference(monkeypatch, kw):
+    """``computer.executor`` "sharded": both steps hand the executor to
+    ``run_on``, whose sharded branch runs ``ShardedExecutor`` — the
+    reference's over the conftest's 8 virtual devices, the port's over a
+    mesh of 8 CPU slots (its default mesh needs cards). Every path is
+    equal, and the port's run went through the sharded executor."""
+    from janusgraph_tpu_torch.observability import registry
+    from janusgraph_tpu_torch.olap import computer
+    from janusgraph_tpu_torch.parallel import Mesh
+
+    monkeypatch.setattr(computer, "default_mesh", lambda: Mesh([torch.device("cpu")] * 8))
+    ref, rids = _build(ref_open_graph, dict(REF_CONFIG, **{"computer.executor": "sharded"}))
+    port, pids = _build(open_graph, dict(PORT_CONFIG, **{"computer.executor": "sharded"}))
+    try:
+        want = _paths(SimpleNamespace(graph=ref, m=ref_trav, ids=rids), **kw)
+        got = _paths(SimpleNamespace(graph=port, m=trav, ids=pids), **kw)
+        run = registry.last_run("olap")
+        assert run["executor"] == "sharded" and run["mesh"]["slots"] == 8
+        assert got == want and len(got) > 20
+    finally:
+        ref.close()
+        port.close()
+
+
 @pytest.mark.skipif(torch.cuda.is_available(), reason="holds the CPU-only behaviour")
 @pytest.mark.parametrize("step", ["page_rank", "shortest_path"])
 def test_default_executor_is_the_card_and_raises_without_one(step):

@@ -308,7 +308,6 @@ def test_id_authority_refuses_another_block_size():
 
 @pytest.mark.parametrize("path,value,item", [
     ("graph.graphname", "g2", "Queue A #5"),
-    ("cluster.num-processes", 2, "Queue A #4b"),
     ("ids.authority.max-retries", 3, "Queue A #5"),
     ("ids.renew-timeout-ms", 100.0, "Queue A #5"),
     ("computer.result-mode", "persist", "Queue A #5"),
@@ -320,6 +319,13 @@ def test_id_authority_refuses_another_block_size():
 def test_options_not_ported_raise_naming_the_roadmap_item(path, value, item):
     with pytest.raises(ConfigurationError, match=item):
         GraphConfiguration({path: value})
+
+
+@pytest.mark.parametrize("path,value", [("cluster.num-processes", 2)])
+def test_the_multi_process_option_is_taken(path, value):
+    """Refused until the multi-process transport was ported: a graph
+    configuration now takes it as the reference's does."""
+    assert GraphConfiguration({path: value}).get(path) == value
 
 
 def test_option_checks_and_defaults():
