@@ -299,6 +299,16 @@ Phases, each printing one JSON line:
            order, so its sums run in another order); a GraphML round trip at scale 12 and its submit; the
            g.io() and graph.io() spellings; the kernel against its plain
            version on the three in-plans
+  graphlint  the port's static analyzer (janusgraph_tpu_torch/analysis/) on
+           the card's machine: the import sweep over every module of the
+           package (any finding fails the run); then a fused PageRank (20
+           supersteps) on a fresh GPUExecutor over a scale-14 R-MAT graph
+           with a sys.setprofile hook active only inside each
+           torch.cuda.graph block: every package def entered during the
+           captures must lie in the analyzer's capture reach (run in a
+           child process meanwhile); the ranks against the host loop's
+           within RANK_REL; the module, finding, entered and reach counts,
+           any def missed, and the seconds
   telemetry  the run records every run above published (the executor's
            _finish_run wrapped to time its host ms and to read the
            allocator just after): every record's roofline utilization in
@@ -481,6 +491,112 @@ def telemetry_phase(emit) -> None:
          olap_runs=registry.get_count("olap.runs"), failures=failures)
     if failures:
         raise RuntimeError(f"telemetry: {failures}")
+
+
+GRAPHLINT_SCALE = 14
+
+#: the child that computes the capture reach beside the sweep and the run
+#: (stdlib only, so it costs the card nothing): prints its JSON last
+GRAPHLINT_CHILD = r"""
+import json, sys, time
+t0 = time.perf_counter()
+from janusgraph_tpu_torch.analysis import capture_reach
+reach = capture_reach([sys.argv[1]])
+print(json.dumps({"reach": reach, "seconds": time.perf_counter() - t0}))
+"""
+
+
+def graphlint_phase(args, emit) -> dict:
+    """The import sweep over the package, and the capture-context
+    cross-check: the defs a real CUDA-graph capture enters against the
+    analyzer's capture reach."""
+    import os
+
+    import torch
+
+    import janusgraph_tpu_torch
+    from janusgraph_tpu_torch.analysis.core import discover_files
+    from janusgraph_tpu_torch.analysis.imports_check import check_imports
+    from janusgraph_tpu_torch.analysis.tracing import CaptureProbe
+    from janusgraph_tpu_torch.olap import GPUExecutor, rmat_csr
+    from janusgraph_tpu_torch.olap.programs import PageRankProgram
+
+    t0 = time.perf_counter()
+    pkg = os.path.dirname(os.path.abspath(janusgraph_tpu_torch.__file__))
+    root = os.path.dirname(pkg)
+    child = subprocess.Popen(
+        [sys.executable, "-c", GRAPHLINT_CHILD, os.path.relpath(pkg, root)],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        modules = len(discover_files([pkg]))
+        s0 = time.perf_counter()
+        findings = check_imports([pkg])
+        sweep_s = time.perf_counter() - s0
+        if findings:
+            raise RuntimeError("graphlint import sweep: " + "; ".join(
+                f"{f.path}: {f.rule_id} {f.message}" for f in findings))
+
+        probe = CaptureProbe(pkg, cwd=root)
+        real_graph = torch.cuda.graph
+
+        class probed_graph:
+            """torch.cuda.graph with the probe on inside the block only."""
+
+            def __init__(self, *a, **kw):
+                self._inner = real_graph(*a, **kw)
+
+            def __enter__(self):
+                out = self._inner.__enter__()
+                probe.__enter__()
+                return out
+
+            def __exit__(self, *exc):
+                probe.__exit__(*exc)
+                return self._inner.__exit__(*exc)
+
+        csr = rmat_csr(GRAPHLINT_SCALE, 16, seed=args.seed)
+        program = PageRankProgram(max_iterations=20, tol=0.0)
+        r0 = time.perf_counter()
+        torch.cuda.graph = probed_graph
+        try:
+            ex = GPUExecutor(csr)
+            rank = ex.run(program)["rank"]
+        finally:
+            torch.cuda.graph = real_graph
+        run_s = time.perf_counter() - r0
+        info = ex.last_run_info
+        if info["path"] != "fused" or not info["capture_s"] > 0:
+            raise RuntimeError(f"graphlint: the PageRank did not capture: {info['path']}")
+        want = GPUExecutor(csr).run(program, fused=False)["rank"]
+        rel = max_rel(rank, want)
+        if not (np.isfinite(rank).all() and rel <= RANK_REL):
+            raise RuntimeError(f"graphlint: fused ranks {rel} from the host loop's")
+        entered = probe.keys()
+
+        out, err = child.communicate(timeout=300)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        raise RuntimeError(f"graphlint: the capture-reach child failed: {err[-2000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    reach = got["reach"]
+    missed = sorted(entered - set(reach))
+    step = "janusgraph_tpu_torch/olap/gpu_executor.py:_FusedLoop.step"
+    emit("graphlint", modules=modules, import_findings=len(findings), sweep_s=sweep_s,
+         scale=GRAPHLINT_SCALE, captures=info["compile_cache"], capture_s=info["capture_s"],
+         run_s=run_s, max_rel_vs_host_loop=rel, entered=len(entered), reach=len(reach),
+         reach_host=sum(1 for r in reach.values() if r == "host"), missed=missed,
+         analyzer_s=got["seconds"], seconds=time.perf_counter() - t0,
+         entered_defs=sorted(entered))
+    if step not in entered:
+        raise RuntimeError("graphlint: the probe saw no superstep inside a capture")
+    if missed:
+        raise RuntimeError(f"graphlint: defs run under a capture that the analyzer "
+                           f"missed: {missed}")
+    return {"entered": len(entered), "reach": len(reach)}
 
 
 def emit(phase: str, **fields) -> None:
@@ -5643,6 +5759,7 @@ def main() -> int:
     gods_run = gods_phase(args, emit)
     kernels.reset_launch_counts()
     io_run = io_phase(args, emit, smi)
+    graphlint_phase(args, emit)
     telemetry_phase(emit)
     print(json.dumps({"kernels": [{
         "name": "sorted_segment_sum",

@@ -1,0 +1,8 @@
+"""`python -m janusgraph_tpu_torch.analysis` entry point."""
+
+import sys
+
+from janusgraph_tpu_torch.analysis.cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -905,6 +905,7 @@ class JanusGraphTPU:
                     es.get_type_slice(st.EXISTS, False),
                     es.get_type_slice(st.VERTEX_LABEL_EDGE, True, Direction.OUT),
                 ):
+                    # graphlint: disable=JG403 -- intentional: commit flushes under _commit_lock for unique-index safety (see step 6 below); serializing committers is the design, not an accident
                     for col, _ in btx.edge_store_query(KeySliceQuery(key, q)):
                         dels.append(col)
                 if dels:

@@ -338,6 +338,7 @@ class WebSocketSession:
         #: echo ids (their responses are strictly ordered)
         import collections
 
+        # graphlint: disable=JG206 -- structurally bounded: one entry per in-flight submit (caller thread), popped on every response
         self._order = collections.deque()
         # bounded CONNECT (a dead host costs one timeout,
         # not a hang); the established socket returns to blocking mode —
@@ -434,9 +435,11 @@ class WebSocketSession:
         self._waiters[rid] = waiter
         self._order.append(rid)
         with self._send_lock:
+            # graphlint: disable=JG203 -- intentional: the send lock serializes outbound WS frames on the shared socket (send half only; responses demux via the receive loop)
             self._send(json.dumps(req))
         ev = waiter[0]
         while not ev.is_set():
+            # graphlint: disable=JG201 -- leader/follower try-acquire: the immediately following try/finally releases on every path
             if self._recv_lock.acquire(timeout=0.02):
                 try:
                     while not ev.is_set():

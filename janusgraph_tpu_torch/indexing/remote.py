@@ -323,6 +323,7 @@ class _IndexHandler(socketserver.BaseRequestHandler):
                                     })
                         else:
                             self._dispatch(provider, sock, op, body)
+                # graphlint: disable=JG204 -- protocol boundary: the error is serialized to the client as a temporary status frame, and the CLIENT retries
                 except (TemporaryBackendError, ConnectionError) as e:
                     self._reply(sock, _STATUS_TEMP, str(e).encode())
                 except Exception as e:  # noqa: BLE001 - protocol boundary
@@ -384,6 +385,7 @@ class _IndexHandler(socketserver.BaseRequestHandler):
                 led["wall_ns"] = _time.perf_counter_ns() - t0
                 payload = encode_ledger_block(led) + payload
             out.reply(req_id, _STATUS_OK, payload)
+        # graphlint: disable=JG204 -- protocol boundary: the error is serialized to the client as a temporary status frame addressed to this op's request id, and the CLIENT retries
         except (TemporaryBackendError, ConnectionError) as e:
             out.reply(req_id, _STATUS_TEMP, str(e).encode())
         except Exception as e:  # noqa: BLE001 - protocol boundary
@@ -685,6 +687,7 @@ class RemoteIndexProvider(IndexProvider):
                 or self._remote_deadline is None):
             try:
                 self.features()
+            # graphlint: disable=JG204 -- negotiation is best-effort: the frame just goes unflagged, and the op itself will surface the failure through its own retry guard
             except (TemporaryBackendError, PermanentBackendError):
                 return 0, b"", False, None
         flags = 0
@@ -736,6 +739,7 @@ class RemoteIndexProvider(IndexProvider):
         if self._remote_pipeline is None:
             try:
                 self.features()
+            # graphlint: disable=JG204 -- negotiation is best-effort: the op falls back to the sync path, whose own retry guard surfaces the failure
             except (TemporaryBackendError, PermanentBackendError):
                 return None
         if not self._remote_pipeline:
@@ -818,6 +822,7 @@ class RemoteIndexProvider(IndexProvider):
             with conn.lock:
                 if conn.sock is None:
                     try:
+                        # graphlint: disable=JG403 -- conn.lock exists to serialize the wire protocol on THIS connection; blocking while holding it is its whole job, and other pool connections proceed
                         conn._connect()
                     except OSError as e:
                         raise TemporaryBackendError(
@@ -827,6 +832,7 @@ class RemoteIndexProvider(IndexProvider):
                     import time as _time
 
                     t0 = _time.monotonic()
+                    # graphlint: disable=JG403 -- per-connection lock serializes request/response framing on one socket by design; contention moves to another pool slot, not behind this one
                     status, payload, _sock = conn.request(op, body)
                     # adaptive-gate latency signal (lock wait excluded)
                     self._op_ewma_s = (

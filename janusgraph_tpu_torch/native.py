@@ -46,6 +46,7 @@ def _load() -> Optional[ctypes.CDLL]:
             # the first-use compile holds _lock on purpose: concurrent
             # callers wait for the library instead of taking numpy for the
             # life of the process
+            # graphlint: disable=JG403 -- intentional: first-use g++ compile gate (the comment above); waiting beats losing the native path
             lib = _build.load_host_library()
         except (OSError, RuntimeError) as e:
             _build.host_build_info["error"] = str(e)[:2000]

@@ -284,6 +284,7 @@ class SLOEngine:
                 (".burn_slow", st.slow_burn),
                 (".severity", sev_val),
             ):
+                # graphlint: disable=JG110 -- spec names are a small declared set (bounded cardinality, never data-derived)
                 registry.set_gauge(
                     "observability.slo." + spec.name + suffix, value
                 )

@@ -283,6 +283,7 @@ class Tracer:
         s = Span(name, attrs)
         now = time.perf_counter_ns()
         # reconstructs the wall START STAMP of a pre-timed span (duration_ms was measured elsewhere, on a monotonic clock)
+        # graphlint: wallclock -- reconstructs the wall START STAMP of a pre-timed span (duration_ms was measured elsewhere, on a monotonic clock)
         s.wall_t = time.time() - duration_ms / 1e3
         s.start_ns = now - int(duration_ms * 1e6)
         s.end_ns = now

@@ -75,6 +75,7 @@ class CSRGraph:
         return len(self.out_dst)
 
     @property
+    # graphlint: host -- the host CSR's degrees; a captured program reads the device graph's in_degree tensor
     def in_degree(self) -> np.ndarray:
         """(n,) int32 in-degrees, derived from in_indptr."""
         return np.diff(self.in_indptr).astype(np.int32)

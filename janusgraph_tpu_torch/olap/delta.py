@@ -119,7 +119,7 @@ class ChangeCapture:
         self.graph = graph
         self.limit = int(limit)
         self._lock = threading.Lock()
-        self._batches: deque = deque()
+        self._batches: deque = deque()  # graphlint: disable=JG206 -- bounded by the record-count prune below (limit records, oldest batches dropped on overflow)
         self._count = 0
         #: records with epoch <= floor may have been dropped or undecodable
         self._floor = 0
@@ -704,6 +704,7 @@ class OverlayView:
         m = lanes["_meta"]
         return (m["n_base"], m["n_pad"], m["acap"], m["tcap"], m["lcap"], bool(undirected))
 
+    # graphlint: host -- cached per device and orientation: moved on the eager first superstep; a capture only reads it
     def device_args(self, device, undirected: bool) -> Optional[dict]:
         """The lanes as the merge reads them on ``device`` (``device_lanes``),
         built and moved once per device and orientation."""
@@ -1067,6 +1068,7 @@ class DeltaSnapshot:
 
             # the lock is held across the scan so concurrent submitters
             # share one load
+            # graphlint: disable=JG403 -- single-repacker by design: acquire() holds _lock across the cold repack so concurrent submitters share ONE snapshot load instead of racing N repacks
             csr, epoch = load_csr_snapshot(self.graph)
             self._install(csr, epoch)
             registry.counter("olap.delta.packs").inc()
@@ -1085,6 +1087,7 @@ class DeltaSnapshot:
         self.csr = csr
         self.epoch = epoch
         self.generation += 1
+        # graphlint: disable=JG401 -- every caller (acquire, adopt) holds self._lock per this method's contract ("lock held"); the analyzer cannot see caller-held locks
         self._executors.clear()
 
     def close(self) -> None:

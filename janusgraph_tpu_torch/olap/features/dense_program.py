@@ -87,6 +87,7 @@ class DenseVertexProgram(VertexProgram):
         device (the routing and ``ShardedExecutor.run`` consult this)."""
         return self.message_mode != MessageMode.SDDMM
 
+    # graphlint: host -- a hash of the program's static parameters and weights: host data whenever it runs
     def cache_key(self) -> Tuple:
         digest = hashlib.sha1()
         for name in self.array_params:

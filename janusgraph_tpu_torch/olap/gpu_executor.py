@@ -260,6 +260,7 @@ class _ChannelPack:
         self._ell = None
         self._segsum = None
 
+    # graphlint: host -- cached: built on the eager first superstep; a capture only reads the cache
     def ell(self) -> kernels.ELLPack:
         if self._ell is None:
             src, dst, w = channel_edges(self.csr, self.channel)
@@ -268,6 +269,7 @@ class _ChannelPack:
             ).to(self.device)
         return self._ell
 
+    # graphlint: host -- cached: built on the eager first superstep; a capture only reads the cache
     def segsum(self):
         """(plan, source indices, weights or None), the last two on the
         device in the plan's edge order."""
@@ -641,6 +643,7 @@ class GPUExecutor:
             return torch.cuda.get_device_name(self.device)
         return "cpu"
 
+    # graphlint: host -- cached per edge view: decided before the first capture, read at capture
     def _autotune(self, undirected: bool) -> autotune.AutotuneDecision:
         """The cached decision for one edge view: ``autotune.decide`` over
         the view's degree statistics, this device's kind, the configured
@@ -698,6 +701,7 @@ class GPUExecutor:
         return base
 
     @staticmethod
+    # graphlint: host -- "auto"'s footprint estimate, cached in _auto_cache before the first capture
     def ell_footprint(csr: CSRGraph, max_capacity: int = 1 << 14, undirected: bool = False):
         """The ELL pack's device footprint, estimated from the degree
         histogram without building it: a vertex takes next-pow2(degree)
@@ -743,6 +747,7 @@ class GPUExecutor:
             w = np.concatenate([w, csr.out_edge_weight]) if w is not None else None
         return src, dst, w
 
+    # graphlint: host -- cached: built on the eager first superstep; a capture only reads the cache
     def _ell_pack(self, undirected: bool) -> kernels.ELLPack:
         pack = self._ell_packs.get(undirected)
         if pack is None:
@@ -753,6 +758,7 @@ class GPUExecutor:
             self._ell_packs[undirected] = pack
         return pack
 
+    # graphlint: host -- cached: built on the eager first superstep; a capture only reads the cache
     def _hybrid_pack(self, undirected: bool) -> kernels.HybridPack:
         """The view's HybridPack, with the configured or the tuner's hub
         cutoff and tail chunk; built and moved once."""
@@ -769,6 +775,7 @@ class GPUExecutor:
             self._hybrid_packs[undirected] = pack
         return pack
 
+    # graphlint: host -- cached: built on the eager first superstep; a capture only reads the cache
     def _sddmm_rows(self, strategy: str, undirected: bool):
         """Row-destination vectors of the fused SDDMM pass, aligned with the
         strategy's pack layout; built and moved once per (strategy, view)."""
@@ -793,6 +800,7 @@ class GPUExecutor:
             self._sddmm_rows_cache[key] = rows
         return rows
 
+    # graphlint: host -- cached: built on the eager first superstep; a capture only reads the cache
     def _segsum_plan(self, orientation: str) -> kernels._SegSumPlan:
         """One plan per orientation, built once."""
         plan = self._segsum_plans.get(orientation)

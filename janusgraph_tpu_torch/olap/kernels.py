@@ -651,6 +651,7 @@ class _SegSumPlan:
         last = (s + self.seg_ptr[1:]) // self.items_per_cta
         return int((last - first).max()) + 1
 
+    # graphlint: host -- cached: the eager first superstep moves the arrays; a capture only reads them
     def device_arrays(self, device, plain: bool = False) -> Dict[str, torch.Tensor]:
         """The arrays the kernel reads (segment offsets and the partition),
         or with ``plain`` the plain version's view of the reference layout

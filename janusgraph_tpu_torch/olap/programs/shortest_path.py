@@ -190,6 +190,7 @@ def weighted_predecessors(csr, result, seed_index: int):
         for i in eq_slots:
             out_eq[int(src[i])].append(int(dstv[i]))
         # each vertex enqueues at most once (pred guard): bounded by n
+        # graphlint: disable=JG206 -- BFS work queue: each vertex enqueues at most once (pred guard), so the bound is the vertex count
         queue = deque(int(v) for v in np.nonzero(pred != -1)[0])
         while queue:
             u = queue.popleft()

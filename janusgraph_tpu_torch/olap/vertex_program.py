@@ -213,6 +213,7 @@ class VertexProgram:
     #: fused loop
     setup_only_params: Tuple[str, ...] = ()
 
+    # graphlint: host -- a hash of the program's static parameters: host data whenever it runs
     def cache_key(self) -> Tuple:
         """Identity of the program's superstep: its class and the scalar
         parameters the superstep reads."""

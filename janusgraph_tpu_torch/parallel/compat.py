@@ -215,6 +215,7 @@ class Mesh:
         slot order on the host: the whole [S * rows, ...] array on every
         process (the reference's ``process_allgather(tiled=True)``)."""
         if not self.spans_processes:
+            # graphlint: disable=JG105 -- not under a capture: reduce/all_gather call gather_rows only on a mesh that spans processes, which never captures (sharded.captures_chunks); this one-process branch serves _fetch after the replay
             return torch.cat([p.to("cpu", copy=True) for p in parts])
         t0 = time.perf_counter()
         block = self._local_block(parts)
@@ -223,6 +224,7 @@ class Mesh:
         return out
 
     # ------------------------------------------------------------ collectives
+    # graphlint: traced -- a collective lockstep() dispatches by name (getattr) from the captured sharded superstep, which the call graph cannot follow
     def all_to_all(self, parts: List[torch.Tensor]) -> List[torch.Tensor]:
         """[Sg, S, ...] per group -> [Sh, S, ...] per group with
         out[s][q] = in[q][s]."""
@@ -253,6 +255,7 @@ class Mesh:
         self._count(t0, send.numel() * send.element_size() * (P - 1) // P)
         return self._scatter_local(out)
 
+    # graphlint: traced -- a collective lockstep() dispatches by name (getattr) from the captured sharded superstep, which the call graph cannot follow
     def ppermute(self, parts: List[torch.Tensor]) -> List[torch.Tensor]:
         """Roll the stacked slot blocks one slot along the axis."""
         if self.spans_processes:
@@ -287,6 +290,7 @@ class Mesh:
         self._count(t0, last.numel() * last.element_size())
         return self._scatter_local(rolled)
 
+    # graphlint: traced -- a collective lockstep() dispatches by name (getattr) from the captured sharded superstep, which the call graph cannot follow
     def all_gather(self, parts: List[torch.Tensor]) -> List[torch.Tensor]:
         """[Sg, ...] per group -> the whole [S, ...] stack on each group."""
         if self.spans_processes:

@@ -655,6 +655,7 @@ class FleetRouter:
                     "fleet.attempt", replica=handle.name, attempt=attempt
                 ) as att:
                     try:
+                        # graphlint: disable=JG207 -- not a per-element fan-out: the loop IS the retry-elsewhere policy (one logical request, budget-bounded attempts)
                         result = self._call(
                             handle, query, graph, remaining_ms
                         )
@@ -713,6 +714,7 @@ class FleetRouter:
                             verdict="error", attempts=attempt + 1
                         )
                         raise
+                    # graphlint: disable=JG204 -- the failure is routed: retriable=True re-enters the retry-elsewhere loop (budget-bounded), exhaustion raises NoReplicaAvailable from the original error
                     except (CircuitOpenError, TemporaryBackendError,
                             ConnectionError, OSError, _urlerr.URLError) as e:
                         # connect refusal / timeout / open breaker: this

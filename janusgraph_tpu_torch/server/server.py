@@ -909,6 +909,7 @@ class _Handler(BaseHTTPRequestHandler):
                     if digest and (
                         ctl.price_book.mean_cost_ms(digest) is not None
                     ):
+                        # graphlint: disable=JG110 -- digest is the bounded, top-K-evicted price-book label (metrics.digest-top-k)
                         registry.timer(
                             "server.request.digest." + digest
                         ).update(int(wall_ms * 1e6))
@@ -1544,6 +1545,7 @@ class _Handler(BaseHTTPRequestHandler):
 
         def _send_locked(payload: dict) -> None:
             with send_lock:
+                # graphlint: disable=JG203 -- intentional: the send lock serializes response frames onto the shared WS socket (send half only)
                 _ws_send(sock, json.dumps(payload))
 
         def _serve_tagged(req: dict) -> None:

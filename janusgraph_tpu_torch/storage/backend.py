@@ -457,6 +457,7 @@ class BackendTransaction:
                     with metrics.time("storage.mutateMany"):
                         self.backend.guard(flush)
                     for store_name, rows in self._mutations.items():
+                        # graphlint: disable=JG110 -- store names are the fixed schema-declared store set (edgestore/indexstore/system)
                         metrics.counter(f"storage.{store_name}.mutate.rows").inc(len(rows))
                 else:
                     self.backend.guard(flush)

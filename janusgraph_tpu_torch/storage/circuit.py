@@ -83,6 +83,7 @@ class CircuitBreaker:
             registry,
         )
 
+        # graphlint: disable=JG110 -- breaker names are one-per-protocol (store/index remote managers): a fixed, tiny set
         registry.set_gauge(
             f"breaker.{self.name}.state", STATE_VALUES[state]
         )
@@ -105,6 +106,7 @@ class CircuitBreaker:
         self._open_until = self._clock() + self.reset_timeout_s
         self._failures = 0
         self._probes_in_flight = 0
+        # graphlint: disable=JG110 -- breaker names are one-per-protocol: a fixed, tiny set
         registry.counter(f"breaker.{self.name}.trips").inc()
         self._publish(OPEN)
 
@@ -126,6 +128,7 @@ class CircuitBreaker:
         with self._lock:
             if self._state == OPEN:
                 if self._clock() < self._open_until:
+                    # graphlint: disable=JG110 -- breaker names are one-per-protocol: a fixed, tiny set
                     registry.counter(f"breaker.{self.name}.rejected").inc()
                     raise CircuitOpenError(
                         f"circuit {self.name} is open (fail-fast; retry "
@@ -136,6 +139,7 @@ class CircuitBreaker:
                 self._publish(HALF_OPEN)
             if self._state == HALF_OPEN:
                 if self._probes_in_flight >= self.half_open_probes:
+                    # graphlint: disable=JG110 -- breaker names are one-per-protocol: a fixed, tiny set
                     registry.counter(f"breaker.{self.name}.rejected").inc()
                     raise CircuitOpenError(
                         f"circuit {self.name} is half-open and its probe "

@@ -261,6 +261,7 @@ class FaultPlan:
     def _record(self, kind: str, n: int, **detail) -> None:
         from janusgraph_tpu_torch.observability import flight_recorder, registry
 
+        # graphlint: disable=JG110 -- kind is the fixed injected-fault taxonomy (storage/faults.py fault kinds)
         registry.counter(f"chaos.injected.{kind}").inc()
         registry.counter("chaos.injected.total").inc()
         # the black box sees every injected fault (deterministic fields

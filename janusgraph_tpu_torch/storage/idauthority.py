@@ -340,6 +340,7 @@ class StandardIDPool:
                 # synchronous fallback: the double-buffer missed, so there
                 # are NO ids to hand out until the claim round-trip (incl.
                 # its propagation wait) completes — contenders must block
+                # graphlint: disable=JG203 -- intentional: empty pool, callers must wait for the block claim
                 self._current = self._fetch()
 
     def next_ids(self, count: int):
@@ -356,6 +357,7 @@ class StandardIDPool:
                         self._current, self._next_block = self._next_block, None
                     else:
                         # same synchronous-fallback contract as next_id
+                        # graphlint: disable=JG203 -- intentional: empty pool, callers must wait for the block claim
                         self._current = self._fetch()
                 start, taken = self._current.next_span(remaining)
                 if taken:
@@ -387,5 +389,6 @@ class StandardIDPool:
                     self._prefetch_thread = None
 
         t = threading.Thread(target=run, daemon=True, name="id-prefetch")
+        # graphlint: disable=JG401 -- _start_prefetch is only called from next_id with self._lock already held; the prefetch thread's writes take the same lock
         self._prefetch_thread = t
         t.start()

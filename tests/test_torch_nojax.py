@@ -792,3 +792,57 @@ def test_no_port_file_imports_jax_or_reference():
             if _forbidden(name)
         ]
     assert not bad, bad
+
+
+#: the port's static analyzer: stdlib only
+ANALYSIS_MODULES = (
+    "__init__.py", "__main__.py", "baseline.py", "callgraph.py", "checkpoint_rules.py",
+    "cli.py", "concurrency_rules.py", "core.py", "imports_check.py", "lock_rules.py",
+    "metric_rules.py", "reporting.py", "robustness_rules.py", "shape_rules.py",
+    "thread_rules.py", "trace_rules.py", "tracing.py",
+)
+
+
+def test_the_analyzer_imports_no_torch_jax_numpy_or_reference():
+    """janusgraph_tpu_torch/analysis/ (17 modules) imports nothing but the
+    standard library and itself."""
+    pkg = os.path.join(ROOT, "janusgraph_tpu_torch", "analysis")
+    found = sorted(n for n in os.listdir(pkg) if n.endswith(".py"))
+    assert found == sorted(ANALYSIS_MODULES)
+    bad = []
+    for rel in found:
+        path = os.path.join(pkg, rel)
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        bad += [
+            f"{rel}:{line} imports {name}"
+            for line, name in _imported_names(tree)
+            if name.split(".")[0] in ("torch", "jax", "numpy", "janusgraph_tpu")
+        ]
+    assert not bad, bad
+
+
+def test_the_analyzer_runs_with_jax_blocked():
+    """`python -m janusgraph_tpu_torch.analysis` with jax and the JAX
+    package blocked: it lints a file, and loads neither them nor torch."""
+    code = (
+        "import sys, runpy\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['janusgraph_tpu'] = None\n"
+        "sys.argv = ['graphlint', '--check-imports', sys.argv[1]]\n"
+        "try:\n"
+        "    runpy.run_module('janusgraph_tpu_torch.analysis', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    print('RC', e.code, sorted(m for m in ('torch', 'jax', 'janusgraph_tpu')\n"
+        "                             if sys.modules.get(m) is not None))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    target = os.path.join(ROOT, "janusgraph_tpu_torch", "analysis")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, target], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "graphlint: 0 error(s)" in proc.stdout, proc.stdout
+    assert proc.stdout.strip().endswith("RC 0 []"), proc.stdout
