@@ -135,7 +135,7 @@ Phases, each printing one JSON line:
            of PageRank over a fresh scan over the wire (whose edges are the
            base's plus the commit's); a multi-slice read of 10,000
            vertices' rows and POINT_READS point reads from 8 threads with
-           storage.remote.pipeline on and off, equal (walls and the
+           storage.remote.pipeline off, on, on and off, equal (walls and the
            pipeline's ops, wire frames and merged ops); the kernel against
            its plain version on the phase's in-plan; the server stopped
            (an early exit, or one that outlives SIGTERM, fails the run);
@@ -309,6 +309,16 @@ Phases, each printing one JSON line:
            child process meanwhile); the ranks against the host loop's
            within RANK_REL; the module, finding, entered and reach counts,
            any def missed, and the seconds
+  parity   the port's last host modules: a scale-14 R-MAT graph opened with
+           the eight options the port once refused set off their defaults
+           (PARITY_OPTIONS), metrics.enabled on and the slice cache off,
+           bulk-loaded; PageRank through submit() twice (20 kernel runs
+           each) within RANK_REL of float64, the kernel against its plain
+           version on the graph's in-plan; the out-edges of the top 1,000
+           vertices read through tx.prefetch in batches of PARITY_BATCH:
+           the store-level getSliceMulti count one a batch and getSlice 0;
+           two stage dicts of the submits' walls through the benchdiff
+           subcommand (its verdict and exit code); within PARITY_BUDGET_S
   telemetry  the run records every run above published (the executor's
            _finish_run wrapped to time its host ms and to read the
            allocator just after): every record's roofline utilization in
@@ -597,6 +607,153 @@ def graphlint_phase(args, emit) -> dict:
         raise RuntimeError(f"graphlint: defs run under a capture that the analyzer "
                            f"missed: {missed}")
     return {"entered": len(entered), "reach": len(reach)}
+
+
+#: the parity phase's R-MAT scale, and the eight options the port once
+#: refused, each set off its default (the id options loose enough that the
+#: bulk load never meets them)
+PARITY_SCALE = 14
+PARITY_OPTIONS = {
+    "ids.renew-timeout-ms": 60_000.0,
+    "ids.authority.max-retries": 40,
+    "query.fast-property": False,
+    "storage.batch-loading": True,
+    "storage.buffer-size": 512,
+    "cache.tx-cache-size": 100,
+    "computer.result-mode": "persist",
+    "graph.graphname": "parity",
+}
+#: vertices the prefetched read takes, in batches of query.batch-size
+PARITY_PREFETCH = 1_000
+PARITY_BATCH = 256
+PARITY_BUDGET_S = 15.0
+
+
+def parity_phase(args, emit) -> dict:
+    """The port's last host modules on the card: a graph opened with the
+    eight once-refused options off their defaults, ``metrics.enabled`` on
+    and the slice cache off (so the metrics store sits right under the
+    transaction), bulk-loaded; two PageRank submits (20 kernel runs each)
+    and the kernel against its plain version on the graph's in-plan; a
+    prefetched read of the top PARITY_PREFETCH vertices' out-edges, one
+    store-level getSliceMulti per batch and no getSlice; two stage dicts
+    of the submits' walls compared through the ``benchdiff`` subcommand."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import torch
+
+    from janusgraph_tpu_torch import cli
+    from janusgraph_tpu_torch.core.bulk import bulk_add_edges, bulk_add_vertices
+    from janusgraph_tpu_torch.core.codecs import Direction
+    from janusgraph_tpu_torch.core.graph import open_graph
+    from janusgraph_tpu_torch.observability import registry
+    from janusgraph_tpu_torch.olap import GPUExecutor, kernels, rmat_edges
+    from janusgraph_tpu_torch.olap.programs import PageRankProgram
+
+    phase_t0 = time.perf_counter()
+    n, src, dst = rmat_edges(PARITY_SCALE, 16, seed=args.seed)
+    g = open_graph(dict(PARITY_OPTIONS, **{"metrics.enabled": True, "cache.db-cache": False,
+                                           "query.batch-size": PARITY_BATCH}))
+    try:
+        wrong = {k: g.config.get(k) for k, v in PARITY_OPTIONS.items() if g.config.get(k) != v}
+        if wrong or g.backend.id_authority.max_retries != 40 or (
+                g.id_assigner.renew_timeout_ms != 60_000.0):
+            raise RuntimeError(f"parity: the options did not reach the graph: {wrong}")
+        t0 = time.perf_counter()
+        vids = bulk_add_vertices(g, n)
+        bulk_add_edges(g, "link", vids[src], vids[dst])
+        load_s = time.perf_counter() - t0
+
+        walls, run_walls, runs, paths = [], [], [], []
+        for _ in range(2):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res, ran = counted(lambda: g.compute().program(
+                PageRankProgram(max_iterations=20, tol=0.0)).submit(), 20)
+            walls.append(time.perf_counter() - t0)
+            run_walls.append(res.run_info["run_wall_s"])
+            runs.append(ran)
+            paths.append(res.run_info["snapshot"]["path"])
+        rank = res.states["rank"]
+        if res.run_info["routing"]["device"] != "cuda" or res.csr.num_edges != len(src):
+            raise RuntimeError(f"parity submit: {res.run_info['routing']}, "
+                               f"{res.csr.num_edges} edges of {len(src)}")
+        rel = max_rel(rank, pagerank_fp64(res.csr, 20))
+        if not np.isfinite(rank).all() or not rel <= RANK_REL:
+            raise RuntimeError(f"parity: ranks {rel} from float64")
+
+        # the kernel against its plain version on this graph's in-plan, at
+        # PageRank's messages
+        ex = GPUExecutor(res.csr, strategy="segsum")
+        in_plan = ex._segsum_plan("in")
+        outdeg = torch.as_tensor(res.csr.out_degree, device="cuda").clamp_min(1).float()
+        msg = torch.as_tensor(rank, device="cuda") / outdeg
+        data = torch.index_select(msg, 0, torch.as_tensor(
+            res.csr.in_src.astype(np.int64), device="cuda"))
+        _p, _g, err = check_plan("parity_in", in_plan, data, kernels)
+        del ex
+
+        # a prefetched read: one multi-slice per batch through the metrics
+        # store to the in-memory store's own get_slice_multi
+        def count(op):
+            return registry.snapshot().get(f"storage.edgestore.{op}", {}).get("count", 0)
+
+        top = res.csr.vertex_ids[np.argsort(-rank.astype(np.float64), kind="stable")[
+            :PARITY_PREFETCH]]
+        tx = g.new_transaction()
+        try:
+            vs = [tx.get_vertex(int(v)) for v in top]
+            tx.schema_by_name("link")  # the label's schema reads, before the count
+            before = {op: count(op) for op in ("getSliceMulti", "getSlice")}
+            t0 = time.perf_counter()
+            tx.prefetch(vs, Direction.OUT, ["link"])
+            prefetch_s = time.perf_counter() - t0
+            gained = {op: count(op) - before[op] for op in before}
+            out_edges = sum(len(tx.get_edges(v, Direction.OUT, ["link"])) for v in vs)
+            after_reads = count("getSlice") - before["getSlice"]
+        finally:
+            tx.rollback()
+        batches = -(-len(vs) // g.config.get("query.batch-size"))
+        want_edges = int(res.csr.out_degree[np.searchsorted(res.csr.vertex_ids, top)].sum())
+        if gained != {"getSliceMulti": batches, "getSlice": 0} or after_reads or (
+                out_edges != want_edges):
+            raise RuntimeError(f"parity prefetch: {gained} for {batches} batches, "
+                               f"{after_reads} slices after, {out_edges} of {want_edges} edges")
+
+        # two stage dicts of the submits' walls through the benchdiff CLI
+        stages = [{"stage": "pagerank", "platform": "gpu", "device_kind": torch.cuda.get_device_name(0),
+                   "scale": PARITY_SCALE, "pagerank_wall_s": w,
+                   "pagerank_superstep_ms": r / 20 * 1e3, "path": p}
+                  for w, r, p in zip(walls, run_walls, paths)]
+        with tempfile.TemporaryDirectory() as d:
+            old, new = os.path.join(d, "first.json"), os.path.join(d, "second.jsonl")
+            with open(old, "w") as f:
+                json.dump(stages[0], f)
+            with open(new, "w") as f:
+                f.write(json.dumps(stages[1]) + "\n")
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                code = cli.main(["benchdiff", old, new, "--compact"])
+        report = json.loads(out.getvalue())
+        if code != 0 or report["cells_compared"] != 1:
+            raise RuntimeError(f"parity benchdiff: exit {code}, {report}")
+        verdict = report["comparisons"][0]["verdict"]
+    finally:
+        g.close()
+    seconds = time.perf_counter() - phase_t0
+    emit("parity", scale=PARITY_SCALE, vertices=n, edges=len(src), options=PARITY_OPTIONS,
+         load_s=load_s, submit_walls_s=walls, run_walls_s=run_walls, snapshot_paths=paths,
+         kernel_runs=runs, max_rel_vs_fp64=rel, in_plan_max_abs_err=err,
+         prefetch_vertices=len(vs), prefetch_batches=batches, prefetch_s=prefetch_s,
+         store_get_slice_multi=gained["getSliceMulti"], store_get_slice=gained["getSlice"],
+         prefetched_edges=out_edges, benchdiff_exit=code, benchdiff_verdict=verdict,
+         benchdiff_metrics=report["comparisons"][0]["metrics"], seconds=seconds)
+    if seconds > PARITY_BUDGET_S:
+        raise RuntimeError(f"parity took {seconds:.1f} s, over its {PARITY_BUDGET_S} s budget")
+    return {"launches": runs[0], "launches_warm": runs[1], "max_abs_err": err}
 
 
 def emit(phase: str, **fields) -> None:
@@ -2616,8 +2773,9 @@ def remote_phase(directory, held, submit, args, emit) -> dict:
     reads it (60 kernel runs) against a fresh scan over the wire; the same
     multi-slice read of 10,000 vertices' rows and point reads of the first
     POINT_READS of those rows from 8 threads with storage.remote.pipeline
-    on and off (equal; walls and the pipeline's counters); the kernel against its plain version on this
-    phase's in-plan; the server stopped."""
+    off, on, on and off (equal; walls and the pipeline's counters of each
+    run); the kernel against its plain version on this phase's in-plan;
+    the server stopped."""
     import threading
 
     import torch
@@ -2698,12 +2856,13 @@ def remote_phase(directory, held, submit, args, emit) -> dict:
         # (5) the same reads with the pipeline on and off: one multi-slice
         # of 10,000 vertices' whole rows, and point reads of the first
         # POINT_READS of the same rows from 8 threads; equal results, walls
-        # and counters, no gate on their ratio
+        # and counters, no gate on their ratio. The settings run off, on,
+        # on, off, so neither always runs first
         keys = [g.idm.get_key(int(v)) for v in vids[rng.choice(n, min(n, 10_000), replace=False)]]
         point_keys = keys[:POINT_READS]
         row_q = SliceQuery(bytes([0]), bytes([4]))
-        reads = {}
-        for pipe in (True, False):
+        reads = {True: [], False: []}
+        for pipe in (False, True, True, False):
             client = RemoteStoreManager(host, port, pipeline=pipe)
             try:
                 store = client.open_database("edgestore")
@@ -2735,19 +2894,22 @@ def remote_phase(directory, held, submit, args, emit) -> dict:
                     client._mux.flush_stats()
                 counters = {k: registry.snapshot().get(f"storage.remote.pipeline.{k}", {}).get(
                     "count", 0) - v for k, v in before.items()}
-                reads[pipe] = {"multi": multi, "point": point, "multi_s": multi_s,
-                               "point_s": point_s, "mux_engaged": client._mux is not None,
-                               **counters}
+                reads[pipe].append({"multi": multi, "point": point, "multi_s": multi_s,
+                                    "point_s": point_s,
+                                    "mux_engaged": client._mux is not None, **counters})
             finally:
                 client.close()
-        on, off = reads[True], reads[False]
-        if on["multi"] != off["multi"] or on["point"] != off["point"] or any(
-                on["multi"][k] != on["point"][k] for k in point_keys):
+        first = reads[True][0]
+        if any(r["multi"] != first["multi"] or r["point"] != first["point"]
+               for r in reads[True] + reads[False]) or any(
+                first["multi"][k] != first["point"][k] for k in point_keys):
             raise RuntimeError("remote: the pipelined and sync reads differ")
-        cells = sum(len(v) for v in on["multi"].values())
+        cells = sum(len(v) for v in first["multi"].values())
+        # each key: the first run's value, then the second's
         read_rec = {("pipeline_on" if p else "pipeline_off"): {
-            k: v for k, v in r.items() if k not in ("multi", "point")} for p, r in reads.items()}
-        del reads, on, off
+            k: [r[k] for r in runs] for k in runs[0] if k not in ("multi", "point")}
+            for p, runs in reads.items()}
+        del reads, first
 
         # (6) the kernel against its plain version on this phase's in-plan,
         # PageRank's messages at the cold submit's ranks
@@ -5760,6 +5922,8 @@ def main() -> int:
     kernels.reset_launch_counts()
     io_run = io_phase(args, emit, smi)
     graphlint_phase(args, emit)
+    kernels.reset_launch_counts()
+    parity = parity_phase(args, emit)
     telemetry_phase(emit)
     print(json.dumps({"kernels": [{
         "name": "sorted_segment_sum",
@@ -5854,6 +6018,12 @@ def main() -> int:
         "max_abs_err_indexed": indexed["max_abs_err"],
         "max_abs_err_logs": logs["max_abs_err"],
         "max_abs_err_gods": gods_run["max_abs_err"],
+        # the parity phase: PageRank through submit() over a graph opened
+        # with the eight once-refused options, the metrics store on and the
+        # slice cache off (cold and warm), and the kernel on its in-plan
+        "launches_parity": parity["launches"],
+        "launches_parity_warm": parity["launches_warm"],
+        "max_abs_err_parity": parity["max_abs_err"],
         # the kernel against its plain version on the stored path's in-plan
         # and "link" channel plan
         "max_abs_err_stored": stored["max_abs_err"],

@@ -6,7 +6,8 @@ every host-side helper it needs (the native host library, the storage read
 path, the codecs, the segment-sum plan, the ELL pack) is its own copy, so
 the two packages can be held against each other on the same inputs.
 
-``open_graph`` opens a stored graph (in memory); ``graph.traversal()`` is
+``open_graph`` opens a stored graph (in memory), ``drop_graph`` destroys
+one's storage and closes it; ``graph.traversal()`` is
 the Gremlin entry point over it, ``graph.compute()`` the OLAP one, and
 ``janusgraph_tpu_torch.olap.run_on`` the one over a CSR snapshot.
 ``export_graphson``/``import_graphson`` write and read a graph as
@@ -28,6 +29,14 @@ def __getattr__(name):
 
         return resolve_device
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def drop_graph(graph):
+    """Destroy a graph's storage and close it (JanusGraphFactory.drop
+    equivalent). Irreversible."""
+    from janusgraph_tpu_torch.core.graph import drop_graph as _drop
+
+    return _drop(graph)
 
 
 def export_graphson(graph, path_or_file):

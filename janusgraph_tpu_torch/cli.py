@@ -1,5 +1,5 @@
 """Command-line entry points — the port's copy of ``janusgraph_tpu/cli.py``
-but its ``bench`` and ``benchdiff``:
+but its ``bench``:
 
   python -m janusgraph_tpu_torch server [--config graph.json] [--port 8182]
                                         [--graph-name NAME] [--load-gods]
@@ -19,6 +19,8 @@ but its ``bench`` and ``benchdiff``:
   python -m janusgraph_tpu_torch incident|fleet-bundles --url host:port ...
   python -m janusgraph_tpu_torch watch --url host:port [--count N] ...
   python -m janusgraph_tpu_torch config-docs [--out FILE]
+  python -m janusgraph_tpu_torch benchdiff OLD NEW [--threshold PCT]
+                                           [--fail-on-regress] [--compact]
   python -m janusgraph_tpu_torch export|import --config graph.json ...
 
 ``server`` opens the graph its config file describes (an in-memory one
@@ -71,9 +73,13 @@ Chrome trace), ``incident`` (a fleet's merged failover timeline),
 a fleet frontend). ``config-docs`` renders the option registry;
 ``export`` and ``import`` move a graph through GraphSON or GraphML.
 
-``bench`` and ``benchdiff`` run and compare the reference's benchmark
-artifacts; they wait for the port's own benchmark (ROADMAP Queue A
-#5.6c): the parser knows their names and says so.
+``benchdiff`` compares two bench artifacts cell by cell
+(``observability/benchdiff.py``) and prints the report as JSON; it exits
+2 for a missing file, 3 when no cell is in both, and 1 for a regression
+under ``--fail-on-regress`` (``bin/torch_benchdiff.sh`` wraps it).
+
+``bench`` runs the benchmark. The reference's runs its own ``bench.py``;
+the port has no benchmark yet, so the parser knows the name and says so.
 """
 
 from __future__ import annotations
@@ -81,16 +87,17 @@ from __future__ import annotations
 import argparse
 import code
 import json
+import os
 import sys
 from typing import Optional
 
 _ROADMAP_TOOLS = (
-    "ROADMAP.md Queue A #5.6c (the bench tools wait for the port's own "
-    "benchmark artifacts)"
+    "ROADMAP.md Queue A, the port's own benchmark (bench runs it, and the "
+    "port has none yet)"
 )
 
 #: the reference's subcommands the port refuses, each naming the item
-_NOT_PORTED = ("bench", "benchdiff")
+_NOT_PORTED = ("bench",)
 
 
 def _load_config(path: Optional[str]) -> dict:
@@ -902,6 +909,36 @@ def cmd_timeline(args) -> int:
     return 0
 
 
+def cmd_benchdiff(args) -> int:
+    """Compare two bench artifacts cell-by-cell (stage, scale, platform,
+    host-fallback): per-metric deltas with improve/regress/noise
+    verdicts. With --fail-on-regress, exit non-zero when any cell
+    regressed — the CI gate (bin/torch_benchdiff.sh wraps this)."""
+    from janusgraph_tpu_torch.observability.benchdiff import diff_artifacts
+
+    for p in (args.old, args.new):
+        if not os.path.isfile(p):
+            print(f"no such artifact: {p}", file=sys.stderr)
+            return 2
+    report = diff_artifacts(
+        args.old, args.new, threshold=args.threshold / 100.0
+    )
+    print(json.dumps(report, indent=None if args.compact else 2))
+    if report["cells_compared"] == 0:
+        print("benchdiff: no comparable cells (stage/scale/platform "
+              "mismatch?)", file=sys.stderr)
+        return 3
+    if args.fail_on_regress and report["regressed"]:
+        regressed = [
+            c["cell"] for c in report["comparisons"]
+            if c["verdict"] == "regress"
+        ]
+        print(f"benchdiff: REGRESSION in cells {regressed}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def cmd_chaos(args) -> int:
     """Seeded chaos soak on an in-memory graph: an OLTP workload through
     injected faults including a torn batch, then a reopen that runs
@@ -1293,6 +1330,24 @@ def main(argv=None) -> int:
     pfb.add_argument("--json", action="store_true",
                      help="print the raw listing payload")
     pfb.set_defaults(fn=cmd_fleet_bundles)
+
+    pbd = sub.add_parser(
+        "benchdiff",
+        help="compare two bench artifacts (improve/regress/noise verdicts)",
+    )
+    pbd.add_argument("old", help="prior artifact (JSON or JSONL)")
+    pbd.add_argument("new", help="new artifact (JSON or JSONL)")
+    pbd.add_argument(
+        "--threshold", type=float, default=10.0,
+        help="relative noise threshold in percent (default 10)",
+    )
+    pbd.add_argument(
+        "--fail-on-regress", action="store_true",
+        help="exit 1 when any cell regressed (the CI gate)",
+    )
+    pbd.add_argument("--compact", action="store_true",
+                     help="one-line JSON report")
+    pbd.set_defaults(fn=cmd_benchdiff)
 
     pch = sub.add_parser(
         "chaos",

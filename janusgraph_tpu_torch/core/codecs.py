@@ -351,6 +351,21 @@ class EdgeSerializer:
         return None, buf
 
     # ------------------------------------------------------------------ bounds
+    def get_bounds(self, category: RelationCategory, system: bool = False) -> SliceQuery:
+        """Column range covering a whole relation category on a row
+        (reference: IDHandler.getBounds)."""
+        if category == RelationCategory.PROPERTY:
+            lo, hi = (_CAT_SYS_PROP, _CAT_SYS_PROP + 1) if system else (
+                _CAT_SYS_PROP, _CAT_USER_PROP + 1
+            )
+        elif category == RelationCategory.EDGE:
+            lo, hi = (_CAT_SYS_EDGE, _CAT_SYS_EDGE + 1) if system else (
+                _CAT_SYS_EDGE, _CAT_USER_EDGE + 1
+            )
+        else:
+            lo, hi = _CAT_SYS_PROP, _CAT_USER_EDGE + 1
+        return SliceQuery(bytes([lo]), bytes([hi]))
+
     def user_relations_bounds(self) -> Tuple[SliceQuery, SliceQuery]:
         """User properties + user edges, as two ranges (cat 1 and cat 3)."""
         return (

@@ -283,21 +283,23 @@ class VertexIDAssigner:
         idm: IDManager,
         renew_fraction: Optional[float] = None,
         placement=None,
+        renew_timeout_ms: float = 0.0,
     ):
         from janusgraph_tpu_torch.core.placement import SimpleBulkPlacementStrategy
 
         self.authority = authority
         self.idm = idm
         self.renew_fraction = renew_fraction  # ids.renew-percentage
+        self.renew_timeout_ms = renew_timeout_ms  # ids.renew-timeout-ms
         self.placement = placement or SimpleBulkPlacementStrategy()
         self._vertex_pools: Dict[int, StandardIDPool] = {}
         self._relation_pool = StandardIDPool(
             authority, ConsistentKeyIDAuthority.NS_RELATION, 0,
-            renew_fraction=renew_fraction,
+            renew_fraction=renew_fraction, renew_timeout_ms=renew_timeout_ms,
         )
         self._schema_pool = StandardIDPool(
             authority, ConsistentKeyIDAuthority.NS_SCHEMA, 0,
-            renew_fraction=renew_fraction,
+            renew_fraction=renew_fraction, renew_timeout_ms=renew_timeout_ms,
         )
         self._rr = 0
         self._lock = threading.Lock()
@@ -309,6 +311,7 @@ class VertexIDAssigner:
                 pool = StandardIDPool(
                     self.authority, ConsistentKeyIDAuthority.NS_VERTEX, partition,
                     renew_fraction=self.renew_fraction,
+                    renew_timeout_ms=self.renew_timeout_ms,
                 )
                 self._vertex_pools[partition] = pool
             return pool
@@ -392,6 +395,7 @@ class JanusGraphTPU:
             id_conflict_mode=cfg.get("ids.authority.conflict-avoidance-mode"),
             id_conflict_tag=cfg.get("ids.authority.conflict-avoidance-tag"),
             id_conflict_tag_bits=cfg.get("ids.authority.conflict-avoidance-tag-bits"),
+            id_max_retries=cfg.get("ids.authority.max-retries"),
             cache_clean_wait_seconds=cfg.get("cache.db-cache-clean-wait-ms") / 1000.0,
             read_only=cfg.get("storage.read-only"),
             cache_ttl_seconds=(ttl_ms / 1000.0) if ttl_ms > 0 else None,
@@ -427,6 +431,7 @@ class JanusGraphTPU:
         self.id_assigner = VertexIDAssigner(
             self.backend.id_authority, self.idm,
             renew_fraction=cfg.get("ids.renew-percentage"),
+            renew_timeout_ms=cfg.get("ids.renew-timeout-ms"),
             placement=make_placement_strategy(
                 cfg.get("ids.placement"), cfg.get("ids.placement-key")
             ),

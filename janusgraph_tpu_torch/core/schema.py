@@ -429,3 +429,6 @@ class SchemaCache:
             el = self._by_id.pop(sid, None)
             if el is not None:
                 self._by_name.pop(el.name, None)
+
+    def data_type_for(self, serializer, key: "PropertyKey"):
+        return serializer.serializer_for_type(key.data_type)

@@ -92,6 +92,8 @@ class Transaction:
         self._removed_vertices: Set[int] = set()
         # per-tx slice cache: (vid, SliceQuery) -> EntryList
         self._slice_cache: Dict[Tuple[int, SliceQuery], list] = {}
+        # query.fast-property, read at the first keyed get_properties
+        self._fast_property: Optional[bool] = None
         self._open = True
         self._lock = threading.RLock()
 
@@ -526,31 +528,41 @@ class Transaction:
         yield from fresh
 
     def get_properties(self, v: Vertex, *keys: str) -> List[VertexProperty]:
-        """The vertex's properties (of ``keys``, or all). One slice over the
-        whole user-property range, filtered here (the reference's default
-        ``query.fast-property``)."""
+        """The vertex's properties (of ``keys``, or all). A keyed read under
+        ``query.fast-property`` (the default) takes one slice over the whole
+        user-property range and filters here, so the row cache serves later
+        reads of the row; with the option off it takes one slice per key,
+        in key-id order, as the reference does. The option is read once per
+        transaction: it is MASKABLE, so each read of it may be a read of
+        the stored cluster config."""
         es = self.graph.edge_serializer
         results: List[VertexProperty] = []
         key_ids = None
+        slices = [es.user_relations_bounds()[0]]
         if keys:
             key_ids = set()
             for k in keys:
                 pk = self.schema_by_name(k)
                 if isinstance(pk, PropertyKey):
                     key_ids.add(pk.id)
+            if self._fast_property is None:
+                self._fast_property = self.graph.config.get("query.fast-property")
+            if not self._fast_property:
+                slices = [es.get_type_slice(tid, False) for tid in sorted(key_ids)]
         if not v.is_new:
-            for entry in self._read_slice(v.id, es.user_relations_bounds()[0]):
-                rc = es.parse_relation(entry, self._codec_schema)
-                if rc.relation_id in self._deleted_ids:
-                    continue
-                if key_ids is not None and rc.type_id not in key_ids:
-                    continue
-                results.append(
-                    VertexProperty(
-                        rc.relation_id, rc.type_id, v, rc.value, self,
-                        LifeCycle.LOADED, meta=rc.properties,
+            for q in slices:
+                for entry in self._read_slice(v.id, q):
+                    rc = es.parse_relation(entry, self._codec_schema)
+                    if rc.relation_id in self._deleted_ids:
+                        continue
+                    if key_ids is not None and rc.type_id not in key_ids:
+                        continue  # fast-property over-fetch: filter here
+                    results.append(
+                        VertexProperty(
+                            rc.relation_id, rc.type_id, v, rc.value, self,
+                            LifeCycle.LOADED, meta=rc.properties,
+                        )
                     )
-                )
         with self._lock:
             for rel in self._added.get(v.id, ()):
                 if isinstance(rel, VertexProperty) and not rel.is_removed:

@@ -14,6 +14,11 @@ class JanusGraphTorchError(Exception):
     """Base class of the port's errors."""
 
 
+#: the reference's name for the base class: ``except JanusGraphTPUError``
+#: catches every error of the port
+JanusGraphTPUError = JanusGraphTorchError
+
+
 class SuperstepPreempted(JanusGraphTorchError):
     """An OLAP superstep was preempted (injected or real). An executor with
     checkpointing on resumes from its last checkpoint."""

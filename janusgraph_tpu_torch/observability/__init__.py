@@ -1,7 +1,7 @@
 """Telemetry of the port: histogram metrics, structured spans, the flight
 recorder, roofline run records and their renderings, and the plane the
 query server and the fleet read — the port's copy of
-``janusgraph_tpu/observability/`` but its bench diff.
+``janusgraph_tpu/observability/``.
 
 Layout:
 
@@ -32,8 +32,8 @@ while a CUDA graph is being captured (it would run once, at capture, and
 never on replay). The executor builds its run record on the host after
 the run's final fetch.
 
-The bench diff (``benchdiff.py``) waits for the port's own benchmark
-artifacts: ROADMAP Queue A #5.6c.
+- ``benchdiff``: the bench regression sentinel (per-cell verdicts
+  between two bench artifacts), behind the ``benchdiff`` subcommand.
 """
 
 from janusgraph_tpu_torch.observability.continuous import (

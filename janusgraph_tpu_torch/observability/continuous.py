@@ -49,9 +49,8 @@ is stuck on. This module answers both at runtime:
     Frame-by-frame diff of two flame sources (windows or bench
     artifacts): per-frame aggregated weight deltas ranked by |delta|
     (deterministic name tie-break), served at ``GET
-    /debug/profile/diff``; the reference's bench diff attaches the top
-    frame deltas to a regressed cell, which waits for the port's own
-    benchmark artifacts (ROADMAP Queue A #5.6c).
+    /debug/profile/diff``; the bench diff (``benchdiff.compare``)
+    attaches the top frame deltas to a regressed cell.
 """
 
 from __future__ import annotations

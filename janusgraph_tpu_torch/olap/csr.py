@@ -70,6 +70,23 @@ class CSRGraph:
     def num_vertices(self) -> int:
         return len(self.vertex_ids)
 
+    # uniform interface with sharded views: a single-device CSRGraph is one
+    # shard holding everything, with no padding
+    @property
+    def local_num_vertices(self) -> int:
+        return len(self.vertex_ids)
+
+    @property
+    def global_offset(self) -> int:
+        return 0
+
+    @property
+    # graphlint: host -- the host CSR's mask; a captured program reads the device graph's active tensor
+    def active(self):
+        """1.0 for real vertices, 0.0 for padding slots. Programs whose
+        global metrics would be polluted by padding mask with this."""
+        return np.ones(len(self.vertex_ids))
+
     @property
     def num_edges(self) -> int:
         return len(self.out_dst)

@@ -1694,3 +1694,19 @@ class GPUExecutor:
             ]
             records.extend(recs)
             timed.append((recs, marks))
+
+    # ------------------------------------------------------------ write-back
+    def write_back(self, graph, result: Dict[str, np.ndarray], keys=None) -> None:
+        """Persist compute-key arrays as vertex properties in batched txs
+        (reference: FulgoraGraphComputer.java:359-437 VertexPropertyWriter)."""
+        write_back(graph, self.csr, result, keys)
+
+
+def write_back(graph, csr: CSRGraph, result: Dict[str, np.ndarray], keys=None,
+               batch: int = 10_000) -> None:
+    """Persist compute-key arrays as vertex properties, where the reference
+    keeps this entry point (``tpu_executor.write_back``); the writers live
+    in ``olap/computer.py`` beside ``ComputerResult.write_back``."""
+    from janusgraph_tpu_torch.olap import computer
+
+    computer.write_back(graph, csr, result, keys, batch)

@@ -137,6 +137,11 @@ class Memory:
     def get(self, key: str, default: float = 0.0) -> float:
         return self.values.get(key, default)
 
+    def reduce_in(self, metrics: Dict[str, Tuple[str, float]]) -> None:
+        for k, (_op, v) in metrics.items():
+            self.values[k] = float(v)
+        self.superstep += 1
+
 
 class VertexProgram:
     """Array-BSP vertex program on torch tensors.

@@ -123,6 +123,7 @@ class Backend:
         id_conflict_mode: str = "none",
         id_conflict_tag: int = 0,
         id_conflict_tag_bits: int = 4,
+        id_max_retries: int = 20,
         cache_ttl_seconds: Optional[float] = 10.0,
         cache_clean_wait_seconds: float = 0.0,
         metrics_enabled: bool = False,
@@ -176,6 +177,7 @@ class Backend:
             conflict_mode=ConflictAvoidanceMode(id_conflict_mode),
             conflict_tag=id_conflict_tag,
             conflict_tag_bits=id_conflict_tag_bits,
+            max_retries=id_max_retries,
             read_only=read_only,
         )
         #: mutation-epoch tracker: edgestore row key -> epoch of its last

@@ -161,6 +161,9 @@ class ExpirationCacheStore(KeyColumnValueStore):
         # scans bypass the cache (reference does the same: scans are OLAP)
         return self._store.get_keys(query, txh)
 
+    def acquire_lock(self, key, column, expected_value, txh):
+        return self._store.acquire_lock(key, column, expected_value, txh)
+
     def close(self) -> None:
         with self._lock:
             self._cache.clear()

@@ -9,8 +9,11 @@ and runs it inside a ``store.<op>`` span, so storage work nests under the
 transaction or scan span that is current. ``Backend`` wraps its raw stores
 with it when ``metrics.enabled`` is set, as the reference's Backend does
 (reference: diskstorage/util/MetricInstrumentedStore.java, wrapped at
-Backend.java:184-188). The port's stores have no multi-key slice and no
-lock calls, so those two timers are left out.
+Backend.java:184-188). A multi-key slice reaches the wrapped store's own
+``get_slice_multi`` (the remote store's parallel fan-out, the sharded
+store's per-node batches) as one ``getSliceMulti`` call, and a lock claim
+is timed as ``acquireLock``, as in the reference. ``MetricManager`` is
+the reference's historical name for the registry class.
 """
 
 from __future__ import annotations
@@ -20,10 +23,32 @@ import time
 from typing import Optional
 
 from janusgraph_tpu_torch.observability import registry as metrics, span
-from janusgraph_tpu_torch.observability.metrics_core import TelemetryRegistry
+from janusgraph_tpu_torch.observability.metrics_core import (
+    BUCKET_BOUNDS,
+    Counter,
+    Gauge,
+    Histogram,
+    TelemetryRegistry,
+    Timer,
+)
 from janusgraph_tpu_torch.storage.kcvs import KeyColumnValueStore, StoreTransaction
 
-__all__ = ["MetricInstrumentedStore", "PeriodicReporter", "metrics"]
+#: historical name for the registry class (graphs can still carry private
+#: managers; per-tx groups use name prefixes instead)
+MetricManager = TelemetryRegistry
+
+__all__ = [
+    "BUCKET_BOUNDS",
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricInstrumentedStore",
+    "MetricManager",
+    "PeriodicReporter",
+    "TelemetryRegistry",
+    "Timer",
+    "metrics",
+]
 
 
 class PeriodicReporter:
@@ -34,7 +59,7 @@ class PeriodicReporter:
 
     def __init__(
         self,
-        manager: TelemetryRegistry,
+        manager: MetricManager,
         interval_ms: float,
         mode: str = "console",
         directory: str = "",
@@ -133,7 +158,7 @@ class MetricInstrumentedStore(KeyColumnValueStore):
     def __init__(
         self,
         store: KeyColumnValueStore,
-        manager: Optional[TelemetryRegistry] = None,
+        manager: Optional[MetricManager] = None,
         prefix: str = "storage",
         merge_stores: bool = False,
     ):
@@ -160,11 +185,22 @@ class MetricInstrumentedStore(KeyColumnValueStore):
             with self._timed("getSlice"):
                 return self._store.get_slice(query, txh)
 
+    def get_slice_multi(self, keys, query, txh: StoreTransaction):
+        with span("store.getSliceMulti", store=self._store.name,
+                  keys=len(keys)):
+            with self._timed("getSliceMulti"):
+                return self._store.get_slice_multi(keys, query, txh)
+
     def mutate(self, key, additions, deletions, txh: StoreTransaction):
         with span("store.mutate", store=self._store.name,
                   additions=len(additions), deletions=len(deletions)):
             with self._timed("mutate"):
                 return self._store.mutate(key, additions, deletions, txh)
+
+    def acquire_lock(self, key, column, expected, txh: StoreTransaction):
+        with span("store.acquireLock", store=self._store.name):
+            with self._timed("acquireLock"):
+                return self._store.acquire_lock(key, column, expected, txh)
 
     def get_keys(self, query, txh: StoreTransaction):
         # time only the store's own fetch work (per next), not the

@@ -374,8 +374,24 @@ def test_compute_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
     {"no.such-option": 1},
 ])
 def test_options_the_port_does_not_honour_raise(config):
-    with pytest.raises(ConfigurationError):
-        open_graph(config)
+    """The four options the port once refused open a graph as they open
+    the reference's, which reads the value back; an unknown path raises in
+    both."""
+    from janusgraph_tpu.exceptions import ConfigurationError as RefConfigurationError
+
+    ((path, value),) = config.items()
+    if path == "no.such-option":
+        with pytest.raises(ConfigurationError):
+            open_graph(config)
+        with pytest.raises(RefConfigurationError):
+            ref_open_graph(config)
+        return
+    for opener in (open_graph, ref_open_graph):
+        g = opener(dict(config, **{"computer.executor": "cpu"}))
+        try:
+            assert g.config.get(path) == value
+        finally:
+            g.close()
 
 
 def test_sharded_executor_raises_and_config_reaches_the_executor(monkeypatch):

@@ -846,3 +846,42 @@ def test_the_analyzer_runs_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr
     assert "graphlint: 0 error(s)" in proc.stdout, proc.stdout
     assert proc.stdout.strip().endswith("RC 0 []"), proc.stdout
+
+
+def test_benchdiff_runs_with_jax_blocked(tmp_path):
+    """`python -m janusgraph_tpu_torch benchdiff` with jax and the JAX
+    package blocked: a 20% superstep regression exits 1 under
+    --fail-on-regress, and neither is loaded."""
+    import json
+
+    stage = {"stage": "pagerank", "platform": "gpu", "scale": 20,
+             "pagerank_superstep_ms": 1.0, "flame": {"a;b": 1}}
+    old, new = tmp_path / "old.jsonl", tmp_path / "new.json"
+    old.write_text(json.dumps(stage) + "\n")
+    new.write_text(json.dumps({"rc": 0, "tail": "x " + json.dumps(
+        dict(stage, pagerank_superstep_ms=1.2, flame={"a;b": 3}))}))
+    code = (
+        "import sys, runpy\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['janusgraph_tpu'] = None\n"
+        "sys.argv = ['janusgraph_tpu_torch', 'benchdiff'] + sys.argv[1:]\n"
+        "try:\n"
+        "    runpy.run_module('janusgraph_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    print('RC', e.code, sorted(m for m, mod in sys.modules.items() if mod is not None\n"
+        "                             and (m == 'jax' or m.startswith('jax.')\n"
+        "                                  or m == 'janusgraph_tpu'\n"
+        "                                  or m.startswith('janusgraph_tpu.'))))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(old), str(new), "--fail-on-regress", "--compact"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    report, rc = proc.stdout.strip().splitlines()
+    assert rc == "RC 1 []", proc.stdout
+    report = json.loads(report)
+    assert report["regressed"] and report["comparisons"][0]["frame_deltas"]
+    assert "REGRESSION in cells" in proc.stderr
