@@ -10,7 +10,8 @@ Phases, each printing one JSON line:
   graph    the graph500 R-MAT graph from the native host library
            (csrc/graphcsr.cpp, built by g++; the run fails without it),
            the reference bench's draw; the R-MAT draw and build_csr timed
-           native against numpy (build_csr on the same arrays, equal)
+           native against numpy at GRAPH_TIMING_SCALE (build_csr on the
+           same arrays, equal)
   kernel   sorted_segment_sum against sorted_segment_sum_plain on the card,
            at the plan shape of the graph500 R-MAT graph's in-CSR and on
            edge cases; bitwise repeat; kernel, plain and library times, each
@@ -319,6 +320,24 @@ Phases, each printing one JSON line:
            the store-level getSliceMulti count one a batch and getSlice 0;
            two stage dicts of the submits' walls through the benchdiff
            subcommand (its verdict and exit code); within PARITY_BUDGET_S
+  north_star  the north-star rung, graph500 R-MAT scale 23 (2^23 vertices,
+           2^27 edges; BASELINE.json's "graph500-s23 PageRank + 4-hop
+           BFS"): the native draw and build (north_star_graph); the kernel
+           against its plain version and a float64 bincount on that graph's
+           in-plan, timed flushed and back to back beside the plain version
+           and torch.segment_reduce (kernel, case rmat_s23); PageRank (20
+           supersteps, tol 0) through run_on (20 kernel runs counted) and on
+           a kept executor, host loop and fused, one warm and 3 timed runs
+           each, fused bitwise equal to the host loop and to run_on, within
+           RANK_REL of a float64 PageRank over a scipy CSR matrix, one
+           profiled run of each path (device idle share, top kernels)
+           (north_star_pagerank); the out-degree hub's 4-hop BFS on the
+           tuned and the static ladder, 3 timed runs each, equal to a numpy
+           level-synchronous BFS and to run_on's, with both end-to-end sums
+           (north_star_bfs); the device peak, the host peak RSS and the
+           seconds (north_star). It leaves the allocator as it found it;
+           it runs last, so that no phase's time depends on what its
+           20 GB host peak leaves behind
   telemetry  the run records every run above published (the executor's
            _finish_run wrapped to time its host ms and to read the
            allocator just after): every record's roofline utilization in
@@ -381,6 +400,10 @@ IO_VERTEX_BATCH = 4096
 IO_EDGE_BATCH = 16384
 IO_IMPORT_BATCH = 10000
 SSSP_RTOL = 1e-5
+#: the scale at which the graph phase times the numpy R-MAT draw and
+#: build_csr against the native ones (cut from the main scale, where the
+#: numpy pair took 15 s, to make room for the north-star phase)
+GRAPH_TIMING_SCALE = 18
 
 
 class Telemetry:
@@ -801,6 +824,15 @@ def replay_ms(fn, iters: int = 20) -> float:
 _FLUSH = []
 
 
+def flush_buffer():
+    """The 256 MB buffer ``flushed_ms`` clears, made once per process."""
+    import torch
+
+    if not _FLUSH:
+        _FLUSH.append(torch.zeros(256 << 20, dtype=torch.uint8, device="cuda"))
+    return _FLUSH[0]
+
+
 def flushed_ms(fn, iters: int = 25, warmup: int = 2, by_reading: bool = False) -> float:
     """Median device time of one call of ``fn``, each call preceded by
     zeroing a 256 MB buffer, which evicts its inputs from the 50 MB L2 and
@@ -809,16 +841,15 @@ def flushed_ms(fn, iters: int = 25, warmup: int = 2, by_reading: bool = False) -
     CUDA events bracket ``fn`` alone."""
     import torch
 
-    if not _FLUSH:
-        _FLUSH.append(torch.zeros(256 << 20, dtype=torch.uint8, device="cuda"))
+    buf = flush_buffer()
     for _ in range(warmup):
         fn()
     pairs = []
     for _ in range(iters):
         if by_reading:
-            _FLUSH[0].sum()
+            buf.sum()
         else:
-            _FLUSH[0].zero_()
+            buf.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -842,7 +873,8 @@ def check_plan(name, plan, data, kernels):
     got = kernels.sorted_segment_sum(data, plan)
     again = kernels.sorted_segment_sum(data, plan)
     want = kernels.sorted_segment_sum_plain(data, plan)
-    torch.cuda.synchronize()
+    if data.is_cuda:
+        torch.cuda.synchronize()
     if got.shape != (num_segments,) or not torch.isfinite(got).all():
         raise RuntimeError(f"kernel case {name}: bad output {tuple(got.shape)}")
     if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
@@ -853,8 +885,8 @@ def check_plan(name, plan, data, kernels):
     return plan, got, float(err.max().item()) if err.numel() else 0.0
 
 
-def counted(fn, expect: int):
-    """Run ``fn`` and count the sorted-segment-sum runs on the card by the
+def counted(fn, expect: int, device="cuda"):
+    """Run ``fn`` and count the sorted-segment-sum runs on ``device`` by the
     kernel's device counter (``kernels.device_launches``), which sees the
     runs replayed from CUDA graphs as well as the eager ones; the count
     must be ``expect``. Returns (fn()'s result, the count)."""
@@ -862,10 +894,11 @@ def counted(fn, expect: int):
 
     from janusgraph_tpu_torch.olap import kernels
 
-    before = kernels.device_launches("cuda")
+    before = kernels.device_launches(device)
     out = fn()
-    torch.cuda.synchronize()
-    ran = kernels.device_launches("cuda") - before
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    ran = kernels.device_launches(device) - before
     if ran != expect:
         raise RuntimeError(f"the kernel counted {ran} runs, expected {expect}")
     return out, ran
@@ -2218,6 +2251,316 @@ def pagerank_fp64(csr, iters: int, damping: float = 0.85) -> np.ndarray:
         rank = (1.0 - damping) / n + damping * (agg + dangling / n)
         dangling = rank[dangling_mask].sum()
     return rank
+
+
+def pagerank_fp64_csr(csr, iters: int, damping: float = 0.85) -> np.ndarray:
+    """``pagerank_fp64`` as matrix-vector products with scipy CSR matrices
+    made straight from ``in_indptr``/``in_src`` (row = destination): no
+    per-edge segment ids and no COO, so it stays cheap at 2^27 edges. The
+    rows are cut into one block a host thread (scipy's product releases the
+    interpreter lock). The same steps and dangling rule; each row sums its
+    edges in the in-CSR's order, as ``np.bincount`` does."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from scipy.sparse import csr_matrix
+
+    n = csr.num_vertices
+    ip = csr.in_indptr
+    bounds = np.linspace(0, n, min(8, os.cpu_count() or 1) + 1).astype(np.int64)
+    blocks = [
+        csr_matrix((np.ones(ip[hi] - ip[lo]), csr.in_src[ip[lo]:ip[hi]], ip[lo:hi + 1] - ip[lo]),
+                   shape=(hi - lo, n))
+        for lo, hi in zip(bounds[:-1], bounds[1:])
+    ]
+    outdeg = csr.out_degree.astype(np.float64)
+    dangling_mask = outdeg == 0
+    rank = np.full(n, 1.0 / n)
+    dangling = rank[dangling_mask].sum()
+    with ThreadPoolExecutor(len(blocks)) as pool:
+        for _ in range(iters):
+            msg = rank / np.maximum(outdeg, 1.0)
+            agg = np.concatenate(list(pool.map(lambda b: b @ msg, blocks)))
+            rank = (1.0 - damping) / n + damping * (agg + dangling / n)
+            dangling = rank[dangling_mask].sum()
+    return rank
+
+
+def bfs_numpy(csr, seed: int, hops: int) -> np.ndarray:
+    """Hop distances from ``seed`` within ``hops`` hops over the out-edges
+    (inf where unreached), level-synchronous in numpy: each level gathers
+    its frontier's out-edges from ``out_indptr``/``out_dst`` and marks the
+    unreached ones."""
+    n = csr.num_vertices
+    dist = np.full(n, np.inf)
+    dist[seed] = 0.0
+    frontier = np.array([seed], dtype=np.int64)
+    for t in range(hops):
+        starts = csr.out_indptr[frontier]
+        degs = csr.out_indptr[frontier + 1] - starts
+        total = int(degs.sum())
+        if total == 0:
+            break
+        # position of each gathered edge: its row's start plus its rank in
+        # the row
+        offsets = np.repeat(starts - (np.cumsum(degs) - degs), degs)
+        offsets += np.arange(total, dtype=np.int64)
+        seen = np.zeros(n, dtype=bool)
+        seen[csr.out_dst[offsets]] = True
+        del offsets
+        frontier = np.flatnonzero(seen & np.isinf(dist))
+        if not len(frontier):
+            break
+        dist[frontier] = t + 1
+    return dist
+
+
+def host_peak_rss_bytes() -> int:
+    """This process's peak resident set: VmHWM in /proc/self/status, or
+    where that kernel does not report it (the card's sandboxed machine),
+    getrusage's ru_maxrss (KiB on Linux)."""
+    import resource
+
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmHWM:"):
+                return int(line.split()[1]) * 1024
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def wall_stats(walls) -> dict:
+    """The walls of repeated runs with their median, min and max."""
+    return {"walls_s": [float(w) for w in walls], "median_s": float(np.median(walls)),
+            "min_s": float(min(walls)), "max_s": float(max(walls))}
+
+
+#: the north-star rung: BASELINE.json's metric is "graph500-s23 PageRank +
+#: 4-hop BFS"; the timed repeats of each run (never fewer than 3; the
+#: smoke's time limit keeps it at 3, bin/torch_north_star.py takes 5), and
+#: the kernel's back-to-back iterations
+NORTH_STAR_SCALE = 23
+NORTH_STAR_REPEATS = 3
+NORTH_STAR_WARM_ITERS = 20
+
+
+def north_star_phase(args, emit, device, scale: int = NORTH_STAR_SCALE,
+                     repeats: int = NORTH_STAR_REPEATS) -> dict:
+    """The main path at the north-star scale: graph500 R-MAT ``scale``
+    (edge factor 16, ``args.seed``; the native host library only), the
+    segment-sum kernel on its in-plan, PageRank (20 supersteps, tol 0) and
+    the out-degree hub's 4-hop BFS, each held against a host reference
+    that stays cheap at 2^27 edges. On a CPU ``device`` the kernels' plain
+    versions run and no device time is taken (None: not measured). Any
+    failed hold raises. Before it returns it drops everything it put on the
+    device, and the allocator must hold what it held before."""
+    import torch
+
+    from janusgraph_tpu_torch import native
+    from janusgraph_tpu_torch.native import segment_ids
+    from janusgraph_tpu_torch.olap import GPUExecutor, csr_from_edges, kernels, rmat_edges, run_on
+    from janusgraph_tpu_torch.olap.programs import PageRankProgram, ShortestPathProgram
+    from janusgraph_tpu_torch.olap.vertex_program import INF
+
+    if repeats < 3:
+        raise ValueError(f"the north-star phase times at least 3 repeats, got {repeats}")
+    dev = torch.device(device)
+    card = dev.type == "cuda"
+    phase_t0 = time.perf_counter()
+    if card:
+        # the process's lifetime caches (the L2 flush buffer, the kernel's
+        # run counter) exist before the phase reads the allocator
+        flush_buffer()
+        kernels._device_counter(dev)
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        mem_before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    if not native.available():
+        raise RuntimeError("the north-star graph needs the native host library")
+
+    # ----------------------------------------------------------- the graph
+    t0 = time.perf_counter()
+    n, src, dst = rmat_edges(scale, 16, seed=args.seed)
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    csr = csr_from_edges(n, src, dst)
+    build_s = time.perf_counter() - t0
+    del src, dst
+    m = csr.num_edges
+    emit("north_star_graph", scale=scale, vertices=n, edges=m, device=str(dev),
+         max_in_degree=int(csr.in_degree.max()), max_out_degree=int(csr.out_degree.max()),
+         rmat_s=draw_s, build_csr_s=build_s)
+
+    marks = {"graph": time.perf_counter()}
+    # ------------------------------------------- the kernel on its in-plan
+    # the kept executor's own plan (built once: at 2^27 edges a plan takes
+    # seconds of host time)
+    ex = GPUExecutor(csr, strategy="segsum", device=dev)
+    t0 = time.perf_counter()
+    plan = ex._segsum_plan("in")
+    plan_s = time.perf_counter() - t0
+    seg = segment_ids(csr.in_indptr, m)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    data = torch.rand(m, generator=gen, device=dev)
+    case = f"rmat_s{scale}"
+    _plan, got, max_err = check_plan(case, plan, data, kernels)
+    # the plan-free hold: a float64 bincount over the CSR's own segment ids
+    want64 = np.bincount(seg, weights=data.cpu().numpy().astype(np.float64), minlength=n)
+    diff64 = np.abs(got.cpu().numpy() - want64)
+    err64 = float(diff64.max())
+    if not (diff64 <= TOL["atol"] + TOL["rtol"] * np.abs(want64)).all():
+        raise RuntimeError(f"kernel case {case}: max abs err {err64} from a float64 bincount")
+    del seg, want64, diff64, got, _plan
+    nbytes = plan.function_bytes()
+    bound_ms = max(nbytes / PEAK_BYTES_PER_S, m / PEAK_FP32_FLOPS) * 1e3
+    timed = dict.fromkeys(("kernel_ms", "kernel_ms_warm", "plain_ms", "library_ms"))
+    if card:
+        lengths = torch.as_tensor(csr.in_degree.astype(np.int64), device=dev)
+        timed = {
+            "kernel_ms": flushed_ms(lambda: kernels.sorted_segment_sum(data, plan)),
+            "kernel_ms_warm": cuda_ms(lambda: kernels.sorted_segment_sum(data, plan),
+                                      NORTH_STAR_WARM_ITERS),
+            "plain_ms": flushed_ms(lambda: kernels.sorted_segment_sum_plain(data, plan)),
+            "library_ms": flushed_ms(
+                lambda: torch.segment_reduce(data, "sum", lengths=lengths)),
+        }
+        del lengths
+    kernel_line = {
+        "edges": m, "segments": n, "items_per_cta": plan.items_per_cta,
+        "num_ctas": plan.num_ctas, "max_segment_cta_span": plan.max_segment_cta_span(),
+        "plan_s": plan_s, "max_abs_err": max_err, "max_abs_err_vs_fp64": err64, **timed,
+        "bytes": nbytes, "bound_ms": bound_ms, "bound_by": "bytes",
+        "share_of_bound": bound_ms / timed["kernel_ms"] if card else None,
+    }
+    emit("kernel", case=case, device=str(dev), **kernel_line)
+    del data, plan
+
+    marks["kernel"] = time.perf_counter()
+    # ------------------------------------------------------------ PageRank
+    def pagerank():
+        return PageRankProgram(max_iterations=20, tol=0.0)
+
+    t0 = time.perf_counter()
+    result, launches = counted(
+        lambda: run_on(csr, pagerank(), strategy="segsum", device=dev), 20, dev)
+    run_on_wall = time.perf_counter() - t0
+    rank = result["rank"]
+    walls = {"host_loop": [], "fused": []}
+    ranks = {}
+    for path, fused in (("host_loop", False), ("fused", True)):
+        ex.run(pagerank(), fused=fused)  # warm: the plan, the captures
+        for _ in range(repeats):
+            out, _runs = counted(lambda: ex.run(pagerank(), fused=fused), 20, dev)
+            info = ex.last_run_info
+            if info["path"] != ("fused" if fused else "host-loop") or info["supersteps"] != 20:
+                raise RuntimeError(f"north-star PageRank ({path}): {info['path']}, "
+                                   f"{info['supersteps']} supersteps")
+            walls[path].append(info["wall_s"])
+            if path in ranks and not bits_equal(out["rank"], ranks[path]):
+                raise RuntimeError(f"north-star PageRank ({path}): two runs differ")
+            ranks[path] = out["rank"]
+    if not bits_equal(ranks["fused"], ranks["host_loop"]):
+        raise RuntimeError("north-star PageRank: the fused ranks differ from the host loop's")
+    if not bits_equal(rank, ranks["host_loop"]):
+        raise RuntimeError("north-star PageRank: run_on's ranks differ from the kept executor's")
+    t0 = time.perf_counter()
+    want = pagerank_fp64_csr(csr, 20)
+    fp64_s = time.perf_counter() - t0
+    rel = max_rel(rank, want)
+    mass = float(rank.astype(np.float64).sum())
+    if rank.shape != (n,) or not np.isfinite(rank).all():
+        raise RuntimeError("north-star PageRank: ranks are not finite")
+    if rel > RANK_REL or abs(mass - 1.0) > 1e-3:
+        raise RuntimeError(f"north-star PageRank: max rel {rel} from float64, mass {mass}")
+    del want, ranks
+    prof = {"host_loop": {}, "fused": {}}
+    if card:
+        # one profiled run of each path: the device idle share at this scale
+        for path, fused in (("host_loop", False), ("fused", True)):
+            prof_runs = profile_run(ex, pagerank(), lambda _phase, **f: prof[path].update(f),
+                                    fused=fused)
+            if prof_runs != 20:
+                raise RuntimeError(f"north-star PageRank ({path}, profiled): {prof_runs} kernel runs")
+    pr = {}
+    for path, v in walls.items():
+        st = wall_stats(v)
+        pr[path] = {**st, "superstep_ms": st["median_s"] / 20 * 1e3,
+                    "edges_per_s": 20 * m / st["median_s"],
+                    "edges_per_s_min_max": [20 * m / st["max_s"], 20 * m / st["min_s"]]}
+    emit("north_star_pagerank", scale=scale, supersteps=20, kernel_launches=launches,
+         run_on_wall_s=run_on_wall, repeats=repeats, **pr, max_rel_vs_fp64=rel,
+         rank_sum=mass, fp64_host_s=fp64_s,
+         profile={path: {k: p.get(k) for k in (
+             "wall_ms", "device_busy_ms", "device_span_ms", "device_idle_share",
+             "device_idle_share_of_span", "dtoh_copies", "by_device_time")}
+             for path, p in prof.items()})
+
+    marks["pagerank"] = time.perf_counter()
+    # --------------------------------------------------- BFS, 4 hops, hub
+    seed = int(np.argmax(csr.out_degree))
+
+    def bfs4():
+        return ShortestPathProgram(seed_index=seed, max_iterations=4)
+
+    t0 = time.perf_counter()
+    hops = bfs_numpy(csr, seed, 4)
+    host_bfs_s = time.perf_counter() - t0
+    expect = np.where(hops <= 4, hops, INF).astype(np.float32)
+    del hops
+    dist_run_on, bfs_launches = counted(lambda: run_on(csr, bfs4(), device=dev)["distance"], 0, dev)
+    static_ex = GPUExecutor(csr, strategy="segsum", autotune=False, device=dev)
+    bfs = {}
+    for ladder, bex in (("tuned", ex), ("static", static_ex)):
+        bex.run(bfs4())  # warm: the engine's pointer arrays
+        bwalls, hop_walls = [], []
+        for _ in range(repeats):
+            dist = bex.run(bfs4())["distance"]
+            info = bex.last_run_info
+            source = {t["tier_source"] for t in info["tiers"]}
+            if info["path"] != "frontier" or source != {"autotune" if ladder == "tuned" else "static"}:
+                raise RuntimeError(f"north-star BFS ({ladder}): {info['path']}, tiers {source}")
+            if not np.array_equal(dist, expect):
+                raise RuntimeError(f"north-star BFS ({ladder}): distances differ from the host BFS")
+            if not bits_equal(dist, dist_run_on):
+                raise RuntimeError(f"north-star BFS ({ladder}): differs from run_on's")
+            bwalls.append(info["wall_s"])
+            hop_walls.append(info["hop_wall_s"])
+        at = int(np.argsort(bwalls)[len(bwalls) // 2])
+        bfs[ladder] = {**wall_stats(bwalls), "hops": info["supersteps"],
+                       "tiers": [{k: t[k] for k in ("hop", "frontier", "edges", "F_cap", "E_cap",
+                                                    "tier_source")} for t in info["tiers"]],
+                       "hop_wall_s": hop_walls[at], "median_run": at}
+    del static_ex, bex
+    emit("north_star_bfs", scale=scale, seed=seed, seed_out_degree=int(csr.out_degree[seed]),
+         reached=int(np.sum(expect < INF)), kernel_launches=bfs_launches, repeats=repeats,
+         host_bfs_s=host_bfs_s, **bfs,
+         pagerank_plus_bfs4_wall_s=pr["host_loop"]["median_s"] + bfs["static"]["median_s"],
+         fused_pagerank_plus_tuned_bfs4_wall_s=pr["fused"]["median_s"] + bfs["tuned"]["median_s"])
+
+    marks["bfs"] = time.perf_counter()
+    # -------------------------------- leave the device as the phase found it
+    del ex, csr, result, rank, dist, dist_run_on, expect
+    gc.collect()
+    mem = dict.fromkeys(("max_memory_allocated", "peak_over_start", "allocated_after"))
+    if card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        after = torch.cuda.memory_allocated(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        mem = {"max_memory_allocated": peak, "peak_over_start": peak - mem_before,
+               "allocated_after": after}
+        if after != mem_before:
+            raise RuntimeError(f"north-star phase left {after - mem_before} B on the device")
+    marks["release"] = time.perf_counter()
+    seconds = marks["release"] - phase_t0
+    # each part's seconds, host references and device runs together
+    section_s, last = {}, phase_t0
+    for name, t in marks.items():
+        section_s[name], last = t - last, t
+    emit("north_star", scale=scale, seconds=seconds, section_s=section_s,
+         host_peak_rss=host_peak_rss_bytes(), **mem)
+    return {"launches": launches, "seconds": seconds, "kernel": kernel_line,
+            "pagerank": pr, "bfs": bfs}
 
 
 def stored_phase(csr, args, emit) -> dict:
@@ -5598,19 +5941,20 @@ def main() -> int:
     csr = rmat_csr(args.scale, 16, seed=args.seed)
     host_s = time.perf_counter() - t0
     n, m = csr.num_vertices, csr.num_edges
+    timing_scale = min(args.scale, GRAPH_TIMING_SCALE)
     t0 = time.perf_counter()
-    _n, gsrc, gdst = rmat_edges(args.scale, 16, seed=args.seed)
+    timing_n, gsrc, gdst = rmat_edges(timing_scale, 16, seed=args.seed)
     rmat_native_s = time.perf_counter() - t0
     with native.numpy_only():
         t0 = time.perf_counter()
-        rmat_edges(args.scale, 16, seed=args.seed)
+        rmat_edges(timing_scale, 16, seed=args.seed)
         rmat_numpy_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    built = native.build_csr(n, gsrc, gdst)
+    built = native.build_csr(timing_n, gsrc, gdst)
     build_native_s = time.perf_counter() - t0
     with native.numpy_only():
         t0 = time.perf_counter()
-        built_np = native.build_csr(n, gsrc, gdst)
+        built_np = native.build_csr(timing_n, gsrc, gdst)
         build_numpy_s = time.perf_counter() - t0
     if not all(np.array_equal(a, b) for a, b in zip(built, built_np)):
         raise RuntimeError("build_csr: native and numpy arrays differ")
@@ -5618,7 +5962,7 @@ def main() -> int:
     emit("graph", scale=args.scale, vertices=n, edges=m, native=native.available(),
          host_library_build_s=_build.host_build_info["seconds"],
          host_library_cached=_build.host_build_info["cached"],
-         max_in_degree=int(csr.in_degree.max()), host_s=host_s,
+         max_in_degree=int(csr.in_degree.max()), host_s=host_s, timing_scale=timing_scale,
          rmat_native_s=rmat_native_s, rmat_numpy_s=rmat_numpy_s,
          build_csr_native_s=build_native_s, build_csr_numpy_s=build_numpy_s)
 
@@ -5924,6 +6268,11 @@ def main() -> int:
     graphlint_phase(args, emit)
     kernels.reset_launch_counts()
     parity = parity_phase(args, emit)
+    # the north-star rung runs last: at scale 23 it peaks at about 20 GB of
+    # host memory and 11 GB on the card, and no phase's time should depend
+    # on what that leaves behind
+    kernels.reset_launch_counts()
+    north_star = north_star_phase(args, emit, dev)
     telemetry_phase(emit)
     print(json.dumps({"kernels": [{
         "name": "sorted_segment_sum",
@@ -5936,6 +6285,12 @@ def main() -> int:
         "launches": main_launches,
         "launches_fused": fused_launches,
         "launches_khop": khop_launches,
+        # the north-star rung (scale 23): run_on's PageRank, and the kernel
+        # against its plain version on that graph's in-plan
+        "launches_north_star": north_star["launches"],
+        **{f"{k}_north_star": north_star["kernel"][v] for k, v in (
+            ("max_abs_err", "max_abs_err"), ("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+            ("bound_ms", "bound_ms"), ("library_ms", "library_ms"))},
         # the delta PageRank: base, adds and tombstones each superstep
         "launches_delta": delta["launches"],
         # the filtered 3-hop (scale 20), the typed chain, the degree

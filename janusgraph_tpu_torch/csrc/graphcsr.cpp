@@ -10,13 +10,13 @@
 // Build: g++ -O3 -std=c++17 -shared -fPIC -pthread (driven by
 // janusgraph_tpu_torch/_build.py, into _build/<source hash>/; the port's
 // native.py keeps numpy versions of every entry point for hosts without a
-// compiler). The same source as the JAX package's host library, so both
-// packages draw the same R-MAT edges from the same seed.
+// compiler). The JAX package's host library's source, so both packages
+// draw the same R-MAT edges from the same seed; build_csr also sorts on
+// several threads here (the same arrays).
 
 #include <algorithm>
 #include <atomic>
 #include <cstdint>
-#include <cstring>
 #include <thread>
 #include <vector>
 
@@ -28,38 +28,79 @@ static unsigned worker_threads() {
   return n;
 }
 
+// Run fn(t) for t in [0, threads) on that many threads and join them.
+template <typename Fn>
+static void parallel_for(unsigned threads, Fn fn) {
+  std::vector<std::thread> ts;
+  for (unsigned t = 0; t < threads; ++t) ts.emplace_back(fn, t);
+  for (auto& th : ts) th.join();
+}
+
+// Edges from which build_csr sorts on several threads
+static const int64_t kParallelEdges = 1 << 16;
+
+// One orientation: a stable counting sort of the edges by key[i].
+//   indptr: (n+1,) offsets; vals[p] = other[i] and perm[p] = i for the edge
+//   i at sorted slot p, edges of one key in input order.
+// On T threads each thread counts its contiguous chunk of the edges into its
+// own histogram; each chunk's first slot per key is the key's offset plus
+// the counts of the chunks before it (so the order within a key stays the
+// input order, whatever T); then each thread scatters its chunk. The
+// histograms are int32, so m < 2^31 (native.py refuses more).
+static void sort_by_key(int64_t n, int64_t m, const int32_t* key, const int32_t* other,
+                        int64_t* indptr, int32_t* vals, int64_t* perm, unsigned threads) {
+  std::vector<int32_t> slot((size_t)threads * (size_t)n, 0);
+  auto lo = [&](unsigned t, int64_t total) { return total * (int64_t)t / (int64_t)threads; };
+  parallel_for(threads, [&](unsigned t) {
+    int32_t* h = slot.data() + (size_t)t * n;
+    for (int64_t i = lo(t, m); i < lo(t + 1, m); ++i) ++h[key[i]];
+  });
+  parallel_for(threads, [&](unsigned t) {
+    for (int64_t v = lo(t, n); v < lo(t + 1, n); ++v) {
+      int64_t total = 0;
+      for (unsigned c = 0; c < threads; ++c) total += slot[(size_t)c * n + v];
+      indptr[v + 1] = total;
+    }
+  });
+  indptr[0] = 0;
+  for (int64_t v = 0; v < n; ++v) indptr[v + 1] += indptr[v];
+  parallel_for(threads, [&](unsigned t) {
+    for (int64_t v = lo(t, n); v < lo(t + 1, n); ++v) {
+      int64_t run = indptr[v];
+      for (unsigned c = 0; c < threads; ++c) {
+        int32_t k = slot[(size_t)c * n + v];
+        slot[(size_t)c * n + v] = (int32_t)run;
+        run += k;
+      }
+    }
+  });
+  parallel_for(threads, [&](unsigned t) {
+    int32_t* h = slot.data() + (size_t)t * n;
+    for (int64_t i = lo(t, m); i < lo(t + 1, m); ++i) {
+      int64_t p = h[key[i]]++;
+      vals[p] = other[i];
+      perm[p] = i;
+    }
+  });
+}
+
 extern "C" {
 
-// Counting-sort both CSR orientations in one pass each.
+// Counting-sort both CSR orientations, m < 2^31.
 //   src/dst:     (m,) int32 edge endpoints in [0, n)
 //   out_indptr:  (n+1,) int64   out_dst: (m,) int32   out_perm: (m,) int64
 //   in_indptr:   (n+1,) int64   in_src:  (m,) int32   in_perm:  (m,) int64
 // perm arrays map sorted edge slots back to original edge indices (for
-// aligning weights), matching numpy argsort(kind="stable") semantics.
+// aligning weights), matching numpy argsort(kind="stable") semantics. From
+// kParallelEdges edges each orientation sorts on worker_threads() threads
+// (the same arrays: a stable sort has one result).
 void build_csr(int64_t n, int64_t m,
                const int32_t* src, const int32_t* dst,
                int64_t* out_indptr, int32_t* out_dst, int64_t* out_perm,
                int64_t* in_indptr, int32_t* in_src, int64_t* in_perm) {
-  std::memset(out_indptr, 0, sizeof(int64_t) * (n + 1));
-  std::memset(in_indptr, 0, sizeof(int64_t) * (n + 1));
-  for (int64_t i = 0; i < m; ++i) {
-    ++out_indptr[src[i] + 1];
-    ++in_indptr[dst[i] + 1];
-  }
-  for (int64_t v = 0; v < n; ++v) {
-    out_indptr[v + 1] += out_indptr[v];
-    in_indptr[v + 1] += in_indptr[v];
-  }
-  std::vector<int64_t> out_cur(out_indptr, out_indptr + n);
-  std::vector<int64_t> in_cur(in_indptr, in_indptr + n);
-  for (int64_t i = 0; i < m; ++i) {
-    int64_t po = out_cur[src[i]]++;
-    out_dst[po] = dst[i];
-    out_perm[po] = i;
-    int64_t pi = in_cur[dst[i]]++;
-    in_src[pi] = src[i];
-    in_perm[pi] = i;
-  }
+  unsigned threads = m < kParallelEdges ? 1 : worker_threads();
+  sort_by_key(n, m, src, dst, out_indptr, out_dst, out_perm, threads);
+  sort_by_key(n, m, dst, src, in_indptr, in_src, in_perm, threads);
 }
 
 // Expand an indptr into per-slot segment ids: seg[indptr[v]..indptr[v+1]) = v,

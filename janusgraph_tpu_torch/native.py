@@ -105,10 +105,13 @@ def build_csr(n: int, src: np.ndarray, dst: np.ndarray):
     """Both CSR orientations + stable sort permutations.
 
     Returns (out_indptr, out_dst, out_perm, in_indptr, in_src, in_perm).
+    Takes fewer than 2**31 edges (the native sort counts in int32).
     """
+    m = len(src)
+    if m >= 2**31:
+        raise ValueError(f"build_csr takes fewer than 2**31 edges, got {m}")
     src = np.ascontiguousarray(src, dtype=np.int32)
     dst = np.ascontiguousarray(dst, dtype=np.int32)
-    m = len(src)
     lib = _load()
     if lib is not None:
         out_indptr = np.empty(n + 1, dtype=np.int64)

@@ -19,9 +19,9 @@ dst``. Three strategies here:
 3. **Sorted segment sum** (``make_segsum_plan`` / ``sorted_segment_sum``):
    the SUM monoid over destination-sorted edges, through the hand-written
    CUDA kernel ``janusgraph_tpu_torch/csrc/segsum.cu`` on a CUDA tensor and
-   through ``sorted_segment_sum_plain`` on a CPU tensor. The plan keeps
-   the reference's tile-aligned layout, which the plain version reads; the
-   kernel reads only the segment offsets and a merge-path partition.
+   through ``sorted_segment_sum_plain`` on a CPU tensor. The plain version
+   reads the plan's segment ids; the kernel reads only the segment offsets
+   and a merge-path partition.
 
 Each host structure is built once per (graph, orientation), or per typed
 edge channel (``edge_list_plan``), and reused across supersteps.
@@ -548,80 +548,37 @@ SEGSUM_ITEMS_PER_CTA = SEGSUM_THREADS * SEGSUM_ITEMS_PER_THREAD
 
 
 class _SegSumPlan:
-    """Static host-side plan of the sorted segment sum.
+    """Static host-side plan of the sorted segment sum over
+    destination-sorted edges.
 
-    Two layouts of the same destination-sorted edges:
-
-    - the reference's tile-aligned blocks (``gather_idx``, ``pad_mask``,
-      ``seg_local``, ``out_tile``, ``is_first``), equal to
-      ``janusgraph_tpu/olap/kernels.py::_SegSumPlan``'s arrays; the plain
-      version reads them;
+    - What the plain version reads: the caller's segment ids ``seg`` ((E,)
+      int32, edge e in segment ``seg[e]``), kept as given, so that the plain
+      version does not share the kernel's arrays;
     - what the CUDA kernel reads: the segment offsets ``seg_ptr``
       ((n + 1,) int32, ``seg_ptr[s]`` = the first edge of segment s) and a
       merge-path partition of the n segment ends merged with the E edges
       into ``num_ctas`` runs of at most ``items_per_cta`` items: CTA k
       starts at segment end ``seg_start[k]`` and edge ``edge_start[k]``
       ((num_ctas + 1,) int32 each; Merrill and Garland, SC '16).
+
+    The reference's tile-aligned blocks (its ``gather_idx``, ``pad_mask``,
+    ``seg_local``) are a TPU layout that neither version reads.
     """
 
-    def __init__(
-        self,
-        seg: np.ndarray,
-        num_segments: int,
-        block: int = 1024,
-        tile: int = 1024,
-        items_per_cta: int = SEGSUM_ITEMS_PER_CTA,
-    ):
+    def __init__(self, seg: np.ndarray, num_segments: int,
+                 items_per_cta: int = SEGSUM_ITEMS_PER_CTA):
         if len(seg) >= 2**31:
             raise ValueError(f"sorted_segment_sum takes fewer than 2**31 edges, got {len(seg)}")
         if items_per_cta < 1:
             raise ValueError(f"items_per_cta must be positive, got {items_per_cta}")
-        self.block = block
-        self.tile = tile
         self.num_segments = num_segments
-        self.padded_segments = -(-max(num_segments, 1) // tile) * tile
-        num_tiles = self.padded_segments // tile
-        self.num_tiles = num_tiles
-
-        seg = np.asarray(seg, dtype=np.int64)
+        seg = np.asarray(seg)
         m = len(seg)
         if m and (np.any(np.diff(seg) < 0) or seg[0] < 0 or seg[-1] >= num_segments):
             raise ValueError("segment ids must be sorted and within [0, num_segments)")
-        self._merge_path(seg, items_per_cta)
+        self.seg = seg.astype(np.int32, copy=False)
+        self._merge_path(self.seg, items_per_cta)
         self.num_edges = m
-        tile_of = seg // tile
-        counts = np.bincount(tile_of, minlength=num_tiles)
-        blocks_per_tile = np.maximum(1, -(-counts // block))
-        total_blocks = int(blocks_per_tile.sum())
-        padded_m = total_blocks * block
-
-        gather_idx = np.zeros(padded_m, dtype=np.int32)
-        pad_mask = np.zeros(padded_m, dtype=np.float32)
-        seg_local = np.zeros(padded_m, dtype=np.int32)
-        out_tile = np.zeros(total_blocks, dtype=np.int32)
-        is_first = np.zeros(total_blocks, dtype=np.int32)
-
-        edge_starts = np.zeros(num_tiles + 1, dtype=np.int64)
-        np.cumsum(counts, out=edge_starts[1:])
-        b = 0
-        w = 0
-        for t in range(num_tiles):
-            lo, hi = edge_starts[t], edge_starts[t + 1]
-            k = hi - lo
-            gather_idx[w : w + k] = np.arange(lo, hi, dtype=np.int32)
-            pad_mask[w : w + k] = 1.0
-            seg_local[w : w + k] = (seg[lo:hi] - t * tile).astype(np.int32)
-            nb = int(blocks_per_tile[t])
-            out_tile[b : b + nb] = t
-            is_first[b] = 1
-            b += nb
-            w += nb * block
-        self.gather_idx = gather_idx
-        self.pad_mask = pad_mask
-        self.seg_local = seg_local
-        self.out_tile = out_tile
-        self.is_first = is_first
-        self.num_blocks = total_blocks
         self._device: Dict[Tuple[str, bool], Dict[str, torch.Tensor]] = {}
 
     def _merge_path(self, seg: np.ndarray, items_per_cta: int) -> None:
@@ -654,19 +611,13 @@ class _SegSumPlan:
     # graphlint: host -- cached: the eager first superstep moves the arrays; a capture only reads them
     def device_arrays(self, device, plain: bool = False) -> Dict[str, torch.Tensor]:
         """The arrays the kernel reads (segment offsets and the partition),
-        or with ``plain`` the plain version's view of the reference layout
-        (each valid slot's edge and global segment), as tensors on
-        ``device``; moved once."""
+        or with ``plain`` the one the plain version reads (the segment ids),
+        as tensors on ``device``; moved once."""
         key = (str(device), plain)
         arrs = self._device.get(key)
         if arrs is None:
             if plain:
-                valid = np.nonzero(self.pad_mask)[0]
-                tile_of_slot = np.repeat(self.out_tile.astype(np.int64), self.block)[valid]
-                host = {
-                    "edge": self.gather_idx[valid].astype(np.int64),
-                    "seg": tile_of_slot * self.tile + self.seg_local[valid],
-                }
+                host = {"seg": self.seg.astype(np.int64)}
             else:
                 host = {
                     "seg_ptr": self.seg_ptr,
@@ -696,13 +647,9 @@ class _SegSumPlan:
 
 
 def make_segsum_plan(
-    seg: np.ndarray,
-    num_segments: int,
-    block: int = 1024,
-    tile: int = 1024,
-    items_per_cta: int = SEGSUM_ITEMS_PER_CTA,
+    seg: np.ndarray, num_segments: int, items_per_cta: int = SEGSUM_ITEMS_PER_CTA
 ) -> _SegSumPlan:
-    return _SegSumPlan(seg, num_segments, block=block, tile=tile, items_per_cta=items_per_cta)
+    return _SegSumPlan(seg, num_segments, items_per_cta=items_per_cta)
 
 
 def edge_list_plan(
@@ -731,13 +678,13 @@ def _check_segsum_input(data: torch.Tensor, plan: _SegSumPlan) -> None:
 
 
 def sorted_segment_sum_plain(data: torch.Tensor, plan: _SegSumPlan) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: ``index_add_`` of the plan's
-    valid slots into a zeroed output. Returns (num_segments,) float32."""
+    """Plain PyTorch version of the kernel: ``index_add_`` of each edge's
+    value at its segment id into a zeroed output. Returns (num_segments,)
+    float32."""
     _check_segsum_input(data, plan)
-    arrs = plan.device_arrays(data.device, plain=True)
-    out = torch.zeros(plan.padded_segments, dtype=torch.float32, device=data.device)
-    out.index_add_(0, arrs["seg"], torch.index_select(data, 0, arrs["edge"]))
-    return out[: plan.num_segments]
+    seg = plan.device_arrays(data.device, plain=True)["seg"]
+    out = torch.zeros(plan.num_segments, dtype=torch.float32, device=data.device)
+    return out.index_add_(0, seg, data)
 
 
 def sorted_segment_sum(data: torch.Tensor, plan: _SegSumPlan) -> torch.Tensor:

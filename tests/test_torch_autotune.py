@@ -89,9 +89,34 @@ def test_decide_equals_reference(variant, kind, undirected):
                                       feature_dim=feature_dim)
 
 
-@pytest.mark.parametrize("graph", sorted(GRAPHS))
+#: graph500-sized degree summaries (n = 2^scale, m = 16 n): too large to
+#: build a CSR for in a test, so the stats come from seeded power-law degree
+#: arrays through ``from_degrees``; the north-star rung is scale 23
+DEGREE_SCALES = {"powerlaw_s22": 22, "powerlaw_s23": 23}
+
+
+def _degree_stats_pair(scale):
+    n = 1 << scale
+    deg = np.random.default_rng(scale).zipf(2.0, n) - 1
+    return (
+        ref_at.GraphStats.from_degrees(deg, 16 * n, False),
+        autotune.GraphStats.from_degrees(deg, 16 * n, False),
+    )
+
+
+@pytest.mark.parametrize("graph", sorted(GRAPHS) + sorted(DEGREE_SCALES))
 def test_decide_tiers_and_pick_tier_equal_reference(graph):
-    rs, ps = _stats_pair(graph, False)
+    if graph in DEGREE_SCALES:
+        rs, ps = _degree_stats_pair(DEGREE_SCALES[graph])
+        assert ps.__dict__ == rs.__dict__
+        f_sched, e_sched = autotune.decide_tiers(ps)
+        scale = DEGREE_SCALES[graph]
+        # growth 4 from the 2^14 floor; the top tier is m itself (at scale
+        # 23: 2^14, 2^16, ..., 2^26, 2^27)
+        assert e_sched == tuple(1 << k for k in range(14, scale + 4, 2)) + (1 << (scale + 4),)
+        assert f_sched[0] == 1 << 10 and f_sched[-1] == 1 << scale
+    else:
+        rs, ps = _stats_pair(graph, False)
     for ov in ({}, {"max_tiers": 3}, {"tier_growth": 4}, {"f_min": 64, "e_min": 256}):
         want = ref_at.decide_tiers(rs, ov)
         assert autotune.decide_tiers(ps, ov) == want

@@ -41,7 +41,11 @@ def path(request, monkeypatch):
         yield request.param
 
 
-@pytest.mark.parametrize("shape", [(300, 2000), (1, 0), (50, 1), (4096, 70000)])
+#: below 2^16 edges the native sort runs on one thread (the last of those:
+#: more vertices than edges), from 2^16 on several: many vertices, three
+#: hubs, more vertices than edges
+@pytest.mark.parametrize("shape", [(300, 2000), (1, 0), (50, 1), (1 << 16, 3000), (4096, 70000),
+                                   (3, 200_000), (1 << 18, 1 << 17)])
 def test_build_csr_equals_reference(path, shape):
     n, src, dst = _edges(*shape)
     got = native.build_csr(n, src, dst)
@@ -49,6 +53,14 @@ def test_build_csr_equals_reference(path, shape):
     for a, b in zip(got, want):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+
+
+def test_build_csr_refuses_2_31_edges(path):
+    """The native sort counts edges in int32; both paths refuse before they
+    read an edge (the arrays here are broadcasts, never made)."""
+    edges = np.broadcast_to(np.int32(0), (2**31,))
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        native.build_csr(1, edges, edges)
 
 
 @pytest.mark.parametrize("m", [0, 1, 1999, 2000])
